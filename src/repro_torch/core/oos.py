@@ -1,0 +1,212 @@
+"""Out-of-sample extension, Algorithm 3 (counterpart of ``repro.core.oos``).
+
+Computes ``z = w^T k_hck(X, x)`` for a batch of queries without forming
+the n-vector ``k_hck(X, x)``:
+
+  phase 1 (:func:`prepare`, once per weight matrix, O(n r)): the
+  common-upward pass over ``w`` -- its leaf level is the ``leaf_project``
+  stage -- and a downward sweep that pushes the root path into one
+  per-leaf coefficient block ``c_tilde`` (2**L, r, k);
+
+  phase 2 (:func:`apply_plan`, per query, O((n0 + r)(d + k))): route x to
+  its leaf j, then
+
+      z = w_leaf[j]^T k(X_j, x)  +  c_tilde[j]^T k(Xl_parent(j), x)
+
+  -- the ``oos_local`` and ``oos_walk`` stages, both the ``oos_contract``
+  kernel on the card.  Queries are sorted by leaf first, so neighbouring
+  queries read the same blocks.
+
+The kernel reads each query's leaf block, leaf weights, parent landmarks
+and ``c_tilde`` block in place through the query's leaf index;
+:func:`apply_segments` also takes the reference's per-query gathered form.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core.hck import HCKFactors
+from repro_torch.core.kernels_fn import BaseKernel
+from repro_torch.core.partition import group_by_leaf, route
+from repro_torch.kernels.registry import (DEFAULT_CONFIG, SolveConfig,
+                                          get_impl, precision_dtype,
+                                          resolve_backend)
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass
+class OOSPlan:
+    """Query-independent precomputation (phase 1) for a weight matrix w.
+
+    ``c[l]``     (2**(l+1), r, k) exchange coefficients of the nodes of
+                 level l+1 (kept for the parity tests).
+    ``w_leaf``   (2**L, n0, k) w in tree order, per leaf.
+    ``c_tilde``  (2**L, r, k) pushed-down root-path coefficients with the
+                 leaf parent's Sigma^{-1} folded in; None for L = 0.
+    """
+
+    c: tuple
+    w_leaf: Tensor
+    c_tilde: Tensor | None
+
+
+def _pair_sum(x: Tensor) -> Tensor:
+    return x.reshape(x.shape[0] // 2, 2, *x.shape[1:]).sum(dim=1)
+
+
+def _pair_swap(x: Tensor) -> Tensor:
+    return x.reshape(x.shape[0] // 2, 2, *x.shape[1:]).flip(1).reshape(x.shape)
+
+
+def _rep2(x: Tensor) -> Tensor:
+    return torch.repeat_interleave(x, 2, dim=0)
+
+
+def prepare(f: HCKFactors, w: Tensor,
+            config: SolveConfig | None = None) -> OOSPlan:
+    """Phase 1: common-upward pass over w (tree order, (n,) or (n, k)) plus
+    the downward root-path pushdown, O(n r).  The leaf projection U^T w is
+    the ``leaf_project`` stage."""
+    config = config if config is not None else DEFAULT_CONFIG
+    if w.ndim == 1:
+        w = w[:, None]
+    levels, n0, k = f.levels, f.leaf_size, w.shape[1]
+    wl = w.reshape(f.num_leaves, n0, k).contiguous()
+    if levels == 0:
+        return OOSPlan((), wl, None)
+    u = f.u.to(wl.dtype).contiguous()
+    backend = resolve_backend(config, "leaf_project", u, wl)
+    e = {levels: get_impl("leaf_project", backend)(u, wl)}
+    for lvl in range(levels - 1, 0, -1):
+        e[lvl] = torch.einsum("pab,pak->pbk", f.w[lvl - 1],
+                              _pair_sum(e[lvl + 1]))
+    # c_l = Sigma_p^T e_sibling for every node of level l (Sigma symmetric)
+    c = tuple(
+        torch.einsum("qba,qbk->qak", _rep2(f.sigma[lvl - 1]),
+                     _pair_swap(e[lvl]))
+        for lvl in range(1, levels + 1))
+    # h_l[node] = c_l[node] + W_{l-1}[parent] h_{l-1}[parent]; at the leaves
+    # c_tilde^T d reproduces the whole walk-up accumulation of Algorithm 3
+    h = c[0]
+    for lvl in range(1, levels):
+        h = c[lvl] + torch.einsum("pab,pbk->pak", _rep2(f.w[lvl - 1]),
+                                  _rep2(h))
+    # fold the leaf parent's Sigma^{-1} (Sigma SPD: h^T S^-1 kx = (S^-1 h)^T kx)
+    c_tilde = torch.cholesky_solve(h, _rep2(f.sigma_cho[levels - 1]),
+                                   upper=False)
+    return OOSPlan(c, wl, c_tilde.to(wl.dtype).contiguous())
+
+
+def apply_segments(
+    xl: Tensor, wl: Tensor, lm: Tensor, ct: Tensor, qs: Tensor,
+    kernel: BaseKernel, config: SolveConfig | None = None, *,
+    leaf: Tensor | None = None,
+) -> Tensor:
+    """Phase-2 stage launches: the exact-local term plus the walk term.
+
+    Without ``leaf`` the blocks are the reference's per-query gathered
+    form: ``xl`` (q, n0, d) / ``wl`` (q, n0, k) each query's leaf points
+    and weights, ``lm`` (q, r, d) / ``ct`` (q, r, k) its parent landmarks
+    and pushed-down coefficients.  With ``leaf`` (q,) the blocks are the
+    model's own stacks -- ``xl`` (2**L, n0, d), ``wl`` (2**L, n0, k),
+    ``lm`` (2**(L-1), r, d), ``ct`` (2**L, r, k) -- read in place at the
+    query's leaf (and its parent, ``leaf >> 1``).  Returns (q, k).
+    """
+    config = config if config is not None else DEFAULT_CONFIG
+    dt = precision_dtype(config)
+    if dt is not None:
+        xl, wl, lm, ct, qs = (a.to(dt) for a in (xl, wl, lm, ct, qs))
+    xl, wl, lm, ct, qs = (a.contiguous() for a in (xl, wl, lm, ct, qs))
+    if leaf is None:
+        local_idx = walk_idx = parent_idx = torch.arange(
+            qs.shape[0], device=qs.device)
+    else:
+        local_idx = walk_idx = leaf.contiguous()
+        parent_idx = local_idx >> 1
+    opts = dict(name=kernel.name, sigma=kernel.sigma,
+                leaf_block=config.leaf_block)
+    backend = resolve_backend(config, "oos_local", xl, wl, qs)
+    z = get_impl("oos_local", backend)(xl, wl, qs, local_idx, local_idx,
+                                       **opts)
+    backend = resolve_backend(config, "oos_walk", lm, ct, qs)
+    return z + get_impl("oos_walk", backend)(lm, ct, qs, parent_idx,
+                                             walk_idx, **opts)
+
+
+def apply_plan(
+    f: HCKFactors, plan: OOSPlan, queries: Tensor, kernel: BaseKernel,
+    config: SolveConfig | None = None,
+) -> Tensor:
+    """Phase 2: (q, d) -> (q, k) values of w^T k_hck(X, .).
+
+    Route -> stable sort by leaf -> the two fused contractions -> unsort.
+    """
+    levels, n0 = f.levels, f.leaf_size
+    if levels == 0:
+        kv = kernel.cross(f.x_sorted, queries)              # (n, q)
+        return torch.einsum("nk,nq->qk", plan.w_leaf[0], kv)
+    leaf = route(f.tree, queries)
+    order, _, _ = group_by_leaf(leaf, f.num_leaves)
+    z = apply_segments(
+        f.x_sorted.reshape(f.num_leaves, n0, -1), plan.w_leaf,
+        f.landmarks[levels - 1], plan.c_tilde, queries[order], kernel,
+        config, leaf=leaf[order])
+    out = torch.empty_like(z)
+    out[order] = z                                        # unsort
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Oracle: k_hck(X, x) as an explicit n-vector, from the kernel definition.
+# ---------------------------------------------------------------------------
+
+def _effective_bases(f: HCKFactors) -> dict:
+    """Query-independent effective bases, level -> list of node bases;
+    hoisted so batched oracle evaluation builds them once."""
+    levels = f.levels
+    ubig = {levels: [f.u[i] for i in range(f.num_leaves)]}
+    for l2 in range(levels - 1, 0, -1):
+        ubig[l2] = [
+            torch.cat([ubig[l2 + 1][2 * p], ubig[l2 + 1][2 * p + 1]], dim=0)
+            @ f.w[l2 - 1][p]
+            for p in range(1 << l2)]
+    return ubig
+
+
+def oos_vector_reference(f: HCKFactors, query: Tensor, kernel: BaseKernel, *,
+                         _ubig: dict | None = None) -> Tensor:
+    """k_hck(X, x) as an explicit n-vector in tree order (host-loop oracle)."""
+    levels, n0 = f.levels, f.leaf_size
+    if levels == 0:
+        return kernel.cross(f.x_sorted, query[None])[:, 0]
+    leaf = int(route(f.tree, query[None])[0])
+    out = torch.zeros((f.n,), dtype=f.x_sorted.dtype, device=f.x_sorted.device)
+    sl = slice(leaf * n0, (leaf + 1) * n0)
+    out[sl] = kernel.cross(f.x_sorted[sl], query[None])[:, 0]
+
+    node, lvl = leaf >> 1, levels - 1
+    phi = kernel.cross(f.landmarks[lvl][node], query[None])        # (r, 1)
+    d = torch.cholesky_solve(phi, f.sigma_cho[lvl][node], upper=False)[:, 0]
+    ubig = _ubig if _ubig is not None else _effective_bases(f)
+    cur_node, cur_lvl = leaf, levels
+    while cur_lvl > 0:
+        parent, sib = cur_node >> 1, cur_node ^ 1
+        block = f.n // (1 << cur_lvl)
+        out[sib * block:(sib + 1) * block] = (
+            ubig[cur_lvl][sib] @ (f.sigma[cur_lvl - 1][parent] @ d))
+        cur_node, cur_lvl = parent, cur_lvl - 1
+        if cur_lvl > 0:
+            d = f.w[cur_lvl - 1][cur_node].T @ d
+    return out
+
+
+def oos_reference_batch(f: HCKFactors, queries: Tensor,
+                        kernel: BaseKernel) -> Tensor:
+    """Stacked :func:`oos_vector_reference` rows (q, n), the effective
+    bases built once: the oracle of the prediction engine."""
+    ubig = _effective_bases(f) if f.levels > 0 else None
+    return torch.stack([oos_vector_reference(f, q, kernel, _ubig=ubig)
+                        for q in queries])

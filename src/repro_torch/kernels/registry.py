@@ -1,0 +1,186 @@
+"""Backend registry of the port (counterpart of ``repro.kernels.registry``).
+
+Every compute stage is registered under a ``(stage, backend)`` key, with
+the same stage names as the reference.  Backends:
+
+  * ``torch`` -- the plain PyTorch version of the stage (float64 capable);
+                 it runs on CPU tensors.
+  * ``cuda``  -- the hand-written CUDA C++ kernel; it runs on CUDA tensors.
+
+``SolveConfig.backend="auto"`` follows the tensors: a CUDA tensor goes to
+the kernel, a CPU tensor to the plain version.  Forcing a backend onto a
+tensor on the other device raises -- there is no silent fallback.  Stages
+without a registered implementation belong to later slices of the port.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+BACKENDS = ("torch", "cuda")
+
+#: mixed-precision policies of prediction (see SolveConfig.precision)
+PRECISIONS = ("f32", "f64")
+
+#: stages of the reference's registry, same names
+STAGES = (
+    "leaf_matvec",
+    "leaf_solve",
+    "leaf_factor",
+    "leaf_update",
+    "leaf_project",
+    "oos_local",
+    "oos_walk",
+    "build_gram",
+    "build_cross",
+    "build_gram_dist",
+    "build_cross_dist",
+    "policy_dist",
+    "kernel_matvec",
+    "pairwise_kernel",
+    "attention",
+    "ssd_intra_chunk",
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class SolveConfig:
+    """Hashable stage configuration shared by the port's entry points.
+
+    backend     "auto" follows the device of the stage's tensors (CUDA ->
+                "cuda" kernel, CPU -> "torch" plain version); "torch" or
+                "cuda" force a backend and raise on a tensor on the other
+                device.
+    leaf_block  rows of a point block that the ``oos_contract`` kernel
+                stages in shared memory per step (None = the largest that
+                fits its shared-memory budget).
+    precision   prediction precision policy: None computes in the stored
+                dtype; "f32" / "f64" cast the kernel-evaluation data and
+                the weights to that dtype before the stage launches.
+    """
+
+    backend: str = "auto"
+    leaf_block: int | None = None
+    precision: str | None = None
+
+    def __post_init__(self):
+        if self.backend not in ("auto",) + BACKENDS:
+            raise ValueError(
+                f"backend {self.backend!r} not in {('auto',) + BACKENDS}")
+        if self.precision is not None and self.precision not in PRECISIONS:
+            raise ValueError(
+                f"precision {self.precision!r} not in {PRECISIONS} (or None)")
+        if self.leaf_block is not None and self.leaf_block < 1:
+            raise ValueError(f"leaf_block must be >= 1, got {self.leaf_block}")
+
+
+DEFAULT_CONFIG = SolveConfig()
+
+
+def precision_dtype(config: SolveConfig | None) -> torch.dtype | None:
+    """dtype of ``config.precision``, or None for dtype-preserving."""
+    if config is None or config.precision is None:
+        return None
+    return {"f32": torch.float32, "f64": torch.float64}[config.precision]
+
+
+_REGISTRY: dict[tuple[str, str], Callable] = {}
+
+
+def register(stage: str, backend: str):
+    """Decorator: register ``fn`` as the ``backend`` implementation of
+    ``stage``.  Later registrations override earlier ones."""
+    if stage not in STAGES:
+        raise ValueError(f"unknown stage {stage!r}; stages: {STAGES}")
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; backends: {BACKENDS}")
+
+    def deco(fn: Callable) -> Callable:
+        _REGISTRY[(stage, backend)] = fn
+        return fn
+
+    return deco
+
+
+def get_impl(stage: str, backend: str) -> Callable:
+    """Implementation registered for (stage, backend); KeyError if none."""
+    try:
+        return _REGISTRY[(stage, backend)]
+    except KeyError:
+        have = sorted(k for k in _REGISTRY if k[0] == stage)
+        raise KeyError(
+            f"no implementation registered for stage={stage!r} "
+            f"backend={backend!r}; registered: {have}") from None
+
+
+def resolve_backend(config: SolveConfig | None, stage: str,
+                    *tensors: torch.Tensor) -> str:
+    """Concrete backend of ``stage`` for ``tensors`` (all on one device).
+
+    "auto" maps a CUDA device to "cuda" and the CPU to "torch".  A forced
+    backend must match the device: "torch" on CUDA tensors and "cuda" on
+    CPU tensors raise ``ValueError``.
+    """
+    if stage not in STAGES:
+        raise ValueError(f"unknown stage {stage!r}; stages: {STAGES}")
+    kinds = {t.device.type for t in tensors}
+    if len(kinds) != 1:
+        raise ValueError(f"stage {stage!r} got tensors on {sorted(kinds)}; "
+                         "move them to one device")
+    kind = kinds.pop()
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"stage {stage!r}: unsupported device type {kind!r}")
+    native = "cuda" if kind == "cuda" else "torch"
+    backend = (config or DEFAULT_CONFIG).backend
+    if backend == "auto":
+        return native
+    if backend != native:
+        raise ValueError(
+            f"backend {backend!r} forced for stage {stage!r} on {kind} "
+            f"tensors; the {backend!r} backend runs on "
+            f"{'CUDA' if backend == 'cuda' else 'CPU'} tensors only")
+    return backend
+
+
+# Stages of this slice.  Lazy imports keep the kernel packages (and their
+# builds) out of an import of the registry.
+
+@register("leaf_project", "torch")
+def _leaf_project_torch(u, b):
+    """(P,n0,r),(P,n0,k) -> c (P,r,k) = U^T b, plain version."""
+    from repro_torch.kernels.hck_leaf.ref import hck_leaf_project_ref
+
+    return hck_leaf_project_ref(u, b)
+
+
+@register("leaf_project", "cuda")
+def _leaf_project_cuda(u, b):
+    """(P,n0,r),(P,n0,k) -> c (P,r,k) = U^T b, CUDA kernel."""
+    from repro_torch.kernels.hck_leaf.ops import leaf_project
+
+    return leaf_project(u, b)
+
+
+@register("oos_local", "torch")
+@register("oos_walk", "torch")
+def _oos_contract_torch(points, weights, queries, point_index, weight_index,
+                        *, name="gaussian", sigma=1.0, leaf_block=None):
+    """z_i = W[widx_i]^T k(P[pidx_i], x_i), plain version."""
+    del leaf_block
+    from repro_torch.kernels.oos_stage.ref import oos_contract_ref
+
+    return oos_contract_ref(points, weights, queries, point_index,
+                            weight_index, name=name, sigma=sigma)
+
+
+@register("oos_local", "cuda")
+@register("oos_walk", "cuda")
+def _oos_contract_cuda(points, weights, queries, point_index, weight_index,
+                       *, name="gaussian", sigma=1.0, leaf_block=None):
+    """z_i = W[widx_i]^T k(P[pidx_i], x_i), CUDA kernel."""
+    from repro_torch.kernels.oos_stage.ops import oos_contract
+
+    return oos_contract(points, weights, queries, point_index, weight_index,
+                        name=name, sigma=sigma, leaf_block=leaf_block)
