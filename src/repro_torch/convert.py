@@ -8,6 +8,10 @@ field paths; a tuple field is spread over ``<field>/<position>`` keys:
            ``w/<i>`` (i = 0..L-2, the tree levels 1..L-1), ``u``, ``adiag``
   plan     ``plan.c/<i>`` (i = 0..L-1), ``plan.w_leaf``, ``plan.c_tilde``
   model    ``alpha`` and, for a classification fit, ``classes``
+  inverse  optional, the cached Algorithm-2 inverse of a fit:
+           ``inverse.adiag``, ``inverse.u``, ``inverse.sigma/<l>``,
+           ``inverse.w/<i>``, ``inverse.logabsdet``, ``inverse.linv`` and
+           ``leaf_lo``
 
 Arrays keep their dtype; indices become int64.  Budgeted-rank factors
 (``rank_mask/<l>``) are not served by this slice and are refused.
@@ -19,6 +23,7 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.core.hck import HCKFactors
+from repro_torch.core.hmatrix import InverseFactors
 from repro_torch.core.kernels_fn import BaseKernel
 from repro_torch.core.krr import HCKRegressor
 from repro_torch.core.oos import OOSPlan
@@ -75,20 +80,43 @@ def plan_from_arrays(arrays: dict, device=None) -> OOSPlan:
                    None if c_tilde is None else _tensor(c_tilde, dev))
 
 
+def inverse_from_arrays(arrays: dict, device=None) -> InverseFactors | None:
+    """The port's :class:`InverseFactors` from the reference's
+    ``inverse.*`` arrays, or None when the arrays carry no inverse."""
+    if "inverse.adiag" not in arrays:
+        return None
+    dev = _device.resolve(device)
+    levels = _levels(arrays)
+    linv = arrays.get("inverse.linv")
+    return InverseFactors(
+        _tensor(arrays["inverse.adiag"], dev), _tensor(arrays["inverse.u"], dev),
+        _stack(arrays, "inverse.sigma", levels, dev),
+        _stack(arrays, "inverse.w", max(levels - 1, 0), dev),
+        _tensor(arrays["inverse.logabsdet"], dev),
+        None if linv is None else _tensor(linv, dev))
+
+
 def regressor_from_arrays(arrays: dict, *, kernel: str, sigma: float,
                           jitter: float, squeeze: bool = False,
                           solve_config: SolveConfig | None = None,
+                          lam: float | None = None,
                           device=None) -> HCKRegressor:
     """The port's :class:`HCKRegressor` on ``device`` (default the card).
 
     ``kernel``, ``sigma`` and ``jitter`` are the reference's
-    ``BaseKernel`` fields; ``squeeze`` its flag for 1-D regression targets.
+    ``BaseKernel`` fields; ``squeeze`` its flag for 1-D regression
+    targets; ``lam`` the fit's ridge.
     """
     dev = _device.resolve(device)
     classes = arrays.get("classes")
+    leaf_lo = arrays.get("leaf_lo")
+    factors = factors_from_arrays(arrays, dev)
+    inverse = inverse_from_arrays(arrays, dev)
     return HCKRegressor(
-        BaseKernel(kernel, sigma=sigma, jitter=jitter),
-        factors_from_arrays(arrays, dev), plan_from_arrays(arrays, dev),
-        _tensor(arrays["alpha"], dev),
+        BaseKernel(kernel, sigma=sigma, jitter=jitter), factors,
+        plan_from_arrays(arrays, dev), _tensor(arrays["alpha"], dev),
         None if classes is None else _tensor(classes, dev),
-        squeeze=squeeze, solve_config=solve_config)
+        squeeze=squeeze, solve_config=solve_config, lam=lam,
+        base_leaf_size=None if inverse is None else factors.leaf_size,
+        inverse=inverse,
+        leaf_lo=None if leaf_lo is None else _tensor(leaf_lo, dev))

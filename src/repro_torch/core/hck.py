@@ -9,7 +9,18 @@ balanced binary tree, stacked per level:
   * ``sigma_cho[l]``  lower Cholesky factor of sigma[l]   (2**l, r, r)
   * ``w[l-1]``        K(Xl_i, Xl_p) K(Xl_p, Xl_p)^-1      (2**l, r, r), l >= 1
 
-Serving reads them; building them (``build_hck``) comes with the fit.
+:func:`build_hck` is the batched build engine: the partition, then every
+factor of a level from one launch of one of two registry stages --
+``build_gram`` (Sigma and its Cholesky, and the leaf Adiag blocks) and
+``build_cross`` (the Sigma^-1-projected U and W blocks), CUDA kernels on
+the card.  :func:`build_hck_reference` is the per-node transcription of
+Algorithm 2 and :func:`to_dense` the dense reconstruction, both oracles
+for tests.
+
+Landmarks are r distinct rows of each node's block (paper section 4.2).
+Random draws do not cross frameworks, so the partition directions and the
+per-level landmark row indices can be passed in; the port's own draws
+come from an explicit ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -17,7 +28,12 @@ import dataclasses
 
 import torch
 
-from repro_torch.core.partition import PartitionTree
+from repro_torch.core.kernels_fn import BaseKernel
+from repro_torch.core.partition import PartitionTree, build_partition
+from repro_torch.kernels.registry import (DEFAULT_CONFIG, SolveConfig,
+                                          get_impl, resolve_backend)
+
+Tensor = torch.Tensor
 
 
 @dataclasses.dataclass
@@ -63,3 +79,263 @@ class HCKFactors:
     def n(self) -> int:
         """Total training points."""
         return self.x_sorted.shape[0]
+
+
+def landmark_indices(bsz: int, m: int, r: int, *, device: torch.device,
+                     generator: torch.Generator | None = None) -> Tensor:
+    """Per-node landmark row indices: (B, r) int64, r distinct positions in
+    [0, m) per node, uniform without replacement."""
+    keys = torch.rand((bsz, m), device=device, generator=generator)
+    return torch.argsort(keys, dim=1)[:, :r]
+
+
+def gather_landmarks(blocks: Tensor, idx: Tensor) -> Tensor:
+    """Rows ``idx`` (B, r) of each node block (B, m, d) -> (B, r, d), by one
+    flat take, as the reference's ``_sample_landmarks`` gathers."""
+    bsz, m, d = blocks.shape
+    idx = idx.to(device=blocks.device, dtype=torch.int64)
+    flat = (idx + torch.arange(bsz, device=blocks.device)[:, None] * m)
+    return blocks.reshape(bsz * m, d)[flat.reshape(-1)].reshape(
+        bsz, idx.shape[1], d)
+
+
+def _level_landmarks(x_sorted: Tensor, levels: int, rank: int,
+                     landmark_index, generator) -> tuple:
+    """Landmarks of every level, (2**l, r, d), from injected per-level row
+    indices ``landmark_index[l]`` (2**l, r) or from ``generator``."""
+    n, d = x_sorted.shape
+    if landmark_index is not None and len(landmark_index) != levels:
+        raise ValueError(f"{len(landmark_index)} landmark index sets for "
+                         f"{levels} levels")
+    out = []
+    for lvl in range(levels):
+        bsz, m = 1 << lvl, n >> lvl
+        if landmark_index is None:
+            idx = landmark_indices(bsz, m, rank, device=x_sorted.device,
+                                   generator=generator)
+        else:
+            idx = torch.as_tensor(landmark_index[lvl])
+            if idx.shape != (bsz, rank):
+                raise ValueError(f"level {lvl} landmark indices shape "
+                                 f"{tuple(idx.shape)} != {(bsz, rank)}")
+        out.append(gather_landmarks(x_sorted.reshape(bsz, m, d), idx))
+    return tuple(out)
+
+
+def _stage_build_gram(blocks: Tensor, kernel: BaseKernel,
+                      config: SolveConfig, *, want_chol: bool = True):
+    """One level's node blocks (B, m, d) through the ``build_gram`` stage:
+    (gram (B, m, m), lower Cholesky or None)."""
+    blocks = blocks.contiguous()
+    backend = resolve_backend(config, "build_gram", blocks)
+    return get_impl("build_gram", backend)(
+        blocks, name=kernel.name, sigma=kernel.sigma, jitter=kernel.jitter,
+        want_chol=want_chol)
+
+
+def sigma_linv(chol: Tensor) -> Tensor:
+    """Explicit inverse Cholesky factors ``Linv = L^-1`` per node.
+
+    (B, r, r) lower factors -> (B, r, r) lower ``Linv``, computed once per
+    node so that every ``build_cross`` launch applies ``Sigma^-1 = Linv^T
+    Linv`` as two products.  The factored (not squared) form keeps
+    cho_solve-grade accuracy.  Plain torch, as the reference computes it
+    in jnp outside any kernel.
+    """
+    eye = torch.eye(chol.shape[-1], dtype=chol.dtype, device=chol.device)
+    return torch.linalg.solve_triangular(chol, eye.expand_as(chol),
+                                         upper=False)
+
+
+def _stage_build_cross(blocks: Tensor, lm_parent: Tensor, linv_parent: Tensor,
+                       kernel: BaseKernel, config: SolveConfig) -> Tensor:
+    """One level's cross blocks through the ``build_cross`` stage:
+    (B, m, d), (B, r, d), (B, r, r) -> K(P, Z) Linv^T Linv (B, m, r)."""
+    blocks, lm_parent, linv_parent = (
+        t.contiguous() for t in (blocks, lm_parent, linv_parent))
+    backend = resolve_backend(config, "build_cross", blocks, lm_parent,
+                              linv_parent)
+    return get_impl("build_cross", backend)(
+        blocks, lm_parent, linv_parent, name=kernel.name, sigma=kernel.sigma)
+
+
+def _middle_factors(landmarks: tuple, kernel: BaseKernel,
+                    config: SolveConfig):
+    """Sigma, its Cholesky factor and Linv for every level: one
+    ``build_gram`` launch per level plus :func:`sigma_linv`."""
+    sigma, sigma_cho, sigma_li = [], [], []
+    for lm in landmarks:
+        s, c = _stage_build_gram(lm, kernel, config)
+        sigma.append(s)
+        sigma_cho.append(c)
+        sigma_li.append(sigma_linv(c))
+    return tuple(sigma), tuple(sigma_cho), sigma_li
+
+
+def _transfer_ops(landmarks: tuple, sigma_li: list, kernel: BaseKernel,
+                  config: SolveConfig) -> tuple:
+    """W factors at levels 1..L-1, one ``build_cross`` launch per level at
+    parent granularity: sibling landmark blocks are paired, since they
+    share their parent's landmarks and Linv."""
+    rank, d = landmarks[0].shape[1], landmarks[0].shape[2]
+    w = []
+    for lvl in range(1, len(landmarks)):
+        pair_lm = landmarks[lvl].reshape(1 << (lvl - 1), 2 * rank, d)
+        w.append(_stage_build_cross(
+            pair_lm, landmarks[lvl - 1], sigma_li[lvl - 1], kernel,
+            config).reshape(1 << lvl, rank, rank))
+    return tuple(w)
+
+
+def _check_build_options(method: str, shared_landmarks: bool, policy,
+                         rank_budget, config: SolveConfig) -> None:
+    """Raise ``NotImplementedError`` for the reference's build options that
+    later slices of the port bring."""
+    if method != "rp":
+        raise NotImplementedError(
+            f"method={method!r}: only the random-projection partition is "
+            "ported (PCA splits come with ROADMAP item A10)")
+    if shared_landmarks:
+        raise NotImplementedError(
+            "shared_landmarks=True comes with ROADMAP item A10")
+    if policy not in (None, "uniform"):
+        raise NotImplementedError(
+            f"landmark policy {policy!r} comes with ROADMAP item A10")
+    if rank_budget is not None:
+        raise NotImplementedError("rank_budget comes with ROADMAP item A10")
+    if config.precision is not None:
+        raise NotImplementedError(
+            "a mixed-precision build (SolveConfig.precision) comes with "
+            "ROADMAP item A15; the build runs in the dtype of x")
+
+
+def build_hck(
+    x: Tensor, *, levels: int, rank: int, kernel: BaseKernel,
+    method: str = "rp", shared_landmarks: bool = False,
+    config: SolveConfig | None = None, policy=None,
+    rank_budget: int | None = None, directions=None, landmark_index=None,
+    generator: torch.Generator | None = None,
+) -> HCKFactors:
+    """Partition ``x`` and instantiate all HCK factors (batched engine).
+
+    Level-synchronous Algorithm 2 on a random-projection tree: per level
+    one ``build_gram`` launch for Sigma and its Cholesky factor, then one
+    for the leaf Adiag blocks, one ``build_cross`` launch for U (paired
+    sibling leaves) and one per level for W.  On the card every launch is
+    a CUDA kernel; on the CPU the plain versions run.
+
+    ``x`` (n, d) with n divisible by 2**levels (``partition.pad_points``
+    pads); ``rank`` <= n / 2**levels.  ``directions`` ((2**l, d) per
+    level) and ``landmark_index`` ((2**l, r) row positions inside each
+    node block per level) replace the random draws, which otherwise come
+    from ``generator``.  ``levels == 0`` gives one dense leaf block.
+    ``policy``, ``rank_budget``, ``shared_landmarks=True``,
+    ``method="pca"`` and ``config.precision`` raise
+    ``NotImplementedError``.
+    """
+    config = config if config is not None else DEFAULT_CONFIG
+    _check_build_options(method, shared_landmarks, policy, rank_budget,
+                         config)
+    n, d = x.shape
+    n_leaves = 1 << levels
+    if n % n_leaves != 0:
+        raise ValueError(f"n={n} not divisible by 2**levels={n_leaves}")
+    n0 = n // n_leaves
+    if rank > n0:
+        raise ValueError(f"rank {rank} exceeds leaf size {n0} (paper 4.4)")
+
+    x_sorted, tree = build_partition(x, levels, directions=directions,
+                                     generator=generator)
+    landmarks = _level_landmarks(x_sorted, levels, rank, landmark_index,
+                                 generator)
+    sigma, sigma_cho, sigma_li = _middle_factors(landmarks, kernel, config)
+
+    leaves = x_sorted.reshape(n_leaves, n0, d)
+    adiag, _ = _stage_build_gram(leaves, kernel, config, want_chol=False)
+    if levels == 0:
+        return HCKFactors(x_sorted, tree, (), (), (), (),
+                          x.new_zeros((1, n0, 0)), adiag)
+    paired = leaves.reshape(n_leaves // 2, 2 * n0, d)
+    u = _stage_build_cross(paired, landmarks[-1], sigma_li[-1], kernel,
+                           config).reshape(n_leaves, n0, rank)
+    w = _transfer_ops(landmarks, sigma_li, kernel, config)
+    return HCKFactors(x_sorted, tree, landmarks, sigma, sigma_cho, w, u,
+                      adiag)
+
+
+# ---------------------------------------------------------------------------
+# Oracles for tests: the per-node Algorithm 2 and the dense reconstruction.
+# ---------------------------------------------------------------------------
+
+def build_hck_reference(
+    x: Tensor, *, levels: int, rank: int, kernel: BaseKernel,
+    directions=None, landmark_index=None,
+    generator: torch.Generator | None = None,
+) -> HCKFactors:
+    """Per-node transcription of Algorithm 2 (host loop, test oracle).
+
+    Each node gets one Gram, one Cholesky factor and one cross solve
+    through :class:`BaseKernel` and ``torch.linalg``, no registry stage.
+    With the same ``directions`` and ``landmark_index`` it agrees with
+    :func:`build_hck` to factorization round-off.
+    """
+    n, d = x.shape
+    n_leaves = 1 << levels
+    if n % n_leaves != 0:
+        raise ValueError(f"n={n} not divisible by 2**levels={n_leaves}")
+    n0 = n // n_leaves
+    if rank > n0:
+        raise ValueError(f"rank {rank} exceeds leaf size {n0} (paper 4.4)")
+    x_sorted, tree = build_partition(x, levels, directions=directions,
+                                     generator=generator)
+    landmarks = _level_landmarks(x_sorted, levels, rank, landmark_index,
+                                 generator)
+    sigma = tuple(torch.stack([kernel.gram(z) for z in lm])
+                  for lm in landmarks)
+    sigma_cho = tuple(torch.stack([torch.linalg.cholesky(s) for s in sg])
+                      for sg in sigma)
+    leaves = x_sorted.reshape(n_leaves, n0, d)
+    adiag = torch.stack([kernel.gram(leaf) for leaf in leaves])
+    if levels == 0:
+        return HCKFactors(x_sorted, tree, (), (), (), (),
+                          x.new_zeros((1, n0, 0)), adiag)
+
+    def cross_node(pts, lm_p, cho_p):
+        kxu = kernel.cross(pts, lm_p)
+        return torch.cholesky_solve(kxu.T, cho_p, upper=False).T
+
+    u = torch.stack([cross_node(leaves[i], landmarks[-1][i >> 1],
+                                sigma_cho[-1][i >> 1])
+                     for i in range(n_leaves)])
+    w = tuple(
+        torch.stack([cross_node(landmarks[lvl][i], landmarks[lvl - 1][i >> 1],
+                                sigma_cho[lvl - 1][i >> 1])
+                     for i in range(1 << lvl)])
+        for lvl in range(1, levels))
+    return HCKFactors(x_sorted, tree, landmarks, sigma, sigma_cho, w, u,
+                      adiag)
+
+
+def to_dense(f: HCKFactors) -> Tensor:
+    """Materialize K_hck(X, X) (n, n) from the factors (test oracle)."""
+    n0, levels, n = f.leaf_size, f.levels, f.n
+    if levels == 0:
+        return f.adiag[0]
+    a = f.adiag.new_zeros((n, n))
+    for i in range(f.num_leaves):
+        a[i * n0:(i + 1) * n0, i * n0:(i + 1) * n0] = f.adiag[i]
+    # effective bases: ubig[l][i] spans node i's whole block
+    ubig = {levels: list(f.u)}
+    for lvl in range(levels - 1, 0, -1):
+        ubig[lvl] = [torch.cat([ubig[lvl + 1][2 * p], ubig[lvl + 1][2 * p + 1]])
+                     @ f.w[lvl - 1][p] for p in range(1 << lvl)]
+    for lvl in range(levels, 0, -1):
+        block = n >> lvl
+        for p in range(1 << (lvl - 1)):
+            i, j = 2 * p, 2 * p + 1
+            cross = ubig[lvl][i] @ f.sigma[lvl - 1][p] @ ubig[lvl][j].T
+            ri = slice(i * block, (i + 1) * block)
+            rj = slice(j * block, (j + 1) * block)
+            a[ri, rj] = cross
+            a[rj, ri] = cross.T
+    return a

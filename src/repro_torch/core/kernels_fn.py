@@ -1,7 +1,8 @@
 """Base kernel functions k(x, x') (counterpart of ``repro.core.kernels_fn``).
 
-Gaussian, Laplace and inverse multiquadric, with batched cross-evaluation
-``K(X, Y)``.  The squared Euclidean distance uses the same
+Gaussian, Laplace and inverse multiquadric, with cross-evaluation
+``K(X, Y)`` of (n, d), (m, d) -> (n, m) that also maps a leading batch
+dimension, (B, n, d), (B, m, d) -> (B, n, m).  The squared Euclidean distance uses the same
 ||x||^2 + ||y||^2 - 2 x.y identity, clamped at 0, as the reference, so the
 plain PyTorch path agrees with it to round-off in float64.
 """
@@ -39,10 +40,11 @@ def get_kernel(name: str) -> Callable[..., Tensor]:
 
 def _sqdist(x: Tensor, y: Tensor) -> Tensor:
     """Pairwise squared Euclidean distances via the matmul identity,
-    clamped at 0 to absorb cancellation error: (n, d), (m, d) -> (n, m)."""
-    xn = torch.sum(x * x, dim=-1, keepdim=True)           # (n, 1)
-    yn = torch.sum(y * y, dim=-1, keepdim=True).T         # (1, m)
-    return torch.clamp(xn + yn - 2.0 * (x @ y.T), min=0.0)
+    clamped at 0 to absorb cancellation error: (..., n, d), (..., m, d) ->
+    (..., n, m)."""
+    xn = torch.sum(x * x, dim=-1, keepdim=True)           # (..., n, 1)
+    yn = torch.sum(y * y, dim=-1)[..., None, :]           # (..., 1, m)
+    return torch.clamp(xn + yn - 2.0 * (x @ y.mT), min=0.0)
 
 
 def kernel_epilogue(name: str, sigma: float) -> Callable[[Tensor], Tensor]:
@@ -69,7 +71,7 @@ def gaussian_kernel(x: Tensor, y: Tensor, *, sigma: float = 1.0) -> Tensor:
 @register_kernel("laplace")
 def laplace_kernel(x: Tensor, y: Tensor, *, sigma: float = 1.0) -> Tensor:
     """k(x,y) = exp(-||x-y||_1 / sigma)."""
-    d1 = torch.sum(torch.abs(x[:, None, :] - y[None, :, :]), dim=-1)
+    d1 = torch.sum(torch.abs(x[..., :, None, :] - y[..., None, :, :]), dim=-1)
     return kernel_epilogue("laplace", sigma)(d1)
 
 

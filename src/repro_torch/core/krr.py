@@ -1,11 +1,21 @@
-"""Fitted HCK kernel ridge model (counterpart of ``repro.core.krr``).
+"""Kernel ridge regression and classification with the HCK kernel
+(counterpart of ``repro.core.krr``).
 
-This slice serves a fitted model: ``predict`` computes
-f(x) = alpha^T k_hck(X, x) through Algorithm 3 (:mod:`repro_torch.core.oos`)
+fit:      alpha = (K_hck + lambda I)^-1 y        -- Algorithm 2, O(n r^2)
+predict:  f(x)  = alpha^T k_hck(X, x)            -- Algorithm 3
+
+:func:`fit` pads the data to the tree, builds the factors
+(:func:`repro_torch.core.hck.build_hck`), inverts with the leaf factor
+kept (:func:`repro_torch.core.hmatrix.invert_with_leaf`), solves with
+iterative refinement and prepares the Algorithm-3 plan; on the card every
+stage of it runs through a CUDA kernel.  ``predict`` serves the model
 behind the shape-bucketed :class:`~repro_torch.serving.predict_service.
-PredictEngine`.  The fit itself comes with a later slice of the port; a
-model fitted by the reference is carried across by
+PredictEngine`.  A model fitted by the reference is carried across by
 :mod:`repro_torch.convert`.
+
+Classification follows the paper: binary as ridge on +-1 labels with a
+sign readout, multiclass as one-vs-all ridge over one shared
+factorization.
 """
 from __future__ import annotations
 
@@ -13,9 +23,11 @@ import dataclasses
 
 import torch
 
-from repro_torch.core import oos
-from repro_torch.core.hck import HCKFactors
+from repro_torch import device as _device
+from repro_torch.core import hmatrix, oos
+from repro_torch.core.hck import HCKFactors, build_hck
 from repro_torch.core.kernels_fn import BaseKernel
+from repro_torch.core.partition import auto_levels_ceil, pad_points
 from repro_torch.kernels.registry import SolveConfig
 
 Tensor = torch.Tensor
@@ -39,6 +51,10 @@ class HCKRegressor:
     classes: Tensor | None = None
     squeeze: bool = False
     solve_config: SolveConfig | None = None
+    lam: float | None = None            # fit ridge
+    base_leaf_size: int | None = None   # leaf size the fit froze at
+    inverse: hmatrix.InverseFactors | None = None  # cached Algorithm-2 inverse
+    leaf_lo: Tensor | None = None       # its leaf Schur Cholesky factors
 
     def __post_init__(self):
         self._engine = None
@@ -63,3 +79,91 @@ class HCKRegressor:
         if z.shape[1] == 1:  # binary +-1
             return torch.where(z[:, 0] > 0, self.classes[1], self.classes[0])
         return self.classes[torch.argmax(z, dim=1)]
+
+
+def _encode_targets(y: Tensor, classification: bool, dtype: torch.dtype):
+    """Targets (n, k) in ``dtype``, class labels or None, and the squeeze
+    flag of 1-D regression targets."""
+    if classification:
+        classes = torch.unique(y)
+        one = torch.ones((), dtype=dtype, device=y.device)
+        if classes.shape[0] == 2:           # +-1 coding, one column
+            targets = torch.where(y == classes[1], one, -one)[:, None]
+        else:                               # one-vs-all
+            targets = torch.where(y[:, None] == classes[None, :], one, -one)
+        return targets, classes, False
+    return (y if y.ndim > 1 else y[:, None]).to(dtype), None, y.ndim == 1
+
+
+def _health_probe(stage: str, value, config: SolveConfig | None) -> None:
+    """Hook of the reference's runtime health probes (``repro.runtime.
+    health``, on only under ``REPRO_STRICT_FINITE`` or ``config.checks``);
+    they are not ported yet (ROADMAP item A12), so it does nothing."""
+    del stage, value, config
+
+
+def fit(
+    x, y, *, kernel: BaseKernel, lam: float, rank: int,
+    leaf_size: int | None = None, levels: int | None = None,
+    method: str = "rp", classification: bool = False,
+    shared_landmarks: bool = False, solve_config: SolveConfig | None = None,
+    landmarks=None, rank_budget: int | None = None, device=None,
+    generator: torch.Generator | None = None, pad_index=None,
+    pad_noise=None, directions=None, landmark_index=None,
+) -> HCKRegressor:
+    """Fit KRR with the paper's sizing rule (Eq. 22) unless ``levels`` given.
+
+    x:          (n, d) training points (float32 or float64, tensor or
+                array); the factors keep its dtype.
+    y:          (n,) or (n, k) targets; classification reads class labels
+                from a 1-D ``y``.  Targets are cast to the dtype of x.
+    kernel:     base kernel (name, sigma, jitter).
+    lam:        ridge of the Algorithm-2 solve.
+    rank:       landmarks per node; ``leaf_size`` defaults to it.
+    levels:     tree depth; default ``max(1, auto_levels_ceil(n,
+                leaf_size))``, with inputs that do not fill the tree padded
+                by :func:`repro_torch.core.partition.pad_points`.
+    solve_config: stage backends of the build and of the solve, and
+                ``refine_steps``; "auto" runs the CUDA kernels on the card.
+    device:     where the fit runs; None means the CUDA card (raises
+                without one), "cpu" runs the plain versions.
+    generator:  source of the padding, partition and landmark draws
+                (default: seeded 0 on ``device``).  ``pad_index`` /
+                ``pad_noise``, ``directions`` and ``landmark_index``
+                replace those draws (see ``pad_points`` and ``build_hck``).
+
+    ``landmarks`` (a landmark policy), ``rank_budget``,
+    ``shared_landmarks=True`` and ``method="pca"`` (ROADMAP item A10) and
+    a ``solve_config.precision`` (item A15) raise ``NotImplementedError``.
+    The model caches the Algorithm-2 inverse and its leaf Cholesky factors.
+    """
+    dev = _device.resolve(device)
+    x = torch.as_tensor(x).to(dev)
+    y = torch.as_tensor(y).to(dev)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    n = x.shape[0]
+    leaf_size = leaf_size if leaf_size is not None else rank
+    if levels is None:
+        levels = max(1, auto_levels_ceil(n, leaf_size))
+    x, y, _ = pad_points(x, y, leaf_size, levels, generator=generator,
+                         index=pad_index, noise=pad_noise)
+    targets, classes, squeeze = _encode_targets(y, classification, x.dtype)
+
+    factors = build_hck(
+        x, levels=levels, rank=rank, kernel=kernel, method=method,
+        shared_landmarks=shared_landmarks, config=solve_config,
+        policy=landmarks, rank_budget=rank_budget, directions=directions,
+        landmark_index=landmark_index, generator=generator)
+    _health_probe("build", factors, solve_config)
+    y_sorted = targets[factors.tree.perm]
+    inv, lo = hmatrix.invert_with_leaf(factors, lam, solve_config)
+    _health_probe("leaf_factor", lo, solve_config)
+    alpha = hmatrix.solve_with_inverse(factors, inv, y_sorted, ridge=lam,
+                                       config=solve_config)
+    _health_probe("solve", alpha, solve_config)
+    plan = oos.prepare(factors, alpha, solve_config)
+    return HCKRegressor(kernel, factors, plan, alpha, classes,
+                        squeeze=squeeze, solve_config=solve_config, lam=lam,
+                        base_leaf_size=factors.leaf_size, inverse=inv,
+                        leaf_lo=lo)

@@ -164,3 +164,19 @@ def pad_points(x: Tensor, y: Tensor | None, leaf_size: int, levels: int, *,
                       torch.zeros((extra,), dtype=torch.bool,
                                   device=x.device)])
     return x_pad, y_pad, mask
+
+
+def auto_levels(n: int, leaf_size: int) -> int:
+    """Largest L with leaf_size * 2**L <= n (paper Eq. 22 sizing)."""
+    levels = 0
+    while leaf_size * (1 << (levels + 1)) <= n:
+        levels += 1
+    return levels
+
+
+def auto_levels_ceil(n: int, leaf_size: int) -> int:
+    """Smallest L with leaf_size * 2**L >= n (padding-capacity sizing)."""
+    levels = 0
+    while leaf_size * (1 << levels) < n:
+        levels += 1
+    return levels

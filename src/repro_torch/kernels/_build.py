@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA C++ kernels.
+"""Build, load and launch the port's CUDA C++ kernels.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``)
 into a shared library with a plain C interface, which is loaded with
@@ -6,7 +6,9 @@ into a shared library with a plain C interface, which is loaded with
 at the root of the checkout; the library name carries a digest of the
 sources and flags, so an edited source is rebuilt and a stale library is
 never loaded.  :func:`build` starts one ``nvcc`` per missing library, all
-together, and waits for all of them.
+together, and waits for all of them.  :func:`cuda_device`,
+:func:`check_smem` and :func:`launch` are the checks and the ctypes call
+every kernel wrapper shares.
 """
 from __future__ import annotations
 
@@ -17,14 +19,25 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNELS = ("hck_leaf_project", "oos_contract")
-_HEADERS = ("kernel_epilogue.cuh",)
+KERNELS = ("hck_leaf_project", "oos_contract", "build_stage", "leaf_factor",
+           "leaf_matvec", "leaf_solve")
+_HEADERS = ("kernel_epilogue.cuh", "chol_smem.cuh", "leaf_products.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+#: shared memory one block can have on the H100 (227 KB, opt-in above 48 KB)
+SMEM_MAX = 227 * 1024
+#: base-kernel kinds of csrc/kernel_epilogue.cuh
+EPILOGUE_KIND = {"gaussian": 0, "imq": 1, "laplace": 2}
+#: symbol suffix of each dtype a kernel library exports
+SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+
 _LOADED: dict[str, ctypes.CDLL] = {}
+_SYMBOLS: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def _nvcc() -> str:
@@ -101,3 +114,71 @@ def check_launch(lib: ctypes.CDLL, name: str, code: int) -> None:
         msg = lib.cuda_error_string(code).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {code} "
                            f"({msg})")
+
+
+def cuda_device(stage: str, *tensors: torch.Tensor) -> torch.device | None:
+    """The CUDA device a kernel of ``stage`` launches on, or None when every
+    tensor lies on the CPU (the wrapper then runs the plain version).
+
+    Raises unless the tensors share one CUDA device, one dtype (float32
+    or float64) and are contiguous.
+    """
+    if all(t.device.type == "cpu" for t in tensors):
+        return None
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(f"{stage} needs all tensors on one CUDA device; got "
+                         f"{[str(t.device) for t in tensors]}")
+    if tensors[0].dtype not in SUFFIX or any(
+            t.dtype != tensors[0].dtype for t in tensors):
+        raise TypeError(f"{stage} kernel takes float32 or float64 of one "
+                        f"dtype; got {[t.dtype for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{stage} kernel needs contiguous tensors")
+    return dev
+
+
+def check_smem(stage: str, nbytes: int, what: str) -> None:
+    """Raise ``ValueError`` when a block would need more than
+    :data:`SMEM_MAX` bytes of shared memory."""
+    if nbytes > SMEM_MAX:
+        raise ValueError(
+            f"{stage}: {what} needs {nbytes} bytes of shared memory per "
+            f"block, above the {SMEM_MAX} a block can have; this shape needs "
+            "the panel form of the kernel, which is later work")
+
+
+def _ctype(a):
+    """The ctypes type a launch argument is passed as."""
+    if isinstance(a, ctypes.c_longlong):
+        return ctypes.c_longlong
+    if a is None or isinstance(a, torch.Tensor):
+        return ctypes.c_void_p
+    return ctypes.c_double if isinstance(a, float) else ctypes.c_int
+
+
+def _symbol(name: str, symbol: str, args: tuple):
+    """``symbol`` of library ``name``, its argument types set from ``args``
+    (plus the trailing stream) at first use."""
+    fn = _SYMBOLS.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = [_ctype(a) for a in args] + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _SYMBOLS[(name, symbol)] = fn
+    return fn
+
+
+def launch(name: str, symbol: str, dev: torch.device, *args) -> None:
+    """Call ``symbol`` of library ``name`` with ``args`` (tensors become
+    their data pointers, None a null pointer, floats doubles, ints ints,
+    ``ctypes.c_longlong`` values long longs) on the current stream of
+    ``dev``; raise if the launch failed.  A symbol keeps the argument types
+    of its first call."""
+    fn = _symbol(name, symbol, args)
+    values = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+              for a in args]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = fn(*values, stream)
+    check_launch(_LOADED[name], symbol, code)

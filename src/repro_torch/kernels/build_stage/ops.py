@@ -1,0 +1,123 @@
+"""Wrappers of the build-stage CUDA kernels (``csrc/build_stage.cu``).
+
+``build_gram`` launches ``gram_chol`` (B1) and ``build_cross`` launches
+``cross_solve`` (B2).  On CPU tensors each wrapper computes its plain
+version (:mod:`repro_torch.kernels.build_stage.ref`); on CUDA tensors it
+launches the kernel or raises.  ``build_gram.launches`` and
+``build_cross.launches`` count kernel launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.kernels_fn import KERNEL_METRIC
+from repro_torch.kernels import _build
+from repro_torch.kernels.build_stage.ref import build_cross_ref, build_gram_ref
+
+#: feature columns staged per chunk (build_stage.cu)
+DC = 32
+#: cross_solve's row tiles (multiples of its 16 thread rows), largest first,
+#: and its largest rank (16 thread columns of 8 outputs)
+_ROW_TILES = (128, 64, 32, 16)
+MAX_CROSS_RANK = 128
+
+
+def gram_smem(m: int, itemsize: int) -> int:
+    """Shared memory of one gram_chol block: the (m, m + 1) tile and an
+    (m, DC + 1) chunk of points."""
+    return (m * (m + 1) + m * (DC + 1)) * itemsize
+
+
+def cross_smem(bm: int, r: int, itemsize: int) -> int:
+    """Shared memory of one cross_solve block of ``bm`` rows: Linv
+    (r, r + 1), a (bm, r + 1) tile and the point and landmark chunks."""
+    return ((r + bm) * (r + 1) + (bm + r) * (DC + 1)) * itemsize
+
+
+def cross_rows(m: int, r: int, itemsize: int) -> int:
+    """Row-tile height of cross_solve: the largest of :data:`_ROW_TILES`
+    that fits :data:`repro_torch.kernels._build.SMEM_MAX` and does not
+    overshoot m by a whole smaller tile; ``ValueError`` when r exceeds
+    :data:`MAX_CROSS_RANK` or no tile fits."""
+    if r > MAX_CROSS_RANK:
+        raise ValueError(f"build_cross: rank r={r} above {MAX_CROSS_RANK} "
+                         "needs the panel form of the kernel, which is later "
+                         "work")
+    fits = [bm for bm in _ROW_TILES
+            if cross_smem(bm, r, itemsize) <= _build.SMEM_MAX]
+    if not fits:
+        _build.check_smem("build_cross",
+                          cross_smem(_ROW_TILES[-1], r, itemsize),
+                          f"rank r={r}")
+    return next((bm for bm in fits if bm // 2 < m), fits[-1])
+
+
+def _check_name(name: str) -> None:
+    if name not in KERNEL_METRIC:
+        raise ValueError(f"unknown base kernel {name!r}; have "
+                         f"{sorted(KERNEL_METRIC)}")
+
+
+def build_gram(
+    points: torch.Tensor, *, name: str = "gaussian", sigma: float = 1.0,
+    jitter: float = 0.0, want_chol: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """(B, m, d) -> gram (B, m, m) = K(P, P) + jitter*m I [+ lower Cholesky]."""
+    _check_name(name)
+    if points.ndim != 3:
+        raise ValueError(f"build_gram needs points (B, m, d); got "
+                         f"{tuple(points.shape)}")
+    dev = _build.cuda_device("build_gram", points)
+    if dev is None:
+        return build_gram_ref(points, name=name, sigma=sigma, jitter=jitter,
+                              want_chol=want_chol)
+    bsz, m, d = points.shape
+    _build.check_smem("build_gram", gram_smem(m, points.element_size()),
+                      f"an ({m}, {m}) tile")
+    gram = torch.empty((bsz, m, m), dtype=points.dtype, device=dev)
+    chol = torch.empty_like(gram) if want_chol else None
+    if gram.numel() == 0:
+        return gram, chol
+    _build.launch("build_stage",
+                  f"gram_chol_{_build.SUFFIX[points.dtype]}", dev, points,
+                  gram, chol, bsz, m, d, _build.EPILOGUE_KIND[name],
+                  float(sigma), float(jitter * m))
+    build_gram.launches += 1
+    return gram, chol
+
+
+def build_cross(
+    points: torch.Tensor, landmarks: torch.Tensor, linv: torch.Tensor, *,
+    name: str = "gaussian", sigma: float = 1.0,
+) -> torch.Tensor:
+    """(B, m, d), (B, r, d), (B, r, r) -> U (B, m, r) = K(P, Z) Linv^T Linv."""
+    _check_name(name)
+    if (points.ndim != 3 or landmarks.ndim != 3 or linv.ndim != 3
+            or landmarks.shape[0] != points.shape[0]
+            or landmarks.shape[2] != points.shape[2]
+            or linv.shape != (points.shape[0], landmarks.shape[1],
+                              landmarks.shape[1])):
+        raise ValueError(
+            "build_cross needs points (B, m, d), landmarks (B, r, d) and "
+            f"linv (B, r, r); got {tuple(points.shape)}, "
+            f"{tuple(landmarks.shape)}, {tuple(linv.shape)}")
+    dev = _build.cuda_device("build_cross", points, landmarks, linv)
+    if dev is None:
+        return build_cross_ref(points, landmarks, linv, name=name,
+                               sigma=sigma)
+    bsz, m, d = points.shape
+    r = landmarks.shape[1]
+    out = torch.empty((bsz, m, r), dtype=points.dtype, device=dev)
+    if out.numel() == 0:
+        return out
+    bm = cross_rows(m, r, points.element_size())
+    _build.launch("build_stage",
+                  f"cross_solve_{_build.SUFFIX[points.dtype]}", dev, points,
+                  landmarks, linv, out, bsz, m, r, d, bm,
+                  _build.EPILOGUE_KIND[name], float(sigma))
+    build_cross.launches += 1
+    return out
+
+
+build_gram.launches = 0
+build_cross.launches = 0

@@ -1,1 +1,3 @@
-"""HCK leaf stages: ``leaf_project`` (B6) as a CUDA kernel and its plain version."""
+"""HCK leaf stages: ``leaf_matvec`` (B5), ``leaf_solve`` (B4),
+``leaf_factor`` (B3) and ``leaf_project`` (B6) as CUDA kernels and their
+plain versions."""

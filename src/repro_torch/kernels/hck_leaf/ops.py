@@ -1,30 +1,21 @@
-"""Wrapper of the ``hck_leaf_project`` CUDA kernel (``csrc/hck_leaf_project.cu``).
+"""Wrappers of the leaf-stage CUDA kernels.
 
-On CPU tensors the wrapper computes the plain version
-(:func:`repro_torch.kernels.hck_leaf.ref.hck_leaf_project_ref`); on CUDA
-tensors it launches the kernel or raises.  ``leaf_project.launches``
-counts kernel launches.
+``leaf_project`` (B6, ``csrc/hck_leaf_project.cu``), ``leaf_factor`` (B3,
+``csrc/leaf_factor.cu``), ``leaf_matvec`` (B5, ``csrc/leaf_matvec.cu``)
+and ``leaf_solve`` (B4, ``csrc/leaf_solve.cu``).  On CPU tensors each
+wrapper computes its plain version (:mod:`repro_torch.kernels.hck_leaf.
+ref`); on CUDA tensors it launches the kernel or raises.  Each wrapper's
+``launches`` counts its kernel launches.
 """
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.hck_leaf.ref import hck_leaf_project_ref
-
-_SYMBOLS = {torch.float32: "hck_leaf_project_f32",
-            torch.float64: "hck_leaf_project_f64"}
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-
-
-def _entry(dtype: torch.dtype):
-    lib = _build.load("hck_leaf_project")
-    fn = getattr(lib, _SYMBOLS[dtype])
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    return lib, fn
+from repro_torch.kernels.hck_leaf.ref import (hck_leaf_factor_ref,
+                                              hck_leaf_matvec_ref,
+                                              hck_leaf_project_ref,
+                                              hck_leaf_solve_ref)
 
 
 def leaf_project(u: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -32,29 +23,119 @@ def leaf_project(u: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if u.ndim != 3 or b.ndim != 3 or u.shape[:2] != b.shape[:2]:
         raise ValueError(f"leaf_project needs u (P, n0, r) and b (P, n0, k); "
                          f"got {tuple(u.shape)} and {tuple(b.shape)}")
-    if u.device.type == "cpu" and b.device.type == "cpu":
+    dev = _build.cuda_device("leaf_project", u, b)
+    if dev is None:
         return hck_leaf_project_ref(u, b)
-    if u.device.type != "cuda" or b.device != u.device:
-        raise ValueError(f"leaf_project needs both tensors on one CUDA device; "
-                         f"got {u.device} and {b.device}")
-    if u.dtype not in _SYMBOLS or b.dtype != u.dtype:
-        raise TypeError(f"leaf_project kernel takes float32 or float64 of one "
-                        f"dtype; got {u.dtype} and {b.dtype}")
-    if not (u.is_contiguous() and b.is_contiguous()):
-        raise ValueError("leaf_project kernel needs contiguous tensors")
     p, n0, r = u.shape
     k = b.shape[2]
-    c = torch.empty((p, r, k), dtype=u.dtype, device=u.device)
+    c = torch.empty((p, r, k), dtype=u.dtype, device=dev)
     if c.numel() == 0:
         return c
-    lib, fn = _entry(u.dtype)
-    with torch.cuda.device(u.device):
-        stream = torch.cuda.current_stream(u.device).cuda_stream
-        code = fn(u.data_ptr(), b.data_ptr(), c.data_ptr(), p, n0, r, k,
-                  stream)
-    _build.check_launch(lib, "hck_leaf_project", code)
+    _build.launch("hck_leaf_project",
+                  f"hck_leaf_project_{_build.SUFFIX[u.dtype]}", dev, u, b, c,
+                  p, n0, r, k)
     leaf_project.launches += 1
     return c
 
 
+def factor_smem(n0: int, itemsize: int) -> int:
+    """Shared memory of one leaf_factor block: the (n0, n0 + 1) tile and a
+    row buffer."""
+    return (n0 * (n0 + 1) + n0) * itemsize
+
+
+def solve_smem(n0: int, r: int, k: int, itemsize: int) -> int:
+    """Shared memory of one leaf_solve block: b, t and x (n0 rows) and c and
+    Sig c (r rows), each of row stride k | 1."""
+    return (3 * n0 + 2 * r) * (k | 1) * itemsize
+
+
+def leaf_factor(dleaf: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(P, n0, n0) SPD -> (L, L^-1), both (P, n0, n0) lower triangular."""
+    if dleaf.ndim != 3 or dleaf.shape[1] != dleaf.shape[2]:
+        raise ValueError(f"leaf_factor needs dleaf (P, n0, n0); got "
+                         f"{tuple(dleaf.shape)}")
+    dev = _build.cuda_device("leaf_factor", dleaf)
+    if dev is None:
+        return hck_leaf_factor_ref(dleaf)
+    p, n0, _ = dleaf.shape
+    _build.check_smem("leaf_factor", factor_smem(n0, dleaf.element_size()),
+                      f"an ({n0}, {n0}) leaf tile")
+    lo, linv = torch.empty_like(dleaf), torch.empty_like(dleaf)
+    if lo.numel() == 0:
+        return lo, linv
+    _build.launch("leaf_factor",
+                  f"leaf_factor_{_build.SUFFIX[dleaf.dtype]}", dev, dleaf, lo,
+                  linv, p, n0)
+    leaf_factor.launches += 1
+    return lo, linv
+
+
+def leaf_matvec(adiag: torch.Tensor, u: torch.Tensor,
+                b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """y = A b, c = U^T b per leaf: (P,n0,n0),(P,n0,r),(P,n0,k) ->
+    (P,n0,k),(P,r,k)."""
+    if (adiag.ndim != 3 or u.ndim != 3 or b.ndim != 3
+            or adiag.shape != (b.shape[0], b.shape[1], b.shape[1])
+            or u.shape[:2] != b.shape[:2]):
+        raise ValueError(
+            "leaf_matvec needs adiag (P, n0, n0), u (P, n0, r) and b "
+            f"(P, n0, k); got {tuple(adiag.shape)}, {tuple(u.shape)}, "
+            f"{tuple(b.shape)}")
+    dev = _build.cuda_device("leaf_matvec", adiag, u, b)
+    if dev is None:
+        return hck_leaf_matvec_ref(adiag, u, b)
+    p, n0, k = b.shape
+    r = u.shape[2]
+    _build.check_smem("leaf_matvec", n0 * (k | 1) * b.element_size(),
+                      f"a ({n0}, {k}) right-hand side")
+    y = torch.empty_like(b)
+    c = torch.empty((p, r, k), dtype=b.dtype, device=dev)
+    if y.numel() == 0:
+        return y, c.zero_()
+    _build.launch("leaf_matvec", f"leaf_matvec_{_build.SUFFIX[b.dtype]}", dev,
+                  adiag, u, b, y, c, p, n0, r, k)
+    leaf_matvec.launches += 1
+    return y, c
+
+
+def leaf_solve(linv: torch.Tensor, u: torch.Tensor, sig: torch.Tensor,
+               b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x = Linv^T Linv b + U Sig U^T b, c = U^T b per leaf.
+
+    (P,n0,n0),(P,n0,r),(S,r,r),(P,n0,k) -> (P,n0,k),(P,r,k); ``sig`` has
+    one block per leaf (S = P) or one per sibling pair (S = P/2, read in
+    place by both leaves).
+    """
+    if any(t.ndim != 3 for t in (linv, u, sig, b)):
+        raise ValueError("leaf_solve needs 3-D linv, u, sig and b")
+    p, n0, k = b.shape
+    r = u.shape[2]
+    if (linv.shape != (p, n0, n0) or u.shape[:2] != (p, n0)
+            or sig.shape[1:] != (r, r) or p not in (sig.shape[0],
+                                                    2 * sig.shape[0])):
+        raise ValueError(
+            "leaf_solve needs linv (P, n0, n0), u (P, n0, r), sig (P or "
+            "P/2, r, r) and b (P, n0, k); got "
+            f"{tuple(linv.shape)}, {tuple(u.shape)}, {tuple(sig.shape)}, "
+            f"{tuple(b.shape)}")
+    dev = _build.cuda_device("leaf_solve", linv, u, sig, b)
+    if dev is None:
+        return hck_leaf_solve_ref(linv, u, sig, b)
+    _build.check_smem("leaf_solve", solve_smem(n0, r, k, b.element_size()),
+                      f"n0={n0}, r={r}, k={k}")
+    x = torch.empty_like(b)
+    c = torch.empty((p, r, k), dtype=b.dtype, device=dev)
+    if x.numel() == 0:
+        return x, c.zero_()
+    shift = 0 if sig.shape[0] == p else 1
+    _build.launch("leaf_solve", f"leaf_solve_{_build.SUFFIX[b.dtype]}", dev,
+                  linv, u, sig, b, x, c, p, n0, r, k, shift)
+    leaf_solve.launches += 1
+    return x, c
+
+
 leaf_project.launches = 0
+leaf_factor.launches = 0
+leaf_matvec.launches = 0
+leaf_solve.launches = 0

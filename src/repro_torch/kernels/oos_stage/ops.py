@@ -15,23 +15,9 @@ from repro_torch.core.kernels_fn import KERNEL_METRIC
 from repro_torch.kernels import _build
 from repro_torch.kernels.oos_stage.ref import oos_contract_ref
 
-_SYMBOLS = {torch.float32: "oos_contract_f32",
-            torch.float64: "oos_contract_f64"}
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 2
-             + [ctypes.c_int] * 6 + [ctypes.c_double, ctypes.c_void_p])
-#: kernel kinds of csrc/kernel_epilogue.cuh
-_KIND = {"gaussian": 0, "imq": 1, "laplace": 2}
 #: dynamic shared memory per block, kept under the 48 KB a launch gets
 #: without an opt-in attribute
 SMEM_BUDGET = 48 * 1024
-
-
-def _entry(dtype: torch.dtype):
-    lib = _build.load("oos_contract")
-    fn = getattr(lib, _SYMBOLS[dtype])
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    return lib, fn
 
 
 def stage_rows(m: int, d: int, itemsize: int,
@@ -78,18 +64,13 @@ def oos_contract(
     if all(t.device.type == "cpu" for t in tensors):
         return oos_contract_ref(points, weights, queries, point_index,
                                 weight_index, name=name, sigma=sigma)
-    dev = points.device
-    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+    dev = _build.cuda_device("oos_contract", points, weights, queries)
+    if any(t.device != dev for t in (point_index, weight_index)):
         raise ValueError("oos_contract needs all tensors on one CUDA device; "
                          f"got {[str(t.device) for t in tensors]}")
-    if points.dtype not in _SYMBOLS or any(
-            t.dtype != points.dtype for t in (weights, queries)):
-        raise TypeError("oos_contract kernel takes float32 or float64 of one "
-                        f"dtype; got {points.dtype}, {weights.dtype}, "
-                        f"{queries.dtype}")
     if point_index.dtype != torch.int64 or weight_index.dtype != torch.int64:
         raise TypeError("oos_contract kernel takes int64 indices")
-    if not all(t.is_contiguous() for t in tensors):
+    if not (point_index.is_contiguous() and weight_index.is_contiguous()):
         raise ValueError("oos_contract kernel needs contiguous tensors")
     bp, m, d = points.shape
     bw, k = weights.shape[0], weights.shape[2]
@@ -98,14 +79,11 @@ def oos_contract(
     out = torch.empty((q, k), dtype=points.dtype, device=dev)
     if q == 0 or k == 0:
         return out
-    lib, fn = _entry(points.dtype)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = fn(points.data_ptr(), weights.data_ptr(), queries.data_ptr(),
-                  point_index.data_ptr(), weight_index.data_ptr(),
-                  out.data_ptr(), bp, bw, q, m, d, k, rows, _KIND[name],
-                  float(sigma), stream)
-    _build.check_launch(lib, "oos_contract", code)
+    _build.launch("oos_contract",
+                  f"oos_contract_{_build.SUFFIX[points.dtype]}", dev, points,
+                  weights, queries, point_index, weight_index, out,
+                  ctypes.c_longlong(bp), ctypes.c_longlong(bw), q, m, d, k,
+                  rows, _build.EPILOGUE_KIND[name], float(sigma))
     oos_contract.launches += 1
     return out
 

@@ -53,6 +53,9 @@ class SolveConfig:
                 "cuda" kernel, CPU -> "torch" plain version); "torch" or
                 "cuda" force a backend and raise on a tensor on the other
                 device.
+    refine_steps  iterative-refinement rounds of
+                :func:`repro_torch.core.hmatrix.solve_with_inverse` (each
+                is one matvec and one inverse apply).
     leaf_block  rows of a point block that the ``oos_contract`` kernel
                 stages in shared memory per step (None = the largest that
                 fits its shared-memory budget).
@@ -62,6 +65,7 @@ class SolveConfig:
     """
 
     backend: str = "auto"
+    refine_steps: int = 2
     leaf_block: int | None = None
     precision: str | None = None
 
@@ -74,6 +78,9 @@ class SolveConfig:
                 f"precision {self.precision!r} not in {PRECISIONS} (or None)")
         if self.leaf_block is not None and self.leaf_block < 1:
             raise ValueError(f"leaf_block must be >= 1, got {self.leaf_block}")
+        if self.refine_steps < 0:
+            raise ValueError(
+                f"refine_steps must be >= 0, got {self.refine_steps}")
 
 
 DEFAULT_CONFIG = SolveConfig()
@@ -144,8 +151,94 @@ def resolve_backend(config: SolveConfig | None, stage: str,
     return backend
 
 
-# Stages of this slice.  Lazy imports keep the kernel packages (and their
-# builds) out of an import of the registry.
+# Stages of the ported slices.  Lazy imports keep the kernel packages (and
+# their builds) out of an import of the registry.
+
+@register("build_gram", "torch")
+def _build_gram_torch(points, *, name="gaussian", sigma=1.0, jitter=0.0,
+                      want_chol=True):
+    """(B,m,d) -> gram (B,m,m) + jitter*m I [, lower Cholesky], plain."""
+    from repro_torch.kernels.build_stage.ref import build_gram_ref
+
+    return build_gram_ref(points, name=name, sigma=sigma, jitter=jitter,
+                          want_chol=want_chol)
+
+
+@register("build_gram", "cuda")
+def _build_gram_cuda(points, *, name="gaussian", sigma=1.0, jitter=0.0,
+                     want_chol=True):
+    """(B,m,d) -> gram (B,m,m) + jitter*m I [, lower Cholesky], CUDA."""
+    from repro_torch.kernels.build_stage.ops import build_gram
+
+    return build_gram(points, name=name, sigma=sigma, jitter=jitter,
+                      want_chol=want_chol)
+
+
+@register("build_cross", "torch")
+def _build_cross_torch(points, landmarks, linv, *, name="gaussian",
+                       sigma=1.0):
+    """(B,m,d),(B,r,d),(B,r,r) -> K(P,Z) Linv^T Linv (B,m,r), plain."""
+    from repro_torch.kernels.build_stage.ref import build_cross_ref
+
+    return build_cross_ref(points, landmarks, linv, name=name, sigma=sigma)
+
+
+@register("build_cross", "cuda")
+def _build_cross_cuda(points, landmarks, linv, *, name="gaussian",
+                      sigma=1.0):
+    """(B,m,d),(B,r,d),(B,r,r) -> K(P,Z) Linv^T Linv (B,m,r), CUDA."""
+    from repro_torch.kernels.build_stage.ops import build_cross
+
+    return build_cross(points, landmarks, linv, name=name, sigma=sigma)
+
+
+@register("leaf_factor", "torch")
+def _leaf_factor_torch(dleaf):
+    """(P,n0,n0) SPD -> (L, L^-1), both lower, plain version."""
+    from repro_torch.kernels.hck_leaf.ref import hck_leaf_factor_ref
+
+    return hck_leaf_factor_ref(dleaf)
+
+
+@register("leaf_factor", "cuda")
+def _leaf_factor_cuda(dleaf):
+    """(P,n0,n0) SPD -> (L, L^-1), both lower, CUDA kernel."""
+    from repro_torch.kernels.hck_leaf.ops import leaf_factor
+
+    return leaf_factor(dleaf)
+
+
+@register("leaf_matvec", "torch")
+def _leaf_matvec_torch(adiag, u, b):
+    """(P,n0,n0),(P,n0,r),(P,n0,k) -> y = A b, c = U^T b, plain version."""
+    from repro_torch.kernels.hck_leaf.ref import hck_leaf_matvec_ref
+
+    return hck_leaf_matvec_ref(adiag, u, b)
+
+
+@register("leaf_matvec", "cuda")
+def _leaf_matvec_cuda(adiag, u, b):
+    """(P,n0,n0),(P,n0,r),(P,n0,k) -> y = A b, c = U^T b, CUDA kernel."""
+    from repro_torch.kernels.hck_leaf.ops import leaf_matvec
+
+    return leaf_matvec(adiag, u, b)
+
+
+@register("leaf_solve", "torch")
+def _leaf_solve_torch(linv, u, sig, b):
+    """x = Linv^T Linv b + U Sig U^T b, c = U^T b, plain version."""
+    from repro_torch.kernels.hck_leaf.ref import hck_leaf_solve_ref
+
+    return hck_leaf_solve_ref(linv, u, sig, b)
+
+
+@register("leaf_solve", "cuda")
+def _leaf_solve_cuda(linv, u, sig, b):
+    """x = Linv^T Linv b + U Sig U^T b, c = U^T b, CUDA kernel."""
+    from repro_torch.kernels.hck_leaf.ops import leaf_solve
+
+    return leaf_solve(linv, u, sig, b)
+
 
 @register("leaf_project", "torch")
 def _leaf_project_torch(u, b):

@@ -46,11 +46,13 @@ def _close(got, want, rtol):
     assert np.abs(got - want).max() <= rtol * scale, np.abs(got - want).max()
 
 
-def flatten_model(factors, plan, alpha=None, classes=None):
+def flatten_model(factors, plan, alpha=None, classes=None, inverse=None,
+                  leaf_lo=None):
     """The reference's model arrays as the flat dict repro_torch.convert reads."""
     arrays = {"x_sorted": factors.x_sorted, "perm": factors.tree.perm,
               "u": factors.u, "adiag": factors.adiag,
-              "plan.w_leaf": plan.w_leaf, "plan.c_tilde": plan.c_tilde}
+              "plan.w_leaf": plan.w_leaf, "plan.c_tilde": plan.c_tilde,
+              "leaf_lo": leaf_lo}
     for field in ("directions", "thresholds"):
         for i, v in enumerate(getattr(factors.tree, field)):
             arrays[f"{field}/{i}"] = v
@@ -63,6 +65,12 @@ def flatten_model(factors, plan, alpha=None, classes=None):
         arrays["alpha"] = alpha
     if classes is not None:
         arrays["classes"] = classes
+    if inverse is not None:
+        for field in ("adiag", "u", "logabsdet", "linv"):
+            arrays[f"inverse.{field}"] = getattr(inverse, field)
+        for field in ("sigma", "w"):
+            for i, v in enumerate(getattr(inverse, field)):
+                arrays[f"inverse.{field}/{i}"] = v
     return {k: np.asarray(v) for k, v in arrays.items() if v is not None}
 
 
@@ -265,7 +273,7 @@ def test_registry_stages_and_backends():
     with pytest.raises(ValueError, match="precision"):
         registry.SolveConfig(precision="bf16")
     with pytest.raises(KeyError, match="no implementation"):
-        registry.get_impl("leaf_solve", "cuda")
+        registry.get_impl("leaf_update", "cuda")
     assert registry.get_impl("oos_walk", "torch") is registry.get_impl(
         "oos_local", "torch")
 
