@@ -23,11 +23,24 @@ result.  Phases, each of which raises on failure:
               (warmup, 16 requests of mixed sizes and one of all 116,203
               test queries), the launch counts read around exactly this
               run, and its test accuracy;
-  7. timing   kernel, plain-version and library times at the fit and
-              serving shapes, beside each kernel's bound;
-  8. profile  torch.profiler over one full-width fit and over five
-              4096-query requests: device time by kernel, and the device's
-              busy share.
+  7. sweep    the sigma x lambda sweep engine at covtype width:
+              ``build_sweep_plan`` once, ``gp.mle_grid`` over the 4 x 4
+              grid, ``krr.fit_path`` over the 4 lambdas scored on the test
+              set, the best model served for a few requests, ``kpca_fit``
+              and a transform; the launch counts read around exactly this
+              path, each stage timed;
+  8. gates    the sweep's kernels B8 and B9 against their plain versions
+              (covtype and small shapes, f32 and f64), the sweep's factors
+              against ``build_hck``'s, ``invert_multi`` against
+              ``invert_with_leaf``, the NLL surface against the dense
+              oracle (n = 4,096) and against the naive per-point path (full
+              width), ``fit_path`` against ``krr.fit``, KPCA against its
+              dense oracle;
+  9. timing   kernel, plain-version and library times at the fit, serving
+              and sweep shapes, beside each kernel's bound;
+ 10. profile  torch.profiler over one full-width fit, over five 4096-query
+              requests and over one sigma row of the NLL surface: device
+              time by kernel, and the device's busy share.
 
 The data is synthetic (seeded), at covtype's size and width, with seven
 labels from a seeded nonlinear function of x; its accuracy says nothing of
@@ -58,6 +71,10 @@ RANK, LEAF, SIGMA, JITTER, LAM = 128, 128, 1.0, 1e-5, 1e-2
 LEVELS = 12                        # 464,809 padded to 128 * 2**12 = 524,288
 EXACT_N, EXACT_LEVELS = 4096, 5    # the dense-oracle fit: 32 leaves of 128
 SEED = 0
+# The sweep grid: the reference's benchmarks/bench_sweep.py defaults.
+SIGMAS = (0.5, 1.0, 2.0, 4.0)
+LAMS = (1e-3, 1e-2, 1e-1, 1.0)
+KPCA_DIM, KPCA_ITERS = 8, 50
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bytes/s and
 # float32 FLOP/s outside the tensor cores.
@@ -119,6 +136,8 @@ def kernel_wrappers() -> dict:
 
     return {"gram_chol": build_ops.build_gram,
             "cross_solve": build_ops.build_cross,
+            "gram_chol_dist": build_ops.build_gram_dist,
+            "cross_solve_dist": build_ops.build_cross_dist,
             "leaf_factor": leaf_ops.leaf_factor,
             "leaf_solve": leaf_ops.leaf_solve,
             "leaf_matvec": leaf_ops.leaf_matvec,
@@ -133,6 +152,7 @@ def plain_versions() -> list:
     from repro_torch.kernels.oos_stage import ref as oos_ref
 
     return [build_ref.build_gram_ref, build_ref.build_cross_ref,
+            build_ref.build_gram_dist_ref, build_ref.build_cross_dist_ref,
             leaf_ref.hck_leaf_factor_ref, leaf_ref.hck_leaf_solve_ref,
             leaf_ref.hck_leaf_matvec_ref, leaf_ref.hck_leaf_project_ref,
             oos_ref.oos_contract_ref]
@@ -191,6 +211,20 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def stage_timer(stages: dict):
+    """``timed(stage, fn)``: run ``fn()`` between two synchronisations,
+    record its wall seconds in ``stages[stage]`` and return its result."""
+    def timed(stage, fn):
+        sync()
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        stages[stage] = time.perf_counter() - t
+        return out
+
+    return timed
+
+
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
     """Least time for the work on the card, and which rate bounds it."""
     tb, tf = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
@@ -225,6 +259,26 @@ def cross_cost(points, landmarks, linv):
     s = points.element_size()
     nbytes = s * (b * m * d + b * r * d + b * r * r + b * m * r)
     return nbytes, kernel_flops(b * m * r, b * (m + r), d) + 2 * b * m * r * r
+
+
+def gram_dist_cost(dist, want_chol):
+    """gram_chol_dist / gram_dist: the cached distance tile read once, the
+    Gram (and the factor) written once; the epilogue on the m(m + 1)/2
+    distinct entries of each symmetric tile, the jitter on its diagonal and
+    m^3 / 3 for the factor.  No distance flops: the distances are cached."""
+    b, m, _ = dist.shape
+    nbytes = dist.element_size() * b * m * m * (3 if want_chol else 2)
+    flops = b * m * (m + 1) // 2 + b * m
+    return nbytes, flops + (b * m ** 3 / 3 if want_chol else 0)
+
+
+def cross_dist_cost(dist, linv):
+    """cross_solve_dist: D and Linv read once, U written once; the
+    epilogue per entry and, per row, two products with the lower
+    triangular Linv of r(r + 1)/2 multiply-adds each.  No distance flops."""
+    b, m, r = dist.shape
+    nbytes = dist.element_size() * (2 * b * m * r + b * r * r)
+    return nbytes, b * m * r + 2 * b * m * r * (r + 1)
 
 
 def factor_cost(dleaf):
@@ -537,6 +591,7 @@ def phase_fit(dev) -> dict:
     peak = torch.cuda.max_memory_allocated() / 2**30
 
     expected = {"gram_chol": LEVELS + 1, "cross_solve": LEVELS,
+                "gram_chol_dist": 0, "cross_solve_dist": 0,
                 "leaf_factor": 1, "leaf_solve": 3, "leaf_matvec": 3,
                 "hck_leaf_project": 1, "oos_contract": 0}
     require(launches == expected,
@@ -555,15 +610,8 @@ def phase_fit(dev) -> dict:
 
     # the same fit, stage by stage, from the same generator seed
     stages = {}
+    timed = stage_timer(stages)
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-
-    def timed(stage, fn):
-        sync()
-        t = time.perf_counter()
-        out = fn()
-        sync()
-        stages[stage] = time.perf_counter() - t
-        return out
 
     xp, yp, _ = timed("pad_points", lambda: pad_points(
         x, labels, LEAF, LEVELS, generator=gen))
@@ -857,6 +905,563 @@ def phase_serve(fit) -> dict:
             "p50_ms": p50, "p99_ms": p99}
 
 
+def after_padding(fit, dev) -> torch.Generator:
+    """A generator in the state krr.fit's has after it padded phase 3's
+    data: what it draws next are the fit's (and the plan's) tree and
+    landmarks."""
+    from repro_torch.core.partition import pad_points
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    pad_points(fit["x"], fit["labels"], LEAF, LEVELS, generator=gen)
+    return gen
+
+
+def sweep_timing(sw, res) -> list[dict]:
+    """Phase 9, sweep: B8 and B9 per launch at sigma 1, summed per sigma,
+    beside their bounds and plain times; B3's stacked launch at G = 4
+    against four single launches."""
+    from repro_torch.core import hmatrix
+    from repro_torch.kernels.build_stage import ops as bops
+    from repro_torch.kernels.build_stage import ref as bref
+    from repro_torch.kernels.hck_leaf import ops as lops
+    from repro_torch.kernels.hck_leaf import ref as lref
+
+    args = sweep_launches(sw["plan"], sw["f1"])
+    src, tpu = "src/repro_torch/csrc/", "src/repro/kernels/"
+    sl, gl = sw["launches"], sw["grid_launches"]
+
+    def per_sigma(kernel, plain, launch_args, cost, reps):
+        ms = [time_ms(lambda a=a: kernel(*a), reps) for a in launch_args]
+        pl = [time_ms(lambda a=a: plain(*a), reps) for a in launch_args]
+        bd = [bound_ms(*cost(*a)) for a in launch_args]
+        return ms, pl, bd
+
+    def part(ms, pl, bd):
+        return {"ms": sum(ms), "plain_ms": sum(pl),
+                "bound_ms": sum(b[0] for b in bd)}
+
+    g = lambda d, c: bops.build_gram_dist(d, sigma=SIGMA, jitter=JITTER,
+                                          want_chol=c)
+    gp = lambda d, c: bref.build_gram_dist_ref(d, sigma=SIGMA, jitter=JITTER,
+                                               want_chol=c)
+    ms, pl, bd = per_sigma(g, gp, args["gram"], gram_dist_cost, 5)
+    records = [kernel_record(
+        "gram_chol_dist", src + "build_dist.cu",
+        tpu + "build_stage/build_stage.py:215", sl["gram_chol_dist"],
+        res["gram_chol_dist"], sum(ms), sum(pl),
+        (sum(b[0] for b in bd), max(bd, key=lambda b: b[0])[1]),
+        unit=f"one sigma: {len(ms)} launches",
+        launches_per_mle_grid=gl["gram_chol_dist"],
+        sigma_levels=part(ms[:-1], pl[:-1], bd[:-1]),
+        sigma_largest_level=part(ms[-2:-1], pl[-2:-1], bd[-2:-1]),
+        adiag=part(ms[-1:], pl[-1:], bd[-1:]))]
+    c = lambda d, li: bops.build_cross_dist(d, li, sigma=SIGMA)
+    cp = lambda d, li: bref.build_cross_dist_ref(d, li, sigma=SIGMA)
+    ms, pl, bd = per_sigma(c, cp, args["cross"], cross_dist_cost, 5)
+    records.append(kernel_record(
+        "cross_solve_dist", src + "build_dist.cu",
+        tpu + "build_stage/build_stage.py:254", sl["cross_solve_dist"],
+        res["cross_solve_dist"], sum(ms), sum(pl),
+        (sum(b[0] for b in bd), max(bd, key=lambda b: b[0])[1]),
+        unit=f"one sigma: {len(ms)} launches",
+        launches_per_mle_grid=gl["cross_solve_dist"],
+        u=part(ms[:1], pl[:1], bd[:1]), w_levels=part(ms[1:], pl[1:], bd[1:]),
+        w_largest_level=part(ms[-1:], pl[-1:], bd[-1:])))
+    for rec in records:
+        say(f"[9 timing] {rec['name']} ({rec['unit']}): kernel "
+            f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, library "
+            f"{rec['library_ms']} ms, bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']}), launches {rec['launches']} on the sweep "
+            f"path, {rec['launches_per_mle_grid']} per mle_grid")
+        for key in ("sigma_levels", "sigma_largest_level", "adiag", "u",
+                    "w_levels", "w_largest_level"):
+            if key in rec:
+                p = rec[key]
+                say(f"[9 timing]   {rec['name']} {key}: kernel "
+                    f"{p['ms']:.4f} ms, plain {p['plain_ms']:.4f} ms, bound "
+                    f"{p['bound_ms']:.4f} ms")
+    # B3 stacked over the grid (invert_multi) against one launch per ridge
+    f = sw["f1"]
+    eye = torch.eye(LEAF, device=f.adiag.device)
+    ridges = torch.tensor(LAMS, device=f.adiag.device)
+    dleaf = (hmatrix._leaf_schur(f)[None] + ridges[:, None, None, None]
+             * eye).reshape(len(LAMS) * f.num_leaves, LEAF, LEAF)
+    singles = dleaf.view(len(LAMS), f.num_leaves, LEAF, LEAF)
+    stacked = time_ms(lambda: lops.leaf_factor(dleaf), 5)
+    loop = time_ms(lambda: [lops.leaf_factor(d) for d in singles], 5)
+    plain = time_ms(lambda: lref.hck_leaf_factor_ref(dleaf), 3)
+    bound = bound_ms(*factor_cost(dleaf))
+    say(f"[9 timing] leaf_factor stacked over G={len(LAMS)} ridges "
+        f"({tuple(dleaf.shape)}): one launch {stacked:.4f} ms, {len(LAMS)} "
+        f"single launches {loop:.4f} ms, plain {plain:.4f} ms, bound "
+        f"{bound[0]:.4f} ms ({bound[1]})")
+    records[0]["leaf_factor_stacked"] = {
+        "G": len(LAMS), "ms": stacked, "single_launches_ms": loop,
+        "plain_ms": plain, "bound_ms": bound[0]}
+    return records
+
+
+def sweep_launches(plan, f):
+    """The arguments of every B8 and B9 launch of one sweep_factors pass on
+    ``plan`` at the bandwidth of factors ``f``: gram_chol_dist per level
+    (Sigma), gram_dist for the leaves (Adiag), cross_solve_dist for U and
+    per level for W."""
+    from repro_torch.core.hck import sigma_linv
+
+    linv = [sigma_linv(c) for c in f.sigma_cho]
+    return {
+        "gram": [(d, True) for d in plan.lm_self] + [(plan.leaf_self, False)],
+        "cross": [(plan.leaf_cross, linv[-1].contiguous())]
+        + [(plan.lm_cross[lvl - 1], linv[lvl - 1].contiguous())
+           for lvl in range(1, plan.levels)],
+    }
+
+
+def check_gram_dist(dist, want_chol, rtol, name="gaussian", sigma=SIGMA,
+                    jitter=JITTER):
+    """B8 against its plain version on the same cached distances: the
+    Gram is one epilogue per entry (rtol also bounds the ulp that the
+    card's exp and torch's may differ by); the factor is held to the
+    Gram-family factor bound, 1e-4 relative in float32 (1e-10 in
+    float64)."""
+    from repro_torch.kernels.build_stage.ops import build_gram_dist
+    from repro_torch.kernels.build_stage.ref import build_gram_dist_ref
+
+    opts = dict(name=name, sigma=sigma, jitter=jitter, want_chol=want_chol)
+    got, want = build_gram_dist(dist, **opts), build_gram_dist_ref(dist,
+                                                                   **opts)
+    sync()
+    errs = [check_rel(f"gram_chol_dist[{name}] gram", got[0], want[0], rtol)]
+    if want_chol:
+        errs.append(check_rel(f"gram_chol_dist[{name}] chol", got[1],
+                              want[1], rtol))
+    return max(errs), float(max((g - w).abs().max() for g, w in
+                                zip(got, want) if g is not None))
+
+
+def check_cross_dist(dist, linv, rtol, name="gaussian", sigma=SIGMA):
+    """B9 against its plain version.  U = K Linv^T Linv is amplified by
+    kappa(Sigma), so, as for B2 (check_cross), the gate is the
+    componentwise bound of the two products, |dU| <= 4 (2r + 1) eps
+    |K| |Linv|^T |Linv|: 2r for the two length-r sums, 1 for the
+    epilogue's rounding (the distances are the same cached tile on both
+    sides).  In float64 also rel <= rtol (1e-10)."""
+    from repro_torch.core.kernels_fn import kernel_epilogue
+    from repro_torch.kernels.build_stage.ops import build_cross_dist
+    from repro_torch.kernels.build_stage.ref import build_cross_dist_ref
+
+    got = build_cross_dist(dist, linv, name=name, sigma=sigma)
+    want = build_cross_dist_ref(dist, linv, name=name, sigma=sigma)
+    sync()
+    require(bool(torch.isfinite(got).all()),
+            f"cross_solve_dist[{name}] finite")
+    r = linv.shape[-1]
+    kabs = kernel_epilogue(name, sigma)(dist).abs()
+    bound = (kabs @ linv.abs().mT) @ linv.abs()
+    eps = torch.finfo(dist.dtype).eps
+    err = (got - want).abs()
+    require(bool((err <= 4 * (2 * r + 1) * eps * bound).all()),
+            f"cross_solve_dist[{name}] |dU| <= 4 (2r + 1) eps "
+            "|K||Linv^T||Linv|")
+    rel = rel_max(got, want)
+    if dist.dtype == torch.float64:
+        require(rel <= rtol,
+                f"cross_solve_dist[{name}] rel {rel:.3e} <= {rtol}")
+    return rel, float(err.max())
+
+
+def nll_of(inv, y_sorted):
+    """Eq. 25 NLL through the structured inverse ``inv`` of (K + lam I),
+    the targets in tree order."""
+    from repro_torch.core import hmatrix
+
+    alpha = hmatrix.apply_inverse(inv, y_sorted)
+    n = y_sorted.shape[0]
+    return (0.5 * torch.sum(y_sorted[:, 0] * alpha[:, 0])
+            + 0.5 * inv.logabsdet + 0.5 * n * math.log(2 * math.pi))
+
+
+def matvec_gap(fa, fb, gen) -> float:
+    """The two factor sets as operators: matvec on one seeded (n, 7) block,
+    max difference relative to the largest entry."""
+    from repro_torch.core import hmatrix
+
+    b = torch.randn((fa.n, N_CLASSES), generator=gen, dtype=fa.adiag.dtype,
+                    device=fa.adiag.device)
+    return rel_max(hmatrix.matvec(fa, b), hmatrix.matvec(fb, b))
+
+
+def factors_gap(fa, fb) -> dict:
+    """Max relative gaps of Sigma, its factor (over levels) and Adiag."""
+    gaps = {field: max(rel_max(a, b) for a, b in zip(getattr(fa, field),
+                                                      getattr(fb, field)))
+            for field in ("sigma", "sigma_cho")}
+    gaps["adiag"] = rel_max(fa.adiag, fb.adiag)
+    return gaps
+
+
+def phase_sweep(fit, dev) -> dict:
+    """Phase 7: the sweep path at covtype width, counts around exactly it."""
+    from repro_torch.core import gp, kpca, krr
+    from repro_torch.core.hck import build_sweep_plan, sweep_factors
+    from repro_torch.core.kernels_fn import BaseKernel
+    from repro_torch.core.partition import pad_points
+
+    x, labels, xt, yt = fit["x"], fit["labels"], fit["xt"], fit["yt"]
+    ker = BaseKernel("gaussian", SIGMA, JITTER)
+    stages = {}
+    timed = stage_timer(stages)
+    # krr.fit's seed: the same padding, tree and landmarks as phase 3's fit
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    sizes = [1, 64, 700, 4096]
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- the sweep path: counts set to 0 just before, read just after ----
+    reset_counts()
+    t0 = time.perf_counter()
+    xp, yp, _ = timed("pad_points", lambda: pad_points(
+        x, labels, LEAF, LEVELS, generator=gen))
+    plan = timed("build_sweep_plan", lambda: build_sweep_plan(
+        xp, levels=LEVELS, rank=RANK, generator=gen))
+    target = torch.where(yp == 0, 1.0, -1.0).to(x.dtype)   # class 0 vs all
+    nll = timed("mle_grid (4 x 4)", lambda: gp.mle_grid(
+        xp, target, levels=LEVELS, rank=RANK, sigmas=SIGMAS, noises=LAMS,
+        jitter=JITTER, plan=plan))
+    grid_launches = read_counts()[0]
+    f1 = timed("sweep_factors (sigma 1)", lambda: sweep_factors(plan, ker))
+    path = timed("fit_path (4 lambdas, scored)", lambda: krr.fit_path(
+        xp, yp, kernel=ker, lams=LAMS, classification=True, factors=f1,
+        x_val=xt, y_val=yt))
+    best = timed("best() + engine", lambda: path.best())
+    served = []
+    for s in sizes:
+        served.append(timed(f"request {s}", lambda s=s: best.predict(
+            xt[:s])))
+    km = timed("kpca_fit", lambda: kpca.kpca_fit(
+        f1, ker, KPCA_DIM, iters=KPCA_ITERS,
+        generator=torch.Generator(device=dev).manual_seed(SEED + 4)))
+    emb_t = timed("kpca transform (4096)", lambda: km.transform(xt[:4096]))
+    sync()
+    t_path = time.perf_counter() - t0
+    launches, plain_calls = read_counts()
+    # ---------------------------------------------------------------------
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    expected = {"gram_chol": 0, "cross_solve": 0,
+                "gram_chol_dist": 5 * (LEVELS + 1),
+                "cross_solve_dist": 5 * LEVELS, "leaf_factor": 5,
+                "leaf_solve": 4 * len(LAMS) + 3 * len(LAMS),
+                "leaf_matvec": 3 * len(LAMS) + KPCA_ITERS + 2,
+                "hck_leaf_project": 3}
+    got = {k: v for k, v in launches.items() if k != "oos_contract"}
+    require(got == expected, f"sweep launches {got} == expected {expected}")
+    require(launches["oos_contract"] > 0, "oos_contract on the sweep path")
+    require(all(v == 0 for v in plain_calls.values()),
+            f"no plain version ran on the sweep path: {plain_calls}")
+    require(nll.shape == (len(SIGMAS), len(LAMS))
+            and bool(torch.isfinite(nll).all()), "NLL surface finite")
+    require(path.alphas.shape == (len(LAMS), LEAF << LEVELS, N_CLASSES)
+            and bool(torch.isfinite(path.alphas).all()), "path alphas")
+    g_best = int(torch.argmin(path.scores))
+    require(best.lam == LAMS[g_best], "best() is the lowest score's lambda")
+    require(all(z.shape == (s, N_CLASSES) and bool(torch.isfinite(z).all())
+                for z, s in zip(served, sizes)), "served requests")
+    require(emb_t.shape == (4096, KPCA_DIM)
+            and bool(torch.isfinite(emb_t).all())
+            and bool(torch.isfinite(km.embedding).all()), "kpca outputs")
+    say(f"[7 sweep] n={LEAF << LEVELS} levels={LEVELS} r={RANK} sigmas "
+        f"{SIGMAS} lambdas {LAMS}: the whole path {t_path:.3f} s (first "
+        f"call), peak device memory {peak:.2f} GiB")
+    say("[7 sweep] stage wall times (synchronised): " + ", ".join(
+        f"{k} {v * 1e3:.2f} ms" for k, v in stages.items()))
+    say(f"[7 sweep] launches on the sweep path: {launches} (mle_grid alone: "
+        f"{grid_launches}); plain versions called: {plain_calls}")
+    say("[7 sweep] NLL surface (rows sigma, columns lambda): "
+        + json.dumps([[float(v) for v in row] for row in nll]))
+    say(f"[7 sweep] fit_path test error per lambda "
+        f"{[round(float(v), 6) for v in path.scores]}; best lambda "
+        f"{best.lam}; kpca top eigenvalues "
+        f"{[round(float(v), 4) for v in km.evals]}")
+    return {"plan": plan, "xp": xp, "yp": yp, "target": target, "nll": nll,
+            "f1": f1, "path": path, "launches": launches,
+            "grid_launches": grid_launches, "stages": stages,
+            "t_path": t_path, "peak": peak}
+
+
+def phase_sweep_gates(fit, sw, dev) -> dict:
+    """Phase 8: every gate of the sweep; each raises on a miss."""
+    from repro_torch.core import gp, hmatrix, kpca, krr
+    from repro_torch.core.hck import (build_hck, build_sweep_plan,
+                                      landmark_indices, sweep_factors,
+                                      to_dense)
+    from repro_torch.core.kernels_fn import BaseKernel
+    from repro_torch.kernels.build_stage.ref import direct_dist
+
+    res = {}
+    plan, f1 = sw["plan"], sw["f1"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+
+    # B8 and B9 at the sweep's covtype shapes, f32
+    args = sweep_launches(plan, f1)
+    errs = [check_gram_dist(d, c, 1e-4) for d, c in args["gram"]]
+    res["gram_chol_dist"] = max(e[1] for e in errs)
+    say(f"[8 gates] gram_chol_dist Sigma of all {LEVELS} levels (with "
+        f"chol) and Adiag {tuple(plan.leaf_self.shape)}: rel "
+        f"{max(e[0] for e in errs):.3e}, max|d| {res['gram_chol_dist']:.3e} "
+        f"(tolerance 1e-4 relative) ok")
+    errs = [check_cross_dist(d, li, None) for d, li in args["cross"]]
+    res["cross_solve_dist"] = max(e[1] for e in errs)
+    say(f"[8 gates] cross_solve_dist U {tuple(plan.leaf_cross.shape)} and W "
+        f"of levels 1..{LEVELS - 1}: rel {max(e[0] for e in errs):.3e}, "
+        f"max|d| {res['cross_solve_dist']:.3e} (componentwise "
+        f"4 (2r + 1) eps |K||Linv^T||Linv|) ok")
+
+    # small shapes, f32 and f64, all three base kernels (laplace: l1 plan)
+    for dtype, rtol in ((torch.float32, 1e-4), (torch.float64, 1e-10)):
+        o = dict(dtype=dtype, device=dev)
+        for name in ("gaussian", "imq", "laplace"):
+            metric = "l1" if name == "laplace" else "l2"
+            pts = torch.randn((6, 24, 5), generator=gen, **o)
+            check_gram_dist(direct_dist(pts, pts, metric), True, rtol,
+                            name=name, jitter=1e-3)
+            check_gram_dist(direct_dist(pts, pts, metric), False, rtol,
+                            name=name, jitter=1e-3)
+            a = torch.randn((4, 16, 16), generator=gen, **o)
+            li = torch.linalg.inv(torch.linalg.cholesky(
+                a @ a.mT / 16 + torch.eye(16, **o))).contiguous()
+            q = torch.randn((4, 48, 5), generator=gen, **o)
+            z = torch.randn((4, 16, 5), generator=gen, **o)
+            check_cross_dist(direct_dist(q, z, metric), li, rtol, name=name)
+        say(f"[8 gates] {str(dtype)[6:]} small shapes: gram_chol_dist (with "
+            f"and without chol) and cross_solve_dist for gaussian, imq and "
+            f"laplace within {rtol} ok")
+    from repro_torch.kernels.build_stage.ops import build_gram_dist
+    pts = torch.randn((3, 16, 5), generator=gen, device=dev)
+    pts[1, 7] = pts[1, 2]
+    _, chol = build_gram_dist(direct_dist(pts, pts, "l2"), sigma=0.1,
+                              jitter=-1e-3)
+    sync()
+    require(bool(torch.isnan(chol[1]).any() and torch.isfinite(chol[0]).all()),
+            "gram_chol_dist: an indefinite tile gives NaN, no clamp")
+    say("[8 gates] an indefinite distance tile gives NaN in gram_chol_dist "
+        "(no pivot clamp) ok")
+
+    # sweep_factors against build_hck: n = 4,096 in f64, full width in f32
+    x64 = make_data(EXACT_N, 8, dev, torch.Generator(device=dev).manual_seed(
+        SEED + 2), dtype=torch.float64)[0]
+    ker = BaseKernel("gaussian", SIGMA, JITTER)
+    p64 = build_sweep_plan(x64, levels=EXACT_LEVELS, rank=RANK,
+                           generator=torch.Generator(device=dev).manual_seed(7))
+    fs = sweep_factors(p64, ker)
+    fb = build_hck(x64, levels=EXACT_LEVELS, rank=RANK, kernel=ker,
+                   generator=torch.Generator(device=dev).manual_seed(7))
+    require(torch.equal(fs.tree.perm, fb.tree.perm), "same tree (n=4096)")
+    gaps = factors_gap(fs, fb)
+    gaps["matvec"] = matvec_gap(fs, fb, gen)
+    for k, v in gaps.items():
+        require(v <= 1e-10, f"n=4096 f64 sweep vs build_hck {k} {v:.3e}")
+    say("[8 gates] sweep_factors vs build_hck, n=4096 f64: " + ", ".join(
+        f"{k} {v:.3e}" for k, v in gaps.items()) + " (each <= 1e-10) ok")
+    fw = fit["model"].factors
+    require(torch.equal(f1.tree.perm, fw.tree.perm)
+            and all(torch.equal(a, b) for a, b in zip(f1.landmarks,
+                                                      fw.landmarks)),
+            "the plan draws krr.fit's tree and landmarks")
+    gaps = factors_gap(f1, fw)
+    gaps["matvec"] = matvec_gap(f1, fw, gen)
+    for k, v in gaps.items():
+        require(v <= 1e-4, f"full-width f32 sweep vs build_hck {k} {v:.3e}")
+    res["sweep_vs_build"] = gaps
+    say("[8 gates] sweep_factors vs build_hck (krr.fit's factors), full "
+        "width f32: " + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+        + " (each <= 1e-4; U and W through matvec) ok")
+
+    # invert_multi against invert_with_leaf, full width
+    multi, lo_all = hmatrix.invert_multi_with_leaf(f1, LAMS)
+    ld_gap = 0.0
+    for g, lam in enumerate(LAMS):
+        one, lo = hmatrix.invert_with_leaf(f1, lam)
+        at = multi.at(g)
+        require(torch.equal(lo_all[g], lo) and torch.equal(at.linv, one.linv),
+                f"invert_multi lo and linv bit for bit at lambda {lam}")
+        require(all(t.is_contiguous() for t in (at.adiag, at.u, at.linv)),
+                "invert_multi slices contiguous")
+        ld_gap = max(ld_gap, abs(float(at.logabsdet - one.logabsdet))
+                     / abs(float(one.logabsdet)))
+        del one, lo
+    require(ld_gap <= 1e-6, f"invert_multi logabsdet rel {ld_gap:.3e}")
+    del multi, lo_all
+    say(f"[8 gates] invert_multi(f, {LAMS})[g] vs invert_with_leaf: lo and "
+        f"linv identical, logabsdet rel {ld_gap:.3e} <= 1e-6 ok")
+
+    # NLL surface at n = 4,096: f64 against the dense oracle, f32 against f64
+    xs, labels_s, _, _ = make_data(EXACT_N, 8, dev, torch.Generator(
+        device=dev).manual_seed(SEED + 6))
+    y64 = torch.where(labels_s == 0, 1.0, -1.0).double()
+    dirs = [torch.eye(D, device=dev)[(lvl + torch.arange(1 << lvl)) % D]
+            for lvl in range(EXACT_LEVELS)]
+    idx = [landmark_indices(1 << lvl, EXACT_N >> lvl, RANK, device=dev,
+                            generator=gen) for lvl in range(EXACT_LEVELS)]
+    draws = dict(directions=dirs, landmark_index=idx)
+    plans = {dt: build_sweep_plan(xs.to(dt), levels=EXACT_LEVELS, rank=RANK,
+                                  **draws) for dt in (torch.float64,
+                                                      torch.float32)}
+    surf = {dt: gp.mle_grid(xs.to(dt), y64.to(dt), levels=EXACT_LEVELS,
+                            rank=RANK, sigmas=SIGMAS, noises=LAMS,
+                            jitter=JITTER, plan=p)
+            for dt, p in plans.items()}
+    s64, s32 = surf[torch.float64], surf[torch.float32]
+    eye = torch.eye(EXACT_N, dtype=torch.float64, device=dev)
+    oracle = torch.empty_like(s64)
+    for i, sg in enumerate(SIGMAS):
+        f = sweep_factors(plans[torch.float64],
+                          BaseKernel("gaussian", sg, JITTER))
+        a = to_dense(f)
+        ys = y64[f.tree.perm]
+        for j, lam in enumerate(LAMS):
+            k = a + lam * eye
+            oracle[i, j] = (0.5 * ys @ torch.linalg.solve(k, ys)
+                            + 0.5 * torch.linalg.slogdet(k)[1]
+                            + 0.5 * EXACT_N * math.log(2 * math.pi))
+    rel64 = float(((s64 - oracle).abs() / oracle.abs()).max())
+    rel32 = float(((s32.double() - s64).abs() / s64.abs()).max())
+    require(rel64 <= 1e-8, f"f64 NLL surface vs dense oracle {rel64:.3e}")
+    require(rel32 <= 1e-4, f"f32 NLL surface vs f64 {rel32:.3e}")
+    res["nll_exact"] = (rel64, rel32)
+    say(f"[8 gates] NLL surface n={EXACT_N}, 4 x 4: f64 vs dense oracle "
+        f"(slogdet, solve of to_dense + lam I) max rel {rel64:.3e} <= 1e-8; "
+        f"f32 vs f64 max rel {rel32:.3e} <= 1e-4 ok")
+
+    # NLL surface at full width against the naive per-point path
+    nll, xp, y_t = sw["nll"], sw["xp"], sw["target"]
+    naive = torch.empty_like(nll)
+    floors = []
+    ones = torch.ones((xp.shape[0], 1), dtype=xp.dtype, device=dev)
+    for i, sg in enumerate(SIGMAS):
+        kern = BaseKernel("gaussian", sg, JITTER)
+        for j, lam in enumerate(LAMS):
+            f = build_hck(xp, levels=LEVELS, rank=RANK, kernel=kern,
+                          generator=after_padding(fit, dev))
+            inv, _ = hmatrix.invert_with_leaf(f, lam)
+            naive[i, j] = nll_of(inv, y_t[f.tree.perm][:, None])
+            del inv
+        floors.append(torch.finfo(torch.float32).eps * float(
+            torch.linalg.vector_norm(hmatrix.matvec(f, ones))
+            / math.sqrt(xp.shape[0])))
+        del f
+    rel = ((nll - naive).abs() / naive.abs()).max(dim=1).values
+    for i, sg in enumerate(SIGMAS):
+        require(float(rel[i]) <= floors[i],
+                f"full-width NLL sigma {sg}: rel {float(rel[i]):.3e} <= "
+                f"floor {floors[i]:.3e}")
+    require(torch.equal(nll.argmin(dim=1), naive.argmin(dim=1)),
+            "each row's argmin over lambda agrees with the naive path")
+    res["nll_full"] = [float(v) for v in rel]
+    say("[8 gates] full-width NLL surface vs the naive path (build_hck, "
+        "invert_with_leaf, apply_inverse per point): max rel per sigma "
+        + ", ".join(f"{sg}: {float(rel[i]):.3e} <= {floors[i]:.3e}"
+                    for i, sg in enumerate(SIGMAS))
+        + " (tolerance: the f32 noise floor eps32 ||K 1|| / ||1|| at that "
+        "sigma); argmin over lambda agrees in every row ok")
+
+    # fit_path against krr.fit at each lambda (same tree and landmarks).
+    # The padding rows are near-duplicates, so K + lam I has eigenvalues
+    # near lam and kappa ~ ||K|| / lam; at lam = 1e-3 that is ~5e7, above
+    # 1 / eps32, and neither entry point's f32 solve reaches the f32 noise
+    # floor of its residual, eps32 ||K|| ||alpha|| / ||y|| (||K|| bounded
+    # below by ||K 1|| / ||1||).  f32 gates: where krr.fit's own alpha
+    # reaches that floor, fit_path's alpha is within 1e-4 of it and reaches
+    # the floor too; where it does not, fit_path's residual in krr.fit's
+    # system is at most twice krr.fit's own.  f64 gate: the two entry points
+    # in float64, alpha by alpha within 1e-4, at every lambda.
+    from repro_torch.core import hmatrix as hm
+
+    path, fw = sw["path"], fit["model"].factors
+    norm = torch.linalg.vector_norm
+
+    def residual(f, a, y, lam):
+        return float(norm(y - hm.matvec(f, a) - lam * a) / norm(y))
+
+    ys = one_vs_all(sw["yp"], torch.float32)[fw.tree.perm]
+    knorm = float(norm(hm.matvec(fw, torch.ones((fw.n, 1), device=dev)))
+                  / math.sqrt(fw.n))
+    fit_opts = dict(kernel=ker, rank=RANK, leaf_size=LEAF,
+                    classification=True)
+    rows = []
+    for g, lam in enumerate(LAMS):
+        alpha = fit["model"].alpha if lam == LAM else krr.fit(
+            fit["x"], fit["labels"], lam=lam, generator=torch.Generator(
+                device=dev).manual_seed(SEED + 1), **fit_opts).alpha
+        floor = (torch.finfo(torch.float32).eps * knorm
+                 * float(norm(alpha) / norm(ys)))
+        gap = rel_max(path.alphas[g], alpha)
+        r_path = residual(fw, path.alphas[g], ys, lam)
+        r_fit = residual(fw, alpha, ys, lam)
+        rows.append((lam, gap, r_path, r_fit, floor))
+        if r_fit <= floor:
+            require(gap <= 1e-4 and r_path <= floor,
+                    f"f32 fit_path vs krr.fit at lambda {lam}: {rows[-1]}")
+        else:
+            require(r_path <= 2 * r_fit,
+                    f"f32 fit_path vs krr.fit at lambda {lam}: {rows[-1]}")
+    require(int(torch.argmin(path.scores)) == LAMS.index(path.best().lam),
+            "best() at the lowest score")
+    x64 = fit["x"].double()
+    gen64 = lambda: torch.Generator(device=dev).manual_seed(SEED + 1)
+    path64 = krr.fit_path(x64, fit["labels"], lams=LAMS, generator=gen64(),
+                          **fit_opts)
+    f64 = path64.factors
+    ys64 = one_vs_all(sw["yp"], torch.float64)[f64.tree.perm]
+    rows64 = [(rel_max(path64.alphas[g], krr.fit(
+        x64, fit["labels"], lam=lam, generator=gen64(), **fit_opts).alpha),
+        residual(f64, path64.alphas[g], ys64, lam))
+        for g, lam in enumerate(LAMS)]
+    del path64, f64
+    require(max(r[0] for r in rows64) <= 1e-4,
+            f"f64 fit_path vs krr.fit alphas {rows64}")
+    res["fit_path"] = {"f32": rows, "f64": rows64}
+    say("[8 gates] fit_path vs krr.fit, full width f32, per lambda: alpha "
+        "rel gap, residual ||(K + lam I) alpha - y|| / ||y|| in krr.fit's "
+        "system of fit_path's alpha and of krr.fit's, the f32 floor: "
+        + "; ".join(f"{lam}: {a:.3e}, {b:.3e}, {c:.3e}, {d:.3e}"
+                    for lam, a, b, c, d in rows)
+        + " (alpha <= 1e-4 where krr.fit reaches the floor, else residual "
+        "<= 2x krr.fit's); f64: alpha rel gap and residual " + "; ".join(
+            f"{lam}: {a:.3e}, {b:.3e}" for lam, (a, b) in zip(LAMS, rows64))
+        + " (alpha <= 1e-4); best() picks the lowest score ok")
+
+    # KPCA at n = 4,096 in f64 against the dense oracle
+    fk = sweep_factors(plans[torch.float64], ker)
+    dense = kpca.center(to_dense(fk))
+    evals_all = torch.linalg.eigvalsh(dense).flip(0)
+    emb_d, evals_d = kpca.kpca_embed_dense(dense, KPCA_DIM)
+    q = KPCA_DIM + 4
+    # subspace iteration: the top-dim Ritz subspace is off by about
+    # (lam_{q+1} / lam_{dim+1})^iters / (1 - lam_{dim+1} / lam_dim); run
+    # until that bound is 1e-8
+    rate = float(evals_all[q] / evals_all[KPCA_DIM])
+    gap = 1.0 - float(evals_all[KPCA_DIM] / evals_all[KPCA_DIM - 1])
+    iters = 5000 if rate >= 1.0 or gap <= 0.0 else min(5000, math.ceil(
+        math.log(1e-8 * gap) / math.log(rate)))
+    km = kpca.kpca_fit(fk, ker, KPCA_DIM, iters=iters, generator=gen)
+    align = float(kpca.alignment_difference(emb_d, km.embedding))
+    require(align <= 1e-6, f"KPCA alignment_difference {align:.3e} <= 1e-6")
+    # transform(x_i) = embedding_i (1 - jitter n0 / lambda): the training
+    # rows of K_hck carry the diagonal jitter, a query's k_hck(X, x) not
+    psi = km.transform(fk.x_sorted[:512])
+    want = km.embedding[:512] * (1 - JITTER * LEAF / km.evals)[None]
+    rel_t = rel_max(psi, want)
+    require(rel_t <= 1e-6, f"KPCA transform of training points {rel_t:.3e}")
+    res["kpca"] = (align, rel_t, iters)
+    say(f"[8 gates] KPCA n={EXACT_N} f64 dim {KPCA_DIM}: {iters} iterations "
+        f"(eigenvalue ratios lam13/lam9 {rate:.4f}, gap {gap:.3e}); "
+        f"alignment_difference vs the dense oracle {align:.3e} <= 1e-6; "
+        f"transform of 512 training points vs embedding (1 - jitter n0 / "
+        f"lam) rel {rel_t:.3e} <= 1e-6 ok")
+    return res
+
+
 def kernel_record(name, source, replaces, launches, err, ms, plain, bound,
                   library=None, **extra):
     """One entry of the kernels' JSON line."""
@@ -867,7 +1472,7 @@ def kernel_record(name, source, replaces, launches, err, ms, plain, bound,
 
 
 def phase_timing(fit, res, served) -> list[dict]:
-    """Phase 7: kernel, plain and library times beside the bounds."""
+    """Phase 9: kernel, plain and library times beside the bounds."""
     from repro_torch.kernels.build_stage import ops as bops
     from repro_torch.kernels.build_stage import ref as bref
     from repro_torch.kernels.hck_leaf import ops as lops
@@ -974,7 +1579,7 @@ def phase_timing(fit, res, served) -> list[dict]:
         if "library_chain_ms" in rec:
             extra = (f", chain {rec['library_chain']} "
                      f"{rec['library_chain_ms']:.4f} ms")
-        say(f"[7 timing] {rec['name']} ({rec['unit']}): kernel "
+        say(f"[9 timing] {rec['name']} ({rec['unit']}): kernel "
             f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, library "
             f"{rec['library_ms']} ms{extra}, bound {rec['bound_ms']:.4f} ms "
             f"({rec['bound_by']}), launches {rec['launches']}")
@@ -982,7 +1587,7 @@ def phase_timing(fit, res, served) -> list[dict]:
                      "oos_walk"):
             if part in rec:
                 p = rec[part]
-                say(f"[7 timing]   {rec['name']} {part}: kernel "
+                say(f"[9 timing]   {rec['name']} {part}: kernel "
                     f"{p['ms']:.4f} ms, plain {p['plain_ms']:.4f} ms, bound "
                     f"{p['bound_ms']:.4f} ms")
     return records
@@ -1011,23 +1616,23 @@ def profile_device(what: str, fn, repeats: int, top: int) -> None:
             if e.device_type == torch.autograd.DeviceType.CUDA
             and e.self_device_time_total > 0]
     if not rows:
-        say(f"[8 profile] {what}: the profiler recorded no device time: not "
+        say(f"[10 profile] {what}: the profiler recorded no device time: not "
             "measured")
         return
     rows.sort(key=lambda row: -row[1])
     dev_us = sum(row[1] for row in rows)
     launches = sum(row[2] for row in rows)
-    say(f"[8 profile] {what}: wall {wall_ms:.3f} ms unprofiled, device "
+    say(f"[10 profile] {what}: wall {wall_ms:.3f} ms unprofiled, device "
         f"{dev_us / 1e3:.3f} ms in {launches:.0f} device ops -> busy share "
         f"{dev_us / 1e3 / wall_ms:.3f}")
     for key, us, count in rows[:top]:
-        say(f"[8 profile]   {us:11.2f} us  x{count:6.1f}  {key[:90]}")
+        say(f"[10 profile]   {us:11.2f} us  x{count:6.1f}  {key[:90]}")
 
 
-def phase_profile(fit, eng) -> None:
-    """Phase 8: where one full-width fit and one 4096-query request spend
-    their device time."""
-    from repro_torch.core import krr
+def phase_profile(fit, eng, sw) -> None:
+    """Phase 10: where one full-width fit, one 4096-query request and one
+    sigma row of the NLL surface spend their device time."""
+    from repro_torch.core import gp, krr
     from repro_torch.core.kernels_fn import BaseKernel
 
     ker = BaseKernel("gaussian", SIGMA, JITTER)
@@ -1039,6 +1644,11 @@ def phase_profile(fit, eng) -> None:
     reqs = itertools.cycle([fit["xt"][i * 4096:(i + 1) * 4096]
                             for i in range(5)])
     profile_device("4096-query request", lambda: eng(next(reqs)), 5, 8)
+    profile_device("one sigma row of mle_grid (sigma 1, 4 lambdas)",
+                   lambda: gp.mle_grid(
+                       sw["xp"], sw["target"], levels=LEVELS, rank=RANK,
+                       sigmas=(SIGMA,), noises=LAMS, jitter=JITTER,
+                       plan=sw["plan"]), 1, 16)
 
 
 def main() -> int:
@@ -1061,8 +1671,10 @@ def main() -> int:
     res = phase_kernels(fit, dev)
     phase_exact(dev)
     served = phase_serve(fit)
-    kernels = phase_timing(fit, res, served)
-    phase_profile(fit, served["engine"])
+    sw = phase_sweep(fit, dev)
+    sres = phase_sweep_gates(fit, sw, dev)
+    kernels = phase_timing(fit, res, served) + sweep_timing(sw, sres)
+    phase_profile(fit, served["engine"], sw)
     say(f"[end] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,15 @@ field paths; a tuple field is spread over ``<field>/<position>`` keys:
            ``inverse.w/<i>``, ``inverse.logabsdet``, ``inverse.linv`` and
            ``leaf_lo``
 
+The sweep engine's objects carry across the same way, each through its
+own reader: a ``SweepPlan`` (``x_sorted``, ``perm``, ``directions/<l>``,
+``thresholds/<l>``, ``landmarks/<l>``, ``lm_self/<l>``, ``lm_cross/<i>``,
+``leaf_self``, ``leaf_cross``), a ``KRRPath`` (the factors, ``lams``,
+``alphas``, optional ``scores`` and ``classes``), an
+``HCKGaussianProcess`` (the factors, ``inverse.*``, ``alpha`` and
+``plan.*``) and a ``KPCAModel`` (the factors, ``embedding``, ``evals``,
+``v1``, ``a0``).
+
 Arrays keep their dtype; indices become int64.  Budgeted-rank factors
 (``rank_mask/<l>``) are not served by this slice and are refused.
 """
@@ -22,10 +31,12 @@ import numpy as np
 import torch
 
 from repro_torch import device as _device
-from repro_torch.core.hck import HCKFactors
+from repro_torch.core.gp import HCKGaussianProcess
+from repro_torch.core.hck import HCKFactors, SweepPlan
 from repro_torch.core.hmatrix import InverseFactors
 from repro_torch.core.kernels_fn import BaseKernel
-from repro_torch.core.krr import HCKRegressor
+from repro_torch.core.kpca import KPCAModel
+from repro_torch.core.krr import HCKRegressor, KRRPath
 from repro_torch.core.oos import OOSPlan
 from repro_torch.core.partition import PartitionTree
 from repro_torch.kernels.registry import SolveConfig
@@ -51,6 +62,12 @@ def _levels(arrays: dict) -> int:
     return levels
 
 
+def _tree(arrays: dict, levels: int, dev) -> PartitionTree:
+    return PartitionTree(_tensor(arrays["perm"], dev),
+                         _stack(arrays, "directions", levels, dev),
+                         _stack(arrays, "thresholds", levels, dev))
+
+
 def factors_from_arrays(arrays: dict, device=None) -> HCKFactors:
     """The port's :class:`HCKFactors` from the reference's arrays."""
     if any(key.startswith("rank_mask/") for key in arrays):
@@ -58,11 +75,9 @@ def factors_from_arrays(arrays: dict, device=None) -> HCKFactors:
                          "by this port yet")
     dev = _device.resolve(device)
     levels = _levels(arrays)
-    tree = PartitionTree(_tensor(arrays["perm"], dev),
-                         _stack(arrays, "directions", levels, dev),
-                         _stack(arrays, "thresholds", levels, dev))
     return HCKFactors(
-        x_sorted=_tensor(arrays["x_sorted"], dev), tree=tree,
+        x_sorted=_tensor(arrays["x_sorted"], dev),
+        tree=_tree(arrays, levels, dev),
         landmarks=_stack(arrays, "landmarks", levels, dev),
         sigma=_stack(arrays, "sigma", levels, dev),
         sigma_cho=_stack(arrays, "sigma_cho", levels, dev),
@@ -120,3 +135,62 @@ def regressor_from_arrays(arrays: dict, *, kernel: str, sigma: float,
         base_leaf_size=None if inverse is None else factors.leaf_size,
         inverse=inverse,
         leaf_lo=None if leaf_lo is None else _tensor(leaf_lo, dev))
+
+
+def sweep_plan_from_arrays(arrays: dict, *, metric: str,
+                           device=None) -> SweepPlan:
+    """The port's :class:`SweepPlan` from the reference plan's arrays;
+    ``metric`` is the plan's ("l2" or "l1")."""
+    dev = _device.resolve(device)
+    levels = _levels(arrays)
+    return SweepPlan(
+        _tensor(arrays["x_sorted"], dev), _tree(arrays, levels, dev),
+        _stack(arrays, "landmarks", levels, dev),
+        _stack(arrays, "lm_self", levels, dev),
+        _stack(arrays, "lm_cross", levels - 1, dev),
+        _tensor(arrays["leaf_self"], dev), _tensor(arrays["leaf_cross"], dev),
+        metric=metric)
+
+
+def path_from_arrays(arrays: dict, *, kernel: str, sigma: float,
+                     jitter: float, squeeze: bool = False,
+                     solve_config: SolveConfig | None = None,
+                     device=None) -> KRRPath:
+    """The port's :class:`KRRPath` from the reference path's arrays."""
+    dev = _device.resolve(device)
+    opt = {key: None if key not in arrays else _tensor(arrays[key], dev)
+           for key in ("scores", "classes")}
+    return KRRPath(BaseKernel(kernel, sigma=sigma, jitter=jitter),
+                   factors_from_arrays(arrays, dev),
+                   _tensor(arrays["lams"], dev), _tensor(arrays["alphas"], dev),
+                   opt["scores"], opt["classes"], squeeze=squeeze,
+                   solve_config=solve_config)
+
+
+def gp_from_arrays(arrays: dict, *, kernel: str, sigma: float, jitter: float,
+                   noise: float, solve_config: SolveConfig | None = None,
+                   device=None) -> HCKGaussianProcess:
+    """The port's :class:`HCKGaussianProcess` from the reference GP's
+    arrays (its structured inverse under ``inverse.*``)."""
+    dev = _device.resolve(device)
+    inverse = inverse_from_arrays(arrays, dev)
+    if inverse is None:
+        raise KeyError("model arrays lack 'inverse.adiag'")
+    return HCKGaussianProcess(
+        BaseKernel(kernel, sigma=sigma, jitter=jitter),
+        factors_from_arrays(arrays, dev), inverse,
+        _tensor(arrays["alpha"], dev), plan_from_arrays(arrays, dev), noise,
+        solve_config)
+
+
+def kpca_from_arrays(arrays: dict, *, kernel: str, sigma: float,
+                     jitter: float, solve_config: SolveConfig | None = None,
+                     device=None) -> KPCAModel:
+    """The port's :class:`KPCAModel` from the reference model's arrays."""
+    dev = _device.resolve(device)
+    return KPCAModel(
+        BaseKernel(kernel, sigma=sigma, jitter=jitter),
+        factors_from_arrays(arrays, dev), *(
+            _tensor(arrays[key], dev)
+            for key in ("embedding", "evals", "v1", "a0")),
+        solve_config=solve_config)

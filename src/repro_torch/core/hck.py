@@ -13,9 +13,13 @@ balanced binary tree, stacked per level:
 factor of a level from one launch of one of two registry stages --
 ``build_gram`` (Sigma and its Cholesky, and the leaf Adiag blocks) and
 ``build_cross`` (the Sigma^-1-projected U and W blocks), CUDA kernels on
-the card.  :func:`build_hck_reference` is the per-node transcription of
-Algorithm 2 and :func:`to_dense` the dense reconstruction, both oracles
-for tests.
+the card.  The hyperparameter sweep engine splits that work:
+:func:`build_sweep_plan` partitions, draws the landmarks and caches every
+bandwidth-independent distance tile once (:class:`SweepPlan`), and
+:func:`sweep_factors` instantiates the factors at one bandwidth from them
+through the ``build_gram_dist`` and ``build_cross_dist`` stages.
+:func:`build_hck_reference` is the per-node transcription of Algorithm 2
+and :func:`to_dense` the dense reconstruction, both oracles for tests.
 
 Landmarks are r distinct rows of each node's block (paper section 4.2).
 Random draws do not cross frameworks, so the partition directions and the
@@ -28,7 +32,8 @@ import dataclasses
 
 import torch
 
-from repro_torch.core.kernels_fn import BaseKernel
+from repro_torch import device as _device
+from repro_torch.core.kernels_fn import KERNEL_METRIC, BaseKernel
 from repro_torch.core.partition import PartitionTree, build_partition
 from repro_torch.kernels.registry import (DEFAULT_CONFIG, SolveConfig,
                                           get_impl, resolve_backend)
@@ -261,6 +266,202 @@ def build_hck(
     w = _transfer_ops(landmarks, sigma_li, kernel, config)
     return HCKFactors(x_sorted, tree, landmarks, sigma, sigma_cho, w, u,
                       adiag)
+
+
+# ---------------------------------------------------------------------------
+# Hyperparameter sweep engine: partition and draw once, cache the distance
+# tiles, re-instantiate the factors for every bandwidth.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class SweepPlan:
+    """Bandwidth-independent precomputation for a (sigma, lambda) grid.
+
+    Every base kernel of :data:`repro_torch.core.kernels_fn.KERNEL_METRIC`
+    is an elementwise function of a bandwidth-independent metric distance,
+    and the tree and the landmarks do not depend on the bandwidth, so a
+    grid needs one partition, one landmark draw and one distance pass:
+
+      * ``x_sorted`` / ``tree`` / ``landmarks`` -- the hierarchy
+      * ``lm_self[l]``    (2**l, r, r)       landmark self distances
+      * ``lm_cross[l-1]`` (2**(l-1), 2r, r)  sibling landmarks -> parent's
+      * ``leaf_self``     (2**L, n0, n0)     leaf self distances
+      * ``leaf_cross``    (2**(L-1), 2n0, r) sibling leaves -> parent's
+                                             landmarks
+
+    ``metric`` is "l2" (squared Euclidean: gaussian, imq) or "l1"
+    (laplace).
+    """
+
+    x_sorted: Tensor
+    tree: PartitionTree
+    landmarks: tuple           # levels 0..L-1: (2**l, r, d)
+    lm_self: tuple             # levels 0..L-1: (2**l, r, r)
+    lm_cross: tuple            # levels 1..L-1: (2**(l-1), 2r, r)
+    leaf_self: Tensor          # (2**L, n0, n0)
+    leaf_cross: Tensor         # (2**(L-1), 2 n0, r)
+    metric: str = "l2"
+
+    @property
+    def levels(self) -> int:
+        """Tree depth L."""
+        return len(self.landmarks)
+
+    @property
+    def num_leaves(self) -> int:
+        """Leaf count 2**L."""
+        return self.leaf_self.shape[0]
+
+    @property
+    def leaf_size(self) -> int:
+        """Points per leaf n0."""
+        return self.leaf_self.shape[1]
+
+    @property
+    def rank(self) -> int:
+        """Landmarks per node r."""
+        return self.landmarks[0].shape[1]
+
+
+def _plan_tiles(x_sorted: Tensor, tree: PartitionTree, landmarks: tuple,
+                metric: str, levels: int, rank: int, n0: int) -> SweepPlan:
+    """The distance tiles of a fixed hierarchy and landmark set."""
+    from repro_torch.kernels.build_stage.ref import pairwise_dist_ref
+
+    n_leaves, d = 1 << levels, x_sorted.shape[1]
+    lm_self = tuple(pairwise_dist_ref(lm, lm, metric) for lm in landmarks)
+    lm_cross = tuple(
+        pairwise_dist_ref(landmarks[lvl].reshape(1 << (lvl - 1), 2 * rank, d),
+                          landmarks[lvl - 1], metric)
+        for lvl in range(1, levels))
+    leaves = x_sorted.reshape(n_leaves, n0, d)
+    leaf_self = pairwise_dist_ref(leaves, leaves, metric)
+    leaf_cross = pairwise_dist_ref(leaves.reshape(n_leaves // 2, 2 * n0, d),
+                                   landmarks[-1], metric)
+    return SweepPlan(x_sorted, tree, landmarks, lm_self, lm_cross,
+                     leaf_self, leaf_cross, metric=metric)
+
+
+def build_sweep_plan(
+    x, *, levels: int, rank: int, name: str = "gaussian", method: str = "rp",
+    shared_landmarks: bool = False, policy=None,
+    config: SolveConfig | None = None, directions=None, landmark_index=None,
+    generator: torch.Generator | None = None, device=None,
+) -> SweepPlan:
+    """Partition once and cache every bandwidth-independent distance tile.
+
+    Draws the tree and the landmarks exactly as :func:`build_hck` does
+    (directions, then one landmark draw per level, from ``generator``, or
+    the injected ``directions`` and ``landmark_index``), so
+    ``sweep_factors(plan, kernel)`` reproduces ``build_hck(x, ...,
+    kernel=kernel)`` for every kernel of ``name``'s metric.  The distance
+    pass is plain torch, once per grid (see
+    :func:`repro_torch.kernels.build_stage.ref.pairwise_dist_ref`).
+
+    ``x`` (n, d), n divisible by 2**levels, levels >= 1.  ``device``: None
+    is the CUDA card (raises without one), "cpu" the plain path.
+    ``policy``, ``shared_landmarks=True``, ``method="pca"`` and
+    ``config.precision`` raise ``NotImplementedError``.
+    """
+    config = config if config is not None else DEFAULT_CONFIG
+    _check_build_options(method, shared_landmarks, policy, None, config)
+    if name not in KERNEL_METRIC:
+        raise ValueError(
+            f"kernel {name!r} has no registered bandwidth-independent "
+            f"metric; sweepable kernels: {sorted(KERNEL_METRIC)}")
+    if levels < 1:
+        raise ValueError("build_sweep_plan needs levels >= 1 (a 0-level "
+                         "build is one dense block)")
+    x = torch.as_tensor(x).to(_device.resolve(device))
+    n, _ = x.shape
+    if n % (1 << levels) != 0:
+        raise ValueError(f"n={n} not divisible by 2**levels={1 << levels}")
+    n0 = n >> levels
+    if rank > n0:
+        raise ValueError(f"rank {rank} exceeds leaf size {n0} (paper 4.4)")
+    x_sorted, tree = build_partition(x, levels, directions=directions,
+                                     generator=generator)
+    landmarks = _level_landmarks(x_sorted, levels, rank, landmark_index,
+                                 generator)
+    return _plan_tiles(x_sorted, tree, landmarks, KERNEL_METRIC[name],
+                       levels, rank, n0)
+
+
+def replan_policy(plan: SweepPlan, *, rank: int, policy, **kwargs):
+    """Re-draw a plan's landmarks under another landmark policy: comes with
+    the landmark policies (ROADMAP item A10)."""
+    del plan, rank, policy, kwargs
+    raise NotImplementedError(
+        "replan_policy comes with the landmark policies, ROADMAP item A10")
+
+
+def _stage_gram_dist(dist: Tensor, kernel: BaseKernel, config: SolveConfig,
+                     *, want_chol: bool = True):
+    """Cached (B, m, m) tiles through the ``build_gram_dist`` stage:
+    (gram (B, m, m), lower Cholesky or None)."""
+    dist = dist.contiguous()
+    backend = resolve_backend(config, "build_gram_dist", dist)
+    return get_impl("build_gram_dist", backend)(
+        dist, name=kernel.name, sigma=kernel.sigma, jitter=kernel.jitter,
+        want_chol=want_chol)
+
+
+def _stage_cross_dist(dist: Tensor, linv_parent: Tensor, kernel: BaseKernel,
+                      config: SolveConfig) -> Tensor:
+    """Cached (B, m, r) tiles through the ``build_cross_dist`` stage:
+    kappa(D) Linv^T Linv (B, m, r)."""
+    dist, linv_parent = dist.contiguous(), linv_parent.contiguous()
+    backend = resolve_backend(config, "build_cross_dist", dist, linv_parent)
+    return get_impl("build_cross_dist", backend)(
+        dist, linv_parent, name=kernel.name, sigma=kernel.sigma)
+
+
+def sweep_factors(plan: SweepPlan, kernel: BaseKernel,
+                  config: SolveConfig | None = None, *,
+                  rank_budget: int | None = None) -> HCKFactors:
+    """:class:`HCKFactors` at one bandwidth from a :class:`SweepPlan`: the
+    per-sigma pass of the sweep engine.
+
+    Per level one ``build_gram_dist`` launch for Sigma and its Cholesky
+    factor (then :func:`sigma_linv`, recomputed at every sigma), one for
+    the leaf Adiag blocks, and ``build_cross_dist`` launches for U and
+    every level's W: the kernel nonlinearity and the factorization only,
+    no partition, no landmark draw, no distance work.  With the plan drawn
+    as a ``build_hck`` call draws, the result matches that call for any
+    ``kernel`` of the plan's metric.  ``rank_budget`` (ROADMAP item A10)
+    and ``config.precision`` (A15) raise ``NotImplementedError``.
+    """
+    config = config if config is not None else DEFAULT_CONFIG
+    if rank_budget is not None:
+        raise NotImplementedError("rank_budget comes with ROADMAP item A10")
+    if config.precision is not None:
+        raise NotImplementedError(
+            "a mixed-precision build (SolveConfig.precision) comes with "
+            "ROADMAP item A15; the sweep runs in the dtype of the plan")
+    if KERNEL_METRIC.get(kernel.name) != plan.metric:
+        raise ValueError(
+            f"kernel {kernel.name!r} (metric "
+            f"{KERNEL_METRIC.get(kernel.name)!r}) does not match the plan's "
+            f"cached metric {plan.metric!r}; rebuild the plan with "
+            f"name={kernel.name!r}")
+    levels, rank = plan.levels, plan.rank
+    n_leaves, n0 = plan.num_leaves, plan.leaf_size
+    sigma, sigma_cho, sigma_li = [], [], []
+    for lvl in range(levels):
+        s, c = _stage_gram_dist(plan.lm_self[lvl], kernel, config)
+        sigma.append(s)
+        sigma_cho.append(c)
+        sigma_li.append(sigma_linv(c))
+    adiag, _ = _stage_gram_dist(plan.leaf_self, kernel, config,
+                                want_chol=False)
+    u = _stage_cross_dist(plan.leaf_cross, sigma_li[-1], kernel,
+                          config).reshape(n_leaves, n0, rank)
+    w = tuple(
+        _stage_cross_dist(plan.lm_cross[lvl - 1], sigma_li[lvl - 1], kernel,
+                          config).reshape(1 << lvl, rank, rank)
+        for lvl in range(1, levels))
+    return HCKFactors(plan.x_sorted, plan.tree, plan.landmarks, tuple(sigma),
+                      tuple(sigma_cho), w, u, adiag)
 
 
 # ---------------------------------------------------------------------------

@@ -4,6 +4,8 @@
   * :func:`matvec`  -- Algorithm 1, y = A b in O(n r);
   * :func:`invert`  -- Algorithm 2, the structured (A + ridge I)^-1 in
                        O(n r^2), returned as another factor set;
+                       :func:`invert_multi` over a grid of ridges, with
+                       one leaf factorization launch for the whole grid;
   * :func:`apply_inverse`, :func:`solve_with_inverse`, :func:`solve` --
                        the inverse applied, polished by iterative
                        refinement;
@@ -146,6 +148,15 @@ class InverseFactors:
         """Landmarks per node r."""
         return self.u.shape[-1]
 
+    def at(self, g: int) -> "InverseFactors":
+        """Grid point ``g`` of a stacked :func:`invert_multi` result (every
+        tensor carries a leading grid axis).  The slices of contiguous
+        stacks stay contiguous, so the leaf kernels take them in place."""
+        return InverseFactors(
+            self.adiag[g], self.u[g], tuple(s[g] for s in self.sigma),
+            tuple(w[g] for w in self.w), self.logabsdet[g],
+            None if self.linv is None else self.linv[g])
+
 
 def _stage_leaf_factor(dleaf: Tensor, config: SolveConfig
                        ) -> tuple[Tensor, Tensor]:
@@ -259,6 +270,57 @@ def invert_with_leaf(f: HCKFactors, ridge: float = 0.0,
                          "for the dense 0-level hierarchy")
     lo, linv = _leaf_factors(f, ridge, config)
     return _invert_tail(f, lo, linv), lo
+
+
+def invert_multi(f: HCKFactors, ridges,
+                 config: SolveConfig | None = None) -> InverseFactors:
+    """Algorithm 2 over a grid of ridges: one build, G inversions.
+
+    Returns an :class:`InverseFactors` whose every tensor carries a leading
+    grid axis G = len(ridges) (``logabsdet`` is (G,)); ``.at(g)`` equals
+    ``invert(f, ridges[g], config)``.  The factors do not depend on the
+    ridge, so the ridge-free part of the leaf Schur complements is formed
+    once and all G * 2**L ridged leaves go through ONE ``leaf_factor``
+    launch; the middle-factor tail then runs once per ridge.
+    """
+    return invert_multi_with_leaf(f, ridges, config)[0]
+
+
+def invert_multi_with_leaf(f: HCKFactors, ridges,
+                           config: SolveConfig | None = None
+                           ) -> tuple[InverseFactors, Tensor | None]:
+    """:func:`invert_multi` that also returns the stacked leaf Schur
+    Cholesky factors ``lo`` (G, 2**L, n0, n0) (None for a 0-level
+    hierarchy).  ``lo[g]`` and ``.at(g).linv`` are bit for bit those of
+    ``invert_with_leaf(f, ridges[g])``: the kernel factors each block on
+    its own, whatever the batch."""
+    config = config if config is not None else DEFAULT_CONFIG
+    ridges = torch.as_tensor(ridges, dtype=f.adiag.dtype,
+                             device=f.adiag.device)
+    if ridges.ndim != 1:
+        raise ValueError(f"ridges must be 1-D, got shape "
+                         f"{tuple(ridges.shape)}")
+    g = ridges.shape[0]
+    if f.levels == 0:
+        invs = [_invert_level0(f, ridge) for ridge in ridges]
+        lo = linv = None
+    else:
+        p, n0 = f.num_leaves, f.leaf_size
+        eye = torch.eye(n0, dtype=f.adiag.dtype, device=f.adiag.device)
+        dleaf = _leaf_schur(f)[None] + ridges[:, None, None, None] * eye
+        lo, linv = _stage_leaf_factor(dleaf.reshape(g * p, n0, n0), config)
+        # contiguous stacks (the plain version's are column-major), so that
+        # every grid point's slice goes to the leaf kernels in place
+        lo = lo.contiguous().reshape(g, p, n0, n0)
+        linv = linv.contiguous().reshape(g, p, n0, n0)
+        invs = [_invert_tail(f, lo[i], linv[i]) for i in range(g)]
+    inv = InverseFactors(
+        adiag=torch.stack([inv.adiag for inv in invs]),
+        u=torch.stack([inv.u for inv in invs]),
+        sigma=tuple(torch.stack(s) for s in zip(*(i.sigma for i in invs))),
+        w=tuple(torch.stack(w) for w in zip(*(i.w for i in invs))),
+        logabsdet=torch.stack([inv.logabsdet for inv in invs]), linv=linv)
+    return inv, lo
 
 
 def apply_inverse(inv: InverseFactors, b: Tensor,

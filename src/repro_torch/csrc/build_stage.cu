@@ -40,25 +40,23 @@
 // columns interleaved at strides 16, and walks three products with it:
 // the distances over staged feature chunks of points and landmarks, then
 // Y = K Linv^T and U = Y Linv through one shared (bm, r + 1) tile (Y is
-// written over K); each step loads MR + NR values for MR * NR
-// multiply-adds.  Both products are full (they do not skip Linv's zero
-// upper triangle), as the plain version's are.  r <= 128; (r + bm)(r + 1)
+// written over K), the two products of cross_products.cuh, which
+// cross_solve_dist (build_dist.cu) shares.  r <= 128; (r + bm)(r + 1)
 // + (bm + r)(DC + 1) values must fit: bm = 128 in f32, 32 in f64 at
 // r = 128 (the wrapper picks and raises).
 #include <cuda_runtime.h>
 
 #include "chol_smem.cuh"
+#include "cross_products.cuh"
 #include "kernel_epilogue.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int DC = 32;       // feature columns staged per chunk
-// cross_solve: the 256 threads as TY x TX, each owning MR x NR outputs
-// (rows ty + TY a, columns tx + TX b), so r <= TX * NR = 128
-constexpr int TX = 16;
-constexpr int TY = 16;
-constexpr int NR = 8;
+using cross_tile::NR;
+using cross_tile::TX;
+using cross_tile::TY;
 
 // acc[i][c] += dist(x_i, y_c) over one feature chunk, for i < rows, c < cols
 template <typename T>
@@ -130,7 +128,7 @@ gram_chol_kernel(const T* __restrict__ points, T* __restrict__ gram,
 }
 
 template <typename T, int MR>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(cross_tile::kThreads)
 cross_solve_kernel(const T* __restrict__ points,
                    const T* __restrict__ landmarks,
                    const T* __restrict__ linv, T* __restrict__ out, int m,
@@ -147,19 +145,13 @@ cross_solve_kernel(const T* __restrict__ points,
   const int rows = min(BM, m - row0);
   const T* P = points + (node * m + row0) * d;
   const T* Z = landmarks + node * r * d;
-  const T* Li = linv + node * r * r;
   const bool l1 = kind_is_l1(kind);
-  const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-  // this thread's output rows ty + TY a and columns tx + TX b; a column
-  // past r reads column r - 1 (in bounds) and is never stored
+  const int tx = threadIdx.x % TX;
+  const int ty = threadIdx.x / TX;
   int col[NR];
-#pragma unroll
-  for (int b = 0; b < NR; ++b) col[b] = min(tx + TX * b, r - 1);
+  cross_tile::columns(col, r);
 
-  for (int e = tid; e < r * r; e += blockDim.x)
-    li[(e / r) * ldr + e % r] = Li[e];
+  cross_tile::stage_linv(li, linv + node * r * r, r);
   T acc[MR][NR];
 #pragma unroll
   for (int a = 0; a < MR; ++a)
@@ -197,53 +189,9 @@ cross_solve_kernel(const T* __restrict__ points,
       if (tx + TX * b < r)
         ka[i * ldr + tx + TX * b] =
             i < rows ? kernel_epilogue<T>(kind, acc[a][b], sigma) : T(0);
-      acc[a][b] = T(0);
     }
-  __syncthreads();
-
-  // Y = K Linv^T: Y[i][s] = sum_t K[i][t] Linv[s][t]
-  for (int t = 0; t < r; ++t) {
-    T kv[MR], lv[NR];
-#pragma unroll
-    for (int a = 0; a < MR; ++a) kv[a] = ka[(ty + TY * a) * ldr + t];
-#pragma unroll
-    for (int b = 0; b < NR; ++b) lv[b] = li[col[b] * ldr + t];
-#pragma unroll
-    for (int a = 0; a < MR; ++a)
-#pragma unroll
-      for (int b = 0; b < NR; ++b) acc[a][b] += kv[a] * lv[b];
-  }
-  __syncthreads();                      // every read of K is done
-#pragma unroll
-  for (int a = 0; a < MR; ++a)
-#pragma unroll
-    for (int b = 0; b < NR; ++b) {
-      if (tx + TX * b < r) ka[(ty + TY * a) * ldr + tx + TX * b] = acc[a][b];
-      acc[a][b] = T(0);
-    }
-  __syncthreads();
-
-  // U = Y Linv: U[i][c] = sum_s Y[i][s] Linv[s][c]
-  for (int s = 0; s < r; ++s) {
-    T yv[MR], lv[NR];
-#pragma unroll
-    for (int a = 0; a < MR; ++a) yv[a] = ka[(ty + TY * a) * ldr + s];
-#pragma unroll
-    for (int b = 0; b < NR; ++b) lv[b] = li[s * ldr + col[b]];
-#pragma unroll
-    for (int a = 0; a < MR; ++a)
-#pragma unroll
-      for (int b = 0; b < NR; ++b) acc[a][b] += yv[a] * lv[b];
-  }
-  T* U = out + (node * m + row0) * r;
-#pragma unroll
-  for (int a = 0; a < MR; ++a)
-#pragma unroll
-    for (int b = 0; b < NR; ++b) {
-      const int i = ty + TY * a;
-      if (i < rows && tx + TX * b < r)
-        U[static_cast<size_t>(i) * r + tx + TX * b] = acc[a][b];
-    }
+  cross_tile::products<T, MR>(ka, li, r, col, acc);
+  cross_tile::store<T, MR>(out + (node * m + row0) * r, rows, r, acc);
 }
 
 template <typename T>
@@ -273,7 +221,7 @@ int launch_cross_tile(const T* points, const T* landmarks, const T* linv,
   const int err = launch_with_smem(cross_solve_kernel<T, MR>, smem);
   if (err) return err;
   const dim3 grid(b, (m + BM - 1) / BM);
-  cross_solve_kernel<T, MR><<<grid, kThreads, smem, stream>>>(
+  cross_solve_kernel<T, MR><<<grid, cross_tile::kThreads, smem, stream>>>(
       points, landmarks, linv, out, m, r, d, kind, sigma);
   return static_cast<int>(cudaGetLastError());
 }

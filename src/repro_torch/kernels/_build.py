@@ -23,9 +23,10 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNELS = ("hck_leaf_project", "oos_contract", "build_stage", "leaf_factor",
-           "leaf_matvec", "leaf_solve")
-_HEADERS = ("kernel_epilogue.cuh", "chol_smem.cuh", "leaf_products.cuh")
+KERNELS = ("hck_leaf_project", "oos_contract", "build_stage", "build_dist",
+           "leaf_factor", "leaf_matvec", "leaf_solve")
+_HEADERS = ("kernel_epilogue.cuh", "chol_smem.cuh", "cross_products.cuh",
+            "leaf_products.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -121,10 +122,17 @@ def cuda_device(stage: str, *tensors: torch.Tensor) -> torch.device | None:
     tensor lies on the CPU (the wrapper then runs the plain version).
 
     Raises unless the tensors share one CUDA device, one dtype (float32
-    or float64) and are contiguous.
+    or float64) and are contiguous.  The kernels have no backward pass, so
+    a tensor that needs a gradient (with grad mode on) raises too, rather
+    than give a gradient that leaves the kernel out.
     """
     if all(t.device.type == "cpu" for t in tensors):
         return None
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{stage}: the CUDA kernel has no backward pass; its inputs must "
+            "not require grad (differentiate through the plain versions on "
+            "CPU tensors)")
     dev = tensors[0].device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError(f"{stage} needs all tensors on one CUDA device; got "

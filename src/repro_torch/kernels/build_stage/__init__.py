@@ -1,2 +1,3 @@
-"""HCK build stages: ``build_gram`` (B1) and ``build_cross`` (B2) as CUDA
-kernels and their plain versions."""
+"""HCK build stages: ``build_gram`` (B1) and ``build_cross`` (B2), and the
+sweep engine's ``build_gram_dist`` (B8) and ``build_cross_dist`` (B9), as
+CUDA kernels and their plain versions."""

@@ -1,10 +1,14 @@
-"""Wrappers of the build-stage CUDA kernels (``csrc/build_stage.cu``).
+"""Wrappers of the build-stage CUDA kernels (``csrc/build_stage.cu`` and
+``csrc/build_dist.cu``).
 
-``build_gram`` launches ``gram_chol`` (B1) and ``build_cross`` launches
-``cross_solve`` (B2).  On CPU tensors each wrapper computes its plain
-version (:mod:`repro_torch.kernels.build_stage.ref`); on CUDA tensors it
-launches the kernel or raises.  ``build_gram.launches`` and
-``build_cross.launches`` count kernel launches.
+``build_gram`` launches ``gram_chol`` (B1), ``build_cross`` launches
+``cross_solve`` (B2); the sweep engine's ``build_gram_dist`` launches
+``gram_chol_dist`` or, without a factor, ``gram_dist`` (B8) and
+``build_cross_dist`` launches ``cross_solve_dist`` (B9).  On CPU tensors
+each wrapper computes its plain version
+(:mod:`repro_torch.kernels.build_stage.ref`); on CUDA tensors it launches
+the kernel or raises.  Each wrapper's ``launches`` counts its kernel
+launches.
 """
 from __future__ import annotations
 
@@ -12,7 +16,10 @@ import torch
 
 from repro_torch.core.kernels_fn import KERNEL_METRIC
 from repro_torch.kernels import _build
-from repro_torch.kernels.build_stage.ref import build_cross_ref, build_gram_ref
+from repro_torch.kernels.build_stage.ref import (build_cross_dist_ref,
+                                                 build_cross_ref,
+                                                 build_gram_dist_ref,
+                                                 build_gram_ref)
 
 #: feature columns staged per chunk (build_stage.cu)
 DC = 32
@@ -34,20 +41,32 @@ def cross_smem(bm: int, r: int, itemsize: int) -> int:
     return ((r + bm) * (r + 1) + (bm + r) * (DC + 1)) * itemsize
 
 
-def cross_rows(m: int, r: int, itemsize: int) -> int:
-    """Row-tile height of cross_solve: the largest of :data:`_ROW_TILES`
-    that fits :data:`repro_torch.kernels._build.SMEM_MAX` and does not
-    overshoot m by a whole smaller tile; ``ValueError`` when r exceeds
-    :data:`MAX_CROSS_RANK` or no tile fits."""
+def gram_dist_smem(m: int, itemsize: int) -> int:
+    """Shared memory of one gram_chol_dist block: the (m, m + 1) tile."""
+    return m * (m + 1) * itemsize
+
+
+def cross_dist_smem(bm: int, r: int, itemsize: int) -> int:
+    """Shared memory of one cross_solve_dist block of ``bm`` rows: Linv
+    (r, r + 1) and a (bm, r + 1) tile."""
+    return (r + bm) * (r + 1) * itemsize
+
+
+def cross_rows(m: int, r: int, itemsize: int, smem=cross_smem,
+               stage: str = "build_cross") -> int:
+    """Row-tile height of cross_solve (or, with ``smem=cross_dist_smem``,
+    of cross_solve_dist): the largest of :data:`_ROW_TILES` whose block
+    needs at most :data:`repro_torch.kernels._build.SMEM_MAX` bytes and
+    that does not overshoot m by a whole smaller tile; ``ValueError`` when
+    r exceeds :data:`MAX_CROSS_RANK` or no tile fits."""
     if r > MAX_CROSS_RANK:
-        raise ValueError(f"build_cross: rank r={r} above {MAX_CROSS_RANK} "
+        raise ValueError(f"{stage}: rank r={r} above {MAX_CROSS_RANK} "
                          "needs the panel form of the kernel, which is later "
                          "work")
     fits = [bm for bm in _ROW_TILES
-            if cross_smem(bm, r, itemsize) <= _build.SMEM_MAX]
+            if smem(bm, r, itemsize) <= _build.SMEM_MAX]
     if not fits:
-        _build.check_smem("build_cross",
-                          cross_smem(_ROW_TILES[-1], r, itemsize),
+        _build.check_smem(stage, smem(_ROW_TILES[-1], r, itemsize),
                           f"rank r={r}")
     return next((bm for bm in fits if bm // 2 < m), fits[-1])
 
@@ -119,5 +138,71 @@ def build_cross(
     return out
 
 
+def build_gram_dist(
+    dist: torch.Tensor, *, name: str = "gaussian", sigma: float = 1.0,
+    jitter: float = 0.0, want_chol: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """(B, m, m) cached distances -> gram (B, m, m) = kappa_sigma(D) +
+    jitter*m I [+ lower Cholesky]."""
+    _check_name(name)
+    if dist.ndim != 3 or dist.shape[1] != dist.shape[2]:
+        raise ValueError(f"build_gram_dist needs dist (B, m, m); got "
+                         f"{tuple(dist.shape)}")
+    dev = _build.cuda_device("build_gram_dist", dist)
+    if dev is None:
+        return build_gram_dist_ref(dist, name=name, sigma=sigma,
+                                   jitter=jitter, want_chol=want_chol)
+    bsz, m, _ = dist.shape
+    if want_chol:
+        _build.check_smem("build_gram_dist",
+                          gram_dist_smem(m, dist.element_size()),
+                          f"an ({m}, {m}) tile")
+    gram = torch.empty_like(dist)
+    chol = torch.empty_like(dist) if want_chol else None
+    if gram.numel() == 0:
+        return gram, chol
+    sfx = _build.SUFFIX[dist.dtype]
+    opts = (_build.EPILOGUE_KIND[name], float(sigma), float(jitter * m))
+    if want_chol:
+        _build.launch("build_dist", f"gram_chol_dist_{sfx}", dev, dist, gram,
+                      chol, bsz, m, *opts)
+    else:
+        _build.launch("build_dist", f"gram_dist_{sfx}", dev, dist, gram, bsz,
+                      m, *opts)
+    build_gram_dist.launches += 1
+    return gram, chol
+
+
+def build_cross_dist(
+    dist: torch.Tensor, linv: torch.Tensor, *, name: str = "gaussian",
+    sigma: float = 1.0,
+) -> torch.Tensor:
+    """(B, m, r) cached distances, (B, r, r) -> U (B, m, r) =
+    kappa_sigma(D) Linv^T Linv."""
+    _check_name(name)
+    if (dist.ndim != 3 or linv.ndim != 3
+            or linv.shape != (dist.shape[0], dist.shape[2], dist.shape[2])):
+        raise ValueError(
+            "build_cross_dist needs dist (B, m, r) and linv (B, r, r); got "
+            f"{tuple(dist.shape)}, {tuple(linv.shape)}")
+    dev = _build.cuda_device("build_cross_dist", dist, linv)
+    if dev is None:
+        return build_cross_dist_ref(dist, linv, name=name, sigma=sigma)
+    bsz, m, r = dist.shape
+    out = torch.empty_like(dist)
+    if out.numel() == 0:
+        return out
+    bm = cross_rows(m, r, dist.element_size(), smem=cross_dist_smem,
+                    stage="build_cross_dist")
+    _build.launch("build_dist",
+                  f"cross_solve_dist_{_build.SUFFIX[dist.dtype]}", dev, dist,
+                  linv, out, bsz, m, r, bm, _build.EPILOGUE_KIND[name],
+                  float(sigma))
+    build_cross_dist.launches += 1
+    return out
+
+
 build_gram.launches = 0
 build_cross.launches = 0
+build_gram_dist.launches = 0
+build_cross_dist.launches = 0

@@ -14,12 +14,22 @@ The base kernel is evaluated through :mod:`repro_torch.core.kernels_fn`,
 so in float64 both agree with the reference's ``xla`` path to round-off.
 A block that is not positive definite gets a factor whose lower triangle
 is NaN, the reference's failure mode, instead of an exception.
+
+The sweep engine (:class:`repro_torch.core.hck.SweepPlan`) adds the
+distance-cached variants: :func:`pairwise_dist_ref` computes the
+bandwidth-independent metric distances once per grid, and every per-sigma
+rebuild is the kernel nonlinearity plus the factorization only:
+
+  * ``build_gram_dist``:  D_b (m, m) -> kappa_sigma(D_b) + jitter*m I
+                          [+ lower Cholesky];
+  * ``build_cross_dist``: D_b (m, r), Linv_b (r, r) ->
+                          kappa_sigma(D_b) Linv_b^T Linv_b.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.kernels_fn import get_kernel
+from repro_torch.core.kernels_fn import _sqdist, get_kernel, kernel_epilogue
 
 
 def nan_failed_factors(chol: torch.Tensor, info: torch.Tensor) -> torch.Tensor:
@@ -56,5 +66,68 @@ def build_cross_ref(
     return (kxu @ linv.mT) @ linv
 
 
+def direct_dist(x: torch.Tensor, y: torch.Tensor,
+                metric: str) -> torch.Tensor:
+    """(B, m, d), (B, r, d) -> (B, m, r): sum over the features, in feature
+    order, of (x - y)^2 ("l2", squared Euclidean) or |x - y| ("l1"), as
+    the build kernels sum them.  The loop over features holds two
+    (B, m, r) buffers, never a (B, m, r, d) difference tensor."""
+    out = x.new_zeros((x.shape[0], x.shape[1], y.shape[1]))
+    for t in range(x.shape[2]):
+        diff = x[:, :, None, t] - y[:, None, :, t]
+        out += diff * diff if metric == "l2" else diff.abs()
+    return out
+
+
+def pairwise_dist_ref(x: torch.Tensor, y: torch.Tensor,
+                      metric: str) -> torch.Tensor:
+    """Batched metric distances: (B, m, d), (B, r, d) -> (B, m, r).
+
+    ``"l2"`` is the SQUARED Euclidean distance, ``"l1"`` the Manhattan
+    one.  On the CPU "l2" goes through the norm identity of
+    :func:`repro_torch.core.kernels_fn._sqdist`, as the reference's plan
+    pass does, so float64 plans agree with it to round-off.  On the card
+    "l2" is :func:`direct_dist`, which sums as the ``build_gram`` and
+    ``build_cross`` kernels do, so the factors of a plan match those of
+    ``build_hck`` in float32 too (the identity cancels for points far
+    from the origin).  "l1" is always :func:`direct_dist`.
+    """
+    if metric not in ("l2", "l1"):
+        raise ValueError(f"unknown metric {metric!r}; have ('l2', 'l1')")
+    if metric == "l2" and x.device.type == "cpu":
+        return _sqdist(x, y)
+    return direct_dist(x, y, metric)
+
+
+def build_gram_dist_ref(
+    dist: torch.Tensor, *, name: str = "gaussian", sigma: float = 1.0,
+    jitter: float = 0.0, want_chol: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """(B, m, m) cached distances -> gram (B, m, m) = kappa_sigma(D) +
+    jitter*m I [+ lower Cholesky (B, m, m) or None]."""
+    build_gram_dist_ref.calls += 1
+    m = dist.shape[1]
+    gram = kernel_epilogue(name, sigma)(dist)
+    gram = gram + (jitter * m) * torch.eye(m, dtype=gram.dtype,
+                                           device=gram.device)
+    if not want_chol:
+        return gram, None
+    chol, info = torch.linalg.cholesky_ex(gram)
+    return gram, nan_failed_factors(chol, info)
+
+
+def build_cross_dist_ref(
+    dist: torch.Tensor, linv: torch.Tensor, *, name: str = "gaussian",
+    sigma: float = 1.0,
+) -> torch.Tensor:
+    """(B, m, r) cached distances, (B, r, r) -> U (B, m, r) =
+    kappa_sigma(D) Linv^T Linv, with Linv the parent's inverse Cholesky
+    factor at this sigma."""
+    build_cross_dist_ref.calls += 1
+    return (kernel_epilogue(name, sigma)(dist) @ linv.mT) @ linv
+
+
 build_gram_ref.calls = 0
 build_cross_ref.calls = 0
+build_gram_dist_ref.calls = 0
+build_cross_dist_ref.calls = 0

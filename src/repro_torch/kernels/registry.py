@@ -192,6 +192,42 @@ def _build_cross_cuda(points, landmarks, linv, *, name="gaussian",
     return build_cross(points, landmarks, linv, name=name, sigma=sigma)
 
 
+@register("build_gram_dist", "torch")
+def _build_gram_dist_torch(dist, *, name="gaussian", sigma=1.0, jitter=0.0,
+                           want_chol=True):
+    """(B,m,m) distances -> kappa(D) + jitter*m I [, lower Cholesky], plain."""
+    from repro_torch.kernels.build_stage.ref import build_gram_dist_ref
+
+    return build_gram_dist_ref(dist, name=name, sigma=sigma, jitter=jitter,
+                               want_chol=want_chol)
+
+
+@register("build_gram_dist", "cuda")
+def _build_gram_dist_cuda(dist, *, name="gaussian", sigma=1.0, jitter=0.0,
+                          want_chol=True):
+    """(B,m,m) distances -> kappa(D) + jitter*m I [, lower Cholesky], CUDA."""
+    from repro_torch.kernels.build_stage.ops import build_gram_dist
+
+    return build_gram_dist(dist, name=name, sigma=sigma, jitter=jitter,
+                           want_chol=want_chol)
+
+
+@register("build_cross_dist", "torch")
+def _build_cross_dist_torch(dist, linv, *, name="gaussian", sigma=1.0):
+    """(B,m,r),(B,r,r) -> kappa(D) Linv^T Linv (B,m,r), plain."""
+    from repro_torch.kernels.build_stage.ref import build_cross_dist_ref
+
+    return build_cross_dist_ref(dist, linv, name=name, sigma=sigma)
+
+
+@register("build_cross_dist", "cuda")
+def _build_cross_dist_cuda(dist, linv, *, name="gaussian", sigma=1.0):
+    """(B,m,r),(B,r,r) -> kappa(D) Linv^T Linv (B,m,r), CUDA."""
+    from repro_torch.kernels.build_stage.ops import build_cross_dist
+
+    return build_cross_dist(dist, linv, name=name, sigma=sigma)
+
+
 @register("leaf_factor", "torch")
 def _leaf_factor_torch(dleaf):
     """(P,n0,n0) SPD -> (L, L^-1), both lower, plain version."""
