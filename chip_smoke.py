@@ -36,8 +36,21 @@ result.  Phases, each of which raises on failure:
               oracle (n = 4,096) and against the naive per-point path (full
               width), ``fit_path`` against ``krr.fit``, KPCA against its
               dense oracle;
-  9. timing   kernel, plain-version and library times at the fit, serving
-              and sweep shapes, beside each kernel's bound;
+ 8b. solvers  the exact-kernel solvers: B10 (``kernel_matvec``) and B11
+              (``pairwise_kernel``) against their plain versions (covtype,
+              ragged and wide shapes, f32 and f64); at ``bench_cg.py``'s
+              shape in f64 ``krr.fit_exact`` and EigenPro against the dense
+              solve and the preconditioned and plain iteration counts;
+              exact-kernel KRR at covtype width through ``krr.fit_exact``
+              (launch counts read around exactly this call, its stages
+              timed, its residual through B10) and its predictions; and
+              ``gp.mle_grid(logdet="slq")`` at covtype width against the
+              exact surface, with the SLQ logdet gated in f64 at n = 4,096
+              (its quadrature and its probe draws apart, with a faulty
+              Lanczos as control); launch counts read around every solver
+              call of the phase;
+  9. timing   kernel, plain-version and library times at the fit, serving,
+              sweep and exact-solver shapes, beside each kernel's bound;
  10. profile  torch.profiler over one full-width fit, over five 4096-query
               requests and over one sigma row of the NLL surface: device
               time by kernel, and the device's busy share.
@@ -59,6 +72,7 @@ import math
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import torch
@@ -75,6 +89,27 @@ SEED = 0
 SIGMAS = (0.5, 1.0, 2.0, 4.0)
 LAMS = (1e-3, 1e-2, 1e-1, 1.0)
 KPCA_DIM, KPCA_ITERS = 8, 50
+# Exact-kernel KRR at covtype width: f32 residuals carry eps32 ||K|| ~ 5e-3
+# of evaluation noise, so CG stops at 1e-2.
+EXACT_TOL, EXACT_MAXITER = 1e-2, 30
+# The reference's benchmarks/bench_cg.py shape (f64): n, d, sigma, jitter
+CG_N, CG_D, CG_SIGMA, CG_JITTER = 4096, 4, 2.0, 1e-6
+# gp.mle_grid(logdet="slq"): probes, Lanczos steps, PCG tolerance in f32
+SLQ_PROBES, SLQ_ITERS, SLQ_CG_TOL = 8, 30, 1e-3
+# B10 at covtype width, f32: max |z - z_plain| <= FULL_RTOL max (K|V|).
+# Read: 3e-8 (gaussian, imq), 8.1e-7 (laplace, whose distance sums ~12
+# carry eps32 * 12 per kernel value); a lost 41-row tail of Y reads far
+# above it (the phase prints the control).
+FULL_RTOL = 2e-6
+# The f64 SLQ gate at n = 4,096: SLQ runs on SLQ_DRAWS draws of SLQ_PROBES
+# probes; the quadrature limit in nats per point lies between a correct
+# Lanczos (7.7e-3 at sigma 4, lambda 1e-3) and one without
+# reorthogonalisation (1.4e-2).  The probes' part is read densely over
+# SLQ_MORE_DRAWS more draws as well; their 512 probes together must lie
+# within SLQ_STD_LIMIT of their Hutchinson standard deviation (a mean of
+# 512 independent forms, near Gaussian).
+SLQ_DRAWS, SLQ_MORE_DRAWS = (43, 44, 45, 46), 60
+SLQ_QUAD_LIMIT, SLQ_STD_LIMIT = 1e-2, 4.0
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bytes/s and
 # float32 FLOP/s outside the tensor cores.
@@ -132,6 +167,8 @@ def kernel_wrappers() -> dict:
     """Each kernel's wrapper (which counts its launches) by kernel name."""
     from repro_torch.kernels.build_stage import ops as build_ops
     from repro_torch.kernels.hck_leaf import ops as leaf_ops
+    from repro_torch.kernels.kernel_tile import ops as tile_ops
+    from repro_torch.kernels.matvec_stage import ops as matvec_ops
     from repro_torch.kernels.oos_stage import ops as oos_ops
 
     return {"gram_chol": build_ops.build_gram,
@@ -142,20 +179,25 @@ def kernel_wrappers() -> dict:
             "leaf_solve": leaf_ops.leaf_solve,
             "leaf_matvec": leaf_ops.leaf_matvec,
             "hck_leaf_project": leaf_ops.leaf_project,
-            "oos_contract": oos_ops.oos_contract}
+            "oos_contract": oos_ops.oos_contract,
+            "kernel_matvec": matvec_ops.kernel_matvec,
+            "kernel_tile": tile_ops.pairwise_kernel}
 
 
 def plain_versions() -> list:
     """Every kernel's plain version (each counts its calls)."""
     from repro_torch.kernels.build_stage import ref as build_ref
     from repro_torch.kernels.hck_leaf import ref as leaf_ref
+    from repro_torch.kernels.kernel_tile import ref as tile_ref
+    from repro_torch.kernels.matvec_stage import ref as matvec_ref
     from repro_torch.kernels.oos_stage import ref as oos_ref
 
     return [build_ref.build_gram_ref, build_ref.build_cross_ref,
             build_ref.build_gram_dist_ref, build_ref.build_cross_dist_ref,
             leaf_ref.hck_leaf_factor_ref, leaf_ref.hck_leaf_solve_ref,
             leaf_ref.hck_leaf_matvec_ref, leaf_ref.hck_leaf_project_ref,
-            oos_ref.oos_contract_ref]
+            oos_ref.oos_contract_ref, matvec_ref.kernel_matvec_ref,
+            tile_ref.pairwise_kernel_ref]
 
 
 def reset_counts() -> None:
@@ -170,6 +212,28 @@ def read_counts() -> tuple[dict, dict]:
     """(launches by kernel, calls by plain version)."""
     return ({name: fn.launches for name, fn in kernel_wrappers().items()},
             {fn.__name__: fn.calls for fn in plain_versions()})
+
+
+def counted(fn):
+    """Run ``fn`` with every count set to 0 just before and read just after:
+    (its result, launches by kernel, calls by plain version)."""
+    reset_counts()
+    out = fn()
+    sync()
+    launches, plain_calls = read_counts()
+    return out, launches, plain_calls
+
+
+def require_launches(what: str, launches: dict, plain_calls: dict,
+                     expected: dict) -> None:
+    """``what`` launched exactly ``expected`` (every other kernel 0 times)
+    and ran no plain version."""
+    want = dict.fromkeys(launches, 0)
+    want.update(expected)
+    require(launches == want, f"{what}: launches {launches} == expected "
+            f"{want}")
+    require(not any(plain_calls.values()),
+            f"no plain version ran on {what}: {plain_calls}")
 
 
 def to_f64(f):
@@ -196,9 +260,10 @@ def rel_max(got: torch.Tensor, want: torch.Tensor) -> float:
 # Timing and bounds
 # ---------------------------------------------------------------------------
 
-def time_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn()`` over ``reps`` calls (CUDA events)."""
-    for _ in range(2):
+def time_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Mean device time of ``fn()`` over ``reps`` calls (CUDA events),
+    after ``warmup`` calls."""
+    for _ in range(warmup):
         fn()
     sync()
     start = torch.cuda.Event(enable_timing=True)
@@ -593,7 +658,8 @@ def phase_fit(dev) -> dict:
     expected = {"gram_chol": LEVELS + 1, "cross_solve": LEVELS,
                 "gram_chol_dist": 0, "cross_solve_dist": 0,
                 "leaf_factor": 1, "leaf_solve": 3, "leaf_matvec": 3,
-                "hck_leaf_project": 1, "oos_contract": 0}
+                "hck_leaf_project": 1, "oos_contract": 0,
+                "kernel_matvec": 0, "kernel_tile": 0}
     require(launches == expected,
             f"fit launches {launches} == expected {expected}")
     require(all(v == 0 for v in plain_calls.values()),
@@ -1153,7 +1219,7 @@ def phase_sweep(fit, dev) -> dict:
                 "cross_solve_dist": 5 * LEVELS, "leaf_factor": 5,
                 "leaf_solve": 4 * len(LAMS) + 3 * len(LAMS),
                 "leaf_matvec": 3 * len(LAMS) + KPCA_ITERS + 2,
-                "hck_leaf_project": 3}
+                "hck_leaf_project": 3, "kernel_matvec": 0, "kernel_tile": 0}
     got = {k: v for k, v in launches.items() if k != "oos_contract"}
     require(got == expected, f"sweep launches {got} == expected {expected}")
     require(launches["oos_contract"] > 0, "oos_contract on the sweep path")
@@ -1462,6 +1528,610 @@ def phase_sweep_gates(fit, sw, dev) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 8b: the exact-kernel solvers
+# ---------------------------------------------------------------------------
+
+def kernel_matvec_cost(b, m, d, k, itemsize):
+    """kernel_matvec: Xc, Y and V read once, z written once; the b * m
+    kernel values (kernel_flops: each point's norm once) and 2k flops per
+    pair for the contraction."""
+    nbytes = itemsize * (b * d + m * d + m * k + b * k)
+    return nbytes, kernel_flops(b * m, b + m, d) + 2 * k * b * m
+
+
+def tile_cost(n, m, d):
+    """pairwise_kernel: X and Y read once, the (n, m) float32 tile written
+    once; the n * m kernel values."""
+    return 4 * (n * d + m * d + n * m), kernel_flops(n * m, n + m, d)
+
+
+def plain_kernel_matvec(xc, y, v, name, sigma, chunk=2048):
+    """The plain version over row chunks of xc (its (chunk, m) kernel tile
+    bounds the memory, as ExactKernelOp's plain path does)."""
+    from repro_torch.kernels.matvec_stage.ref import kernel_matvec_ref
+
+    return torch.cat([kernel_matvec_ref(xc[i:i + chunk], y, v, name=name,
+                                        sigma=sigma)
+                      for i in range(0, xc.shape[0], chunk)])
+
+
+def kernel_matvec_gap(got, both) -> tuple[float, float]:
+    """(max |z - z_plain| / max (K |V|), max |z - z_plain|), with ``both``
+    the plain version's [K V, K |V|]."""
+    k = got.shape[1]
+    err = float((got.double() - both[:, :k].double()).abs().max())
+    return err / float(both[:, k:].abs().max()), err
+
+
+def check_kernel_matvec(xc, y, v, name, rtol, sigma=SIGMA, chunk=2048):
+    """B10 against its plain version: max |z - z_plain| <= rtol *
+    max (K |V|), with K |V| the plain version's product with |V| (K > 0
+    for the three base kernels).  The kernel sums the distances directly
+    and the contraction in tiles of 64, the plain version uses the norm
+    identity and cuBLAS; rtol is the documented f32 matvec bound, 1e-4
+    (1e-10 in float64), or tighter where a caller says why.  Returns
+    (rel, err, the plain [K V, K |V|])."""
+    from repro_torch.kernels.matvec_stage.ops import kernel_matvec
+
+    got = kernel_matvec(xc, y, v, name=name, sigma=sigma)
+    both = plain_kernel_matvec(xc, y, torch.cat([v, v.abs()], dim=1), name,
+                               sigma, chunk)
+    sync()
+    require(bool(torch.isfinite(got).all()), f"kernel_matvec[{name}] finite")
+    rel, err = kernel_matvec_gap(got, both)
+    require(rel <= rtol, f"kernel_matvec[{name}] {tuple(xc.shape)} x "
+            f"{tuple(v.shape)}: rel {rel:.3e} <= {rtol}")
+    return rel, err, both
+
+
+def check_tile(x, y, name, atol, sigma=SIGMA, chunk=4096):
+    """B11 through the registry stage against its plain version: the
+    values lie in (0, 1], so the gate is absolute, atol (1e-5 in float32,
+    where the plain version's norm identity loses ~eps32 (|x|^2 + |y|^2)
+    per squared distance).  Laplace's plain version broadcasts (chunk, m,
+    d), so it goes by 256 rows."""
+    from repro_torch.kernels.kernel_tile.ref import pairwise_kernel_ref
+    from repro_torch.kernels.registry import get_impl
+
+    got = get_impl("pairwise_kernel", "cuda")(x, y, name=name, sigma=sigma)
+    step = 256 if name == "laplace" else chunk
+    err = 0.0
+    for i in range(0, x.shape[0], step):
+        want = pairwise_kernel_ref(x[i:i + step], y, name=name, sigma=sigma)
+        err = max(err, float((got[i:i + step] - want).abs().max()))
+    sync()
+    require(got.dtype == torch.float32 and bool(torch.isfinite(got).all()),
+            f"pairwise_kernel[{name}] float32 and finite")
+    require(err <= atol, f"pairwise_kernel[{name}] {tuple(x.shape)} x "
+            f"{tuple(y.shape)}: max|d| {err:.3e} <= {atol}")
+    return err
+
+
+def phase_solver_kernels(fit, dev) -> dict:
+    """Phase 8b (a, b): B10 and B11 against their plain versions."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    x, xt = fit["x"], fit["xt"]
+    res = {}
+    v = torch.randn((N_TRAIN, N_CLASSES), generator=gen, device=dev)
+    rows = []
+    for name in ("gaussian", "imq", "laplace"):
+        # laplace's plain version broadcasts (rows, m, d): its full-width
+        # check takes 2,048 rows of Xc against all 464,809 points (rows are
+        # independent in the kernel, so b changes only the grid)
+        xc = x[:2048] if name == "laplace" else x
+        rows.append((name, check_kernel_matvec(
+            xc, x, v, name, FULL_RTOL,
+            chunk=32 if name == "laplace" else 2048)))
+    res["kernel_matvec"] = rows[0][1][1]
+    # the control: B10 with Y's ragged tail (464,809 mod 64 = 41 rows) and
+    # its V rows dropped must fail the full-width gate
+    from repro_torch.kernels.matvec_stage.ops import kernel_matvec
+
+    tail = N_TRAIN % 64
+    lost = kernel_matvec_gap(
+        kernel_matvec(x, x[:-tail], v[:-tail], sigma=SIGMA), rows[0][1][2])[0]
+    require(lost > FULL_RTOL, f"kernel_matvec without Y's {tail}-row tail: "
+            f"rel {lost:.3e} > {FULL_RTOL} (the gate sees a lost tile)")
+    say("[8b solvers] kernel_matvec at covtype width, Xc (464809, 54) "
+        "(laplace 2048 rows) x Y (464809, 54) x V (464809, 7) f32: "
+        + ", ".join(f"{n} rel {r[0]:.3e}" for n, r in rows)
+        + f" (tolerance {FULL_RTOL} of max K|V|) ok; control, gaussian with "
+        f"Y's last {tail} rows dropped: rel {lost:.3e} > {FULL_RTOL}, caught")
+    del rows
+    for dtype, rtol in ((torch.float32, 1e-4), (torch.float64, 1e-10)):
+        o = dict(dtype=dtype, device=dev)
+        for name in ("gaussian", "imq", "laplace"):
+            a, b_ = (math.sqrt(2.0 / 55) * torch.randn(s, generator=gen, **o)
+                     for s in ((4097, 55), (3001, 55)))
+            check_kernel_matvec(a, b_, torch.randn((3001, 7), generator=gen,
+                                                  **o), name, rtol, chunk=256)
+        say(f"[8b solvers] kernel_matvec ragged b 4097, m 3001, d 55, k 7 "
+            f"{str(dtype)[6:]}, gaussian, imq and laplace within {rtol} ok")
+    wide = []
+    xs = x[:16384]
+    for k in (1, 160):
+        vk = torch.randn((xs.shape[0], k), generator=gen, device=dev)
+        for name in ("gaussian", "imq", "laplace"):
+            wide.append(check_kernel_matvec(xs, xs, vk, name, 1e-4,
+                                            chunk=128 if name == "laplace"
+                                            else 2048)[0])
+    say(f"[8b solvers] kernel_matvec n 16384, d 54, k 1 and 160 f32, three "
+        f"kernels: max rel {max(wide):.3e} (tolerance 1e-4) ok")
+    x64 = x[:2048].double()
+    v64 = torch.randn((2048, 3), generator=gen, dtype=torch.float64,
+                      device=dev)
+    f64 = [check_kernel_matvec(x64, x64, v64, name, 1e-10, chunk=256)[0]
+           for name in ("gaussian", "imq", "laplace")]
+    say(f"[8b solvers] kernel_matvec n 2048, d 54, k 3 f64, three kernels: "
+        f"max rel {max(f64):.3e} (tolerance 1e-10) ok")
+
+    tiles = []
+    for name in ("gaussian", "imq", "laplace"):
+        tiles.append(check_tile(x[:16384], xt[:16384], name, 1e-5))
+        a, b_ = (math.sqrt(2.0 / 55) * torch.randn(s, generator=gen,
+                                                   device=dev)
+                 for s in ((4097, 55), (3001, 55)))
+        tiles.append(check_tile(a, b_, name, 1e-5))
+    res["kernel_tile"] = max(tiles)
+    say(f"[8b solvers] pairwise_kernel (registry stage) 16384 x 16384, d 54 "
+        f"and ragged 4097 x 3001, d 55, f32, three kernels: max|d| "
+        f"{res['kernel_tile']:.3e} (tolerance 1e-5 absolute) ok")
+    return res
+
+
+def phase_bench_cg(dev) -> dict:
+    """Phase 8b (c): bench_cg.py's shape in f64 against the dense solve,
+    the launch counts read around every solver call."""
+    from repro_torch.core import krr
+    from repro_torch.core.kernels_fn import BaseKernel
+    from repro_torch.core.partition import auto_levels
+    from repro_torch.solvers import ExactKernelOp, eigenpro_solve
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    x = torch.randn((CG_N, CG_D), generator=gen, dtype=torch.float64,
+                    device=dev)
+    y = torch.sin(x[:, 0]) + 0.25 * torch.cos(2.0 * x[:, 1])
+    ker = BaseKernel("gaussian", CG_SIGMA, CG_JITTER)
+    opts = dict(kernel=ker, lam=LAM, rank=RANK)
+    eye = torch.eye(CG_N, dtype=torch.float64, device=dev)
+    want = torch.linalg.solve(ker.gram(x) + LAM * eye, y[:, None])
+    # the preconditioner's floor-rule tree: 32 leaves of 128, no padding
+    levels = max(1, auto_levels(CG_N, RANK))
+
+    def fit_counted(tol, pre):
+        model, launches, plain_calls = counted(lambda: krr.fit_exact(
+            x, y, tol=tol, maxiter=3000, precondition=pre, **opts))
+        it = model.result.iterations
+        expected = {"kernel_matvec": it + 1}
+        if pre:
+            expected.update(gram_chol=levels + 1, cross_solve=levels,
+                            leaf_factor=1, leaf_solve=it + 1)
+        require_launches(f"fit_exact (tol {tol}, precondition={pre})",
+                         launches, plain_calls, expected)
+        return model, {k: v for k, v in launches.items() if v}
+
+    t = time.perf_counter()
+    model, fit_launches = fit_counted(1e-9, True)
+    t_fit = time.perf_counter() - t
+    gap = float((model.alpha - want).abs().max())
+    require(model.result.converged and gap < 1e-6,
+            f"f64 fit_exact vs dense solve max abs {gap:.3e} < 1e-6")
+    q = x[:33]
+    pgap = float((model.predict(q) - (ker.cross(q, x) @ want)[:, 0])
+                 .abs().max())
+    require(pgap < 1e-6, f"ExactKRR.predict vs dense cross {pgap:.3e}")
+    its, its_launches = {}, {}
+    for pre in (True, False):
+        m, its_launches[pre] = fit_counted(1e-6, pre)
+        require(m.result.converged, f"fit_exact precondition={pre} converged")
+        its[pre] = m.result.iterations
+    require(its[True] <= its[False],
+            f"preconditioned CG {its[True]} <= plain {its[False]} iterations")
+    op = ExactKernelOp(x, ker)
+    t = time.perf_counter()
+    ep, ep_launches, ep_plain = counted(lambda: eigenpro_solve(
+        op, y[:, None], ridge=LAM, n_components=160, subsample=2048,
+        tol=1e-8, maxiter=3000,
+        generator=torch.Generator(device=dev).manual_seed(9)))
+    t_ep = time.perf_counter() - t
+    # the Nystrom extension and the Rayleigh-Ritz matvec, then one apply
+    # per Richardson step
+    require_launches("eigenpro_solve", ep_launches, ep_plain,
+                     {"kernel_matvec": ep.iterations + 2})
+    egap = float((ep.x - want).abs().max())
+    require(ep.converged and egap < 1e-5,
+            f"EigenPro vs dense solve max abs {egap:.3e} < 1e-5")
+    say(f"[8b solvers] bench_cg shape n={CG_N} d={CG_D} gaussian sigma "
+        f"{CG_SIGMA} jitter {CG_JITTER} lam {LAM} rank {RANK} f64: fit_exact "
+        f"(tol 1e-9) {model.result.iterations} iterations in {t_fit:.3f} s, "
+        f"max|alpha - dense| {gap:.3e} < 1e-6, predict {pgap:.3e} < 1e-6 ok; "
+        f"launches {fit_launches}, no plain version")
+    say(f"[8b solvers] CG iterations to tol 1e-6: preconditioned "
+        f"{its[True]}, plain {its[False]}, ratio "
+        f"{its[False] / max(its[True], 1):.2f} (gate: preconditioned <= "
+        f"plain) ok; launches preconditioned {its_launches[True]}, plain "
+        f"{its_launches[False]}, no plain version")
+    say(f"[8b solvers] eigenpro_solve (subsample 2048, 160 components, tol "
+        f"1e-8): {ep.iterations} iterations in {t_ep:.3f} s, max|x - dense| "
+        f"{egap:.3e} < 1e-5 ok; launches "
+        f"{ {k: v for k, v in ep_launches.items() if v} } "
+        f"(iterations + 2), no plain version")
+    return {"iters": its, "eigenpro_iters": ep.iterations}
+
+
+def phase_exact_krr(fit, dev) -> dict:
+    """Phase 8b (d): exact-kernel KRR at covtype width, nothing cut, through
+    ``krr.fit_exact`` twice: with the HCK preconditioner (B1-B4 and B10)
+    and without it (B10 alone), the counts read around exactly each call.
+
+    On this data CG preconditioned by the HCK inverse does not reach 1e-2
+    within 30 iterations, while plain CG does in about 20: at d = 54 the
+    preconditioned operator's spectrum is wider than the bulk of K's (in
+    float64 on the CPU, in the reference as in the port:
+    tests/test_torch_precond.py, ROADMAP C6).  So convergence and the
+    residual through B10 are gated on the plain run, and printed for the
+    preconditioned one, whose launches are gated."""
+    from repro_torch.core import krr
+    from repro_torch.core.kernels_fn import BaseKernel
+    from repro_torch.solvers import ExactKernelOp
+
+    x, labels, xt, yt = fit["x"], fit["labels"], fit["xt"], fit["yt"]
+    ker = BaseKernel("gaussian", SIGMA, JITTER)
+    opts = dict(kernel=ker, lam=LAM, rank=RANK, classification=True,
+                tol=EXACT_TOL, maxiter=EXACT_MAXITER)
+    # levels=12: the floor rule would give 11 levels and 227-point leaves,
+    # whose Adiag tile needs more shared memory than B1 has (gram_smem(227,
+    # 4) = 236,988 > 232,448 B), so B1 would raise; 12 levels give 128-point
+    # leaves over 524,288 rows, 59,479 of them duplicates
+    draws = {True: dict(levels=LEVELS), False: {}}
+    gen = lambda: torch.Generator(device=dev).manual_seed(SEED + 10)
+    targets = one_vs_all(labels, x.dtype)
+    op = ExactKernelOp(x, ker)
+    norm = torch.linalg.vector_norm
+    runs = {}
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    for pre in (True, False):
+        # ---- the exact-KRR path: counts set to 0 just before, read just
+        # after ----
+        t0 = time.perf_counter()
+        model, launches, plain_calls = counted(lambda: krr.fit_exact(
+            x, labels, generator=gen(), precondition=pre, **draws[pre],
+            **opts))
+        t_fit = time.perf_counter() - t0
+        # ------------------------------------------------------------------
+        res = model.result
+        it = res.iterations
+        expected = {"kernel_matvec": it + 1}
+        if pre:
+            expected.update(gram_chol=LEVELS + 1, cross_solve=LEVELS,
+                            leaf_factor=1, leaf_solve=it + 1)
+        require_launches(f"the exact-KRR path (precondition={pre})",
+                         launches, plain_calls, expected)
+        require(bool(torch.isfinite(model.alpha).all()), "alpha finite")
+        # the final residual recomputed through B10 (the operator's matvec)
+        resid = targets - op.matvec(model.alpha) - LAM * model.alpha
+        rres = float((norm(resid, dim=0) / norm(targets, dim=0)).max())
+        runs[pre] = dict(model=model, launches=launches, t_fit=t_fit,
+                         resid=rres, trace=[float(v) for v in
+                                            res.residuals[:it + 1]])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    plain = runs[False]
+    model = plain["model"]
+    require(model.result.converged, f"plain CG converged to {EXACT_TOL} "
+            f"within {EXACT_MAXITER}: trace {plain['trace']}")
+    require(plain["resid"] <= EXACT_TOL, f"exact-KRR residual through "
+            f"kernel_matvec {plain['resid']:.3e} <= {EXACT_TOL}")
+
+    stages = {}
+    timed = stage_timer(stages)
+    timed("preconditioner build", lambda: krr._hck_preconditioner(
+        x, kernel=ker, lam=LAM, rank=RANK, leaf_size=None, levels=LEVELS,
+        method="rp", solve_config=None, generator=gen()))
+    pred = timed("predict (116,203 queries)", lambda: model.predict(xt))
+    require(pred.shape == (N_TEST, N_CLASSES)
+            and bool(torch.isfinite(pred).all()), "exact-KRR predictions")
+    acc = float((model.predict_class(xt) == yt).double().mean())
+    gap = rel_max(fit["model"].predict(xt), pred)
+    pc = runs[True]
+    pc_it = pc["model"].result.iterations
+    cg_pc = pc["t_fit"] - stages["preconditioner build"]
+    per_plain = plain["t_fit"] / (model.result.iterations + 1)
+    for tag, r in (("HCK-preconditioned", pc), ("plain", plain)):
+        m = r["model"]
+        say(f"[8b solvers] fit_exact {tag} at covtype width n={N_TRAIN} d={D} "
+            f"k={N_CLASSES} gaussian sigma {SIGMA} jitter {JITTER} lam {LAM} "
+            f"f32 tol {EXACT_TOL} maxiter {EXACT_MAXITER}: "
+            f"{m.result.iterations} iterations, converged "
+            f"{m.result.converged}, {r['t_fit']:.3f} s; residual through "
+            f"kernel_matvec {r['resid']:.3e}; trace {r['trace']}")
+        say(f"[8b solvers] launches on the exact-KRR path ({tag}): "
+            f"{r['launches']}")
+    say(f"[8b solvers] plain CG converged in {model.result.iterations} "
+        f"iterations, residual {plain['resid']:.3e} <= {EXACT_TOL} ok; "
+        f"peak device memory {peak:.2f} GiB")
+    say("[8b solvers] stage wall times (warm, synchronised): " + ", ".join(
+        f"{k} {v * 1e3:.2f} ms" for k, v in stages.items())
+        + f"; CG per operator apply: plain {per_plain * 1e3:.2f} ms, "
+        f"preconditioned {cg_pc / (pc_it + 1) * 1e3:.2f} ms (its run less "
+        f"the build)")
+    say(f"[8b solvers] not gated: test accuracy {acc:.4f} over {N_TEST} "
+        f"queries; max |HCK - exact| / max |exact| predictions {gap:.3e}; "
+        f"HCK-preconditioned CG (levels {LEVELS}, "
+        f"{(RANK << LEVELS) - N_TRAIN} duplicated rows) "
+        f"{pc_it} iterations, converged {pc['model'].result.converged}")
+    return {"launches": pc["launches"], "plain_launches": plain["launches"],
+            "stages": stages, "peak": peak, "alpha": model.alpha,
+            "iterations": {"preconditioned": pc_it,
+                           "plain": model.result.iterations}}
+
+
+def phase_slq(sw, dev) -> dict:
+    """Phase 8b (e): gp.mle_grid(logdet="slq") at covtype width against the
+    exact surface, and the SLQ logdet in f64 at n = 4,096."""
+    from repro_torch.core import gp, hmatrix
+    from repro_torch.core.hck import sweep_factors
+    from repro_torch.core.kernels_fn import BaseKernel
+    from repro_torch.solvers.slq import rademacher_probes
+
+    xp, y_t, plan, exact = sw["xp"], sw["target"], sw["plan"], sw["nll"]
+    n = xp.shape[0]
+    probes = rademacher_probes(SLQ_PROBES, n, dtype=xp.dtype, device=dev,
+                               generator=torch.Generator(device=dev)
+                               .manual_seed(42))
+    kw = dict(levels=LEVELS, rank=RANK, sigmas=SIGMAS, noises=LAMS,
+              jitter=JITTER, plan=plan, logdet="slq", slq_iters=SLQ_ITERS,
+              cg_tol=SLQ_CG_TOL)
+    sync()
+    t = time.perf_counter()
+    # ---- the SLQ surface: counts set to 0 just before, read just after ----
+    with warnings.catch_warnings(record=True) as missed:
+        warnings.simplefilter("always")
+        surf, launches, plain_calls = counted(
+            lambda: gp.mle_grid(xp, y_t, slq_probe_vectors=probes, **kw))
+    # -----------------------------------------------------------------------
+    t_slq = time.perf_counter() - t
+    # per sigma: sweep_factors (B8 per level and the leaves, B9 per level),
+    # one inversion at the reference ridge (B3), a B5 matvec per Lanczos
+    # step, and per PCG iteration (and its start) one B5 matvec and one B4
+    # preconditioner apply
+    n_s, lanczos = len(SIGMAS), len(SIGMAS) * SLQ_PROBES * SLQ_ITERS
+    pcg_applies = launches["leaf_solve"]
+    require(pcg_applies >= n_s * len(LAMS), f"SLQ surface launches: at "
+            f"least one PCG apply per grid point, read {pcg_applies}")
+    require_launches("the SLQ surface", launches, plain_calls, dict(
+        gram_chol_dist=n_s * (LEVELS + 1), cross_solve_dist=n_s * LEVELS,
+        leaf_factor=n_s, leaf_solve=pcg_applies,
+        leaf_matvec=lanczos + pcg_applies))
+    t = time.perf_counter()
+    gp.mle_grid(xp, y_t, levels=LEVELS, rank=RANK, sigmas=SIGMAS,
+                noises=LAMS, jitter=JITTER, plan=plan)
+    sync()
+    t_exact = time.perf_counter() - t
+    require(surf.shape == exact.shape and bool(torch.isfinite(surf).all()),
+            "SLQ surface finite")
+    # the quadratic terms against the exact path's, per sigma
+    y_sorted = y_t[plan.tree.perm][:, None]
+    ridge0 = math.exp(sum(math.log(v) for v in LAMS) / len(LAMS))
+    const = 0.5 * n * math.log(2 * math.pi)
+    qgaps, rows = [], []
+    for i, sg in enumerate(SIGMAS):
+        f = sweep_factors(plan, BaseKernel("gaussian", sg, JITTER))
+        quads, lds = gp.slq_row(f, y_sorted, LAMS, probe_vectors=probes,
+                                iters=SLQ_ITERS, ridge0=ridge0,
+                                cg_tol=SLQ_CG_TOL, cg_maxiter=200)
+        rows.append(rel_max(0.5 * quads + 0.5 * lds + const, surf[i]))
+        invs = hmatrix.invert_multi(f, LAMS)
+        for g, lam in enumerate(LAMS):
+            q_exact = float(y_sorted[:, 0] @ hmatrix.apply_inverse(
+                invs.at(g), y_sorted)[:, 0])
+            qgap = abs(float(quads[g]) - q_exact) / abs(q_exact)
+            qgaps.append((sg, lam, qgap))
+            if lam >= 1e-2:
+                require(qgap <= SLQ_CG_TOL, f"SLQ quadratic term sigma {sg} "
+                        f"lam {lam}: rel {qgap:.3e} <= {SLQ_CG_TOL}")
+        del invs, f
+    require(max(rows) <= 1e-6, f"mle_grid rows vs slq_row {max(rows):.3e}")
+    gap = ((surf - exact).abs() / n)
+    same_argmin = bool(torch.equal(surf.argmin(dim=1), exact.argmin(dim=1)))
+    say(f"[8b solvers] mle_grid(logdet='slq') 4 x 4 at covtype width, "
+        f"{SLQ_PROBES} probes x {SLQ_ITERS} steps, cg_tol {SLQ_CG_TOL}: "
+        f"{t_slq:.3f} s against the exact surface's {t_exact:.3f} s; NLL gap "
+        f"per point max {float(gap.max()):.3e} (at lam >= 1e-2 "
+        f"{float(gap[:, 1:].max()):.3e}); argmin over lambda the same in "
+        f"every row: {same_argmin}; surface rows vs 0.5 q + 0.5 logdet rel "
+        f"{max(rows):.3e}")
+    say(f"[8b solvers] launches on the SLQ surface: "
+        f"{ {k: v for k, v in launches.items() if v} } ({lanczos} Lanczos "
+        f"matvecs, {pcg_applies} PCG applies in {n_s * len(LAMS)} solves), "
+        f"no plain version; PCG warnings {len(missed)}")
+    say("[8b solvers] NLL gap per point |slq - exact| / n (rows sigma, "
+        "columns lambda): " + json.dumps([[float(v) for v in row]
+                                          for row in gap]))
+    say("[8b solvers] quadratic terms rel gap to the exact path (sigma, lam, "
+        "gap): " + "; ".join(f"{s}, {l}, {q:.2e}" for s, l, q in qgaps)
+        + f" (gated <= {SLQ_CG_TOL} at lam >= 1e-2; at 1e-3 the f32 exact "
+        "path is not trusted) ok")
+
+    slq64 = slq_f64_gate(dev)
+    return {"t_slq": t_slq, "t_exact": t_exact, "launches": launches,
+            "gap": float(gap.max()), "same_argmin": same_argmin, **slq64}
+
+
+def slq_f64_gate(dev) -> dict:
+    """Phase 8b (e), f64 at n = 4,096: ``slq_logdet`` on the HCK matvec over
+    the 4 x 4 grid against ``invert(...).logabsdet``, its error taken
+    apart.  SLQ - logdet = (SLQ - H) + (H - logdet), with H = mean_p z_p^T
+    log(A + lam I) z_p the Hutchinson estimate of the same probes (dense,
+    from one eigh per sigma):
+
+    * quadrature, SLQ - H, is the code's: Gauss quadrature of log, whose
+      even derivatives are negative, overestimates each probe's form, so
+      0 <= (SLQ - H) / n <= SLQ_QUAD_LIMIT for every draw (less 1e-9 of
+      round-off, which reads 3e-13); a Lanczos
+      without reorthogonalisation (the control, one draw) must exceed it;
+    * the draw, H - logdet, is the probes': unbiased, with variance
+      2 sum_{i != j} log(A)_ij^2 / P over P probes.  Each SLQ draw's error
+      is printed in units of its std; over those draws and SLQ_MORE_DRAWS
+      more (dense only) the mean error of all their probes is gated at
+      SLQ_STD_LIMIT of its std, and probes of {0, 1} in place of +-1 (the
+      control) must fail it."""
+    from repro_torch.core import hmatrix
+    from repro_torch.core.hck import build_sweep_plan, sweep_factors, to_dense
+    from repro_torch.core.kernels_fn import BaseKernel
+    from repro_torch.solvers import HCKOp, slq_logdet
+    from repro_torch.solvers.slq import rademacher_probes
+
+    n = EXACT_N
+    xs = make_data(n, 8, dev, torch.Generator(device=dev).manual_seed(
+        SEED + 6), dtype=torch.float64)[0]
+    plan = build_sweep_plan(xs, levels=EXACT_LEVELS, rank=RANK,
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(7))
+    draws = [rademacher_probes(SLQ_PROBES, n, dtype=torch.float64,
+                               device=dev, generator=torch.Generator(
+                                   device=dev).manual_seed(seed))
+             for seed in SLQ_DRAWS + tuple(range(1000, 1000 + SLQ_MORE_DRAWS))]
+    z_all = torch.cat(draws)                                   # (P, n)
+    draws = draws[:len(SLQ_DRAWS)]
+    # no reorthogonalisation: every vector-valued inner product (the
+    # reorthogonalisation coefficients) reads as 0
+    no_reorth = lambda s: s if s.ndim == 0 else torch.zeros_like(s)
+    lams = torch.tensor(LAMS, dtype=torch.float64, device=dev)
+    quad, quad_ctrl, units, pooled, pooled_ctrl, spread = ([], [], [], [],
+                                                          [], [])
+    for sg in SIGMAS:
+        f = sweep_factors(plan, BaseKernel("gaussian", sg, JITTER))
+        mv = HCKOp(f).matvec
+        want = torch.tensor([float(hmatrix.invert(f, lam).logabsdet)
+                             for lam in LAMS], dtype=torch.float64)
+        w, vecs = torch.linalg.eigh(to_dense(f))
+        logs = torch.log(w[None, :] + lams[:, None])          # (G, n)
+        # sum_{i != j} log(A)_ij^2 = ||log A||_F^2 - sum_i log(A)_ii^2
+        diag = logs @ (vecs ** 2).T                            # (G, n)
+        off = (logs ** 2).sum(1) - (diag ** 2).sum(1)
+        for i, z in enumerate(draws):
+            got = slq_logdet(mv, n, ridges=LAMS, iters=SLQ_ITERS,
+                             probe_vectors=z).cpu()
+            h = (((z @ vecs) ** 2) @ logs.T).mean(0).cpu()     # (G,)
+            quad.append(((got - h) / n).tolist())
+            units.append(((h - want) / torch.sqrt(2 * off.cpu() / SLQ_PROBES))
+                         .tolist())
+            if i == 0:
+                ctrl = slq_logdet(mv, n, ridges=LAMS, iters=SLQ_ITERS,
+                                  probe_vectors=z, all_reduce=no_reorth)
+                quad_ctrl.append(((ctrl.cpu() - h) / n).tolist())
+        # every draw's probes, densely: per-probe errors in units of the
+        # one-probe std, then per draw and all together
+        std1 = torch.sqrt(2 * off.cpu())
+        per = ((((z_all @ vecs) ** 2) @ logs.T).cpu() - want) / std1
+        by_draw = per.reshape(-1, SLQ_PROBES, len(LAMS)).mean(1)
+        by_draw = by_draw * math.sqrt(SLQ_PROBES)
+        at = by_draw[:, LAMS.index(1e-2)]
+        spread.append((float(at.mean()), float(at.std()), float(at.min()),
+                       float(at.max())))
+        probes = z_all.shape[0]
+        pooled.append((per.mean(0) * math.sqrt(probes)).tolist())
+        h01 = (((0.5 * (z_all + 1.0)) @ vecs) ** 2 @ logs.T).cpu()
+        pooled_ctrl.append(float(((h01 - want) / std1).mean(0).abs().min()
+                                 * math.sqrt(probes)))
+        del f, w, vecs
+    q_lo = min(min(r) for r in quad)
+    q_hi = max(max(r) for r in quad)
+    c_hi = max(max(r) for r in quad_ctrl)
+    p_hi = max(abs(v) for r in pooled for v in r)
+    p_ctrl = min(pooled_ctrl)
+    require(q_lo >= -1e-9 and q_hi <= SLQ_QUAD_LIMIT, f"f64 SLQ quadrature "
+            f"error per point in [{q_lo:.3e}, {q_hi:.3e}] within [-1e-9, "
+            f"{SLQ_QUAD_LIMIT}]")
+    require(c_hi > SLQ_QUAD_LIMIT, f"control: Lanczos without "
+            f"reorthogonalisation, quadrature error per point {c_hi:.3e} > "
+            f"{SLQ_QUAD_LIMIT}")
+    require(p_hi <= SLQ_STD_LIMIT, f"f64 SLQ probe draws: |H - logdet| over "
+            f"{probes} probes {p_hi:.2f} <= {SLQ_STD_LIMIT} std")
+    require(p_ctrl > SLQ_STD_LIMIT, f"control: probes of {{0, 1}}, |H - "
+            f"logdet| {p_ctrl:.2f} > {SLQ_STD_LIMIT} std")
+    nd = len(draws)
+    say(f"[8b solvers] f64 SLQ logdet at n={n} ({SLQ_PROBES} probes x "
+        f"{SLQ_ITERS} steps, draws seeded {SLQ_DRAWS}): quadrature error "
+        f"(SLQ - H) / n per point in [{q_lo:.3e}, {q_hi:.3e}] (gate [-1e-9 "
+        f"of round-off, {SLQ_QUAD_LIMIT}]) ok; control without "
+        f"reorthogonalisation, first draw: max {c_hi:.3e} > "
+        f"{SLQ_QUAD_LIMIT}, caught; |H - logdet| over the {probes} probes "
+        f"of {probes // SLQ_PROBES} draws max "
+        f"{p_hi:.2f} std (gate {SLQ_STD_LIMIT}) ok; control, probes of "
+        f"{{0, 1}}: min {p_ctrl:.1f} std, caught")
+    say("[8b solvers] f64 SLQ probe draws, (H - logdet) / std of each of "
+        f"the {probes // SLQ_PROBES} draws per sigma (mean, std, min, max "
+        "at lam 1e-2): " + "; ".join(
+            f"{sg}: {a:+.3f}, {b:.3f}, {c:+.2f}, {d:+.2f}" for sg, (a, b, c, d)
+            in zip(SIGMAS, spread)))
+    say("[8b solvers] f64 SLQ per (sigma, lam): quadrature (SLQ - H) / n of "
+        "each SLQ draw, the control's, each SLQ draw's (H - logdet) / std "
+        f"and all {probes} probes' together: " + "; ".join(
+            f"{sg}, {lam}: q " + " ".join(
+                f"{quad[si * nd + d][g]:.2e}" for d in range(nd))
+            + f" ctrl {quad_ctrl[si][g]:.2e} e " + " ".join(
+                f"{units[si * nd + d][g]:+.2f}" for d in range(nd))
+            + f" all {pooled[si][g]:+.2f}"
+            for si, sg in enumerate(SIGMAS) for g, lam in enumerate(LAMS)))
+    return {"quad": q_hi, "quad_ctrl": c_hi, "draw_std": p_hi}
+
+
+def solver_timing(ex, kres) -> list[dict]:
+    """Phase 9, exact solvers: B10 at the exact-KRR path's shape and B11 at
+    16,384 x 16,384, beside their bounds and plain times."""
+    from repro_torch.kernels.kernel_tile.ops import pairwise_kernel
+    from repro_torch.kernels.kernel_tile.ref import pairwise_kernel_ref
+    from repro_torch.kernels.matvec_stage.ops import kernel_matvec
+
+    src, tpu = "src/repro_torch/csrc/", "src/repro/kernels/"
+    x, alpha = ex["x"], ex["alpha"]
+    n = x.shape[0]
+    ms = time_ms(lambda: kernel_matvec(x, x, alpha, sigma=SIGMA), 2,
+                 warmup=1)
+    # the plain version ran at this shape in phase 8b (a): warm already
+    plain = time_ms(lambda: plain_kernel_matvec(x, x, alpha, "gaussian",
+                                                SIGMA), 1, warmup=0)
+    records = [kernel_record(
+        "kernel_matvec", src + "kernel_matvec.cu",
+        tpu + "matvec_stage/matvec_stage.py:70", ex["launches"]
+        ["kernel_matvec"], kres["kernel_matvec"], ms, plain,
+        bound_ms(*kernel_matvec_cost(n, n, D, N_CLASSES, 4)),
+        unit=f"one launch: exact K ({n} x {n}, d {D}) times ({n}, "
+             f"{N_CLASSES})",
+        launches_plain_cg=ex["plain_launches"]["kernel_matvec"])]
+    xs, ys = x[:16384], ex["xt"][:16384]
+    records.append(kernel_record(
+        "kernel_tile", src + "kernel_tile.cu",
+        tpu + "kernel_tile/kernel_tile.py:93", 0, kres["kernel_tile"],
+        time_ms(lambda: pairwise_kernel(xs, ys, sigma=SIGMA), 10),
+        time_ms(lambda: pairwise_kernel_ref(xs, ys, sigma=SIGMA), 10),
+        bound_ms(*tile_cost(xs.shape[0], ys.shape[0], D)),
+        unit="one launch: K (16384 x 16384, d 54)",
+        path="none: only the pairwise_kernel registry stage reaches it "
+             "(autotune and roofline come with A15)"))
+    for rec in records:
+        say(f"[9 timing] {rec['name']} ({rec['unit']}): kernel "
+            f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, library "
+            f"{rec['library_ms']} ms, bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']}), launches {rec['launches']}")
+    return records
+
+
+def phase_solvers(fit, sw, dev) -> dict:
+    """Phase 8b: every part of the exact-kernel solvers' phase."""
+    t = time.perf_counter()
+    kres = phase_solver_kernels(fit, dev)
+    phase_bench_cg(dev)
+    ex = phase_exact_krr(fit, dev)
+    ex.update(x=fit["x"], xt=fit["xt"])
+    slq = phase_slq(sw, dev)
+    say(f"[8b solvers] phase done in {time.perf_counter() - t:.1f} s")
+    return {"kres": kres, "exact": ex, "slq": slq}
+
+
 def kernel_record(name, source, replaces, launches, err, ms, plain, bound,
                   library=None, **extra):
     """One entry of the kernels' JSON line."""
@@ -1673,7 +2343,9 @@ def main() -> int:
     served = phase_serve(fit)
     sw = phase_sweep(fit, dev)
     sres = phase_sweep_gates(fit, sw, dev)
-    kernels = phase_timing(fit, res, served) + sweep_timing(sw, sres)
+    solv = phase_solvers(fit, sw, dev)
+    kernels = (phase_timing(fit, res, served) + sweep_timing(sw, sres)
+               + solver_timing(solv["exact"], solv["kres"]))
     phase_profile(fit, served["engine"], sw)
     say(f"[end] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

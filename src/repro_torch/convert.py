@@ -20,7 +20,9 @@ own reader: a ``SweepPlan`` (``x_sorted``, ``perm``, ``directions/<l>``,
 ``alphas``, optional ``scores`` and ``classes``), an
 ``HCKGaussianProcess`` (the factors, ``inverse.*``, ``alpha`` and
 ``plan.*``) and a ``KPCAModel`` (the factors, ``embedding``, ``evals``,
-``v1``, ``a0``).
+``v1``, ``a0``).  An exact-kernel ``ExactKRR`` carries across as ``x``,
+``alpha`` and, for a classification fit, ``classes``, and an EigenPro
+preconditioner as ``vecs``, ``weights``, ``tail`` and ``rho``.
 
 Arrays keep their dtype; indices become int64.  Budgeted-rank factors
 (``rank_mask/<l>``) are not served by this slice and are refused.
@@ -36,10 +38,11 @@ from repro_torch.core.hck import HCKFactors, SweepPlan
 from repro_torch.core.hmatrix import InverseFactors
 from repro_torch.core.kernels_fn import BaseKernel
 from repro_torch.core.kpca import KPCAModel
-from repro_torch.core.krr import HCKRegressor, KRRPath
+from repro_torch.core.krr import ExactKRR, HCKRegressor, KRRPath
 from repro_torch.core.oos import OOSPlan
 from repro_torch.core.partition import PartitionTree
 from repro_torch.kernels.registry import SolveConfig
+from repro_torch.solvers.eigenpro import EigenProPrecond
 
 
 def _tensor(a: np.ndarray, dev: torch.device) -> torch.Tensor:
@@ -194,3 +197,28 @@ def kpca_from_arrays(arrays: dict, *, kernel: str, sigma: float,
             _tensor(arrays[key], dev)
             for key in ("embedding", "evals", "v1", "a0")),
         solve_config=solve_config)
+
+
+def exact_krr_from_arrays(arrays: dict, *, kernel: str, sigma: float,
+                          jitter: float, lam: float, squeeze: bool = False,
+                          solve_config: SolveConfig | None = None,
+                          row_chunk: int = 1024, device=None) -> ExactKRR:
+    """The port's :class:`ExactKRR` from the reference model's ``x``,
+    ``alpha`` and optional ``classes``; it carries no solver trace
+    (``result`` is None)."""
+    dev = _device.resolve(device)
+    classes = arrays.get("classes")
+    return ExactKRR(BaseKernel(kernel, sigma=sigma, jitter=jitter),
+                    _tensor(arrays["x"], dev), _tensor(arrays["alpha"], dev),
+                    lam, None,
+                    None if classes is None else _tensor(classes, dev),
+                    squeeze=squeeze, solve_config=solve_config,
+                    row_chunk=row_chunk)
+
+
+def eigenpro_from_arrays(arrays: dict, device=None) -> EigenProPrecond:
+    """The port's :class:`EigenProPrecond` from the reference's ``vecs``
+    (its ``u``), ``weights``, ``tail`` and ``rho``."""
+    dev = _device.resolve(device)
+    return EigenProPrecond(*(_tensor(arrays[key], dev)
+                             for key in ("vecs", "weights", "tail", "rho")))

@@ -10,7 +10,8 @@
 function of (log sigma, log noise) with the tree and landmarks frozen;
 :func:`mle_grid` evaluates it over a whole sigma x lambda grid through the
 sweep engine (one plan, per sigma one :func:`~repro_torch.core.hck.
-sweep_factors` pass and one multi-ridge inversion).  On the card every
+sweep_factors` pass and one multi-ridge inversion, or, with
+``logdet="slq"``, stochastic Lanczos quadrature and PCG).  On the card every
 stage is a CUDA kernel.  The kernels have no backward pass: a gradient of
 :func:`mle_objective` flows through the plain versions on the CPU, and on
 the card inputs that need a gradient raise.
@@ -19,6 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 
 import torch
 
@@ -197,12 +199,55 @@ def mle_objective(
     return nll
 
 
+def slq_row(factors: HCKFactors, y_sorted: Tensor, noises, *,
+            probe_vectors: Tensor, iters: int, ridge0: float, cg_tol: float,
+            cg_maxiter: int, config: SolveConfig | None = None,
+            sigma: float | None = None) -> tuple[Tensor, Tensor]:
+    """One bandwidth's row of the SLQ surface of :func:`mle_grid`: the
+    quadratic terms y^T (K_hck + lam_g I)^-1 y (G,) by PCG through the
+    Algorithm-1 matvec, preconditioned by the exact Algorithm-2 inverse at
+    ``ridge0``, and the SLQ log-determinants (G,) from one Lanczos pass per
+    probe.  ``y_sorted`` (n, 1) is in tree order.  A PCG solve that misses
+    ``cg_tol`` warns (``sigma`` names the bandwidth in the warning)."""
+    from repro_torch.solvers.cg import pcg
+    from repro_torch.solvers.slq import slq_logdet
+
+    n = y_sorted.shape[0]
+    inv0 = hmatrix.invert(factors, ridge=ridge0, config=config)
+
+    def mv(v):
+        return hmatrix.matvec(factors, v, config)
+
+    def precond(r):
+        return hmatrix.apply_inverse(inv0, r, config)
+
+    lds = slq_logdet(mv, n, ridges=noises, iters=iters,
+                     probe_vectors=probe_vectors)
+    quads = []
+    for noise in noises:
+        res = pcg(mv, y_sorted, ridge=noise, precond=precond, tol=cg_tol,
+                  maxiter=cg_maxiter)
+        if not res.converged:
+            # an unconverged quadratic term would silently corrupt the
+            # surface that argmin-based model selection reads
+            warnings.warn(
+                f"mle_grid(logdet='slq'): PCG for sigma={sigma} noise="
+                f"{noise} stopped at {res.iterations} iterations with "
+                f"relative residual {float(res.residuals[res.iterations]):.2e}"
+                f" (> cg_tol={cg_tol}); raise cg_maxiter or move the "
+                "reference ridge closer to this grid point", stacklevel=3)
+        quads.append(torch.sum(y_sorted[:, 0] * res.x[:, 0]))
+    return torch.stack(quads), lds
+
+
 def mle_grid(
     x, y, *, levels: int, rank: int, sigmas, noises, name: str = "gaussian",
     jitter: float = 1e-5, solve_config: SolveConfig | None = None,
     logdet: str = "exact", plan: SweepPlan | None = None, device=None,
     generator: torch.Generator | None = None, directions=None,
-    landmark_index=None,
+    landmark_index=None, slq_probes: int = 32, slq_iters: int = 48,
+    slq_probe_vectors=None, slq_generator: torch.Generator | None = None,
+    cg_tol: float = 1e-8, cg_maxiter: int = 200,
 ) -> Tensor:
     """Eq. 25 NLL over a sigma x lambda grid through the sweep engine: the
     (S, G) surface.
@@ -218,14 +263,20 @@ def mle_grid(
 
     ``plan`` reuses a plan built beforehand from ``x`` (with ``name``'s
     metric and ``levels`` and ``rank``); otherwise one is built from
-    ``generator`` or the injected draws.  ``logdet="slq"`` (stochastic
-    Lanczos quadrature) comes with ROADMAP item A9 and raises
-    ``NotImplementedError``.
+    ``generator`` or the injected draws.
+
+    ``logdet="slq"`` replaces the per-ridge exact Algorithm-2 recursion by
+    stochastic Lanczos quadrature through the O(n r) Algorithm-1 matvec
+    (:func:`slq_row`): per sigma ONE exact inversion, at the grid's
+    geometric-mean ridge, preconditions a PCG solve per ridge
+    (``cg_tol``, ``cg_maxiter``; a miss warns), and ``slq_probes``
+    Lanczos recurrences of ``slq_iters`` steps give the log-determinant of
+    every ridge.  The Rademacher probes are ``slq_probe_vectors``
+    (slq_probes, n), else drawn once from ``slq_generator`` (default
+    seeded 42 on the device) and shared by every sigma, as the reference
+    shares its key.
     """
-    if logdet == "slq":
-        raise NotImplementedError(
-            "logdet='slq' comes with the iterative solvers, ROADMAP item A9")
-    if logdet != "exact":
+    if logdet not in ("exact", "slq"):
         raise ValueError(f"logdet must be 'exact' or 'slq', got {logdet!r}")
     dev = _device.resolve(device)
     x = torch.as_tensor(x).to(dev)
@@ -243,7 +294,30 @@ def mle_grid(
     noises = [float(v) for v in noises]
     n = x.shape[0]
     y_sorted = y.to(x.dtype)[plan.tree.perm][:, None]
+    const = 0.5 * n * math.log(2 * math.pi)
     rows = []
+    if logdet == "slq":
+        from repro_torch.solvers.slq import rademacher_probes
+
+        probes = slq_probe_vectors
+        if probes is None:
+            probes = rademacher_probes(
+                slq_probes, n, dtype=x.dtype, device=dev,
+                generator=slq_generator if slq_generator is not None
+                else torch.Generator(device=dev).manual_seed(42))
+        probes = torch.as_tensor(probes, dtype=x.dtype, device=dev)
+        # one exact inversion per sigma, at the geometric-mean ridge: close
+        # enough across the grid that PCG stays a handful of iterations
+        ridge0 = math.exp(sum(math.log(v) for v in noises) / len(noises))
+        for s in sigmas:
+            kernel = BaseKernel(name, sigma=float(s), jitter=jitter)
+            factors = sweep_factors(plan, kernel, solve_config)
+            quads, lds = slq_row(
+                factors, y_sorted, noises, probe_vectors=probes,
+                iters=slq_iters, ridge0=ridge0, cg_tol=cg_tol,
+                cg_maxiter=cg_maxiter, config=solve_config, sigma=float(s))
+            rows.append(0.5 * quads + 0.5 * lds + const)
+        return torch.stack(rows)
     for s in sigmas:
         kernel = BaseKernel(name, sigma=float(s), jitter=jitter)
         factors = sweep_factors(plan, kernel, solve_config)
@@ -252,6 +326,5 @@ def mle_grid(
             torch.sum(y_sorted[:, 0] * hmatrix.apply_inverse(
                 invs.at(g), y_sorted, solve_config)[:, 0])
             for g in range(len(noises))])
-        rows.append(0.5 * quads + 0.5 * invs.logabsdet
-                    + 0.5 * n * math.log(2 * math.pi))
+        rows.append(0.5 * quads + 0.5 * invs.logabsdet + const)
     return torch.stack(rows)

@@ -327,19 +327,22 @@ def apply_inverse(inv: InverseFactors, b: Tensor,
                   config: SolveConfig | None = None) -> Tensor:
     """x = (A + ridge I)^-1 b through the hierarchical structure, O(n r).
 
-    On CPU tensors the leaf stage multiplies the explicit inverse blocks
-    (the plain ``leaf_matvec``, as the reference's xla path does); on the
-    card it is the fused ``leaf_solve`` kernel, ``Linv^T Linv b`` plus the
-    self low-rank correction (the reference's pallas path).  The
-    off-diagonal sweeps are shared with :func:`matvec`.
+    Whenever the inverse carries its leaf factors ``linv``, the leaf stage
+    is the fused ``leaf_solve`` -- ``Linv^T Linv b`` plus the self low-rank
+    correction, the reference's pallas path -- on both backends: the CUDA
+    kernel on the card, its plain version on the CPU.  The explicit
+    inverse blocks (``leaf_matvec`` on ``adiag``, the reference's xla
+    path) serve only an inverse without ``linv``: in float32 they lose the
+    solve at covtype width (residual 4.4e-1 against the f32 floor 5.5e-3,
+    ROADMAP item C4), where the factored form holds.  The off-diagonal
+    sweeps are shared with :func:`matvec`.
     """
     config = config if config is not None else DEFAULT_CONFIG
     b, squeeze = _as_batch(b)
     n, k = b.shape
     levels = inv.levels
     bb = b.reshape(inv.num_leaves, inv.leaf_size, k).contiguous()
-    backend = resolve_backend(config, "leaf_solve", bb)
-    if backend == "cuda" and levels > 0 and inv.linv is not None:
+    if levels > 0 and inv.linv is not None:
         x, c_leaf = _leaf_stage("leaf_solve", config, inv.linv, inv.u,
                                 inv.sigma[levels - 1], bb)
     else:

@@ -5,6 +5,8 @@ fit:      alpha = (K_hck + lambda I)^-1 y        -- Algorithm 2, O(n r^2)
 predict:  f(x)  = alpha^T k_hck(X, x)            -- Algorithm 3
 fit_path: alpha_g for a whole grid of lambda_g from one build, scored on
           held-out data in one Algorithm-3 pass  -- the sweep's lambda axis
+fit_exact: EXACT-kernel KRR by CG on the matvec-free exact-kernel
+          operator, preconditioned by the HCK structured inverse
 
 :func:`fit` pads the data to the tree, builds the factors
 (:func:`repro_torch.core.hck.build_hck`), inverts with the leaf factor
@@ -29,7 +31,8 @@ from repro_torch import device as _device
 from repro_torch.core import hmatrix, oos
 from repro_torch.core.hck import HCKFactors, build_hck
 from repro_torch.core.kernels_fn import BaseKernel
-from repro_torch.core.partition import auto_levels_ceil, pad_points
+from repro_torch.core.partition import (auto_levels, auto_levels_ceil,
+                                        pad_points)
 from repro_torch.kernels.registry import SolveConfig
 
 Tensor = torch.Tensor
@@ -302,3 +305,209 @@ def fit_path(
                    torch.tensor(lam_list, dtype=x.dtype, device=dev), alphas,
                    scores, classes, squeeze=squeeze,
                    solve_config=solve_config)
+
+
+@dataclasses.dataclass
+class ExactKRR:
+    """Exact-kernel KRR model trained by a matvec-free iterative solver.
+
+    Its dual coefficients solve ``(K(X, X) + lam I) alpha = y`` for the
+    exact base kernel, and ``predict`` applies the exact cross kernel
+    (the ``kernel_matvec`` stage, a CUDA kernel on the card), unlike
+    :class:`HCKRegressor`, whose predictions go through the Algorithm-3
+    plan of the approximate kernel.  ``alpha`` is in the ORIGINAL row
+    order of ``x`` (the hierarchy acts only as a preconditioner).
+    ``result`` is the solver's :class:`repro_torch.solvers.cg.CGResult`
+    (None for a model carried across by :mod:`repro_torch.convert`).
+    """
+
+    kernel: BaseKernel
+    x: Tensor                  # (n, d) training points, original order
+    alpha: Tensor              # (n, k) dual coefficients, original order
+    lam: float
+    result: object             # repro_torch.solvers.cg.CGResult
+    classes: Tensor | None = None
+    squeeze: bool = False
+    solve_config: SolveConfig | None = None
+    row_chunk: int = 1024
+
+    def _op(self):
+        from repro_torch.solvers.operators import ExactKernelOp
+
+        return ExactKernelOp(self.x, self.kernel, self.solve_config,
+                             row_chunk=self.row_chunk)
+
+    def predict(self, queries) -> Tensor:
+        """(q, d) -> (q,) when fit with 1-D y, else (q, k) scores."""
+        queries = torch.as_tensor(queries, device=self.x.device)
+        z = self._op().cross_matvec(queries, self.alpha)
+        return z[:, 0] if self.squeeze else z
+
+    def predict_class(self, queries) -> Tensor:
+        """(q, d) -> (q,) predicted class labels (classification fits)."""
+        if self.classes is None:
+            raise ValueError("model was fit for regression")
+        queries = torch.as_tensor(queries, device=self.x.device)
+        z = self._op().cross_matvec(queries, self.alpha)
+        if z.shape[1] == 1:  # binary +-1
+            return torch.where(z[:, 0] > 0, self.classes[1], self.classes[0])
+        return self.classes[torch.argmax(z, dim=1)]
+
+
+def _hck_preconditioner(x: Tensor, *, kernel: BaseKernel, lam: float,
+                        rank: int, leaf_size: int | None, levels: int | None,
+                        method: str, solve_config: SolveConfig | None,
+                        generator: torch.Generator, pad_index=None,
+                        pad_noise=None, directions=None, landmark_index=None):
+    """The Algorithm-2 structured inverse as a CG preconditioner.
+
+    The hierarchy is built on a PADDED copy of ``x`` (padding repeats
+    existing rows, plus 1e-4 noise) and applied through the weighted
+    embed and extract ``P = A^T M A``, ``A = E D^-1/2``, with E the
+    duplication map and D its column multiplicities: up to the pad noise,
+    ``P = (D^1/2 K_hck D^1/2 + lam)^-1``, SPD and spectrally within max
+    m_i (~2) of (K_hck + lam)^-1; how much it speeds CG up rests on how
+    well K_hck approximates K (at covtype width, d = 54, it does not:
+    ROADMAP item C6).  The extract sums duplicate rows with
+    ``index_add_``.  Without ``levels`` the tree takes the FLOOR depth and
+    a ceil leaf size, which pads less than one row per leaf (never below
+    ``rank``).  ``pad_index`` / ``pad_noise``, ``directions`` and
+    ``landmark_index`` replace the draws from ``generator``.  Returns
+    ``(precond, factors, inv)``.
+    """
+    n = x.shape[0]
+    leaf_size = leaf_size if leaf_size is not None else rank
+    if levels is None:
+        levels = max(1, auto_levels(n, leaf_size))
+        leaf_size = max(-(-n // (1 << levels)), leaf_size)
+    target = leaf_size * (1 << levels)
+    if n > target:
+        raise ValueError(
+            f"n={n} exceeds the preconditioner tree capacity {target} "
+            f"(leaf_size={leaf_size} x 2**{levels}); raise levels or "
+            "leaf_size, or leave them None for automatic sizing")
+    src = torch.arange(n, device=x.device)
+    if n == target:
+        x_pad, row_w = x, torch.ones((n,), dtype=x.dtype, device=x.device)
+    else:
+        # pad_points' own draw, made here so that the duplicates' sources
+        # are known for the weighted embed
+        if pad_index is None:
+            pad_index = torch.randint(0, n, (target - n,), device=x.device,
+                                      generator=generator)
+        pad_index = torch.as_tensor(pad_index, device=x.device)
+        x_pad, _, _ = pad_points(x, None, leaf_size, levels,
+                                 generator=generator, index=pad_index,
+                                 noise=pad_noise)
+        src = torch.cat([src, pad_index.to(torch.int64)])
+        mult = torch.zeros((n,), dtype=x.dtype, device=x.device).index_add_(
+            0, src, torch.ones((target,), dtype=x.dtype, device=x.device))
+        row_w = torch.rsqrt(mult)[src]                 # D^-1/2 per row
+    factors = build_hck(x_pad, levels=levels, rank=rank, kernel=kernel,
+                        method=method, config=solve_config,
+                        directions=directions, landmark_index=landmark_index,
+                        generator=generator)
+    inv = hmatrix.invert(factors, ridge=lam, config=solve_config)
+    perm = factors.tree.perm
+    pos = torch.argsort(perm)          # tree position of each padded row
+
+    def precond(r: Tensor) -> Tensor:
+        rp = (r[src] * row_w[:, None])[perm]
+        z = hmatrix.apply_inverse(inv, rp.contiguous(), solve_config)[pos]
+        return torch.zeros_like(r).index_add_(0, src, z * row_w[:, None])
+
+    return precond, factors, inv
+
+
+def fit_exact(
+    x, y, *, kernel: BaseKernel, lam: float, rank: int = 64,
+    leaf_size: int | None = None, levels: int | None = None,
+    method: str = "rp", solver: str = "cg", precondition: bool = True,
+    tol: float = 1e-6, maxiter: int = 300, classification: bool = False,
+    solve_config: SolveConfig | None = None, row_chunk: int = 1024,
+    eigenpro_components: int = 160, eigenpro_subsample: int = 2048,
+    device=None, generator: torch.Generator | None = None, pad_index=None,
+    pad_noise=None, directions=None, landmark_index=None,
+    eigenpro_permutation=None,
+) -> ExactKRR:
+    """Train EXACT-kernel KRR without ever forming K(X, X).
+
+    CG runs on the exact-kernel operator (:class:`repro_torch.solvers.
+    operators.ExactKernelOp`; on the card one ``kernel_matvec`` launch per
+    iteration), preconditioned by the HCK structured inverse: the paper's
+    factorization used as a strictly-PD spectral surrogate of K.  The
+    result matches a dense ``torch.linalg.solve(kernel.gram(x) + lam I,
+    y)`` to solver tolerance.
+
+    x, y:       training data as in :func:`fit` (classification reads
+                class labels from a 1-D ``y``); targets take the dtype of x.
+    kernel:     base kernel; ``kernel.gram``'s jitter * n diagonal is part
+                of the operator.
+    lam:        ridge of the exact solve.
+    rank, leaf_size, levels, method:
+                sizing of the PRECONDITIONER hierarchy; read only by
+                ``solver="cg"`` with ``precondition=True``.  ``levels``
+                None takes the floor depth (see :func:`_hck_preconditioner`).
+    solver:     "cg" (HCK-preconditioned CG, default) or "eigenpro"
+                (:mod:`repro_torch.solvers.eigenpro`, sized by
+                ``eigenpro_*``).
+    precondition: False runs plain CG, the baseline of the iteration
+                count.
+    tol, maxiter: relative-residual target and iteration cap.  In float32
+                the residual carries eps32 ||K|| of evaluation noise, so a
+                tol below that runs to ``maxiter``.
+    solve_config: backends of the ``kernel_matvec`` stage and of the
+                preconditioner's build and apply.
+    row_chunk:  rows per kernel tile of the plain version (its memory
+                knob); the card's kernel needs none.
+    device:     None is the CUDA card (raises without one), "cpu" the
+                plain path.
+    generator:  source of the preconditioner's padding, tree and landmark
+                draws and of EigenPro's subsample (default seeded 0 on
+                ``device``); ``pad_index`` / ``pad_noise``, ``directions``,
+                ``landmark_index`` and ``eigenpro_permutation`` replace
+                them.
+    """
+    from repro_torch.solvers.cg import pcg
+    from repro_torch.solvers.eigenpro import eigenpro_solve
+    from repro_torch.solvers.operators import ExactKernelOp
+
+    if solver not in ("cg", "eigenpro"):
+        raise ValueError(f"unknown solver {solver!r}; use 'cg' or 'eigenpro'")
+    dev = _device.resolve(device)
+    x = torch.as_tensor(x).to(dev)
+    y = torch.as_tensor(y).to(dev)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    targets, classes, squeeze = _encode_targets(y, classification, x.dtype)
+    op = ExactKernelOp(x, kernel, solve_config, row_chunk=row_chunk)
+    if solver == "eigenpro":
+        res = eigenpro_solve(op, targets, ridge=lam, generator=generator,
+                             permutation=eigenpro_permutation,
+                             n_components=eigenpro_components,
+                             subsample=eigenpro_subsample, tol=tol,
+                             maxiter=maxiter)
+    else:
+        precond = None
+        if precondition:
+            precond, _, _ = _hck_preconditioner(
+                x, kernel=kernel, lam=lam, rank=rank, leaf_size=leaf_size,
+                levels=levels, method=method, solve_config=solve_config,
+                generator=generator, pad_index=pad_index,
+                pad_noise=pad_noise, directions=directions,
+                landmark_index=landmark_index)
+        res = pcg(op.matvec, targets, ridge=lam, precond=precond, tol=tol,
+                  maxiter=maxiter)
+    return ExactKRR(kernel, x, res.x, lam, res, classes, squeeze=squeeze,
+                    solve_config=solve_config, row_chunk=row_chunk)
+
+
+def relative_error(pred: Tensor, truth: Tensor) -> Tensor:
+    """The paper's regression metric: ||pred - y|| / ||y||."""
+    return torch.linalg.vector_norm(pred - truth) / torch.linalg.vector_norm(
+        truth)
+
+
+def accuracy(pred: Tensor, truth: Tensor) -> Tensor:
+    """Fraction of exact label matches (the classification metric)."""
+    return torch.mean((pred == truth).to(torch.float32))

@@ -313,3 +313,35 @@ def _oos_contract_cuda(points, weights, queries, point_index, weight_index,
 
     return oos_contract(points, weights, queries, point_index, weight_index,
                         name=name, sigma=sigma, leaf_block=leaf_block)
+
+
+@register("kernel_matvec", "torch")
+def _kernel_matvec_torch(xc, y, v, *, name="gaussian", sigma=1.0):
+    """(b,d),(m,d),(m,k) -> z (b,k) = K(Xc, Y) V (dtype-preserving), plain."""
+    from repro_torch.kernels.matvec_stage.ref import kernel_matvec_ref
+
+    return kernel_matvec_ref(xc, y, v, name=name, sigma=sigma)
+
+
+@register("kernel_matvec", "cuda")
+def _kernel_matvec_cuda(xc, y, v, *, name="gaussian", sigma=1.0):
+    """(b,d),(m,d),(m,k) -> z (b,k) = K(Xc, Y) V, CUDA kernel."""
+    from repro_torch.kernels.matvec_stage.ops import kernel_matvec
+
+    return kernel_matvec(xc, y, v, name=name, sigma=sigma)
+
+
+@register("pairwise_kernel", "torch")
+def _pairwise_kernel_torch(x, y, *, name="gaussian", sigma=1.0):
+    """(n,d),(m,d) -> K(X, Y) (n,m) in float32, plain version."""
+    from repro_torch.kernels.kernel_tile.ref import pairwise_kernel_ref
+
+    return pairwise_kernel_ref(x, y, name=name, sigma=sigma)
+
+
+@register("pairwise_kernel", "cuda")
+def _pairwise_kernel_cuda(x, y, *, name="gaussian", sigma=1.0):
+    """(n,d),(m,d) -> K(X, Y) (n,m) in float32, CUDA kernel."""
+    from repro_torch.kernels.kernel_tile.ops import pairwise_kernel
+
+    return pairwise_kernel(x, y, name=name, sigma=sigma)

@@ -193,9 +193,10 @@ def test_mle_grid_against_dense_oracle_and_objective(grids, problem):
 
 def test_unported_gp_options_raise(problem):
     x, y, _, _, _ = problem
-    with pytest.raises(NotImplementedError, match="ROADMAP item A9"):
+    with pytest.raises(ValueError, match="probe_vectors"):
         gp.mle_grid(x, y, levels=2, rank=4, sigmas=[1.0], noises=[0.1],
-                    logdet="slq", device="cpu")
+                    logdet="slq", slq_probe_vectors=torch.ones((2, 3)),
+                    device="cpu")
     with pytest.raises(ValueError, match="logdet"):
         gp.mle_grid(x, y, levels=2, rank=4, sigmas=[1.0], noises=[0.1],
                     logdet="dense", device="cpu")

@@ -181,14 +181,22 @@ def test_solve_and_logdet_match_reference(factors, backend):
 
 
 def test_apply_inverse_leaf_paths_agree(factors):
-    """The fused leaf_solve form (the card's path) and the explicit-inverse
-    leaf_matvec form (the CPU path) give one operator."""
+    """The fused leaf_solve form (apply_inverse's path on both backends) and
+    the explicit-inverse leaf_matvec form (the reference's xla path) give
+    one operator; apply_inverse runs the fused form's plain version."""
     _, f, b = factors
     inv = hmatrix.invert(f, LAM)
     bb = _t(b).reshape(f.num_leaves, LEAF, 3)
     x, c = hck_leaf_solve_ref(inv.linv, inv.u, inv.sigma[-1], bb)
     fused = x + hmatrix._offdiag_apply(inv.sigma, inv.w, inv.u, c, LEVELS)
-    _close(fused.reshape(N, 3), hmatrix.apply_inverse(inv, _t(b)), 1e-10)
+    y, c = hck_leaf_matvec_ref(inv.adiag, inv.u, bb)
+    explicit = y + hmatrix._offdiag_apply(inv.sigma, inv.w, inv.u, c, LEVELS)
+    _close(fused, explicit, 1e-10)
+    before = hck_leaf_solve_ref.calls, hck_leaf_matvec_ref.calls
+    got = hmatrix.apply_inverse(inv, _t(b))
+    assert (hck_leaf_solve_ref.calls, hck_leaf_matvec_ref.calls) == (
+        before[0] + 1, before[1])
+    assert torch.equal(got, fused.reshape(N, 3))
 
 
 def test_refinement_never_accepts_a_growing_residual(factors):
