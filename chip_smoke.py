@@ -49,8 +49,25 @@ result.  Phases, each of which raises on failure:
               (its quadrature and its probe draws apart, with a faulty
               Lanczos as control); launch counts read around every solver
               call of the phase;
+  8c. lifecycle  the life of a model after its fit: B12
+              (``policy_dist``) against its plain version (covtype levels,
+              "l2" and "l1", f32; n = 4,096 f64); ``krr.fit(landmarks=
+              "kmeans" | "leverage", rank_budget=262,080)`` at covtype
+              width (launch counts read around each fit, distinct
+              landmark rows, prefix masks within the budget, the f32
+              residual at its floor), the kernel route against the plain
+              route (n = 4,096 f64: indices, masks, factors); the sweep's
+              policy axis (``replan_policy`` against a fresh k-means plan,
+              budgeted ``sweep_factors`` against the k-means fit); two
+              ``model.update`` rounds of 16,384 arrivals (launch counts
+              read around each), gated against ``refit_frozen`` with a
+              fresh inverse, solve and plan over all test queries, B13
+              (``leaf_update``) and B1-B7 against their plain versions at
+              the grown leaf size, ``downdate(insert(f)) == f``; one
+              "stale" and one "exact" round;
   9. timing   kernel, plain-version and library times at the fit, serving,
-              sweep and exact-solver shapes, beside each kernel's bound;
+              sweep, exact-solver and lifecycle shapes, beside each
+              kernel's bound;
  10. profile  torch.profiler over one full-width fit, over five 4096-query
               requests and over one sigma row of the NLL surface: device
               time by kernel, and the device's busy share.
@@ -66,6 +83,7 @@ the line before it is the kernels' JSON record.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import math
@@ -110,6 +128,12 @@ FULL_RTOL = 2e-6
 # 512 independent forms, near Gaussian).
 SLQ_DRAWS, SLQ_MORE_DRAWS = (43, 44, 45, 46), 60
 SLQ_QUAD_LIMIT, SLQ_STD_LIMIT = 1e-2, 4.0
+# The lifecycle phase: a global rank budget of half the 128 x 4,095
+# landmark slots, 16,384 arrivals per update round, and the "stale"
+# round's PCG stop at the f32 noise floor's order (section 5 of PERF.md).
+LIFE_BUDGET = 262_080
+UPDATE_Q = 16_384
+STALE_TOL, STALE_MAXITER = 1e-2, 30
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bytes/s and
 # float32 FLOP/s outside the tensor cores.
@@ -148,12 +172,24 @@ def make_data(n: int, n_test: int, dev, gen: torch.Generator,
     scale = math.sqrt(2.0 / D)
     x = scale * torch.randn((n, D), generator=gen, **opts)
     xt = scale * torch.randn((n_test, D), generator=gen, **opts)
+    return x, label_of(x, g), xt, label_of(xt, g)
 
-    def label(pts):
-        t = pts @ g
-        return torch.argmax(torch.sin(3.0 * t) + 0.5 * t * t, dim=1)
 
-    return x, label(x), xt, label(xt)
+def label_of(pts: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """make_data's labels: the argmax of a nonlinear function of pts @ g."""
+    t = pts @ g
+    return torch.argmax(torch.sin(3.0 * t) + 0.5 * t * t, dim=1)
+
+
+def fresh_points(q: int, seed: int, dev):
+    """q new points of phase 3's distribution (make_data seeded SEED) and
+    their labels under its labelling; ``seed`` draws the points."""
+    g = torch.randn((D, N_CLASSES), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(SEED))
+    x = math.sqrt(2.0 / D) * torch.randn(
+        (q, D), device=dev, generator=torch.Generator(device=dev)
+        .manual_seed(seed))
+    return x, label_of(x, g)
 
 
 def one_vs_all(labels: torch.Tensor, dtype) -> torch.Tensor:
@@ -170,6 +206,8 @@ def kernel_wrappers() -> dict:
     from repro_torch.kernels.kernel_tile import ops as tile_ops
     from repro_torch.kernels.matvec_stage import ops as matvec_ops
     from repro_torch.kernels.oos_stage import ops as oos_ops
+    from repro_torch.kernels.policy_stage import ops as policy_ops
+    from repro_torch.kernels.update_stage import ops as update_ops
 
     return {"gram_chol": build_ops.build_gram,
             "cross_solve": build_ops.build_cross,
@@ -181,7 +219,9 @@ def kernel_wrappers() -> dict:
             "hck_leaf_project": leaf_ops.leaf_project,
             "oos_contract": oos_ops.oos_contract,
             "kernel_matvec": matvec_ops.kernel_matvec,
-            "kernel_tile": tile_ops.pairwise_kernel}
+            "kernel_tile": tile_ops.pairwise_kernel,
+            "policy_dist": policy_ops.policy_dist,
+            "leaf_update": update_ops.leaf_update}
 
 
 def plain_versions() -> list:
@@ -191,13 +231,16 @@ def plain_versions() -> list:
     from repro_torch.kernels.kernel_tile import ref as tile_ref
     from repro_torch.kernels.matvec_stage import ref as matvec_ref
     from repro_torch.kernels.oos_stage import ref as oos_ref
+    from repro_torch.kernels.policy_stage import ref as policy_ref
+    from repro_torch.kernels.update_stage import ref as update_ref
 
     return [build_ref.build_gram_ref, build_ref.build_cross_ref,
             build_ref.build_gram_dist_ref, build_ref.build_cross_dist_ref,
             leaf_ref.hck_leaf_factor_ref, leaf_ref.hck_leaf_solve_ref,
             leaf_ref.hck_leaf_matvec_ref, leaf_ref.hck_leaf_project_ref,
             oos_ref.oos_contract_ref, matvec_ref.kernel_matvec_ref,
-            tile_ref.pairwise_kernel_ref]
+            tile_ref.pairwise_kernel_ref, policy_ref.policy_dist_ref,
+            update_ref.leaf_update_ref]
 
 
 def reset_counts() -> None:
@@ -659,7 +702,8 @@ def phase_fit(dev) -> dict:
                 "gram_chol_dist": 0, "cross_solve_dist": 0,
                 "leaf_factor": 1, "leaf_solve": 3, "leaf_matvec": 3,
                 "hck_leaf_project": 1, "oos_contract": 0,
-                "kernel_matvec": 0, "kernel_tile": 0}
+                "kernel_matvec": 0, "kernel_tile": 0, "policy_dist": 0,
+                "leaf_update": 0}
     require(launches == expected,
             f"fit launches {launches} == expected {expected}")
     require(all(v == 0 for v in plain_calls.values()),
@@ -1219,7 +1263,8 @@ def phase_sweep(fit, dev) -> dict:
                 "cross_solve_dist": 5 * LEVELS, "leaf_factor": 5,
                 "leaf_solve": 4 * len(LAMS) + 3 * len(LAMS),
                 "leaf_matvec": 3 * len(LAMS) + KPCA_ITERS + 2,
-                "hck_leaf_project": 3, "kernel_matvec": 0, "kernel_tile": 0}
+                "hck_leaf_project": 3, "kernel_matvec": 0, "kernel_tile": 0,
+                "policy_dist": 0, "leaf_update": 0}
     got = {k: v for k, v in launches.items() if k != "oos_contract"}
     require(got == expected, f"sweep launches {got} == expected {expected}")
     require(launches["oos_contract"] > 0, "oos_contract on the sweep path")
@@ -2132,6 +2177,693 @@ def phase_solvers(fit, sw, dev) -> dict:
     return {"kres": kres, "exact": ex, "slq": slq}
 
 
+# ---------------------------------------------------------------------------
+# Phase 8c: the life of a model after its fit -- landmark policies, a rank
+# budget, online updates
+# ---------------------------------------------------------------------------
+
+def policy_dist_cost(blocks, centers, metric="l2"):
+    """policy_dist: blocks and centers read once, the distances written
+    once; per pair the least work of the metric: 2d + 3 for "l2" (the norm
+    identity, each point's squared norm once, as ``kernel_flops`` counts
+    it, without the epilogue), 3d for "l1" (subtract, absolute, add)."""
+    b, m, d = blocks.shape
+    r = centers.shape[1]
+    nbytes = blocks.element_size() * (b * m * d + b * r * d + b * m * r)
+    pairs = b * m * r
+    if metric == "l1":
+        return nbytes, 3 * d * pairs
+    return nbytes, pairs * (2 * d + 3) + 2 * d * b * (m + r)
+
+
+def leaf_update_cost(lo, linv, b, c):
+    """leaf_update: lo, Linv, B and C read once, both (n0 + k)^2 factors
+    written once; B Linv^T and L21 Linv over the triangle (k n0^2 each),
+    S (k^2 n0), the k x k factor and its inverse (k^3 / 3 each) and
+    -X T (k^2 n0)."""
+    p, n0, _ = lo.shape
+    k = b.shape[1]
+    ne = n0 + k
+    nbytes = lo.element_size() * (2 * p * n0 * n0 + p * k * n0 + p * k * k
+                                  + 2 * p * ne * ne)
+    return nbytes, p * (2 * k * n0 * n0 + 2 * k * k * n0 + 2 * k ** 3 / 3)
+
+
+@contextlib.contextmanager
+def plain_policy_stage():
+    """Route the landmark policies' ``policy_dist`` stage through its plain
+    version on the card: the plain route of a comparison (a forced "torch"
+    backend refuses CUDA tensors by design)."""
+    from repro_torch.kernels.policy_stage.ref import policy_dist_ref
+    from repro_torch.landmarks import policy
+
+    stage = policy.stage_policy_dist
+    policy.stage_policy_dist = lambda b, c, metric, config: policy_dist_ref(
+        b.contiguous(), c.contiguous(), metric=metric)
+    try:
+        yield
+    finally:
+        policy.stage_policy_dist = stage
+
+
+def check_policy_dist(blocks, centers, metric, rtol):
+    """B12 against its plain version on the same inputs: max |d - d_plain|
+    <= rtol * max d_plain (1e-5 in float32, 1e-12 in float64).  Both sum
+    the features directly, in one order; the kernel fuses each
+    multiply-add."""
+    from repro_torch.kernels.policy_stage.ops import policy_dist
+    from repro_torch.kernels.policy_stage.ref import policy_dist_ref
+
+    got = policy_dist(blocks, centers, metric=metric)
+    want = policy_dist_ref(blocks, centers, metric=metric)
+    sync()
+    rel = check_rel(f"policy_dist[{metric}] {tuple(blocks.shape)}", got, want,
+                    rtol)
+    return rel, float((got - want).abs().max())
+
+
+def route_indices(pol, blocks, draws):
+    """One level's landmark indices through B12 and through its plain
+    version, from the same draws."""
+    from repro_torch.landmarks.policy import select_indices
+
+    idx_k = select_indices(pol, blocks, RANK, "l2", draws=draws)
+    with plain_policy_stage():
+        idx_p = select_indices(pol, blocks, RANK, "l2", draws=draws)
+    return idx_k, idx_p
+
+
+def landmark_rows_ok(f) -> bool:
+    """Every node's landmarks are rows of its own block (distance 0 to one
+    of them, summed directly, so exactly 0 for the same row) and no row
+    twice (no zero distance between two landmarks)."""
+    from repro_torch.kernels.build_stage.ref import direct_dist
+
+    for lvl, lm in enumerate(f.landmarks):
+        blocks = f.x_sorted.view(1 << lvl, f.n >> lvl, D)
+        hit = direct_dist(blocks, lm, "l2").amin(dim=1)
+        among = direct_dist(lm, lm, "l2")
+        among.diagonal(dim1=1, dim2=2).fill_(float("inf"))
+        if not (bool((hit == 0).all()) and bool((among > 0).all())):
+            return False
+    return True
+
+
+def masks_ok(f, budget: int) -> bool:
+    """Prefix masks, every rank in [8, RANK], their sum within budget."""
+    ranks = torch.cat([mk.sum(dim=1) for mk in f.rank_mask])
+    prefix = all(bool((mk[:, 1:] <= mk[:, :-1]).all()) for mk in f.rank_mask)
+    return (prefix and int(ranks.min()) >= 8 and int(ranks.max()) <= RANK
+            and int(ranks.sum()) <= budget)
+
+
+def lifecycle_b12(fit, dev) -> dict:
+    """Phase 8c (a): B12 against its plain version at covtype width (f32,
+    "l2" at levels 0, 6 and 11 with the fit's landmarks as centers, "l1"
+    at level 6, the leverage pilot's shapes) and at n = 4,096 in f64."""
+    f = fit["model"].factors
+    errs, rows = [], []
+    mid = LEVELS // 2
+    for lvl, metric in ((0, "l2"), (mid, "l2"), (LEVELS - 1, "l2"),
+                        (mid, "l1")):
+        blocks = f.x_sorted.view(1 << lvl, f.n >> lvl, D)
+        rel, err = check_policy_dist(blocks, f.landmarks[lvl], metric, 1e-5)
+        errs.append(err)
+        rows.append(f"level {lvl} {metric} {tuple(blocks.shape)} rel "
+                    f"{rel:.3e}")
+    pilot = f.x_sorted.view(1, f.n, D)[:, :2 * RANK].contiguous()
+    rel_p, _ = check_policy_dist(f.x_sorted.view(1, f.n, D), pilot, "l2",
+                                 1e-5)
+    rows.append(f"leverage pilot (1, {f.n}, {D}) x {2 * RANK} rel "
+                f"{rel_p:.3e}")
+    x64 = make_data(EXACT_N, 8, dev, torch.Generator(device=dev).manual_seed(
+        SEED + 2), dtype=torch.float64)[0]
+    rel64, _ = check_policy_dist(x64.view(1, EXACT_N, D),
+                                 x64[:RANK].view(1, RANK, D).contiguous(),
+                                 "l2", 1e-12)
+    rel64_1, _ = check_policy_dist(x64.view(8, EXACT_N // 8, D),
+                                   x64.view(8, EXACT_N // 8, D)[:, :RANK]
+                                   .contiguous(), "l1", 1e-12)
+    say("[8c lifecycle] policy_dist vs plain, f32 at covtype width: "
+        + "; ".join(rows) + " (tolerance 1e-5 of the largest distance) ok; "
+        f"f64 at "
+        f"n={EXACT_N}: l2 rel {rel64:.3e}, l1 rel {rel64_1:.3e} (tolerance "
+        f"1e-12) ok")
+    return {"err": max(errs)}
+
+
+def policy_fit(fit, dev, name):
+    """The full-width fit of phase 3 (its padding, tree and start draws)
+    under landmark policy ``name`` with the rank budget, counted."""
+    from repro_torch.core import krr
+    from repro_torch.core.kernels_fn import BaseKernel
+
+    ker = BaseKernel("gaussian", SIGMA, JITTER)
+    t = time.perf_counter()
+    model, launches, plain_calls = counted(lambda: krr.fit(
+        fit["x"], fit["labels"], kernel=ker, lam=LAM, rank=RANK,
+        leaf_size=LEAF, classification=True, landmarks=name,
+        rank_budget=LIFE_BUDGET,
+        generator=torch.Generator(device=dev).manual_seed(SEED + 1)))
+    t_fit = time.perf_counter() - t
+    per_level = 9 if name == "kmeans" else 2
+    require_launches(f"krr.fit(landmarks={name!r}, rank_budget)", launches,
+                     plain_calls, {"gram_chol": LEVELS + 1,
+                                   "cross_solve": LEVELS, "leaf_factor": 1,
+                                   "leaf_solve": 3, "leaf_matvec": 3,
+                                   "hck_leaf_project": 1,
+                                   "policy_dist": per_level * LEVELS})
+    return model, launches, t_fit
+
+
+def fit_residual(model, fit, dev) -> tuple[float, float]:
+    """(f32 residual ||(K + lam I) alpha - y|| / ||y|| through the port's
+    matvec, the f32 floor eps32 ||K 1|| / ||1||) of a full-width fit."""
+    from repro_torch.core import hmatrix
+    from repro_torch.core.partition import pad_points
+
+    f = model.factors
+    _, yp, _ = pad_points(fit["x"], fit["labels"], LEAF, LEVELS,
+                          generator=torch.Generator(device=dev)
+                          .manual_seed(SEED + 1))
+    y = one_vs_all(yp, torch.float32)[f.tree.perm]
+    r = y - hmatrix.matvec(f, model.alpha) - LAM * model.alpha
+    return (float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(y)),
+            res_floor(model, dev))
+
+
+def policy_parity_f64(dev) -> dict:
+    """Phase 8c (b): at n = 4,096 in f64, per policy, the kernel route's
+    indices equal the plain route's level by level, and the budgeted
+    build through the kernels equals the plain build on the CPU on those
+    landmarks (masks exactly, factors within 1e-10)."""
+    from repro_torch.core.hck import build_hck
+    from repro_torch.core.kernels_fn import BaseKernel
+    from repro_torch.core.partition import build_partition
+    from repro_torch.landmarks.policy import get_policy
+
+    x64 = make_data(EXACT_N, 8, dev, torch.Generator(device=dev).manual_seed(
+        SEED + 2), dtype=torch.float64)[0]
+    dirs = [torch.eye(D, dtype=torch.float64, device=dev)[
+        (lvl + torch.arange(1 << lvl)) % D] for lvl in range(EXACT_LEVELS)]
+    budget = ((1 << EXACT_LEVELS) - 1) * RANK // 2
+    ker = BaseKernel("gaussian", SIGMA, JITTER)
+    x_sorted, _ = build_partition(x64, EXACT_LEVELS, directions=dirs)
+    out = {}
+    for name in ("kmeans", "leverage"):
+        pol = get_policy(name)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+        draws = [pol.draws(1 << lvl, EXACT_N >> lvl, RANK,
+                           dtype=torch.float64, device=dev, generator=gen)
+                 for lvl in range(EXACT_LEVELS)]
+        fk, launches, plain_calls = counted(lambda: build_hck(
+            x64, levels=EXACT_LEVELS, rank=RANK, kernel=ker, policy=name,
+            rank_budget=budget, directions=dirs, policy_draws=draws))
+        require_launches(f"n={EXACT_N} f64 build_hck(policy={name!r})",
+                         launches, plain_calls, {
+                             "gram_chol": EXACT_LEVELS + 1,
+                             "cross_solve": EXACT_LEVELS,
+                             "policy_dist": (9 if name == "kmeans" else 2)
+                             * EXACT_LEVELS})
+        plain_idx = []
+        for lvl in range(EXACT_LEVELS):
+            blocks = x_sorted.view(1 << lvl, EXACT_N >> lvl, D)
+            idx_k, idx_p = route_indices(pol, blocks, draws[lvl])
+            require(torch.equal(idx_k, idx_p), f"n={EXACT_N} f64 {name} "
+                    f"level {lvl}: kernel and plain routes' indices equal")
+            plain_idx.append(idx_p.cpu())
+        fp = build_hck(x64.cpu(), levels=EXACT_LEVELS, rank=RANK, kernel=ker,
+                       rank_budget=budget, directions=[v.cpu() for v in dirs],
+                       landmark_index=plain_idx)
+        require(all(torch.equal(a.cpu(), b) for a, b in zip(fk.rank_mask,
+                                                          fp.rank_mask)),
+                f"n={EXACT_N} f64 {name}: masks equal")
+        fp = to_device(fp, dev)
+        gaps = factors_gap(fk, fp)
+        gaps["matvec"] = matvec_gap(fk, fp, gen)
+        for k, v in gaps.items():
+            require(v <= 1e-10, f"n={EXACT_N} f64 {name} kernel vs plain "
+                    f"route {k} {v:.3e} <= 1e-10")
+        out[name] = (gaps, fk.ranks)
+    say(f"[8c lifecycle] n={EXACT_N} f64, budget {budget}: kernel route vs "
+        "plain route (the policies' indices through the plain policy_dist "
+        "on the card, the build on the CPU): indices equal at every level, "
+        "masks equal, " + "; ".join(
+            f"{name} " + ", ".join(f"{k} {v:.3e}" for k, v in g.items())
+            + f", ranks {tuple(r)}" for name, (g, r) in out.items())
+        + " (each <= 1e-10) ok")
+    return out
+
+
+def to_device(f, dev):
+    """Factors ``f`` moved to ``dev``."""
+    from repro_torch.core.hck import HCKFactors
+    from repro_torch.core.partition import PartitionTree
+
+    mv = lambda t: t.to(dev)
+    tr = f.tree
+    return HCKFactors(
+        mv(f.x_sorted), PartitionTree(mv(tr.perm), tuple(map(mv, tr.directions)),
+                                      tuple(map(mv, tr.thresholds))),
+        tuple(map(mv, f.landmarks)), tuple(map(mv, f.sigma)),
+        tuple(map(mv, f.sigma_cho)), tuple(map(mv, f.w)), mv(f.u),
+        mv(f.adiag), None if f.rank_mask is None
+        else tuple(map(mv, f.rank_mask)))
+
+
+def lifecycle_fits(fit, dev) -> dict:
+    """Phase 8c (b): the full-width k-means and leverage fits with the rank
+    budget, their gates, and the f64 parity of the two routes."""
+    from repro_torch.landmarks.policy import get_policy
+
+    xt, yt = fit["xt"], fit["yt"]
+    res = {}
+    for name in ("kmeans", "leverage"):
+        model, launches, t_fit = policy_fit(fit, dev, name)
+        f = model.factors
+        require(landmark_rows_ok(f), f"{name}: every node's landmarks are "
+                "distinct rows of its own block")
+        require(masks_ok(f, LIFE_BUDGET), f"{name}: prefix masks, ranks in "
+                f"[8, {RANK}], sum <= {LIFE_BUDGET}: {tuple(f.ranks)}")
+        rres, floor = fit_residual(model, fit, dev)
+        require(rres <= floor, f"{name} fit f32 residual {rres:.3e} <= floor "
+                f"{floor:.3e}")
+        acc = float((model.predict_class(xt) == yt).double().mean())
+        acc0 = float((fit["model"].predict_class(xt) == yt).double().mean())
+        # the routes at full width: fresh draws per level, through B12 and
+        # through its plain version; f32 argmins may differ, so the share
+        # of nodes whose landmark sets agree is printed, not gated
+        pol = get_policy(name)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+        same = nodes = 0
+        for lvl in range(LEVELS):
+            blocks = f.x_sorted.view(1 << lvl, f.n >> lvl, D)
+            draws = pol.draws(1 << lvl, f.n >> lvl, RANK, dtype=f.x_sorted.dtype,
+                              device=dev, generator=gen)
+            idx_k, idx_p = route_indices(pol, blocks, draws)
+            same += int((idx_k.sort(dim=1).values
+                         == idx_p.sort(dim=1).values).all(dim=1).sum())
+            nodes += 1 << lvl
+        say(f"[8c lifecycle] krr.fit(landmarks={name!r}, rank_budget="
+            f"{LIFE_BUDGET}) at covtype width: {t_fit:.3f} s (first call); "
+            f"ranks (min, max, sum) {tuple(f.ranks)} of {RANK} x "
+            f"{nodes} slots; landmarks distinct rows of their blocks, prefix "
+            f"masks ok; f32 residual {rres:.3e} <= floor {floor:.3e} ok; "
+            f"launches { {k: v for k, v in launches.items() if v} }; test "
+            f"accuracy {acc:.4f} (the uniform model of phase 3: "
+            f"{acc0:.4f}); kernel vs plain route, landmark sets equal "
+            f"in {same} of {nodes} nodes (f32, not gated)")
+        res[name] = {"model": model, "launches": launches, "t_fit": t_fit,
+                     "acc": acc, "resid": rres, "floor": floor,
+                     "same_nodes": (same, nodes), "ranks": tuple(f.ranks)}
+        if name != "kmeans":
+            del model, res[name]["model"]
+    res["f64"] = policy_parity_f64(dev)
+    return res
+
+
+def lifecycle_sweep(fit, sw, km, dev) -> dict:
+    """Phase 8c (c): the sweep's policy axis.  ``replan_policy`` of phase
+    7's plan equals a k-means plan drawn afresh, and its budgeted
+    ``sweep_factors`` at sigma 1 equal the k-means fit's factors."""
+    from repro_torch.core.hck import (build_sweep_plan, replan_policy,
+                                      sweep_factors)
+    from repro_torch.core.kernels_fn import BaseKernel
+
+    t = time.perf_counter()
+    kplan = replan_policy(sw["plan"], rank=RANK, policy="kmeans",
+                          generator=after_padding(fit, dev))
+    sync()
+    t_replan = time.perf_counter() - t
+    fresh = build_sweep_plan(sw["xp"], levels=LEVELS, rank=RANK,
+                             policy="kmeans",
+                             generator=after_padding(fit, dev))
+    same = (all(torch.equal(a, b) for field in ("landmarks", "lm_self",
+                                                "lm_cross")
+                for a, b in zip(getattr(kplan, field), getattr(fresh, field)))
+            and torch.equal(kplan.leaf_cross, fresh.leaf_cross))
+    require(same, "replan_policy(plan, kmeans) == build_sweep_plan(kmeans)")
+    del fresh
+    fs = sweep_factors(kplan, BaseKernel("gaussian", SIGMA, JITTER),
+                       rank_budget=LIFE_BUDGET)
+    fb = km.factors
+    require(all(torch.equal(a, b) for a, b in zip(fs.landmarks,
+                                                  fb.landmarks)),
+            "the k-means plan draws the k-means fit's landmarks")
+    require(all(torch.equal(a, b) for a, b in zip(fs.rank_mask, fb.rank_mask)),
+            "budgeted sweep_factors masks == the k-means fit's")
+    gaps = factors_gap(fs, fb)
+    gaps["matvec"] = matvec_gap(fs, fb, torch.Generator(device=dev)
+                                .manual_seed(SEED + 13))
+    for k, v in gaps.items():
+        require(v <= 1e-4, f"budgeted sweep vs build_hck {k} {v:.3e}")
+    say(f"[8c lifecycle] replan_policy(phase 7's plan, kmeans) in "
+        f"{t_replan:.3f} s == build_sweep_plan(kmeans) (landmarks and tiles "
+        f"bit for bit) ok; sweep_factors(rank_budget={LIFE_BUDGET}) at sigma "
+        f"{SIGMA} vs the k-means fit's build_hck: masks equal, " + ", ".join(
+            f"{k} {v:.3e}" for k, v in gaps.items()) + " (each <= 1e-4) ok")
+    return {"gaps": gaps, "t_replan": t_replan}
+
+
+def replay_insert(model, x_new, y_new):
+    """``update.insert`` exactly as ``fit_incremental`` calls it (the same
+    padding draws: a generator seeded with n on the model's device)."""
+    from repro_torch.core import hmatrix, krr, update
+
+    f = model.factors
+    ys = hmatrix.matvec(f, model.alpha, model.solve_config) \
+        + model.lam * model.alpha
+    targets = krr._encode_arrivals(model, y_new, f.x_sorted.dtype)
+    return update.insert(
+        f, x_new, model.kernel, config=model.solve_config, y_new=targets,
+        y_sorted=ys, jitter_rows=model.base_leaf_size,
+        linv_leaf=model.leaf_linv, generator=torch.Generator(
+            device=f.x_sorted.device).manual_seed(f.n))
+
+
+def check_update_kernel(lo, linv, b, c, rtol):
+    """B13 against its plain version: the old quadrants of both are the
+    inputs bit for bit and the upper-right blocks zero; the new rows of L
+    and of L^-1 within rtol relative (1e-4 in float32, 1e-10 in
+    float64)."""
+    from repro_torch.kernels.update_stage.ops import leaf_update
+    from repro_torch.kernels.update_stage.ref import leaf_update_ref
+
+    n0 = lo.shape[1]
+    got = leaf_update(lo, linv, b, c)
+    want = leaf_update_ref(lo, linv, b, c)
+    sync()
+    for tag, g, w, old in (("L", got[0], want[0], lo),
+                           ("L^-1", got[1], want[1], linv)):
+        require(torch.equal(g[:, :n0, :n0], old)
+                and torch.equal(w[:, :n0, :n0], old)
+                and not bool(g[:, :n0, n0:].any()),
+                f"leaf_update {tag}: old quadrant bit for bit, zeros above")
+    rel_l = check_rel("leaf_update L new rows", got[0][:, n0:], want[0][:, n0:],
+                      rtol)
+    rel_i = check_rel("leaf_update L^-1 new rows", got[1][:, n0:],
+                      want[1][:, n0:], rtol)
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    return rel_l, rel_i, err
+
+
+def update_round(model, x_new, y_new, expected, what, **kw):
+    """One counted ``model.update``: (new model, info, launches, wall s)."""
+    t = time.perf_counter()
+    (m2, info), launches, plain_calls = counted(
+        lambda: model.update(x_new, y_new, **kw))
+    wall = time.perf_counter() - t
+    if expected is not None:
+        require_launches(what, launches, plain_calls, expected)
+    return m2, info, launches, wall
+
+
+def grown_kernel_checks(f1, m1, ys1, xt) -> dict:
+    """B1-B7 against their plain versions at the grown leaf size (n0 = 128 +
+    k after one round: no longer a multiple of 8, 16 or 32)."""
+    from repro_torch.core import hmatrix
+
+    p, n0g = f1.num_leaves, f1.leaf_size
+    k = n0g - LEAF
+    leaves = f1.x_sorted.view(p, n0g, D)
+    res = {"n0": n0g}
+    res["gram_chol"] = check_build(leaves, False, 1e-4)[1]
+    x_app = leaves[:, LEAF:].contiguous()
+    lm_rep = torch.repeat_interleave(f1.landmarks[-1], 2, dim=0).contiguous()
+    rel2, res["cross_solve"] = check_cross((x_app, lm_rep, m1.leaf_linv
+                                            .contiguous()), None)
+    eye = torch.eye(n0g, device=f1.adiag.device)
+    dleaf = (hmatrix._leaf_schur(f1) + LAM * eye).contiguous()
+    rel3, _, res["leaf_factor"], _, _ = check_factor(dleaf, 1e-4)
+    b = ys1.view(p, n0g, -1).contiguous()
+    inv = m1.inverse
+    rel4, res["leaf_solve"] = check_leaf("solve", tuple(
+        t.contiguous() for t in (inv.linv, inv.u, inv.sigma[-1], b)), 1e-4)
+    rel5, res["leaf_matvec"] = check_leaf("matvec", (f1.adiag, f1.u, b), 1e-4)
+    res["hck_leaf_project"] = check_project(f1.u, m1.plan.w_leaf)
+    local, walk = bucket_inputs(m1.factors, m1.plan, xt[:4096])
+    for stage, a in (("oos_local", local), ("oos_walk", walk)):
+        res[stage] = check_contract(a, name="gaussian", rtol=1e-4)[0]
+    say(f"[8c lifecycle] kernels at the grown leaf size n0={n0g} (128 + "
+        f"{k}): gram_chol Adiag, cross_solve on the appended {k}-row slabs "
+        f"(rel {rel2:.3e}, componentwise bound), leaf_factor (L rel "
+        f"{rel3:.3e}), leaf_solve (rel {rel4:.3e}), leaf_matvec (rel "
+        f"{rel5:.3e}), leaf_project, oos_contract local and walk against "
+        f"their plain versions, each within its phase-4 tolerance ok")
+    return res
+
+
+def lifecycle_update(fit, km, dev) -> dict:
+    """Phase 8c (d): two rounds of ``model.update`` on the budgeted k-means
+    model (refresh="inverse"), gated against ``refit_frozen`` + a fresh
+    inverse, solve and plan; B13 and the grown-size kernels against their
+    plain versions; the downdate round trip; then one "stale" and one
+    "exact" round."""
+    from repro_torch.core import hmatrix, krr, oos, update
+
+    xt = fit["xt"]
+    res = {}
+    x1, y1 = fresh_points(UPDATE_Q, SEED + 20, dev)
+    x2, y2 = fresh_points(UPDATE_Q, SEED + 21, dev)
+    x3, y3 = fresh_points(UPDATE_Q, SEED + 22, dev)
+    inverse_round = {"cross_solve": 1, "leaf_update": 1, "leaf_solve": 3,
+                     "leaf_matvec": 5, "hck_leaf_project": 1}
+    # ---- the update path: counts set to 0 just before each round, read
+    # just after ----
+    m1, info1, l1, t1 = update_round(km, x1, y1, inverse_round,
+                                     "update round 1 (inverse)")
+    m2, info2, l2, t2 = update_round(m1, x2, y2, inverse_round,
+                                     "update round 2 (inverse)")
+    # ----------------------------------------------------------------------
+    for tag, info in (("1", info1), ("2", info2)):
+        require(info.converged and bool(torch.isfinite(
+            torch.tensor(info.residual))), f"round {tag} solved: {info}")
+    # the same inserts replayed: the grown factors bit for bit, and back
+    f1, ys1, rec1 = replay_insert(km, x1, y1)
+    require(torch.equal(f1.u, m1.factors.u)
+            and torch.equal(f1.adiag, m1.factors.adiag),
+            "round 1 replayed: the same grown factors")
+    back = update.downdate(f1, rec1.k)
+    base = km.factors
+    require(all(torch.equal(getattr(back, fld), getattr(base, fld))
+                for fld in ("x_sorted", "u", "adiag"))
+            and torch.equal(back.tree.perm, base.tree.perm),
+            "downdate(insert(f), k) == f field by field")
+    # B13 at round 1's launch
+    bb, cc = hmatrix.extension_blocks(f1, n0_base=LEAF, ridge=LAM)
+    b13_args = tuple(t.contiguous() for t in (km.leaf_lo, km.inverse.linv,
+                                              bb, cc))
+    rel_l, rel_i, res["leaf_update_err"] = check_update_kernel(*b13_args,
+                                                               1e-4)
+    res["b13_args"] = b13_args
+    res["grown"] = grown_kernel_checks(f1, m1, ys1, xt)
+    del f1, ys1, back, bb, cc
+    # the oracle of round 2: its insert replayed on m1, the leaf stages
+    # rebuilt from scratch, a fresh inverse, solve and plan
+    f2, ys2, _ = replay_insert(m1, x2, y2)
+    require(torch.equal(f2.u, m2.factors.u), "round 2 replayed")
+    f_ref = update.refit_frozen(f2, km.kernel, jitter_rows=LEAF)
+    inv_ref, _ = hmatrix.invert_with_leaf(f_ref, LAM)
+    alpha_ref = hmatrix.solve_with_inverse(f_ref, inv_ref, ys2, ridge=LAM)
+    oracle = krr.HCKRegressor(km.kernel, f_ref, oos.prepare(f_ref, alpha_ref),
+                              alpha_ref, km.classes, lam=LAM)
+    t = time.perf_counter()
+    pred, ls, ps = counted(lambda: m2.predict(xt))
+    t_serve = time.perf_counter() - t
+    require(ls["oos_contract"] > 0 and not any(ps.values()),
+            f"the updated model served through oos_contract: {ls}, {ps}")
+    want = oracle.predict(xt)
+    gap = rel_max(pred, want)
+    floor = res_floor(km, dev)
+    require(pred.shape == (N_TEST, N_CLASSES) and bool(
+        torch.isfinite(pred).all()), "updated model's predictions")
+    require(gap <= floor, f"updated model vs refit_frozen oracle predictions "
+            f"rel {gap:.3e} <= f32 floor {floor:.3e}")
+    acc2 = float((m2.predict_class(xt) == fit["yt"]).double().mean())
+    del f2, ys2, f_ref, inv_ref, alpha_ref, oracle, want
+    # f64 at n = 4,096: B13 against its plain version
+    res["b13_f64"] = b13_f64(dev)
+    # one stale round and one exact round, each from m2
+    m3s, info3s, l3s, t3s = update_round(m2, x3, y3, None, "stale",
+                                         refresh="stale", tol=STALE_TOL,
+                                         maxiter=STALE_MAXITER)
+    require(l3s["leaf_update"] == 0 and l3s["leaf_factor"] == 0
+            and l3s["cross_solve"] == 1 and l3s["gram_chol"] == 0
+            and l3s["policy_dist"] == 0 and l3s["hck_leaf_project"] == 1,
+            f"stale round launches: {l3s}")
+    require(info3s.converged and info3s.residual <= STALE_TOL,
+            f"stale round converged to {STALE_TOL}: {info3s}")
+    del m3s
+    m3e, info3e, l3e, t3e = update_round(
+        m2, x3, y3, {"cross_solve": 1, "leaf_factor": 1, "leaf_solve": 3,
+                     "leaf_matvec": 5, "hck_leaf_project": 1},
+        "exact round", refresh="exact")
+    require(info3e.converged, f"exact round: {info3e}")
+    n0_3 = m3e.factors.leaf_size
+    del m3e
+    nz = lambda d: {k: v for k, v in d.items() if v}
+    say(f"[8c lifecycle] model.update x2 (refresh='inverse', {UPDATE_Q} "
+        f"arrivals each) on the budgeted k-means model: leaves 128 -> "
+        f"{m1.factors.leaf_size} -> {m2.factors.leaf_size} (k {info1.record.k}"
+        f", {info2.record.k}); wall {t1:.3f} s, {t2:.3f} s (first and second "
+        f"call); residuals {info1.residual:.3e}, {info2.residual:.3e}; "
+        f"launches {nz(l1)}, {nz(l2)}; no plain version")
+    say(f"[8c lifecycle] downdate(insert(f)) == f bit for bit ok; "
+        f"leaf_update at round 1 {tuple(b13_args[0].shape)} + k "
+        f"{b13_args[2].shape[1]}: old quadrants bit for bit, new rows rel "
+        f"L {rel_l:.3e}, L^-1 {rel_i:.3e} (tolerance 1e-4); f64 n={EXACT_N}"
+        f": {res['b13_f64']}")
+    say(f"[8c lifecycle] round 2 vs refit_frozen + invert_with_leaf + solve "
+        f"+ prepare, all {N_TEST} test queries: rel {gap:.3e} <= f32 floor "
+        f"{floor:.3e} ok; serving the updated model {t_serve:.3f} s "
+        f"({N_TEST / t_serve:.0f} queries/s), launches {nz(ls)}; test "
+        f"accuracy {acc2:.4f}; needs_rebuild {info2.needs_rebuild}")
+    say(f"[8c lifecycle] refresh='stale' round from round 2: "
+        f"{info3s.iterations} PCG iterations, residual {info3s.residual:.3e} "
+        f"<= tol {STALE_TOL}, {t3s:.3f} s, launches {nz(l3s)}; "
+        f"refresh='exact' round: leaf_factor at n0={n0_3}, residual "
+        f"{info3e.residual:.3e}, {t3e:.3f} s, launches {nz(l3e)} ok")
+    res.update(launches=[l1, l2], walls=[t1, t2], gap=gap, floor=floor,
+               stale=(info3s.iterations, info3s.residual, t3s),
+               exact=(info3e.residual, t3e), t_serve=t_serve, acc=acc2,
+               k=(info1.record.k, info2.record.k))
+    return res
+
+
+def res_floor(model, dev) -> float:
+    """The f32 floor eps32 ||K 1|| / ||1|| of a full-width model."""
+    from repro_torch.core import hmatrix
+
+    f = model.factors
+    ones = torch.ones((f.n, 1), device=dev)
+    return torch.finfo(torch.float32).eps * float(
+        torch.linalg.vector_norm(hmatrix.matvec(f, ones)) / math.sqrt(f.n))
+
+
+def b13_f64(dev) -> str:
+    """B13 against its plain version in f64 at n = 4,096: a fitted f64
+    model takes 512 arrivals (its insert replayed)."""
+    from repro_torch.core import hmatrix, krr
+    from repro_torch.core.kernels_fn import BaseKernel
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    x64, labels, _, _ = make_data(EXACT_N, 8, dev, gen, dtype=torch.float64)
+    m64 = krr.fit(x64, labels, kernel=BaseKernel("gaussian", SIGMA, JITTER),
+                  lam=LAM, rank=RANK, leaf_size=LEAF, classification=True,
+                  generator=torch.Generator(device=dev).manual_seed(SEED + 14))
+    xq, yq = fresh_points(512, SEED + 23, dev)
+    f1, _, rec = replay_insert(m64, xq.double(), yq)
+    bb, cc = hmatrix.extension_blocks(f1, n0_base=LEAF, ridge=LAM)
+    rel_l, rel_i, _ = check_update_kernel(
+        *(t.contiguous() for t in (m64.leaf_lo, m64.inverse.linv, bb, cc)),
+        1e-10)
+    return (f"k {rec.k}, new rows rel L {rel_l:.3e}, L^-1 {rel_i:.3e} "
+            f"(tolerance 1e-10) ok")
+
+
+def lifecycle_timing(fit, km, up, b12) -> list[dict]:
+    """Phase 9, lifecycle: B12 at the k-means fit's twelve launch shapes
+    (one Lloyd round) and the leverage pilot's, B13 at round 1's launch,
+    beside their bounds, plain and library times."""
+    from repro_torch.kernels.policy_stage.ops import policy_dist
+    from repro_torch.kernels.policy_stage.ref import policy_dist_ref
+    from repro_torch.kernels.update_stage.ops import leaf_update
+    from repro_torch.kernels.update_stage.ref import leaf_update_ref
+
+    src, tpu = "src/repro_torch/csrc/", "src/repro/kernels/"
+    f = km["model"].factors
+    ms, pl, lib, bd = [], [], [], []
+    for lvl in range(LEVELS):
+        blocks = f.x_sorted.view(1 << lvl, f.n >> lvl, D)
+        lm = f.landmarks[lvl]
+        ms.append(time_ms(lambda: policy_dist(blocks, lm), 5))
+        pl.append(time_ms(lambda: policy_dist_ref(blocks, lm), 2, warmup=1))
+        lib.append(time_ms(lambda: torch.cdist(blocks, lm) ** 2, 3))
+        bd.append(bound_ms(*policy_dist_cost(blocks, lm)))
+    part = lambda i: {"ms": ms[i], "plain_ms": pl[i], "library_ms": lib[i],
+                      "bound_ms": bd[i][0]}
+    whole = f.x_sorted.view(1, f.n, D)
+    pilot = whole[:, :2 * RANK].contiguous()
+    lev = {"ms": time_ms(lambda: policy_dist(whole, pilot), 5),
+           "plain_ms": time_ms(lambda: policy_dist_ref(whole, pilot), 2,
+                               warmup=1),
+           "library_ms": time_ms(lambda: torch.cdist(whole, pilot) ** 2, 3),
+           "bound_ms": bound_ms(*policy_dist_cost(whole, pilot))[0]}
+    mid = LEVELS // 2
+    blocks_m, lm_m = f.x_sorted.view(1 << mid, f.n >> mid, D), f.landmarks[mid]
+    l1 = {"ms": time_ms(lambda: policy_dist(blocks_m, lm_m, metric="l1"), 5),
+          "plain_ms": time_ms(lambda: policy_dist_ref(blocks_m, lm_m,
+                                                      metric="l1"), 2,
+                              warmup=1),
+          "library_ms": time_ms(lambda: torch.cdist(blocks_m, lm_m, p=1), 3),
+          "bound_ms": bound_ms(*policy_dist_cost(blocks_m, lm_m, "l1"))[0]}
+    parts = {f"level{lvl}": part(lvl) for lvl in (0, mid, LEVELS - 1)}
+    fit_launches = km["launches"]["policy_dist"] + km["lev_launches"]
+    rec12 = kernel_record(
+        "policy_dist", src + "policy_dist.cu",
+        tpu + "policy_stage/policy_stage.py:48", fit_launches, b12["err"],
+        sum(ms), sum(pl), (sum(b[0] for b in bd), bd[0][1]),
+        library=sum(lib),
+        unit=f"one k-means assignment round: {LEVELS} launches, one per "
+             f"level (B x m = {f.n} rows, r = {RANK}, d = {D}, f32)",
+        library_call="torch.cdist(p=2) ** 2 (p=1 for l1)",
+        launches_kmeans_fit=km["launches"]["policy_dist"],
+        launches_leverage_fit=km["lev_launches"],
+        leverage_pilot_level0=lev, **{f"l1_level{mid}": l1}, **parts)
+    lo, linv, b, c = up["b13_args"]
+    eye = torch.eye(b.shape[1], device=b.device)
+
+    def chain():
+        l21 = torch.bmm(b, linv.mT)
+        l22 = torch.linalg.cholesky(c - torch.bmm(l21, l21.mT))
+        x = torch.linalg.solve_triangular(l22, eye.expand_as(l22),
+                                          upper=False)
+        return l22, torch.bmm(x, torch.bmm(l21, linv))
+
+    rec13 = kernel_record(
+        "leaf_update", src + "leaf_update.cu",
+        tpu + "update_stage/update_stage.py:62", sum(
+            ln["leaf_update"] for ln in up["launches"]),
+        up["leaf_update_err"], time_ms(lambda: leaf_update(*up["b13_args"]),
+                                       10),
+        time_ms(lambda: leaf_update_ref(*up["b13_args"]), 5),
+        bound_ms(*leaf_update_cost(*up["b13_args"])),
+        unit=f"one launch: P={lo.shape[0]}, n0={lo.shape[1]}, "
+             f"k={b.shape[1]}, f32 (update round 1)",
+        library_chain_ms=time_ms(chain, 5),
+        library_chain="torch.bmm + torch.linalg.cholesky + solve_triangular "
+                      "+ torch.bmm (the border only, no copy of the old "
+                      "quadrants)")
+    for rec in (rec12, rec13):
+        extra = ""
+        if "library_chain_ms" in rec:
+            extra = (f", chain {rec['library_chain']} "
+                     f"{rec['library_chain_ms']:.4f} ms")
+        say(f"[9 timing] {rec['name']} ({rec['unit']}): kernel "
+            f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, library "
+            f"{rec['library_ms']} ms{extra}, bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']}), launches {rec['launches']}")
+    for key in (*parts, "leverage_pilot_level0", f"l1_level{mid}"):
+        p = rec12[key]
+        say(f"[9 timing]   policy_dist {key}: kernel {p['ms']:.4f} ms, plain "
+            f"{p['plain_ms']:.4f} ms, library {p['library_ms']:.4f} ms, bound "
+            f"{p['bound_ms']:.4f} ms")
+    return [rec12, rec13]
+
+
+def phase_lifecycle(fit, sw, dev) -> dict:
+    """Phase 8c: every part of the lifecycle phase."""
+    t = time.perf_counter()
+    b12 = lifecycle_b12(fit, dev)
+    fits = lifecycle_fits(fit, dev)
+    km = fits["kmeans"]
+    km["lev_launches"] = fits["leverage"]["launches"]["policy_dist"]
+    sweep = lifecycle_sweep(fit, sw, km["model"], dev)
+    up = lifecycle_update(fit, km["model"], dev)
+    say(f"[8c lifecycle] phase done in {time.perf_counter() - t:.1f} s")
+    return {"b12": b12, "fits": fits, "km": km, "sweep": sweep, "update": up}
+
+
 def kernel_record(name, source, replaces, launches, err, ms, plain, bound,
                   library=None, **extra):
     """One entry of the kernels' JSON line."""
@@ -2344,8 +3076,11 @@ def main() -> int:
     sw = phase_sweep(fit, dev)
     sres = phase_sweep_gates(fit, sw, dev)
     solv = phase_solvers(fit, sw, dev)
+    life = phase_lifecycle(fit, sw, dev)
     kernels = (phase_timing(fit, res, served) + sweep_timing(sw, sres)
-               + solver_timing(solv["exact"], solv["kres"]))
+               + solver_timing(solv["exact"], solv["kres"])
+               + lifecycle_timing(fit, life["km"], life["update"],
+                                  life["b12"]))
     phase_profile(fit, served["engine"], sw)
     say(f"[end] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

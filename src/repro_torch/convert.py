@@ -24,8 +24,8 @@ own reader: a ``SweepPlan`` (``x_sorted``, ``perm``, ``directions/<l>``,
 ``alpha`` and, for a classification fit, ``classes``, and an EigenPro
 preconditioner as ``vecs``, ``weights``, ``tail`` and ``rho``.
 
-Arrays keep their dtype; indices become int64.  Budgeted-rank factors
-(``rank_mask/<l>``) are not served by this slice and are refused.
+Arrays keep their dtype; indices become int64.  The factors of a
+budgeted build carry their per-level prefix masks as ``rank_mask/<l>``.
 """
 from __future__ import annotations
 
@@ -72,12 +72,12 @@ def _tree(arrays: dict, levels: int, dev) -> PartitionTree:
 
 
 def factors_from_arrays(arrays: dict, device=None) -> HCKFactors:
-    """The port's :class:`HCKFactors` from the reference's arrays."""
-    if any(key.startswith("rank_mask/") for key in arrays):
-        raise ValueError("budgeted-rank factors (rank_mask) are not served "
-                         "by this port yet")
+    """The port's :class:`HCKFactors` from the reference's arrays (with
+    ``rank_mask/<l>`` for a budgeted build)."""
     dev = _device.resolve(device)
     levels = _levels(arrays)
+    rank_mask = (_stack(arrays, "rank_mask", levels, dev)
+                 if "rank_mask/0" in arrays else None)
     return HCKFactors(
         x_sorted=_tensor(arrays["x_sorted"], dev),
         tree=_tree(arrays, levels, dev),
@@ -85,7 +85,8 @@ def factors_from_arrays(arrays: dict, device=None) -> HCKFactors:
         sigma=_stack(arrays, "sigma", levels, dev),
         sigma_cho=_stack(arrays, "sigma_cho", levels, dev),
         w=_stack(arrays, "w", max(levels - 1, 0), dev),
-        u=_tensor(arrays["u"], dev), adiag=_tensor(arrays["adiag"], dev))
+        u=_tensor(arrays["u"], dev), adiag=_tensor(arrays["adiag"], dev),
+        rank_mask=rank_mask)
 
 
 def plan_from_arrays(arrays: dict, device=None) -> OOSPlan:

@@ -173,15 +173,12 @@ def fit_independent(x, y, *, kernel: BaseKernel, lam: float, levels: int,
                     device=None) -> IndependentModel:
     """Per-block exact KRR on the leaves of the HCK partition, flattened
     (section 5.1).  ``directions`` replace the tree's random draws from
-    ``generator``; ``method="pca"`` comes with ROADMAP item A10."""
-    if method != "rp":
-        raise NotImplementedError(
-            f"method={method!r}: only the random-projection partition is "
-            "ported (PCA splits come with ROADMAP item A10)")
+    ``generator``; ``method`` "rp" (random projections) or "pca"
+    (principal directions, no draw)."""
     x, yk, generator = _inputs(x, y, device, generator)
     n = x.shape[0]
     x_sorted, tree = build_partition(x, levels, directions=directions,
-                                     generator=generator)
+                                     generator=generator, method=method)
     n0 = n >> levels
     blocks = x_sorted.reshape(1 << levels, n0, -1)
     eye = torch.eye(n0, dtype=x.dtype, device=x.device)

@@ -21,24 +21,36 @@ through the ``build_gram_dist`` and ``build_cross_dist`` stages.
 :func:`build_hck_reference` is the per-node transcription of Algorithm 2
 and :func:`to_dense` the dense reconstruction, both oracles for tests.
 
-Landmarks are r distinct rows of each node's block (paper section 4.2).
-Random draws do not cross frameworks, so the partition directions and the
-per-level landmark row indices can be passed in; the port's own draws
-come from an explicit ``torch.Generator``.
+Landmarks are r distinct rows of each node's block (paper section 4.2),
+chosen by a landmark policy (:mod:`repro_torch.landmarks.policy`: uniform
+by default, k-means or ridge leverage); a global rank budget
+(:mod:`repro_torch.landmarks.budget`) masks each node's rank to a prefix
+of the r slots.  Random draws do not cross frameworks, so the partition
+directions, the per-level landmark row indices and a policy's own draws
+can be passed in; the port's own draws come from an explicit
+``torch.Generator``.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 
 import torch
 
 from repro_torch import device as _device
 from repro_torch.core.kernels_fn import KERNEL_METRIC, BaseKernel
-from repro_torch.core.partition import PartitionTree, build_partition
+from repro_torch.core.partition import (PartitionTree, build_partition,
+                                        rp_directions)
 from repro_torch.kernels.registry import (DEFAULT_CONFIG, SolveConfig,
                                           get_impl, resolve_backend)
+from repro_torch.landmarks import budget as _budget
+from repro_torch.landmarks.policy import (LeveragePolicy, gather_block_rows,
+                                          get_policy)
 
 Tensor = torch.Tensor
+
+#: min / max per-node active rank and the sum over all nodes of a factor set
+RankSummary = collections.namedtuple("RankSummary", ("min", "max", "total"))
 
 
 @dataclasses.dataclass
@@ -46,8 +58,9 @@ class HCKFactors:
     """Stacked factors of K_hck(X, X) plus the partition record.
 
     ``landmarks``, ``sigma`` and ``sigma_cho`` are tuples over levels
-    0..L-1, ``w`` over levels 1..L-1.  ``rank_mask`` (budgeted per-node
-    rank) is None: every landmark slot is active.
+    0..L-1, ``w`` over levels 1..L-1.  ``rank_mask`` holds, per level, the
+    (2**l, r) prefix masks of a budgeted build (1 for an active landmark
+    slot, 0 for a masked one), or is None: every slot is active.
     """
 
     x_sorted: torch.Tensor     # (n, d) points in tree order
@@ -77,8 +90,22 @@ class HCKFactors:
 
     @property
     def rank(self) -> int:
-        """Landmarks per node r (0 for a 0-level build)."""
+        """Landmark slots per node r, the bucket every factor is shaped to
+        (0 for a 0-level build); a budgeted build's active ranks are in
+        :attr:`ranks`."""
         return self.landmarks[0].shape[1] if self.landmarks else 0
+
+    @property
+    def ranks(self) -> RankSummary:
+        """Per-node active ranks: (min, max, sum over all nodes), host
+        ints.  Without a budget every node has :attr:`rank`."""
+        if not self.landmarks:
+            return RankSummary(0, 0, 0)
+        if self.rank_mask is None:
+            nodes = (1 << self.levels) - 1
+            return RankSummary(self.rank, self.rank, self.rank * nodes)
+        per = torch.cat([m.sum(dim=1) for m in self.rank_mask])
+        return RankSummary(int(per.min()), int(per.max()), int(per.sum()))
 
     @property
     def n(self) -> int:
@@ -94,37 +121,79 @@ def landmark_indices(bsz: int, m: int, r: int, *, device: torch.device,
     return torch.argsort(keys, dim=1)[:, :r]
 
 
-def gather_landmarks(blocks: Tensor, idx: Tensor) -> Tensor:
-    """Rows ``idx`` (B, r) of each node block (B, m, d) -> (B, r, d), by one
-    flat take, as the reference's ``_sample_landmarks`` gathers."""
-    bsz, m, d = blocks.shape
-    idx = idx.to(device=blocks.device, dtype=torch.int64)
-    flat = (idx + torch.arange(bsz, device=blocks.device)[:, None] * m)
-    return blocks.reshape(bsz * m, d)[flat.reshape(-1)].reshape(
-        bsz, idx.shape[1], d)
+def _draw_level_landmarks(x_sorted: Tensor, levels: int, rank: int, policy,
+                          metric: str, config: SolveConfig | None, *,
+                          landmark_index=None, policy_draws=None,
+                          generator=None) -> tuple:
+    """Landmarks of every level, (2**l, r, d), chosen by ``policy`` on the
+    level's node blocks, shared by the build and the sweep engines.
 
-
-def _level_landmarks(x_sorted: Tensor, levels: int, rank: int,
-                     landmark_index, generator) -> tuple:
-    """Landmarks of every level, (2**l, r, d), from injected per-level row
-    indices ``landmark_index[l]`` (2**l, r) or from ``generator``."""
+    The draws of level l are ``policy_draws[l]`` (the policy's dict), else
+    ``{"index": landmark_index[l]}`` ((2**l, r) row positions: the uniform
+    draw, which is also k-means' start), else the policy's own draws from
+    ``generator``, one level after the other.
+    """
     n, d = x_sorted.shape
-    if landmark_index is not None and len(landmark_index) != levels:
-        raise ValueError(f"{len(landmark_index)} landmark index sets for "
-                         f"{levels} levels")
+    for name, given in (("landmark index", landmark_index),
+                        ("policy draw", policy_draws)):
+        if given is not None and len(given) != levels:
+            raise ValueError(f"{len(given)} {name} sets for {levels} levels")
+    if (landmark_index is not None and policy_draws is None
+            and isinstance(policy, LeveragePolicy)):
+        raise ValueError("the leverage policy draws a pilot and Gumbel "
+                         "noise: pass policy_draws, not landmark_index")
     out = []
     for lvl in range(levels):
         bsz, m = 1 << lvl, n >> lvl
-        if landmark_index is None:
-            idx = landmark_indices(bsz, m, rank, device=x_sorted.device,
-                                   generator=generator)
-        else:
+        blocks = x_sorted.reshape(bsz, m, d)
+        if policy_draws is not None:
+            draws = policy_draws[lvl]
+        elif landmark_index is not None:
             idx = torch.as_tensor(landmark_index[lvl])
             if idx.shape != (bsz, rank):
                 raise ValueError(f"level {lvl} landmark indices shape "
                                  f"{tuple(idx.shape)} != {(bsz, rank)}")
-        out.append(gather_landmarks(x_sorted.reshape(bsz, m, d), idx))
+            draws = {"index": idx}
+        else:
+            draws = policy.draws(bsz, m, rank, dtype=x_sorted.dtype,
+                                 device=x_sorted.device, generator=generator)
+        idx = policy.select(blocks, rank, draws=draws, metric=metric,
+                            config=config)
+        out.append(gather_block_rows(blocks, idx))
     return tuple(out)
+
+
+def _broadcast_shared_landmarks(landmarks: tuple) -> tuple:
+    """Paper section 4.2 remark: the root's landmark set at every node
+    (the flat compositional kernel)."""
+    root = landmarks[0]
+    return tuple(root.expand(1 << lvl, *root.shape[1:]).contiguous()
+                 for lvl in range(len(landmarks)))
+
+
+def _apply_rank_masks(rank_mask: tuple, sigma: tuple, sigma_cho: tuple,
+                      sigma_li: list):
+    """Identity-pad the middle factors to their active-prefix ranks.
+
+    For prefix masks the padded (Sigma, Cholesky, Linv) are exactly the
+    factors of the truncated Gram, no refactorization.  Runs BEFORE any
+    ``build_cross`` launch: U and W built against the full Linv cannot be
+    column-masked after the fact, since the leading block of Sigma^-1 is
+    not the inverse of Sigma's leading block.
+    """
+    pad = _budget.masked_identity_pad
+    return (tuple(pad(s, mk) for s, mk in zip(sigma, rank_mask)),
+            tuple(pad(c, mk) for c, mk in zip(sigma_cho, rank_mask)),
+            [pad(li, mk) for li, mk in zip(sigma_li, rank_mask)])
+
+
+def _mask_transfer_ops(w: tuple, rank_mask: tuple) -> tuple:
+    """Zero the W rows and columns that touch masked slots (the child's
+    rows, the parent's columns)."""
+    return tuple(
+        w[lvl - 1] * rank_mask[lvl][:, :, None]
+        * torch.repeat_interleave(rank_mask[lvl - 1], 2, dim=0)[:, None, :]
+        for lvl in range(1, len(rank_mask)))
 
 
 def _stage_build_gram(blocks: Tensor, kernel: BaseKernel,
@@ -164,6 +233,21 @@ def _stage_build_cross(blocks: Tensor, lm_parent: Tensor, linv_parent: Tensor,
         blocks, lm_parent, linv_parent, name=kernel.name, sigma=kernel.sigma)
 
 
+def leaf_stage_factors(blocks: Tensor, lm_parent: Tensor, linv_parent: Tensor,
+                       kernel: BaseKernel, config: SolveConfig | None = None):
+    """Adiag and U of a group of leaf blocks (B, n0, d), with the PER-LEAF
+    parent landmarks (B, r, d) and inverse Cholesky factors (B, r, r)
+    (already repeated to leaf granularity): one ``build_gram`` launch
+    without a factor and one ``build_cross`` launch.  Every row of a stage
+    is independent, so these launches give what :func:`build_hck`'s
+    paired-sibling launches give.  Returns (adiag (B, n0, n0), u (B, n0,
+    r))."""
+    config = config if config is not None else DEFAULT_CONFIG
+    adiag, _ = _stage_build_gram(blocks, kernel, config, want_chol=False)
+    u = _stage_build_cross(blocks, lm_parent, linv_parent, kernel, config)
+    return adiag, u
+
+
 def _middle_factors(landmarks: tuple, kernel: BaseKernel,
                     config: SolveConfig):
     """Sigma, its Cholesky factor and Linv for every level: one
@@ -192,22 +276,9 @@ def _transfer_ops(landmarks: tuple, sigma_li: list, kernel: BaseKernel,
     return tuple(w)
 
 
-def _check_build_options(method: str, shared_landmarks: bool, policy,
-                         rank_budget, config: SolveConfig) -> None:
-    """Raise ``NotImplementedError`` for the reference's build options that
-    later slices of the port bring."""
-    if method != "rp":
-        raise NotImplementedError(
-            f"method={method!r}: only the random-projection partition is "
-            "ported (PCA splits come with ROADMAP item A10)")
-    if shared_landmarks:
-        raise NotImplementedError(
-            "shared_landmarks=True comes with ROADMAP item A10")
-    if policy not in (None, "uniform"):
-        raise NotImplementedError(
-            f"landmark policy {policy!r} comes with ROADMAP item A10")
-    if rank_budget is not None:
-        raise NotImplementedError("rank_budget comes with ROADMAP item A10")
+def _check_build_options(config: SolveConfig) -> None:
+    """Raise ``NotImplementedError`` for the reference's build option that a
+    later slice of the port brings (a mixed-precision build)."""
     if config.precision is not None:
         raise NotImplementedError(
             "a mixed-precision build (SolveConfig.precision) comes with "
@@ -219,28 +290,35 @@ def build_hck(
     method: str = "rp", shared_landmarks: bool = False,
     config: SolveConfig | None = None, policy=None,
     rank_budget: int | None = None, directions=None, landmark_index=None,
-    generator: torch.Generator | None = None,
+    policy_draws=None, generator: torch.Generator | None = None,
 ) -> HCKFactors:
     """Partition ``x`` and instantiate all HCK factors (batched engine).
 
-    Level-synchronous Algorithm 2 on a random-projection tree: per level
-    one ``build_gram`` launch for Sigma and its Cholesky factor, then one
-    for the leaf Adiag blocks, one ``build_cross`` launch for U (paired
-    sibling leaves) and one per level for W.  On the card every launch is
-    a CUDA kernel; on the CPU the plain versions run.
+    Level-synchronous Algorithm 2: per level one ``build_gram`` launch for
+    Sigma and its Cholesky factor, then one for the leaf Adiag blocks, one
+    ``build_cross`` launch for U (paired sibling leaves) and one per level
+    for W.  On the card every launch is a CUDA kernel; on the CPU the
+    plain versions run.
 
     ``x`` (n, d) with n divisible by 2**levels (``partition.pad_points``
-    pads); ``rank`` <= n / 2**levels.  ``directions`` ((2**l, d) per
-    level) and ``landmark_index`` ((2**l, r) row positions inside each
-    node block per level) replace the random draws, which otherwise come
-    from ``generator``.  ``levels == 0`` gives one dense leaf block.
-    ``policy``, ``rank_budget``, ``shared_landmarks=True``,
-    ``method="pca"`` and ``config.precision`` raise
-    ``NotImplementedError``.
+    pads); ``rank`` <= n / 2**levels.  ``method`` "rp" (random
+    projections) or "pca" (principal directions).  ``policy`` selects the
+    landmarks: None / "uniform", "kmeans", "leverage" or a
+    :class:`~repro_torch.landmarks.policy.LandmarkPolicy`; the tree is
+    drawn first, so all policies share it.  ``shared_landmarks`` puts the
+    root's landmarks at every node (the flat compositional kernel).
+    ``rank_budget`` caps the sum of the per-node ranks, split by spectral
+    mass and realized as prefix masks (``rank_mask``) applied to the
+    middle factors before any cross launch.  ``directions`` ((2**l, d)
+    per level), ``landmark_index`` ((2**l, r) row positions per level:
+    the uniform draw and k-means' start) and ``policy_draws`` (a policy's
+    dict per level) replace the random draws, which otherwise come from
+    ``generator``.  ``levels == 0`` gives one dense leaf block.
+    ``config.precision`` raises ``NotImplementedError``.
     """
     config = config if config is not None else DEFAULT_CONFIG
-    _check_build_options(method, shared_landmarks, policy, rank_budget,
-                         config)
+    _check_build_options(config)
+    policy = get_policy(policy)
     n, d = x.shape
     n_leaves = 1 << levels
     if n % n_leaves != 0:
@@ -248,12 +326,24 @@ def build_hck(
     n0 = n // n_leaves
     if rank > n0:
         raise ValueError(f"rank {rank} exceeds leaf size {n0} (paper 4.4)")
+    if rank_budget is not None and levels == 0:
+        raise ValueError("rank_budget needs levels >= 1 (a 0-level build "
+                         "has no low-rank factors)")
 
     x_sorted, tree = build_partition(x, levels, directions=directions,
-                                     generator=generator)
-    landmarks = _level_landmarks(x_sorted, levels, rank, landmark_index,
-                                 generator)
+                                     generator=generator, method=method)
+    landmarks = _draw_level_landmarks(
+        x_sorted, levels, rank, policy, KERNEL_METRIC.get(kernel.name, "l2"),
+        config, landmark_index=landmark_index, policy_draws=policy_draws,
+        generator=generator)
+    if shared_landmarks and levels > 0:
+        landmarks = _broadcast_shared_landmarks(landmarks)
     sigma, sigma_cho, sigma_li = _middle_factors(landmarks, kernel, config)
+    rank_mask = None
+    if rank_budget is not None:
+        rank_mask = _budget.allocate_rank_masks(sigma, rank_budget, rank)
+        sigma, sigma_cho, sigma_li = _apply_rank_masks(
+            rank_mask, sigma, sigma_cho, sigma_li)
 
     leaves = x_sorted.reshape(n_leaves, n0, d)
     adiag, _ = _stage_build_gram(leaves, kernel, config, want_chol=False)
@@ -264,8 +354,11 @@ def build_hck(
     u = _stage_build_cross(paired, landmarks[-1], sigma_li[-1], kernel,
                            config).reshape(n_leaves, n0, rank)
     w = _transfer_ops(landmarks, sigma_li, kernel, config)
+    if rank_mask is not None:
+        u = u * torch.repeat_interleave(rank_mask[-1], 2, dim=0)[:, None, :]
+        w = _mask_transfer_ops(w, rank_mask)
     return HCKFactors(x_sorted, tree, landmarks, sigma, sigma_cho, w, u,
-                      adiag)
+                      adiag, rank_mask)
 
 
 # ---------------------------------------------------------------------------
@@ -346,25 +439,30 @@ def build_sweep_plan(
     x, *, levels: int, rank: int, name: str = "gaussian", method: str = "rp",
     shared_landmarks: bool = False, policy=None,
     config: SolveConfig | None = None, directions=None, landmark_index=None,
-    generator: torch.Generator | None = None, device=None,
+    policy_draws=None, generator: torch.Generator | None = None,
+    device=None,
 ) -> SweepPlan:
     """Partition once and cache every bandwidth-independent distance tile.
 
     Draws the tree and the landmarks exactly as :func:`build_hck` does
     (directions, then one landmark draw per level, from ``generator``, or
-    the injected ``directions`` and ``landmark_index``), so
-    ``sweep_factors(plan, kernel)`` reproduces ``build_hck(x, ...,
+    the injected ``directions``, ``landmark_index`` and ``policy_draws``),
+    so ``sweep_factors(plan, kernel)`` reproduces ``build_hck(x, ...,
     kernel=kernel)`` for every kernel of ``name``'s metric.  The distance
     pass is plain torch, once per grid (see
     :func:`repro_torch.kernels.build_stage.ref.pairwise_dist_ref`).
 
-    ``x`` (n, d), n divisible by 2**levels, levels >= 1.  ``device``: None
-    is the CUDA card (raises without one), "cpu" the plain path.
-    ``policy``, ``shared_landmarks=True``, ``method="pca"`` and
-    ``config.precision`` raise ``NotImplementedError``.
+    ``policy`` is the sweep's landmark-policy axis: selection does not
+    depend on sigma, so one plan per policy serves the whole sigma grid,
+    and :func:`replan_policy` redraws an existing plan's landmarks without
+    partitioning again; ``config`` steers only the policy's
+    ``policy_dist`` stage.  ``x`` (n, d), n divisible by 2**levels,
+    levels >= 1.  ``device``: None is the CUDA card (raises without one),
+    "cpu" the plain path.  ``config.precision`` raises
+    ``NotImplementedError``.
     """
     config = config if config is not None else DEFAULT_CONFIG
-    _check_build_options(method, shared_landmarks, policy, None, config)
+    _check_build_options(config)
     if name not in KERNEL_METRIC:
         raise ValueError(
             f"kernel {name!r} has no registered bandwidth-independent "
@@ -380,19 +478,52 @@ def build_sweep_plan(
     if rank > n0:
         raise ValueError(f"rank {rank} exceeds leaf size {n0} (paper 4.4)")
     x_sorted, tree = build_partition(x, levels, directions=directions,
-                                     generator=generator)
-    landmarks = _level_landmarks(x_sorted, levels, rank, landmark_index,
-                                 generator)
-    return _plan_tiles(x_sorted, tree, landmarks, KERNEL_METRIC[name],
+                                     generator=generator, method=method)
+    metric = KERNEL_METRIC[name]
+    landmarks = _draw_level_landmarks(
+        x_sorted, levels, rank, get_policy(policy), metric, config,
+        landmark_index=landmark_index, policy_draws=policy_draws,
+        generator=generator)
+    if shared_landmarks:
+        landmarks = _broadcast_shared_landmarks(landmarks)
+    return _plan_tiles(x_sorted, tree, landmarks, metric, levels, rank, n0)
+
+
+def replan_policy(
+    plan: SweepPlan, *, rank: int, policy, config: SolveConfig | None = None,
+    landmark_index=None, policy_draws=None,
+    generator: torch.Generator | None = None,
+) -> SweepPlan:
+    """Redraw an existing plan's landmarks under another landmark policy.
+
+    The policy axis of a sweep: ``plan.x_sorted`` and ``plan.tree`` are
+    reused (no partition), and the draws are consumed as
+    :func:`build_sweep_plan` consumes them: from ``generator``, the
+    random-projection directions of every level are drawn and discarded
+    first, then one landmark draw per level; or the injected
+    ``landmark_index`` / ``policy_draws``.  So ``replan_policy(
+    build_sweep_plan(x, ..., generator=g0), ..., generator=g1,
+    policy=p)``, with g1 in g0's starting state, equals
+    ``build_sweep_plan(x, ..., generator=g1, policy=p)`` for a
+    random-projection plan.  ``rank`` may differ from the plan's
+    (accuracy against rank on one hierarchy).
+    """
+    config = config if config is not None else DEFAULT_CONFIG
+    levels = plan.levels
+    n, d = plan.x_sorted.shape
+    n0 = n >> levels
+    if rank > n0:
+        raise ValueError(f"rank {rank} exceeds leaf size {n0} (paper 4.4)")
+    if generator is not None and landmark_index is None and policy_draws is None:
+        for lvl in range(levels):         # the partition's draws, discarded
+            rp_directions(1 << lvl, d, dtype=plan.x_sorted.dtype,
+                          device=plan.x_sorted.device, generator=generator)
+    landmarks = _draw_level_landmarks(
+        plan.x_sorted, levels, rank, get_policy(policy), plan.metric, config,
+        landmark_index=landmark_index, policy_draws=policy_draws,
+        generator=generator)
+    return _plan_tiles(plan.x_sorted, plan.tree, landmarks, plan.metric,
                        levels, rank, n0)
-
-
-def replan_policy(plan: SweepPlan, *, rank: int, policy, **kwargs):
-    """Re-draw a plan's landmarks under another landmark policy: comes with
-    the landmark policies (ROADMAP item A10)."""
-    del plan, rank, policy, kwargs
-    raise NotImplementedError(
-        "replan_policy comes with the landmark policies, ROADMAP item A10")
 
 
 def _stage_gram_dist(dist: Tensor, kernel: BaseKernel, config: SolveConfig,
@@ -428,12 +559,12 @@ def sweep_factors(plan: SweepPlan, kernel: BaseKernel,
     every level's W: the kernel nonlinearity and the factorization only,
     no partition, no landmark draw, no distance work.  With the plan drawn
     as a ``build_hck`` call draws, the result matches that call for any
-    ``kernel`` of the plan's metric.  ``rank_budget`` (ROADMAP item A10)
-    and ``config.precision`` (A15) raise ``NotImplementedError``.
+    ``kernel`` of the plan's metric.  ``rank_budget`` is
+    :func:`build_hck`'s, its masks recomputed at every sigma (the landmark
+    Gram, hence the spectral mass, depends on it).  ``config.precision``
+    (ROADMAP item A15) raises ``NotImplementedError``.
     """
     config = config if config is not None else DEFAULT_CONFIG
-    if rank_budget is not None:
-        raise NotImplementedError("rank_budget comes with ROADMAP item A10")
     if config.precision is not None:
         raise NotImplementedError(
             "a mixed-precision build (SolveConfig.precision) comes with "
@@ -452,6 +583,12 @@ def sweep_factors(plan: SweepPlan, kernel: BaseKernel,
         sigma.append(s)
         sigma_cho.append(c)
         sigma_li.append(sigma_linv(c))
+    sigma, sigma_cho = tuple(sigma), tuple(sigma_cho)
+    rank_mask = None
+    if rank_budget is not None:
+        rank_mask = _budget.allocate_rank_masks(sigma, rank_budget, rank)
+        sigma, sigma_cho, sigma_li = _apply_rank_masks(
+            rank_mask, sigma, sigma_cho, sigma_li)
     adiag, _ = _stage_gram_dist(plan.leaf_self, kernel, config,
                                 want_chol=False)
     u = _stage_cross_dist(plan.leaf_cross, sigma_li[-1], kernel,
@@ -460,8 +597,11 @@ def sweep_factors(plan: SweepPlan, kernel: BaseKernel,
         _stage_cross_dist(plan.lm_cross[lvl - 1], sigma_li[lvl - 1], kernel,
                           config).reshape(1 << lvl, rank, rank)
         for lvl in range(1, levels))
-    return HCKFactors(plan.x_sorted, plan.tree, plan.landmarks, tuple(sigma),
-                      tuple(sigma_cho), w, u, adiag)
+    if rank_mask is not None:
+        u = u * torch.repeat_interleave(rank_mask[-1], 2, dim=0)[:, None, :]
+        w = _mask_transfer_ops(w, rank_mask)
+    return HCKFactors(plan.x_sorted, plan.tree, plan.landmarks, sigma,
+                      sigma_cho, w, u, adiag, rank_mask)
 
 
 # ---------------------------------------------------------------------------
@@ -489,8 +629,9 @@ def build_hck_reference(
         raise ValueError(f"rank {rank} exceeds leaf size {n0} (paper 4.4)")
     x_sorted, tree = build_partition(x, levels, directions=directions,
                                      generator=generator)
-    landmarks = _level_landmarks(x_sorted, levels, rank, landmark_index,
-                                 generator)
+    landmarks = _draw_level_landmarks(
+        x_sorted, levels, rank, get_policy(None), "l2", None,
+        landmark_index=landmark_index, generator=generator)
     sigma = tuple(torch.stack([kernel.gram(z) for z in lm])
                   for lm in landmarks)
     sigma_cho = tuple(torch.stack([torch.linalg.cholesky(s) for s in sg])

@@ -10,11 +10,14 @@
                        the inverse applied, polished by iterative
                        refinement;
   * :func:`logdet`  -- log det (A + ridge I) from the Algorithm-2
-                       byproducts.
+                       byproducts;
+  * :func:`invert_extend` -- the inverse of leaves grown by an online
+                       insert, bordering the old leaf factors.
 
 The leaf stages go through the backend registry: ``leaf_matvec`` (matvec,
 and the explicit-inverse apply), ``leaf_solve`` (the fused block-Cholesky
-apply) and ``leaf_factor`` (the leaf Schur Cholesky and its inverse); on
+apply), ``leaf_factor`` (the leaf Schur Cholesky and its inverse) and
+``leaf_update`` (its bordered extension after an online insert); on
 the card each is a CUDA kernel.  The level recursions between them are
 plain torch on (2**l, r, r) stacks, as they are plain jnp in the
 reference.  Every right-hand side may be (n,) or (n, k).
@@ -270,6 +273,60 @@ def invert_with_leaf(f: HCKFactors, ridge: float = 0.0,
                          "for the dense 0-level hierarchy")
     lo, linv = _leaf_factors(f, ridge, config)
     return _invert_tail(f, lo, linv), lo
+
+
+def _stage_leaf_update(lo: Tensor, linv: Tensor, b: Tensor, c: Tensor,
+                       config: SolveConfig) -> tuple[Tensor, Tensor]:
+    """The ``leaf_update`` stage: the (P, n0, n0) pair bordered by the
+    (P, k, n0) cross and (P, k, k) appended blocks -> the (P, n0 + k,
+    n0 + k) pair, leading quadrants untouched."""
+    return _leaf_stage("leaf_update", config, lo, linv, b, c)
+
+
+def extension_blocks(f: HCKFactors, *, n0_base: int, ridge: float = 0.0
+                     ) -> tuple[Tensor, Tensor]:
+    """Appended blocks of the ridged leaf Schur complements of leaves that
+    grew from ``n0_base`` to ``n0_base + k`` rows (an online insert,
+    :mod:`repro_torch.core.update`): the (P, k, n0_base) cross block and
+    the (P, k, k) appended diagonal block of ``adiag - U Sigma_parent U^T
+    + ridge I``, the inputs of the ``leaf_update`` stage.  The ridge lands
+    on the appended diagonal only (the old block already carries it)."""
+    sig_p = _rep2(f.sigma[f.levels - 1])
+    u_old, u_app = f.u[:, :n0_base], f.u[:, n0_base:]
+    k = f.leaf_size - n0_base
+    b = f.adiag[:, n0_base:, :n0_base] - torch.einsum(
+        "pkr,prs,pns->pkn", u_app, sig_p, u_old)
+    c = (f.adiag[:, n0_base:, n0_base:]
+         - torch.einsum("pkr,prs,pls->pkl", u_app, sig_p, u_app)
+         + ridge * torch.eye(k, dtype=f.adiag.dtype, device=f.adiag.device))
+    return b, c
+
+
+def invert_extend(f: HCKFactors, lo: Tensor, linv: Tensor, *, n0_base: int,
+                  ridge: float = 0.0, config: SolveConfig | None = None
+                  ) -> tuple[InverseFactors, Tensor]:
+    """Algorithm 2 on row-extended factors, reusing the old leaf Cholesky.
+
+    ``f``'s leaves grew from ``n0_base`` rows by an online insert; its
+    leading leaf blocks, landmarks, Sigma and W are unchanged, so each
+    leaf's ridged Schur complement is a bordered extension of the one
+    ``(lo, linv)`` factor: the appended blocks (:func:`extension_blocks`)
+    go through the ``leaf_update`` stage (B13 on the card, O(k n0^2) per
+    leaf) and only the middle-factor tail of Algorithm 2 runs again.
+    ``ridge`` must be the one ``(lo, linv)`` were factored with.  Returns
+    ``(inv, lo_ext)``, matching ``invert_with_leaf(f, ridge)`` to
+    round-off.
+    """
+    config = config if config is not None else DEFAULT_CONFIG
+    k = f.leaf_size - n0_base
+    if k < 0:
+        raise ValueError(f"extended leaf size {f.leaf_size} smaller than "
+                         f"base {n0_base}")
+    if k == 0:
+        return _invert_tail(f, lo, linv), lo
+    b, c = extension_blocks(f, n0_base=n0_base, ridge=ridge)
+    lo_ext, linv_ext = _stage_leaf_update(lo, linv, b, c, config)
+    return _invert_tail(f, lo_ext, linv_ext), lo_ext
 
 
 def invert_multi(f: HCKFactors, ridges,

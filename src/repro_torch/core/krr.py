@@ -7,6 +7,8 @@ fit_path: alpha_g for a whole grid of lambda_g from one build, scored on
           held-out data in one Algorithm-3 pass  -- the sweep's lambda axis
 fit_exact: EXACT-kernel KRR by CG on the matvec-free exact-kernel
           operator, preconditioned by the HCK structured inverse
+fit_incremental / HCKRegressor.update: absorb new points into a fitted
+          model on its frozen hierarchy, without the rebuild
 
 :func:`fit` pads the data to the tree, builds the factors
 (:func:`repro_torch.core.hck.build_hck`), inverts with the leaf factor
@@ -63,6 +65,20 @@ class HCKRegressor:
 
     def __post_init__(self):
         self._engine = None
+        self._leaf_linv = None
+
+    @property
+    def leaf_linv(self) -> Tensor:
+        """Leaf-granularity inverse Cholesky factors (P, r, r) of the last
+        level's Sigma.  The landmark factors are frozen across online
+        inserts, so this is computed once, on first use, and handed to
+        every :func:`repro_torch.core.update.insert`."""
+        if self._leaf_linv is None:
+            from repro_torch.core.hck import sigma_linv
+
+            self._leaf_linv = torch.repeat_interleave(
+                sigma_linv(self.factors.sigma_cho[-1]), 2, dim=0)
+        return self._leaf_linv
 
     @property
     def engine(self):
@@ -84,6 +100,12 @@ class HCKRegressor:
         if z.shape[1] == 1:  # binary +-1
             return torch.where(z[:, 0] > 0, self.classes[1], self.classes[0])
         return self.classes[torch.argmax(z, dim=1)]
+
+    def update(self, x_new, y_new, **kwargs):
+        """Absorb new points online: ``fit_incremental(self, ...)``.
+        Returns ``(model, info)``; the model is a NEW instance and this one
+        stays servable."""
+        return fit_incremental(self, x_new, y_new, **kwargs)
 
 
 def _encode_targets(y: Tensor, classification: bool, dtype: torch.dtype):
@@ -114,7 +136,7 @@ def fit(
     shared_landmarks: bool = False, solve_config: SolveConfig | None = None,
     landmarks=None, rank_budget: int | None = None, device=None,
     generator: torch.Generator | None = None, pad_index=None,
-    pad_noise=None, directions=None, landmark_index=None,
+    pad_noise=None, directions=None, landmark_index=None, policy_draws=None,
 ) -> HCKRegressor:
     """Fit KRR with the paper's sizing rule (Eq. 22) unless ``levels`` given.
 
@@ -137,10 +159,17 @@ def fit(
                 ``pad_noise``, ``directions`` and ``landmark_index``
                 replace those draws (see ``pad_points`` and ``build_hck``).
 
-    ``landmarks`` (a landmark policy), ``rank_budget``,
-    ``shared_landmarks=True`` and ``method="pca"`` (ROADMAP item A10) and
-    a ``solve_config.precision`` (item A15) raise ``NotImplementedError``.
-    The model caches the Algorithm-2 inverse and its leaf Cholesky factors.
+    landmarks:  landmark policy, None / "uniform", "kmeans", "leverage" or
+                a :class:`~repro_torch.landmarks.policy.LandmarkPolicy`;
+                ``policy_draws`` (one dict per level) replaces its draws.
+    rank_budget: global cap on the sum of the per-node ranks (see
+                :func:`repro_torch.core.hck.build_hck`).
+    method:     partition rule, "rp" or "pca"; ``shared_landmarks`` puts
+                the root's landmarks at every node.
+
+    A ``solve_config.precision`` (ROADMAP item A15) raises
+    ``NotImplementedError``.  The model caches the Algorithm-2 inverse and
+    its leaf Cholesky factors, which :meth:`HCKRegressor.update` extends.
     """
     dev = _device.resolve(device)
     x = torch.as_tensor(x).to(dev)
@@ -159,7 +188,8 @@ def fit(
         x, levels=levels, rank=rank, kernel=kernel, method=method,
         shared_landmarks=shared_landmarks, config=solve_config,
         policy=landmarks, rank_budget=rank_budget, directions=directions,
-        landmark_index=landmark_index, generator=generator)
+        landmark_index=landmark_index, policy_draws=policy_draws,
+        generator=generator)
     _health_probe("build", factors, solve_config)
     y_sorted = targets[factors.tree.perm]
     inv, lo = hmatrix.invert_with_leaf(factors, lam, solve_config)
@@ -172,6 +202,208 @@ def fit(
                         squeeze=squeeze, solve_config=solve_config, lam=lam,
                         base_leaf_size=factors.leaf_size, inverse=inv,
                         leaf_lo=lo)
+
+
+@dataclasses.dataclass
+class UpdateInfo:
+    """Diagnostics of one :func:`fit_incremental` round.
+
+    ``iterations`` / ``residual`` / ``converged`` describe the re-solve
+    (warm-started CG for ``refresh="stale"``; 0 iterations for the
+    structured solves of "inverse" and "exact").  ``cold_iterations`` is
+    the count of CG without carried state, with ``measure_cold=True``.
+    ``needs_rebuild`` is the :class:`repro_torch.core.update.RebuildPolicy`
+    verdict: True means schedule a full :func:`fit`.
+    """
+
+    record: object             # repro_torch.core.update.InsertRecord
+    refresh: str
+    iterations: int
+    residual: float
+    converged: bool
+    cold_iterations: int | None = None
+    needs_rebuild: bool = False
+
+
+def _encode_arrivals(model: HCKRegressor, y_new: Tensor,
+                     dtype: torch.dtype) -> Tensor:
+    """Targets (q, k) of new points in the model's fit-time encoding;
+    labels outside a classifier's classes raise."""
+    if model.classes is None:
+        return (y_new if y_new.ndim > 1 else y_new[:, None]).to(dtype)
+    if not bool(torch.isin(y_new, model.classes).all()):
+        raise ValueError("y_new contains labels outside the fitted classes; "
+                         "a full refit is required")
+    one = torch.ones((), dtype=dtype, device=y_new.device)
+    if model.classes.shape[0] == 2:
+        return torch.where(y_new == model.classes[1], one, -one)[:, None]
+    return torch.where(y_new[:, None] == model.classes[None, :], one, -one)
+
+
+def _stale_preconditioner(f_new: HCKFactors, inv_base, n0_old: int,
+                          lam: float, config: SolveConfig | None):
+    """The stale structured inverse lifted to the grown leaves.
+
+    ``P = [I  -A^-1 B^T; 0  I] blkdiag(A^-1, S~^-1) [I  0; -B A^-1  I]``,
+    with A^-1 the UNREFRESHED inverse of the old rows, B the exact
+    coupling of old and appended rows (read off two Algorithm-1 matvecs,
+    no block materialized) and S~ the leaf-local Schur complement of the
+    appended rows: SPD by congruence, exact up to the inter-leaf coupling
+    that S~ drops.
+    """
+    p_leaves, n0_new = f_new.num_leaves, f_new.leaf_size
+    bb, cc = hmatrix.extension_blocks(f_new, n0_base=n0_old, ridge=lam)
+    l21 = bb @ inv_base.linv.mT
+    s_inv = torch.linalg.inv(cc - l21 @ l21.mT)
+
+    def split(v):
+        vb = v.reshape(p_leaves, n0_new, -1)
+        return vb[:, :n0_old], vb[:, n0_old:]
+
+    def join(v_old, v_app):
+        return torch.cat([v_old, v_app], dim=1).reshape(
+            -1, v_old.shape[-1])
+
+    def op(v):
+        return hmatrix.matvec(f_new, v, config) + lam * v
+
+    def precond(r):
+        ncols = r.shape[-1] if r.ndim > 1 else 1
+        r_old, r_app = split(r)
+        z1 = hmatrix.apply_inverse(inv_base, r_old.reshape(-1, ncols),
+                                   config).reshape(p_leaves, n0_old, ncols)
+        _, bz1 = split(op(join(z1, torch.zeros_like(r_app))))
+        z_app = s_inv @ (r_app - bz1)
+        btz, _ = split(op(join(torch.zeros_like(z1), z_app)))
+        z_old = z1 - hmatrix.apply_inverse(
+            inv_base, btz.reshape(-1, ncols), config).reshape(
+                p_leaves, n0_old, ncols)
+        return join(z_old, z_app).reshape(r.shape)
+
+    return precond
+
+
+def fit_incremental(
+    model: HCKRegressor, x_new, y_new, *, refresh: str = "inverse",
+    policy=None, generator: torch.Generator | None = None, pad_index=None,
+    pad_noise=None, tol: float = 1e-8, maxiter: int = 200,
+    measure_cold: bool = False,
+) -> tuple[HCKRegressor, UpdateInfo]:
+    """Absorb a batch of new points into a fitted model without rebuilding.
+
+    The arrivals are routed down the FROZEN tree and appended to their
+    leaves (:func:`repro_torch.core.update.insert`: landmarks, Sigma, W,
+    the rank masks and the fit-time lambda' diagonal untouched), then the
+    dual coefficients are solved again on the union:
+
+    ``refresh="inverse"`` (default): the cached leaf Schur Cholesky pair
+      is extended by the bordered ``leaf_update`` stage
+      (:func:`repro_torch.core.hmatrix.invert_extend`, B13 on the card)
+      and the refreshed structured inverse solves as in :func:`fit`; it
+      matches a from-scratch :func:`repro_torch.core.update.refit_frozen`
+      to round-off.
+    ``refresh="exact"``: the cached pair is not reused; the grown
+      hierarchy is inverted from scratch (:func:`hmatrix.invert_with_leaf`,
+      B3 at the grown leaf size).
+    ``refresh="stale"``: no refactorization; CG on the grown operator,
+      warm-started from the old alpha (zeros on the appended rows) and
+      preconditioned by the stale inverse lifted to the appended rows.
+
+    The fit-time targets are reconstructed from the model itself, ``y =
+    (K_hck + lam) alpha``.  ``y_new`` takes the fit's encoding (regression
+    columns, or labels of ``model.classes``; new labels raise).
+    ``generator`` (default seeded with n on the model's device) draws the
+    padding rows, which ``pad_index`` (P, k) and ``pad_noise`` (P, k, d)
+    replace.  ``policy`` is a :class:`~repro_torch.core.update.
+    RebuildPolicy`.  Returns ``(model_new, info)``; the input model is
+    untouched.
+    """
+    from repro_torch.core.update import RebuildPolicy, insert
+    from repro_torch.solvers.cg import pcg
+
+    if refresh not in ("inverse", "exact", "stale"):
+        raise ValueError(f"unknown refresh {refresh!r}; use 'inverse', "
+                         "'exact' or 'stale'")
+    if model.lam is None:
+        raise ValueError("model carries no fit ridge (built before the "
+                         "online-update engine?): refit with krr.fit")
+    f, lam, cfg = model.factors, model.lam, model.solve_config
+    dev, dt = f.x_sorted.device, f.x_sorted.dtype
+    base = model.base_leaf_size or f.leaf_size
+    policy = policy if policy is not None else RebuildPolicy()
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(f.n)
+    x_new = torch.as_tensor(x_new).to(device=dev, dtype=dt)
+    targets_new = _encode_arrivals(model, torch.as_tensor(y_new).to(dev), dt)
+
+    # the fit-time targets, reconstructed: y_sorted = (K_hck + lam) alpha
+    y_sorted = hmatrix.matvec(f, model.alpha, cfg) + lam * model.alpha
+    f_new, y_sorted_new, rec = insert(
+        f, x_new, model.kernel, config=cfg, y_new=targets_new,
+        y_sorted=y_sorted, jitter_rows=base, linv_leaf=model.leaf_linv,
+        pad_index=pad_index, pad_noise=pad_noise, generator=generator)
+    if rec.k == 0:                      # an empty batch: exact no-op
+        return model, UpdateInfo(rec, refresh, 0, 0.0, True)
+    _health_probe("update.insert", f_new, cfg)
+
+    n0_old = f.leaf_size
+    inv_base, lo_base = model.inverse, model.leaf_lo
+    if inv_base is None or lo_base is None or inv_base.leaf_size != n0_old:
+        inv_base, lo_base = hmatrix.invert_with_leaf(f, lam, cfg)
+
+    cold_iters = None
+    iters = 0
+    if refresh == "inverse":
+        inv_new, lo_new = hmatrix.invert_extend(
+            f_new, lo_base, inv_base.linv, n0_base=n0_old, ridge=lam,
+            config=cfg)
+        _health_probe("leaf_update", lo_new, cfg)
+        alpha_new = hmatrix.solve_with_inverse(
+            f_new, inv_new, y_sorted_new, ridge=lam, config=cfg)
+    elif refresh == "exact":
+        inv_new, lo_new = hmatrix.invert_with_leaf(f_new, lam, cfg)
+        _health_probe("leaf_factor", lo_new, cfg)
+        alpha_new = hmatrix.solve_with_inverse(
+            f_new, inv_new, y_sorted_new, ridge=lam, config=cfg)
+    else:
+        p_leaves, n0_new = f_new.num_leaves, f_new.leaf_size
+        kcols = model.alpha.shape[1]
+        precond = _stale_preconditioner(f_new, inv_base, n0_old, lam, cfg)
+        x0 = model.alpha.new_zeros((p_leaves, n0_new, kcols))
+        x0[:, :n0_old] = model.alpha.reshape(p_leaves, n0_old, kcols)
+
+        def amv(v):
+            return hmatrix.matvec(f_new, v, cfg)
+
+        res = pcg(amv, y_sorted_new, ridge=lam, precond=precond,
+                  x0=x0.reshape(-1, kcols), tol=tol, maxiter=maxiter)
+        _health_probe("cg", res, cfg)
+        alpha_new, iters = res.x, int(res.iterations)
+        if measure_cold:
+            # no carried state at all: neither the stale inverse nor alpha
+            cold_iters = int(pcg(amv, y_sorted_new, ridge=lam, tol=tol,
+                                 maxiter=maxiter).iterations)
+        inv_new, lo_new = inv_base, lo_base   # kept stale for the next lift
+
+    _health_probe("solve", alpha_new, cfg)
+    resid = y_sorted_new - (hmatrix.matvec(f_new, alpha_new, cfg)
+                            + lam * alpha_new)
+    rel = float(torch.linalg.vector_norm(resid)
+                / torch.linalg.vector_norm(y_sorted_new))
+    plan = oos.prepare(f_new, alpha_new, cfg)
+    model_new = HCKRegressor(
+        model.kernel, f_new, plan, alpha_new, model.classes,
+        squeeze=model.squeeze, solve_config=cfg, lam=lam,
+        base_leaf_size=base, inverse=inv_new, leaf_lo=lo_new)
+    model_new._leaf_linv = model._leaf_linv   # frozen landmarks: carried
+    needs_rebuild = policy.should_rebuild(
+        base_leaf_size=base, leaf_size=f_new.leaf_size,
+        warm_iters=iters if refresh == "stale" else None, update_error=rel)
+    info = UpdateInfo(rec, refresh, iters, rel,
+                      converged=(rel <= max(tol, 1e-6)
+                                 or refresh in ("inverse", "exact")),
+                      cold_iterations=cold_iters, needs_rebuild=needs_rebuild)
+    return model_new, info
 
 
 @dataclasses.dataclass
@@ -243,7 +475,7 @@ def fit_path(
     x_val=None, y_val=None, factors: HCKFactors | None = None,
     landmarks=None, rank_budget: int | None = None, device=None,
     generator: torch.Generator | None = None, pad_index=None,
-    pad_noise=None, directions=None, landmark_index=None,
+    pad_noise=None, directions=None, landmark_index=None, policy_draws=None,
 ) -> KRRPath:
     """Fit the whole regularization path from one build (the sweep engine's
     lambda axis).
@@ -280,7 +512,8 @@ def fit_path(
             x, levels=levels, rank=rank, kernel=kernel, method=method,
             shared_landmarks=shared_landmarks, config=solve_config,
             policy=landmarks, rank_budget=rank_budget, directions=directions,
-            landmark_index=landmark_index, generator=generator)
+            landmark_index=landmark_index, policy_draws=policy_draws,
+            generator=generator)
     elif x.shape[0] != factors.n or y.shape[0] != factors.n:
         raise ValueError(
             f"prebuilt factors cover n={factors.n} points but x has "

@@ -63,19 +63,39 @@ def rp_directions(bsz: int, d: int, *, dtype: torch.dtype,
     return v / (torch.linalg.vector_norm(v, dim=-1, keepdim=True) + 1e-12)
 
 
+def _pca_direction(blocks: Tensor) -> Tensor:
+    """Dominant right singular vector of each centered block (B, m, d) ->
+    (B, d): 16 power-iteration steps from the normalized all-ones vector,
+    deterministic, as the reference's ``_pca_direction``."""
+    xc = blocks - torch.mean(blocks, dim=1, keepdim=True)
+    cov = torch.einsum("bmd,bme->bde", xc, xc)
+    v = torch.ones((blocks.shape[0], blocks.shape[-1]), dtype=blocks.dtype,
+                   device=blocks.device)
+    v = v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+    for _ in range(16):
+        v = torch.einsum("bde,be->bd", cov, v)
+        v = v / (torch.linalg.vector_norm(v, dim=-1, keepdim=True) + 1e-12)
+    return v
+
+
 def build_partition(
     x: Tensor, levels: int, *, directions=None,
-    generator: torch.Generator | None = None,
+    generator: torch.Generator | None = None, method: str = "rp",
 ) -> tuple[Tensor, PartitionTree]:
-    """Random-projection partition of ``x`` (n, d) into 2**levels leaves.
+    """Partition ``x`` (n, d) into 2**levels balanced leaves.
 
-    ``directions`` (a sequence of ``levels`` tensors (2**l, d)) replaces the
-    random draws, so a tree can be rebuilt from the reference's directions;
-    without it each level draws unit normals from ``generator``.  Returns
-    the points in tree order (leaf blocks contiguous) and the routing
-    record.
+    ``method`` "rp" splits on random projections (the paper's choice),
+    "pca" on each block's dominant principal direction (the paper's
+    Fig. 4 / Table 2 comparison; no random draw).  ``directions`` (a
+    sequence of ``levels`` tensors (2**l, d)) replaces the directions, so
+    a tree can be rebuilt from the reference's; without it each "rp" level
+    draws unit normals from ``generator``.  Returns the points in tree
+    order (leaf blocks contiguous) and the routing record.
     """
     n, d = x.shape
+    if method not in ("rp", "pca"):
+        raise ValueError(f"unknown partition method {method!r}; use 'rp' "
+                         "or 'pca'")
     if n % (1 << levels) != 0:
         raise ValueError(f"n={n} not divisible by 2**levels={1 << levels}")
     if directions is not None and len(directions) != levels:
@@ -84,7 +104,9 @@ def build_partition(
     blocks = x.reshape(1, n, d)
     dirs, thrs = [], []
     for lvl in range(levels):
-        if directions is None:
+        if directions is None and method == "pca":
+            direction = _pca_direction(blocks)
+        elif directions is None:
             direction = rp_directions(1 << lvl, d, dtype=x.dtype,
                                       device=x.device, generator=generator)
         else:

@@ -25,7 +25,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("hck_leaf_project", "oos_contract", "build_stage", "build_dist",
            "leaf_factor", "leaf_matvec", "leaf_solve", "kernel_matvec",
-           "kernel_tile")
+           "kernel_tile", "policy_dist", "leaf_update")
 _HEADERS = ("kernel_epilogue.cuh", "chol_smem.cuh", "cross_products.cuh",
             "leaf_products.cuh", "pair_tile.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

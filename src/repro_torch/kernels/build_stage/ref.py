@@ -69,13 +69,17 @@ def build_cross_ref(
 def direct_dist(x: torch.Tensor, y: torch.Tensor,
                 metric: str) -> torch.Tensor:
     """(B, m, d), (B, r, d) -> (B, m, r): sum over the features, in feature
-    order, of (x - y)^2 ("l2", squared Euclidean) or |x - y| ("l1"), as
-    the build kernels sum them.  The loop over features holds two
-    (B, m, r) buffers, never a (B, m, r, d) difference tensor."""
+    order, of (x - y)^2 ("l2", squared Euclidean, one multiply-add per
+    feature) or |x - y| ("l1"), as the kernels sum them.  The loop over
+    features holds two (B, m, r) buffers, never a (B, m, r, d) difference
+    tensor."""
     out = x.new_zeros((x.shape[0], x.shape[1], y.shape[1]))
     for t in range(x.shape[2]):
         diff = x[:, :, None, t] - y[:, None, :, t]
-        out += diff * diff if metric == "l2" else diff.abs()
+        if metric == "l2":
+            out.addcmul_(diff, diff)
+        else:
+            out += diff.abs()
     return out
 
 

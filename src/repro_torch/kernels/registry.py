@@ -345,3 +345,35 @@ def _pairwise_kernel_cuda(x, y, *, name="gaussian", sigma=1.0):
     from repro_torch.kernels.kernel_tile.ops import pairwise_kernel
 
     return pairwise_kernel(x, y, name=name, sigma=sigma)
+
+
+@register("policy_dist", "torch")
+def _policy_dist_torch(blocks, centers, *, metric="l2"):
+    """(B,m,d),(B,r,d) -> (B,m,r) squared-L2 / L1 distances, plain."""
+    from repro_torch.kernels.policy_stage.ref import policy_dist_ref
+
+    return policy_dist_ref(blocks, centers, metric=metric)
+
+
+@register("policy_dist", "cuda")
+def _policy_dist_cuda(blocks, centers, *, metric="l2"):
+    """(B,m,d),(B,r,d) -> (B,m,r) squared-L2 / L1 distances, CUDA kernel."""
+    from repro_torch.kernels.policy_stage.ops import policy_dist
+
+    return policy_dist(blocks, centers, metric=metric)
+
+
+@register("leaf_update", "torch")
+def _leaf_update_torch(lo, linv, b, c):
+    """Bordered extension of the leaf (L, L^-1) pair by k rows, plain."""
+    from repro_torch.kernels.update_stage.ref import leaf_update_ref
+
+    return leaf_update_ref(lo, linv, b, c)
+
+
+@register("leaf_update", "cuda")
+def _leaf_update_cuda(lo, linv, b, c):
+    """Bordered extension of the leaf (L, L^-1) pair by k rows, CUDA."""
+    from repro_torch.kernels.update_stage.ops import leaf_update
+
+    return leaf_update(lo, linv, b, c)

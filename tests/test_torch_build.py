@@ -213,12 +213,19 @@ def test_own_landmark_draws_are_distinct_rows_of_each_node(data):
 
 
 def test_unported_build_options_raise():
+    """Only a mixed-precision build (ROADMAP A15) still raises; the
+    landmark-policy options, ported with A10, build (their parity with the
+    reference is in tests/test_torch_landmarks.py)."""
     x, ker = torch.zeros(64, D), BaseKernel()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        hck.build_hck(x, levels=2, rank=4, kernel=ker,
+                      config=registry.SolveConfig(precision="f32"))
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal((64, D)))
     for kw in (dict(method="pca"), dict(shared_landmarks=True),
-               dict(policy="kmeans"), dict(rank_budget=40),
-               dict(config=registry.SolveConfig(precision="f32"))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            hck.build_hck(x, levels=2, rank=4, kernel=ker, **kw)
+               dict(policy="kmeans"), dict(rank_budget=40)):
+        f = hck.build_hck(x, levels=2, rank=4, kernel=ker, **kw)
+        assert f.levels == 2 and torch.isfinite(f.u).all()
+        assert (f.rank_mask is not None) == ("rank_budget" in kw)
 
 
 def test_forced_backend_on_the_other_device_raises():

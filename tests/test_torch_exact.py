@@ -325,9 +325,12 @@ def test_independent_and_dense_match_reference(baseline_data):
                                   np.asarray(jm.tree.perm))
     _close(m.alpha, jm.alpha)
     _close(m.predict(_t(q)), jm.predict(jnp.asarray(q)))
-    with pytest.raises(NotImplementedError, match="A10"):
-        baselines.fit_independent(x, y, kernel=k, lam=1e-2, levels=3,
+    jp = jbaselines.fit_independent(jnp.asarray(x), jnp.asarray(y), kernel=jk,
+                                    lam=1e-2, levels=3, key=key, method="pca")
+    p = baselines.fit_independent(x, y, kernel=k, lam=1e-2, levels=3,
                                   method="pca", device="cpu")
+    np.testing.assert_array_equal(p.tree.perm.numpy(), np.asarray(jp.tree.perm))
+    _close(p.predict(_t(q)), jp.predict(jnp.asarray(q)))
     jd = jbaselines.fit_exact(jnp.asarray(x), jnp.asarray(y), kernel=jk,
                               lam=1e-2)
     d = baselines.fit_exact(x, y, kernel=k, lam=1e-2, device="cpu")

@@ -177,12 +177,19 @@ def test_fit_from_the_generator_alone(f64):
 
 
 def test_unported_fit_options_raise():
+    """Only ``solve_config.precision`` (ROADMAP A15) still raises; the A10
+    options fit (held against the reference in test_torch_landmarks.py)."""
     x, y, _ = _data("regression")
+    from repro_torch.kernels.registry import SolveConfig
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        krr.fit(x, y, kernel=BaseKernel(), lam=LAM, rank=RANK,
+                leaf_size=LEAF, device="cpu",
+                solve_config=SolveConfig(precision="f32"))
     for kw in (dict(landmarks="kmeans"), dict(rank_budget=50),
                dict(shared_landmarks=True), dict(method="pca")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            krr.fit(x, y, kernel=BaseKernel(), lam=LAM, rank=RANK,
+        m = krr.fit(x, y, kernel=BaseKernel(), lam=LAM, rank=RANK,
                     leaf_size=LEAF, device="cpu", **kw)
+        assert torch.isfinite(m.alpha).all()
     f = krr.fit(x[:64], y[:64], kernel=BaseKernel(), lam=LAM, rank=4,
                 leaf_size=16, levels=2, device="cpu").factors
     assert f.levels == 2 and isinstance(f, hck.HCKFactors)

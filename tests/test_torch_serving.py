@@ -132,11 +132,16 @@ def test_bucket_size_matches_reference(q, lo, hi):
 
 
 def test_convert_refuses_budgeted_rank_and_missing_arrays(fitted):
+    """Budgeted-rank factors now carry across with their masks (ported with
+    A10; a budgeted reference model is served in test_torch_landmarks.py);
+    an incomplete set of arrays is still refused."""
     m, _, _ = fitted["regression"]
     arrays = flatten_model(m.factors, m.plan, m.alpha)
-    with pytest.raises(ValueError, match="rank_mask"):
-        convert.factors_from_arrays({**arrays, "rank_mask/0": np.ones((1, 8))},
-                                    device="cpu")
+    masks = {f"rank_mask/{lvl}": np.ones((1 << lvl, 8))
+             for lvl in range(m.factors.levels)}
+    f = convert.factors_from_arrays({**arrays, **masks}, device="cpu")
+    assert len(f.rank_mask) == m.factors.levels
+    assert f.ranks.total == 8 * ((1 << m.factors.levels) - 1)
     del arrays["sigma_cho/2"]
     with pytest.raises(KeyError, match="sigma_cho/2"):
         convert.factors_from_arrays(arrays, device="cpu")

@@ -257,22 +257,28 @@ def test_sweep_rejects_mismatched_and_unsweepable_kernels(plans):
 
 
 def test_unported_sweep_options_raise(plans):
+    """Only ``config.precision`` (ROADMAP A15) still raises; the policy
+    axis and the rank budget, ported with A10, run (their parity with the
+    reference is in tests/test_torch_landmarks.py)."""
     _, p, _ = plans["l2"]
     x = torch.zeros(64, D)
-    for kw in (dict(policy="kmeans"), dict(shared_landmarks=True),
-               dict(method="pca"),
-               dict(config=registry.SolveConfig(precision="f32"))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            hck.build_sweep_plan(x, levels=2, rank=4, device="cpu", **kw)
-    for kw in (dict(rank_budget=40),
-               dict(config=registry.SolveConfig(precision="f64"))):
-        with pytest.raises(NotImplementedError, match="ROADMAP item A1"):
-            hck.sweep_factors(p, BaseKernel(), **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP item A10"):
-        hck.replan_policy(p, rank=4, policy="kmeans")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        krr.fit_path(x, torch.zeros(64), kernel=BaseKernel(), lams=LAMS,
-                     rank=4, device="cpu", landmarks="leverage")
+        hck.build_sweep_plan(x, levels=2, rank=4, device="cpu",
+                             config=registry.SolveConfig(precision="f32"))
+    with pytest.raises(NotImplementedError, match="ROADMAP item A1"):
+        hck.sweep_factors(p, BaseKernel(),
+                          config=registry.SolveConfig(precision="f64"))
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal((64, D)))
+    for kw in (dict(policy="kmeans"), dict(shared_landmarks=True),
+               dict(method="pca")):
+        assert hck.build_sweep_plan(x, levels=2, rank=4, device="cpu",
+                                    **kw).rank == 4
+    f = hck.sweep_factors(p, BaseKernel(), rank_budget=p.rank * 4)
+    assert f.rank_mask is not None and f.ranks.total <= p.rank * 4
+    assert hck.replan_policy(p, rank=4, policy="kmeans").rank == 4
+    path = krr.fit_path(x, torch.zeros(64, dtype=x.dtype), kernel=BaseKernel(),
+                        lams=LAMS, rank=4, device="cpu", landmarks="leverage")
+    assert torch.isfinite(path.alphas).all()
 
 
 def test_sweep_plan_carried_across(plans):
