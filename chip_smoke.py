@@ -6,8 +6,18 @@ CUDA card and ``nvcc``; without a card it exits with code 1 and prints no
 result.  Phases, each of which raises on failure:
 
   1. device   the card's name and power limit (nvidia-smi);
-  2. build    nvcc builds every kernel of the fit and serving paths (in
-              parallel);
+  2. build    nvcc builds every kernel library (in parallel);
+ 2b. lm       Zamba2-7B serving at full width in bf16 (random weights from
+              SEED): B14 (``flash_attention``) and B15
+              (``ssd_intra_chunk``) against their plain versions (the
+              prefill's shapes and small ragged, GQA and non-causal ones;
+              bf16 and f32), two requests through ``ServeSession`` (4 x
+              3,840 prompt tokens + 64 greedy, 1 x 1,280 + 16) with the
+              launch counts read around each prefill (B14 14, B15 81) and
+              each decode (none), the kernel route against the plain route
+              (gated in f32), one prefill and four decode steps profiled,
+              B14 and B15 timed (their rows join phase 9's); runs first, so
+              that its memory is freed before the KRR phases;
   3. fit      the full-width covtype KRR fit through ``krr.fit`` (synthetic
               data at that width): the kernels' launch counts read around
               exactly this call; then the same fit stage by stage, timed,
@@ -66,15 +76,16 @@ result.  Phases, each of which raises on failure:
               the grown leaf size, ``downdate(insert(f)) == f``; one
               "stale" and one "exact" round;
   9. timing   kernel, plain-version and library times at the fit, serving,
-              sweep, exact-solver and lifecycle shapes, beside each
-              kernel's bound;
+              sweep, exact-solver, lifecycle and LM prefill shapes, beside
+              each kernel's bound;
  10. profile  torch.profiler over one full-width fit, over five 4096-query
               requests and over one sigma row of the NLL surface: device
               time by kernel, and the device's busy share.
 
 The data is synthetic (seeded), at covtype's size and width, with seven
 labels from a seeded nonlinear function of x; its accuracy says nothing of
-the real dataset.  Correctness against the JAX reference is held by the
+the real dataset.  The LM's weights and prompts are random (seeded); its
+tokens say nothing of a trained model.  Correctness against the JAX reference is held by the
 CPU tests (tests/test_torch_*.py).
 
 The last line of standard output is
@@ -134,11 +145,43 @@ SLQ_QUAD_LIMIT, SLQ_STD_LIMIT = 1e-2, 4.0
 LIFE_BUDGET = 262_080
 UPDATE_Q = 16_384
 STALE_TOL, STALE_MAXITER = 1e-2, 30
+# LM serving: zamba2-7b at full width in bf16, random weights from SEED;
+# two requests (batch, prompt tokens, greedy tokens), each prompt a
+# multiple of the 256-token SSD chunk, prompt + decode under the published
+# 4,096-token context.  Per prefill B14 runs once per shared-block
+# application (layers 0, 6, ..., 78) and B15 once per Mamba2 block.
+LM_ARCH = "zamba2-7b"
+LM_REQUESTS = ((4, 3840, 64), (1, 1280, 16))
+LM_LAUNCHES = {"flash_attention": 14, "ssd_intra_chunk": 81}
+# B14 in bf16 against its plain version: each output is rounded to bf16
+# once from float32 sums taken in another order, so the two may sit one
+# rounding step apart (2^-8 of the value, 2^-7 at a binade edge; allowed
+# 2^-6) plus 1e-4 of the largest output where cancelling sums leave
+# values near zero (the bf16 kernel splits P into two bf16 terms for P V,
+# so P keeps ~16 bits, as the plain version's f32 P does).  In f32 (small
+# shapes): 1e-5 of the largest output, summation order over up to 256
+# keys and 112 features.
+B14_BF16_REL, B14_BF16_FLOOR, B14_F32_RTOL = 2.0 ** -6, 1e-4, 1e-5
+# B15 in f32: 1e-5 of the componentwise magnitude ((|C||B|^T * L)|X|),
+# summation order over up to 256 keys and 64-128 features.
+B15_RTOL = 1e-5
+# Kernel route against the plain route, gated in float32 (the same random
+# weights upcast): B14's f32 outputs differ from the plain version's by
+# summation order (~1e-6 of each), B15's not at all (bit for bit on the
+# card), and 81 blocks amplify such differences; the last-token logits
+# must agree within 2e-3 of the largest, and the greedy tokens wherever
+# the plain route's top-2 margin exceeds twice that.  In bf16 the same
+# comparison is printed, not gated: a one-step rounding flip in a few of
+# B14's outputs changes later bf16 roundings, and the difference grows to
+# the size of the logits over 81 blocks (0.72 of the largest on an H100,
+# NVIDIA H100 80GB HBM3 at 700 W), as between any two correct bf16 routes.
+LM_LOGIT_RTOL = 2e-3
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bytes/s and
 # float32 FLOP/s outside the tensor cores.
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+PEAK_BF16 = 989e12                 # dense bf16 on the tensor cores
 
 
 def say(*parts) -> None:
@@ -202,11 +245,13 @@ def one_vs_all(labels: torch.Tensor, dtype) -> torch.Tensor:
 def kernel_wrappers() -> dict:
     """Each kernel's wrapper (which counts its launches) by kernel name."""
     from repro_torch.kernels.build_stage import ops as build_ops
+    from repro_torch.kernels.flash_attention import ops as attn_ops
     from repro_torch.kernels.hck_leaf import ops as leaf_ops
     from repro_torch.kernels.kernel_tile import ops as tile_ops
     from repro_torch.kernels.matvec_stage import ops as matvec_ops
     from repro_torch.kernels.oos_stage import ops as oos_ops
     from repro_torch.kernels.policy_stage import ops as policy_ops
+    from repro_torch.kernels.ssd_chunk import ops as ssd_ops
     from repro_torch.kernels.update_stage import ops as update_ops
 
     return {"gram_chol": build_ops.build_gram,
@@ -221,17 +266,21 @@ def kernel_wrappers() -> dict:
             "kernel_matvec": matvec_ops.kernel_matvec,
             "kernel_tile": tile_ops.pairwise_kernel,
             "policy_dist": policy_ops.policy_dist,
-            "leaf_update": update_ops.leaf_update}
+            "leaf_update": update_ops.leaf_update,
+            "flash_attention": attn_ops.flash_attention,
+            "ssd_intra_chunk": ssd_ops.ssd_intra_chunk}
 
 
 def plain_versions() -> list:
     """Every kernel's plain version (each counts its calls)."""
     from repro_torch.kernels.build_stage import ref as build_ref
+    from repro_torch.kernels.flash_attention import ref as attn_ref
     from repro_torch.kernels.hck_leaf import ref as leaf_ref
     from repro_torch.kernels.kernel_tile import ref as tile_ref
     from repro_torch.kernels.matvec_stage import ref as matvec_ref
     from repro_torch.kernels.oos_stage import ref as oos_ref
     from repro_torch.kernels.policy_stage import ref as policy_ref
+    from repro_torch.kernels.ssd_chunk import ref as ssd_ref
     from repro_torch.kernels.update_stage import ref as update_ref
 
     return [build_ref.build_gram_ref, build_ref.build_cross_ref,
@@ -240,7 +289,8 @@ def plain_versions() -> list:
             leaf_ref.hck_leaf_matvec_ref, leaf_ref.hck_leaf_project_ref,
             oos_ref.oos_contract_ref, matvec_ref.kernel_matvec_ref,
             tile_ref.pairwise_kernel_ref, policy_ref.policy_dist_ref,
-            update_ref.leaf_update_ref]
+            update_ref.leaf_update_ref, attn_ref.attention_ref,
+            ssd_ref.ssd_intra_chunk_ref]
 
 
 def reset_counts() -> None:
@@ -333,9 +383,11 @@ def stage_timer(stages: dict):
     return timed
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    """Least time for the work on the card, and which rate bounds it."""
-    tb, tf = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
+def bound_ms(nbytes: float, flops: float,
+             peak_flops: float = PEAK_F32) -> tuple[float, str]:
+    """Least time for the work on the card, and which rate bounds it
+    (``peak_flops``: the rate of the work's type, f32 by default)."""
+    tb, tf = nbytes / PEAK_BYTES * 1e3, flops / peak_flops * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -703,7 +755,7 @@ def phase_fit(dev) -> dict:
                 "leaf_factor": 1, "leaf_solve": 3, "leaf_matvec": 3,
                 "hck_leaf_project": 1, "oos_contract": 0,
                 "kernel_matvec": 0, "kernel_tile": 0, "policy_dist": 0,
-                "leaf_update": 0}
+                "leaf_update": 0, "flash_attention": 0, "ssd_intra_chunk": 0}
     require(launches == expected,
             f"fit launches {launches} == expected {expected}")
     require(all(v == 0 for v in plain_calls.values()),
@@ -1264,7 +1316,8 @@ def phase_sweep(fit, dev) -> dict:
                 "leaf_solve": 4 * len(LAMS) + 3 * len(LAMS),
                 "leaf_matvec": 3 * len(LAMS) + KPCA_ITERS + 2,
                 "hck_leaf_project": 3, "kernel_matvec": 0, "kernel_tile": 0,
-                "policy_dist": 0, "leaf_update": 0}
+                "policy_dist": 0, "leaf_update": 0, "flash_attention": 0,
+                "ssd_intra_chunk": 0}
     got = {k: v for k, v in launches.items() if k != "oos_contract"}
     require(got == expected, f"sweep launches {got} == expected {expected}")
     require(launches["oos_contract"] > 0, "oos_contract on the sweep path")
@@ -2864,6 +2917,367 @@ def phase_lifecycle(fit, sw, dev) -> dict:
     return {"b12": b12, "fits": fits, "km": km, "sweep": sweep, "update": up}
 
 
+# ---------------------------------------------------------------------------
+# LM serving: Zamba2-7B through ServeSession, B14 and B15
+# ---------------------------------------------------------------------------
+
+def attention_cost(q, k, causal=True):
+    """flash_attention: q, k, v read once, o written once; QK^T and PV over
+    the causal lower triangle (S(S + 1)/2 pairs, 2D flops each per
+    product) or the whole square."""
+    b, hq, s, d = q.shape
+    pairs = s * (s + 1) // 2 if causal else s * s
+    nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+    return nbytes, 4 * b * hq * pairs * d
+
+
+def ssd_cost(c, xdt):
+    """ssd_intra_chunk: c, b, xdt and cs read once, y written once; C B^T
+    and (S L) X over the Q(Q + 1)/2 causal pairs of each chunk (2N and 2P
+    flops) and the decay on each pair (exp and a multiply)."""
+    bh, nc, q, n = c.shape
+    p = xdt.shape[3]
+    pairs = bh * nc * q * (q + 1) // 2
+    nbytes = 4 * (2 * c.numel() + 2 * xdt.numel() + bh * nc * q)
+    return nbytes, pairs * (2 * n + 2 * p + 2)
+
+
+@contextlib.contextmanager
+def plain_lm_stages():
+    """Route the LM path's ``attention`` and ``ssd_intra_chunk`` stages
+    through their plain versions on the card: the plain route of the
+    end-to-end comparison (a forced "torch" backend refuses CUDA tensors by
+    design)."""
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.ssd_chunk.ref import ssd_intra_chunk_ref
+
+    plain = {"attention": lambda q, k, v, *, causal=True, window=0:
+             attention_ref(q, k, v, causal=causal, window=window),
+             "ssd_intra_chunk": ssd_intra_chunk_ref}
+    saved = {stage: registry.get_impl(stage, "cuda") for stage in plain}
+    for stage, fn in plain.items():
+        registry.register(stage, "cuda")(fn)
+    try:
+        yield
+    finally:
+        for stage, fn in saved.items():
+            registry.register(stage, "cuda")(fn)
+
+
+def check_b14(shape, dtype, causal, gen, misalign=False):
+    """B14 against its plain version on one set of random inputs: q, k, v
+    ~ N(0, 1) of (B, Hq, Hkv, S, D) ``shape`` (with ``misalign``, views one
+    element into their buffers, so the kernel cannot stage them by 16-byte
+    copies).  bf16 gates each output within B14_BF16_REL of its value plus
+    B14_BF16_FLOOR of the largest; f32 within B14_F32_RTOL of the largest.
+    Returns max |o - o_plain|."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    b, hq, hkv, s, d = shape
+    dev = gen.device
+    q, k, v = (torch.randn(math.prod(sh) + 1, generator=gen, device=dev)
+               .to(dtype)[int(misalign):][:math.prod(sh)].view(sh)
+               for sh in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d)))
+    got = flash_attention(q, k, v, causal=causal)
+    want = attention_ref(q, k, v, causal=causal)
+    sync()
+    name = (f"flash_attention {tuple(q.shape)}/{hkv} {dtype} causal={causal}"
+            f"{' misaligned' if misalign else ''}")
+    require(bool(torch.isfinite(got).all()), f"{name} output finite")
+    diff = (got.float() - want.float()).abs()
+    top = float(want.float().abs().max())
+    if dtype == torch.bfloat16:
+        limit = B14_BF16_REL * want.float().abs() + B14_BF16_FLOOR * top
+        worst = float((diff / limit).max())
+        require(worst <= 1.0, f"{name}: worst |diff| / limit {worst:.3f} "
+                f"<= 1")
+        say(f"[2b lm] {name}: max |diff| {float(diff.max()):.3e} (largest "
+            f"output {top:.3f}), worst diff / limit {worst:.3f}; "
+            f"{int((diff > 0).sum())} of {diff.numel()} outputs differ")
+    else:
+        rel = float(diff.max()) / top
+        require(rel <= B14_F32_RTOL, f"{name} rel {rel:.3e} <= "
+                f"{B14_F32_RTOL}")
+        say(f"[2b lm] {name}: rel {rel:.3e}")
+    return float(diff.max())
+
+
+def ssd_inputs(shape, gen):
+    """Random B15 inputs of (BH, nc, Q, N, P) ``shape``: c, b ~ N(0, 1),
+    xdt ~ N(0, 1), cs the within-chunk cumulative sum of steps -U(0, 1.5)
+    (dt A of the model: softplus'd dt times -exp(a_log))."""
+    bh, nc, q, n, p = shape
+    dev = gen.device
+    c, b = (torch.randn((bh, nc, q, n), generator=gen, device=dev)
+            for _ in range(2))
+    xdt = torch.randn((bh, nc, q, p), generator=gen, device=dev)
+    cs = torch.cumsum(-1.5 * torch.rand((bh, nc, q), generator=gen,
+                                        device=dev), dim=-1)
+    return c, b, xdt, cs
+
+
+def check_b15(args):
+    """B15 against its plain version: max |y - y_plain| <= B15_RTOL times
+    the largest componentwise magnitude (|C||B|^T * L)|X|.  Returns
+    max |y - y_plain|."""
+    from repro_torch.kernels.ssd_chunk.ops import ssd_intra_chunk
+    from repro_torch.kernels.ssd_chunk.ref import ssd_intra_chunk_ref
+
+    c, b, xdt, cs = args
+    got = ssd_intra_chunk(*args)
+    want = ssd_intra_chunk_ref(*args)
+    mag = float(ssd_intra_chunk_ref(c.abs(), b.abs(), xdt.abs(), cs).max())
+    sync()
+    name = f"ssd_intra_chunk {tuple(c.shape)} P={xdt.shape[3]}"
+    require(bool(torch.isfinite(got).all()), f"{name} output finite")
+    err = float((got - want).abs().max())
+    require(err <= B15_RTOL * mag, f"{name}: {err:.3e} <= {B15_RTOL} x "
+            f"{mag:.3e}")
+    say(f"[2b lm] {name}: max |diff| {err:.3e} = {err / mag:.3e} of the "
+        f"magnitude {mag:.3e}")
+    return err
+
+
+def lm_kernel_checks(cfg, dev) -> dict:
+    """B14 and B15 against their plain versions at the prefill's shapes
+    and at small ones."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    b, s = LM_REQUESTS[0][:2]
+    hd, h, kv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    b14 = check_b14((1, h, kv, s, hd), torch.bfloat16, True, gen)
+    for shape, causal in (((2, 4, 2, 200, 16), True),
+                          ((2, 4, 2, 200, 112), True),
+                          ((2, 4, 2, 200, 112), False),
+                          ((1, 4, 4, 256, 16), False),
+                          ((1, 2, 1, 130, 72), True)):
+        for dtype in (torch.float32, torch.bfloat16):
+            check_b14(shape, dtype, causal, gen)
+    check_b14((1, 2, 1, 130, 72), torch.bfloat16, True, gen, misalign=True)
+    nh = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
+    full = (b * nh, s // cfg.ssm_chunk, cfg.ssm_chunk, cfg.ssm_state,
+            cfg.ssm_head_dim)
+    b15 = check_b15(ssd_inputs(full, gen))
+    for shape in ((6, 3, 100, 16, 24), (2, 2, 256, 128, 128)):
+        check_b15(ssd_inputs(shape, gen))
+    return {"b14_err": b14, "b15_err": b15}
+
+
+def lm_request(cfg, params, toks, new, profile=False) -> dict:
+    """One request through ``ServeSession``: the prefill and the greedy
+    decode, each with its launch counts and wall time; with ``profile``,
+    then four more decode steps under the profiler."""
+    from repro_torch.serving.serve_loop import ServeSession
+
+    b, s = toks.shape
+    sess = ServeSession(cfg, params, max_seq=s + new + (16 if profile else 0))
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    last, pre_launches, plain = counted(
+        lambda: sess.prefill({"tokens": toks}))
+    t_prefill = time.perf_counter() - t
+    require_launches(f"prefill {b} x {s}", pre_launches, plain, LM_LAUNCHES)
+    require(tuple(last.shape) == (b, cfg.vocab)
+            and bool(torch.isfinite(last).all()),
+            f"prefill {b} x {s}: finite logits of shape (B, V)")
+    peak_prefill = torch.cuda.max_memory_allocated() / 2 ** 30
+    first = torch.argmax(last, dim=-1)[:, None]
+    t = time.perf_counter()
+    out, launches, plain = counted(lambda: sess.decode(first, steps=new))
+    t_decode = time.perf_counter() - t
+    require_launches(f"decode {b} x {new}", launches, plain, {})
+    require(tuple(out.shape) == (b, new + 1)
+            and bool(((out >= 0) & (out < cfg.vocab)).all()),
+            f"decode {b} x {new}: {new} tokens in the vocabulary")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    say(f"[2b lm] request {b} x {s} + {new}: prefill {t_prefill:.3f} s "
+        f"({b * s / t_prefill:,.0f} tokens/s), launches "
+        f"{ {k: v for k, v in pre_launches.items() if v} }; decode "
+        f"{t_decode / new * 1e3:.2f} ms/token ({b * new / t_decode:.1f} "
+        f"tokens/s), launches {sum(launches.values())}; peak memory "
+        f"{peak_prefill:.2f} GiB at prefill, "
+        f"{peak:.2f} GiB in all")
+    say(f"[2b lm]   first row's tokens: {out[0, :12].tolist()}")
+    if profile:
+        profile_device(f"one {LM_ARCH} decode step (batch {b}, position "
+                       f"{sess.pos})", lambda: sess.decode(
+                           out[:, -1:], steps=1), 4, 10)
+    return {"last": last, "tokens": out, "prefill_s": t_prefill,
+            "decode_ms": t_decode / new * 1e3, "launches": pre_launches}
+
+
+def route_gap(cfg, params, toks, last, what, gate) -> float:
+    """The prefill's last-token logits through the plain stages on the
+    card against the kernel route's ``last``; with ``gate``, within
+    LM_LOGIT_RTOL of the largest logit and the same greedy token wherever
+    the plain top-2 margin exceeds twice that.  Returns the relative gap."""
+    from repro_torch.serving.serve_loop import ServeSession
+
+    b, s = toks.shape
+    sess = ServeSession(cfg, params, max_seq=s + 1)
+    with plain_lm_stages():
+        plain_last, launches, plain = counted(
+            lambda: sess.prefill({"tokens": toks}))
+    want_calls = (LM_LAUNCHES["flash_attention"],
+                  LM_LAUNCHES["ssd_intra_chunk"])
+    require(not any(launches.values())
+            and (plain["attention_ref"], plain["ssd_intra_chunk_ref"])
+            == want_calls, f"the plain route ran the plain stages only: "
+            f"{launches} {plain}")
+    del sess
+    got, want = last.float(), plain_last.float()
+    require(bool(torch.isfinite(got).all())
+            and bool(torch.isfinite(want).all()), f"{what} logits finite")
+    top = float(want.abs().max())
+    gap = float((got - want).abs().max()) / top
+    top2 = torch.topk(want, 2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 2 * LM_LOGIT_RTOL * top
+    same = torch.argmax(got, -1) == torch.argmax(want, -1)
+    say(f"[2b lm] kernel vs plain route, {what}, last-token logits {b} x "
+        f"{s}: max |diff| {gap:.3e} of the largest logit {top:.3f}"
+        f"{' (gated)' if gate else ' (printed, not gated)'}; greedy tokens "
+        f"agree in {int(same.sum())} of {b} rows ({int(decided.sum())} "
+        f"decided by a margin > {2 * LM_LOGIT_RTOL:.0e} x largest)")
+    if gate:
+        require(gap <= LM_LOGIT_RTOL, f"{what} route gap {gap:.3e} <= "
+                f"{LM_LOGIT_RTOL}")
+        require(bool(same[decided].all()),
+                f"{what}: greedy tokens agree where decided")
+    return gap
+
+
+def route_gap_f32(cfg, params, toks) -> float:
+    """The gated comparison: both routes in float32 on the same weights,
+    upcast from ``params`` (the bf16 copy is released by the caller)."""
+    import dataclasses
+
+    from repro_torch.serving.serve_loop import ServeSession
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = {k: {n: t.float() for n, t in v.items()} for k, v in params.items()}
+    b, s = toks.shape
+    sess = ServeSession(cfg32, p32, max_seq=s + 1)
+    last, launches, plain = counted(lambda: sess.prefill({"tokens": toks}))
+    require_launches(f"float32 prefill {b} x {s}", launches, plain,
+                     LM_LAUNCHES)
+    del sess
+    return route_gap(cfg32, p32, toks, last, "float32", gate=True)
+
+
+def lm_timing(cfg, checks, launches, dev) -> list[dict]:
+    """B14 and B15 at the 4 x 3,840 prefill's shapes: kernel, plain and
+    library times beside their bounds (random inputs of those shapes);
+    ``launches`` are that prefill's counts."""
+    from torch.nn import functional as F
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.ssd_chunk.ops import ssd_intra_chunk
+    from repro_torch.kernels.ssd_chunk.ref import ssd_intra_chunk_ref
+
+    src, tpu = "src/repro_torch/csrc/", "src/repro/kernels/"
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    b, s = LM_REQUESTS[0][:2]
+    shape = (b, cfg.n_heads, s, cfg.head_dim)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    rec14 = kernel_record(
+        "flash_attention", src + "flash_attention.cu",
+        tpu + "flash_attention/flash_attention.py:77",
+        launches["flash_attention"], checks["b14_err"],
+        time_ms(lambda: flash_attention(q, k, v), 5),
+        time_ms(lambda: attention_ref(q, k, v), 2, warmup=1),
+        bound_ms(*attention_cost(q, k), peak_flops=PEAK_BF16),
+        library=time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), 5),
+        unit=f"one launch: {tuple(q.shape)} bf16, causal",
+        library_call="F.scaled_dot_product_attention(is_causal=True)")
+    del q, k, v
+    nh = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
+    args = ssd_inputs((b * nh, s // cfg.ssm_chunk, cfg.ssm_chunk,
+                       cfg.ssm_state, cfg.ssm_head_dim), gen)
+    c, bm, xdt, cs = args
+    qlen = cfg.ssm_chunk
+    mask = torch.ones((qlen, qlen), dtype=torch.bool, device=dev).tril()
+
+    def chain():
+        sc = torch.matmul(c, bm.mT)
+        decay = torch.exp(cs[..., :, None] - cs[..., None, :])
+        return torch.matmul(sc * decay.masked_fill_(~mask, 0.0), xdt)
+
+    rec15 = kernel_record(
+        "ssd_intra_chunk", src + "ssd_chunk.cu",
+        tpu + "ssd_chunk/ssd_chunk.py:43", launches["ssd_intra_chunk"],
+        checks["b15_err"], time_ms(lambda: ssd_intra_chunk(*args), 10),
+        time_ms(lambda: ssd_intra_chunk_ref(*args), 3),
+        bound_ms(*ssd_cost(c, xdt)),
+        unit=f"one launch: {tuple(c.shape)} P={xdt.shape[3]} f32",
+        library_chain_ms=time_ms(chain, 5),
+        library_chain="torch.matmul + exp + masked_fill + torch.matmul")
+    for rec in (rec14, rec15):
+        extra = ""
+        if "library_chain_ms" in rec:
+            extra = (f", chain {rec['library_chain']} "
+                     f"{rec['library_chain_ms']:.4f} ms")
+        say(f"[9 timing] {rec['name']} ({rec['unit']}): kernel "
+            f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, library "
+            f"{rec['library_ms']} ms{extra}, bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']}), launches {rec['launches']} per prefill")
+    return [rec14, rec15]
+
+
+def phase_lm(dev) -> list[dict]:
+    """Phase 2b: Zamba2-7B serving at full width in bf16 (random weights
+    from SEED): B14 and B15 against their plain versions, the two requests
+    through ``ServeSession`` with the launch counts read around each
+    prefill and each decode, the kernel route against the plain route,
+    one prefill profiled, and B14 and B15 timed.  Returns their kernel
+    records; frees the model."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tf
+
+    t0 = time.perf_counter()
+    cfg = get_arch(LM_ARCH)
+    count = sum(math.prod(pd.shape) for _, pd in tf._walk(tf.param_defs(cfg)))
+    checks = lm_kernel_checks(cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t = time.perf_counter()
+    params = tf.init_params(cfg, gen)
+    sync()
+    say(f"[2b lm] {LM_ARCH}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads} heads of {cfg.head_dim}, SSM state {cfg.ssm_state}, "
+        f"vocab {cfg.vocab}; {count:,} parameters in bf16 "
+        f"({torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB), drawn in "
+        f"{time.perf_counter() - t:.2f} s")
+    results = []
+    for b, s, new in LM_REQUESTS:
+        toks = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev)
+        results.append(lm_request(cfg, params, toks, new,
+                                  profile=not results))
+        if len(results) == 1:
+            big = toks
+    from repro_torch.serving.serve_loop import ServeSession
+
+    b, s = big.shape
+    profile_device(f"one {LM_ARCH} prefill ({b} x {s})",
+                   lambda: ServeSession(cfg, params, max_seq=s + 1).prefill(
+                       {"tokens": big}), 1, 16)
+    route_gap(cfg, params, big, results[0]["last"], "bf16", gate=False)
+    params = {k: {n: t.float() for n, t in v.items()}
+              for k, v in params.items()}
+    torch.cuda.empty_cache()
+    route_gap_f32(cfg, params, big)
+    launches = results[0]["launches"]
+    del params, results
+    torch.cuda.empty_cache()
+    records = lm_timing(cfg, checks, launches, dev)
+    torch.cuda.empty_cache()
+    say(f"[2b lm] phase done in {time.perf_counter() - t0:.1f} s")
+    return records
+
+
 def kernel_record(name, source, replaces, launches, err, ms, plain, bound,
                   library=None, **extra):
     """One entry of the kernels' JSON line."""
@@ -3069,6 +3483,7 @@ def main() -> int:
     t_start = time.perf_counter()
     kind, _ = phase_device()
     phase_build()
+    lm_records = phase_lm(dev)
     fit = phase_fit(dev)
     res = phase_kernels(fit, dev)
     phase_exact(dev)
@@ -3080,7 +3495,7 @@ def main() -> int:
     kernels = (phase_timing(fit, res, served) + sweep_timing(sw, sres)
                + solver_timing(solv["exact"], solv["kres"])
                + lifecycle_timing(fit, life["km"], life["update"],
-                                  life["b12"]))
+                                  life["b12"]) + lm_records)
     phase_profile(fit, served["engine"], sw)
     say(f"[end] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -26,6 +26,11 @@ preconditioner as ``vecs``, ``weights``, ``tail`` and ``rho``.
 
 Arrays keep their dtype; indices become int64.  The factors of a
 budgeted build carry their per-level prefix masks as ``rank_mask/<l>``.
+
+An LM's parameters carry across as the reference's own tree, nested dicts
+of arrays (``embed``, ``blocks`` stacked on a leading layer axis,
+``final_norm``, ``head`` and, for hybrid, ``shared``), through
+:func:`lm_params_from_arrays`.
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as _device
+from repro_torch.configs.base import ArchConfig
 from repro_torch.core.gp import HCKGaussianProcess
 from repro_torch.core.hck import HCKFactors, SweepPlan
 from repro_torch.core.hmatrix import InverseFactors
@@ -223,3 +229,39 @@ def eigenpro_from_arrays(arrays: dict, device=None) -> EigenProPrecond:
     dev = _device.resolve(device)
     return EigenProPrecond(*(_tensor(arrays[key], dev)
                              for key in ("vecs", "weights", "tail", "rho")))
+
+
+def lm_params_from_arrays(arrays: dict, *, cfg: ArchConfig,
+                          device=None) -> dict:
+    """The port's LM parameters from the reference's parameter tree, each
+    array checked against :func:`repro_torch.models.transformer.param_defs`
+    and cast to ``cfg.dtype`` (bfloat16 arrays, which numpy keeps as
+    ``ml_dtypes``, pass through float32)."""
+    from repro_torch.models.transformer import param_defs
+
+    dev = _device.resolve(device)
+    dtype = getattr(torch, cfg.dtype)
+
+    def conv(defs, tree, path):
+        missing = set(defs) - set(tree)
+        extra = set(tree) - set(defs)
+        if missing or extra:
+            raise KeyError(f"parameter tree at {path or '<root>'}: missing "
+                           f"{sorted(missing)}, unexpected {sorted(extra)}")
+        out = {}
+        for key, pd in defs.items():
+            name = f"{path}/{key}" if path else key
+            if isinstance(pd, dict):
+                out[key] = conv(pd, tree[key], name)
+                continue
+            a = np.asarray(tree[key])
+            if tuple(a.shape) != tuple(pd.shape):
+                raise ValueError(f"parameter {name}: shape {a.shape}, "
+                                 f"expected {pd.shape}")
+            if a.dtype.kind != "f" or a.dtype.itemsize < 4:
+                a = a.astype(np.float32)
+            out[key] = torch.from_numpy(np.array(a, order="C")).to(
+                device=dev, dtype=dtype)
+        return out
+
+    return conv(param_defs(cfg), arrays, "")

@@ -25,7 +25,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("hck_leaf_project", "oos_contract", "build_stage", "build_dist",
            "leaf_factor", "leaf_matvec", "leaf_solve", "kernel_matvec",
-           "kernel_tile", "policy_dist", "leaf_update")
+           "kernel_tile", "policy_dist", "leaf_update", "flash_attention",
+           "ssd_chunk")
 _HEADERS = ("kernel_epilogue.cuh", "chol_smem.cuh", "cross_products.cuh",
             "leaf_products.cuh", "pair_tile.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -36,7 +37,10 @@ SMEM_MAX = 227 * 1024
 #: base-kernel kinds of csrc/kernel_epilogue.cuh
 EPILOGUE_KIND = {"gaussian": 0, "imq": 1, "laplace": 2}
 #: symbol suffix of each dtype a kernel library exports
-SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
+#: the dtypes a kernel takes unless its wrapper names others (only
+#: ``flash_attention`` exports a bfloat16 symbol)
+FLOAT_DTYPES = (torch.float32, torch.float64)
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 _SYMBOLS: dict[tuple[str, str], ctypes._CFuncPtr] = {}
@@ -118,12 +122,14 @@ def check_launch(lib: ctypes.CDLL, name: str, code: int) -> None:
                            f"({msg})")
 
 
-def cuda_device(stage: str, *tensors: torch.Tensor) -> torch.device | None:
+def cuda_device(stage: str, *tensors: torch.Tensor,
+                dtypes: tuple = FLOAT_DTYPES) -> torch.device | None:
     """The CUDA device a kernel of ``stage`` launches on, or None when every
     tensor lies on the CPU (the wrapper then runs the plain version).
 
-    Raises unless the tensors share one CUDA device, one dtype (float32
-    or float64) and are contiguous.  The kernels have no backward pass, so
+    Raises unless the tensors share one CUDA device, one dtype of
+    ``dtypes`` (float32 or float64 unless the kernel names others) and are
+    contiguous.  The kernels have no backward pass, so
     a tensor that needs a gradient (with grad mode on) raises too, rather
     than give a gradient that leaves the kernel out.
     """
@@ -138,10 +144,11 @@ def cuda_device(stage: str, *tensors: torch.Tensor) -> torch.device | None:
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError(f"{stage} needs all tensors on one CUDA device; got "
                          f"{[str(t.device) for t in tensors]}")
-    if tensors[0].dtype not in SUFFIX or any(
+    if tensors[0].dtype not in dtypes or any(
             t.dtype != tensors[0].dtype for t in tensors):
-        raise TypeError(f"{stage} kernel takes float32 or float64 of one "
-                        f"dtype; got {[t.dtype for t in tensors]}")
+        names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+        raise TypeError(f"{stage} kernel takes {names} of one dtype; got "
+                        f"{[t.dtype for t in tensors]}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{stage} kernel needs contiguous tensors")
     return dev

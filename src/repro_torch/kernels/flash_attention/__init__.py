@@ -1,0 +1,6 @@
+"""Attention stage ``attention`` (B14): causal GQA attention with an online
+softmax, as a CUDA kernel and its plain version."""
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+__all__ = ["flash_attention", "attention_ref"]

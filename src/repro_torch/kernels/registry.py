@@ -377,3 +377,35 @@ def _leaf_update_cuda(lo, linv, b, c):
     from repro_torch.kernels.update_stage.ops import leaf_update
 
     return leaf_update(lo, linv, b, c)
+
+
+@register("attention", "torch")
+def _attention_torch(q, k, v, *, causal=True, window=0):
+    """(B,Hq,S,D),(B,Hkv,S,D)x2 -> GQA attention (B,Hq,S,D), plain."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    return attention_ref(q, k, v, causal=causal, window=window)
+
+
+@register("attention", "cuda")
+def _attention_cuda(q, k, v, *, causal=True, window=0):
+    """(B,Hq,S,D),(B,Hkv,S,D)x2 -> GQA attention (B,Hq,S,D), CUDA kernel."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    return flash_attention(q, k, v, causal=causal, window=window)
+
+
+@register("ssd_intra_chunk", "torch")
+def _ssd_intra_chunk_torch(c, b, xdt, cs):
+    """(BH,nc,Q,N)x2,(BH,nc,Q,P),(BH,nc,Q) -> SSD intra-chunk y, plain."""
+    from repro_torch.kernels.ssd_chunk.ref import ssd_intra_chunk_ref
+
+    return ssd_intra_chunk_ref(c, b, xdt, cs)
+
+
+@register("ssd_intra_chunk", "cuda")
+def _ssd_intra_chunk_cuda(c, b, xdt, cs):
+    """(BH,nc,Q,N)x2,(BH,nc,Q,P),(BH,nc,Q) -> SSD intra-chunk y, CUDA."""
+    from repro_torch.kernels.ssd_chunk.ops import ssd_intra_chunk
+
+    return ssd_intra_chunk(c, b, xdt, cs)

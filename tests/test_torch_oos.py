@@ -272,8 +272,11 @@ def test_registry_stages_and_backends():
         registry.SolveConfig(backend="xla")
     with pytest.raises(ValueError, match="precision"):
         registry.SolveConfig(precision="bf16")
+    for stage in registry.STAGES:                  # every stage is ported
+        for backend in registry.BACKENDS:
+            assert callable(registry.get_impl(stage, backend))
     with pytest.raises(KeyError, match="no implementation"):
-        registry.get_impl("attention", "cuda")     # a stage still to port
+        registry.get_impl("attention", "xla")      # not a backend of the port
     assert registry.get_impl("oos_walk", "torch") is registry.get_impl(
         "oos_local", "torch")
 
