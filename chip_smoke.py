@@ -6,18 +6,28 @@ CUDA card and ``nvcc``; without a card it exits with code 1 and prints no
 result.  Phases, each of which raises on failure:
 
   1. device   the card's name and power limit (nvidia-smi);
-  2. build    nvcc builds every kernel library (in parallel);
+  2. build    nvcc builds every kernel library (in parallel); each kernel
+              entry's registers and spills (all eight instances of B14's
+              wgmma kernel there, none spilling),
+              and the wgmma (HGMMA), TMA-load (UTMALDG) and mbarrier
+              (SYNCS) instructions of B14's library (HGMMA and UTMALDG
+              required);
  2b. lm       Zamba2-7B serving at full width in bf16 (random weights from
               SEED): B14 (``flash_attention``) and B15
               (``ssd_intra_chunk``) against their plain versions (the
               prefill's shapes and small ragged, GQA and non-causal ones;
-              bf16 and f32), two requests through ``ServeSession`` (4 x
-              3,840 prompt tokens + 64 greedy, 1 x 1,280 + 16) with the
-              launch counts read around each prefill (B14 14, B15 81) and
-              each decode (none), the kernel route against the plain route
-              (gated in f32), one prefill and four decode steps profiled,
-              B14 and B15 timed (their rows join phase 9's); runs first, so
-              that its memory is freed before the KRR phases;
+              bf16 and f32; each B14 check names the kernel that ran and
+              requires the one its shape calls for: wgmma for aligned bf16
+              with D % 8 == 0, mma.sync for a misaligned view, the CUDA-
+              core kernel for f32), two requests through ``ServeSession``
+              (4 x 3,840 prompt tokens + 64 greedy, 1 x 1,280 + 16) with
+              the launch counts read around each prefill (B14 14, all of
+              them its wgmma kernel; B15 81) and each decode (none), the
+              kernel route against the plain route (gated in f32), one
+              prefill and four decode steps profiled, B14 (its wgmma and
+              mma.sync kernels in turns) and B15 timed (their rows join
+              phase 9's); runs first, so that its memory is freed before
+              the KRR phases;
   3. fit      the full-width covtype KRR fit through ``krr.fit`` (synthetic
               data at that width): the kernels' launch counts read around
               exactly this call; then the same fit stage by stage, timed,
@@ -73,8 +83,9 @@ result.  Phases, each of which raises on failure:
               read around each), gated against ``refit_frozen`` with a
               fresh inverse, solve and plan over all test queries, B13
               (``leaf_update``) and B1-B7 against their plain versions at
-              the grown leaf size, ``downdate(insert(f)) == f``; one
-              "stale" and one "exact" round;
+              the grown leaf size (B6 also at the second round's and the
+              exact round's), ``downdate(insert(f)) == f``; one "stale"
+              and one "exact" round;
   9. timing   kernel, plain-version and library times at the fit, serving,
               sweep, exact-solver, lifecycle and LM prefill shapes, beside
               each kernel's bound;
@@ -152,7 +163,10 @@ STALE_TOL, STALE_MAXITER = 1e-2, 30
 # application (layers 0, 6, ..., 78) and B15 once per Mamba2 block.
 LM_ARCH = "zamba2-7b"
 LM_REQUESTS = ((4, 3840, 64), (1, 1280, 16))
-LM_LAUNCHES = {"flash_attention": 14, "ssd_intra_chunk": 81}
+LM_LAUNCHES = {"flash_attention": 14, "flash_attention_wgmma": 14,
+               "ssd_intra_chunk": 81}
+# The float32 route's prefill: B14's CUDA-core kernel, no wgmma launch.
+LM_LAUNCHES_F32 = {"flash_attention": 14, "ssd_intra_chunk": 81}
 # B14 in bf16 against its plain version: each output is rounded to bf16
 # once from float32 sums taken in another order, so the two may sit one
 # rounding step apart (2^-8 of the value, 2^-7 at a binade edge; allowed
@@ -294,17 +308,25 @@ def plain_versions() -> list:
 
 
 def reset_counts() -> None:
-    """Set every kernel's launch count and plain version's call count to 0."""
+    """Set every kernel's launch count (B14's wgmma count too) and plain
+    version's call count to 0."""
     for fn in kernel_wrappers().values():
         fn.launches = 0
+    kernel_wrappers()["flash_attention"].wgmma_launches = 0
     for fn in plain_versions():
         fn.calls = 0
 
 
 def read_counts() -> tuple[dict, dict]:
-    """(launches by kernel, calls by plain version)."""
-    return ({name: fn.launches for name, fn in kernel_wrappers().items()},
-            {fn.__name__: fn.calls for fn in plain_versions()})
+    """(launches by kernel, calls by plain version).  B14's launches are
+    its total ("flash_attention") and those of its wgmma kernel
+    ("flash_attention_wgmma"); the mma.sync and CUDA-core kernels took the
+    difference."""
+    wrappers = kernel_wrappers()
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    launches["flash_attention_wgmma"] = (
+        wrappers["flash_attention"].wgmma_launches)
+    return launches, {fn.__name__: fn.calls for fn in plain_versions()}
 
 
 def counted(fn):
@@ -710,17 +732,54 @@ def phase_device() -> tuple[str, str]:
 
 
 def phase_build() -> None:
-    """Phase 2: nvcc builds every kernel of the paths, all in parallel."""
+    """Phase 2: nvcc builds every kernel of the paths, all in parallel; the
+    registers and spills of each kernel entry, named by cu++filt (the
+    eight instances of B14's wgmma kernel, DP 16 to 128, must all be there
+    and none may spill) and the Hopper instructions in B14's library (HGMMA:
+    wgmma, UTMALDG: TMA loads, SYNCS: mbarrier operations), which must
+    hold wgmma and TMA loads."""
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
     logs = _build.build()
     say(f"[2 build] {', '.join(_build.KERNELS)} built in "
         f"{time.perf_counter() - t0:.2f} s")
+    entries = []  # (library, mangled entry name, its ptxas lines)
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+        head, *chunks = log.split("Compiling entry function")
+        for line in head.splitlines():
+            if "registers" in line:  # ptxas's notes ahead of the entries
                 say(f"[2 build] {name}: {line.strip()}")
+        for chunk in chunks:
+            entries.append((name, chunk.split("'")[1], [
+                line.strip() for line in chunk.splitlines()
+                if "registers" in line or "spill" in line]))
+    cufilt = Path(_build._nvcc()).with_name("cu++filt")
+    labels = subprocess.run(
+        [str(cufilt), "-p", *(mangled for _, mangled, _ in entries)],
+        capture_output=True, text=True, check=True,
+        timeout=60).stdout.splitlines()
+    wgmma = []
+    for (name, mangled, lines), label in zip(entries, labels):
+        for line in lines:
+            say(f"[2 build] {name} {label}: {line}")
+        if "flash_wgmma_kernel" in mangled:
+            wgmma += [line for line in lines if "spill" in line]
+    require(len(wgmma) == 8 and all(
+        " 0 bytes spill stores, 0 bytes spill loads" in line
+        for line in wgmma), f"the eight flash_wgmma_kernel entries (DP 16 "
+        f"to 128) do not spill: {wgmma}")
+    lib = _build.library_path("flash_attention")
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout.splitlines()
+    ops = {op: sum(op in line for line in sass)
+           for op in ("HGMMA", "UTMALDG", "SYNCS")}
+    say(f"[2 build] flash_attention SASS instructions: {ops}")
+    require(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0,
+            "flash_attention's library holds wgmma (HGMMA) and TMA loads "
+            "(UTMALDG)")
 
 
 def phase_fit(dev) -> dict:
@@ -755,7 +814,8 @@ def phase_fit(dev) -> dict:
                 "leaf_factor": 1, "leaf_solve": 3, "leaf_matvec": 3,
                 "hck_leaf_project": 1, "oos_contract": 0,
                 "kernel_matvec": 0, "kernel_tile": 0, "policy_dist": 0,
-                "leaf_update": 0, "flash_attention": 0, "ssd_intra_chunk": 0}
+                "leaf_update": 0, "flash_attention": 0,
+                "flash_attention_wgmma": 0, "ssd_intra_chunk": 0}
     require(launches == expected,
             f"fit launches {launches} == expected {expected}")
     require(all(v == 0 for v in plain_calls.values()),
@@ -906,11 +966,19 @@ def phase_kernels_small(dev) -> None:
                    rtol)
         check_leaf("matvec", (rnd(6, 24, 24), rnd(6, 24, 8), rnd(6, 24, 3)),
                    rtol)
-        check_project(rnd(6, 40, 9), rnd(6, 40, 4))
+        # B6: the scalar path (r 9, a view one element in), the 16-byte
+        # path (r 8), rows in two staged chunks with k past one 8-column
+        # tile (n0 300, k 9), several leaves per block (n0 2)
+        for (p, n0, r), k in (((6, 40, 9), 4), ((6, 40, 8), 4),
+                              ((3, 300, 12), 9), ((9, 2, 16), 17)):
+            check_project(rnd(p, n0, r), rnd(p, n0, k))
+        check_project(rnd(6 * 40 * 8 + 1)[1:].view(6, 40, 8), rnd(6, 40, 4))
         say(f"[4 kernels] {tag} small shapes: gram_chol, cross_solve and "
             f"oos_contract for gaussian, imq and laplace, leaf_factor "
             f"(backward {back:.3e}, inverse {inv_err:.3e}), leaf_solve, "
-            f"leaf_matvec and leaf_project within {rtol} relative ok")
+            f"leaf_matvec within {rtol} relative, leaf_project (16-byte and "
+            f"scalar loads, two row chunks, k 9 and 17, several leaves a "
+            f"block) within 2*n0*eps*|U|^T|b| ok")
     from repro_torch.kernels.build_stage.ops import build_gram
     from repro_torch.kernels.hck_leaf.ops import leaf_factor
 
@@ -1317,7 +1385,7 @@ def phase_sweep(fit, dev) -> dict:
                 "leaf_matvec": 3 * len(LAMS) + KPCA_ITERS + 2,
                 "hck_leaf_project": 3, "kernel_matvec": 0, "kernel_tile": 0,
                 "policy_dist": 0, "leaf_update": 0, "flash_attention": 0,
-                "ssd_intra_chunk": 0}
+                "flash_attention_wgmma": 0, "ssd_intra_chunk": 0}
     got = {k: v for k, v in launches.items() if k != "oos_contract"}
     require(got == expected, f"sweep launches {got} == expected {expected}")
     require(launches["oos_contract"] > 0, "oos_contract on the sweep path")
@@ -2734,6 +2802,9 @@ def lifecycle_update(fit, km, dev) -> dict:
             f"rel {gap:.3e} <= f32 floor {floor:.3e}")
     acc2 = float((m2.predict_class(xt) == fit["yt"]).double().mean())
     del f2, ys2, f_ref, inv_ref, alpha_ref, oracle, want
+    # B6 at each grown leaf size (round 1's n0 in grown_kernel_checks)
+    b6_grown = {m2.factors.leaf_size: check_project(m2.factors.u,
+                                                    m2.plan.w_leaf)}
     # f64 at n = 4,096: B13 against its plain version
     res["b13_f64"] = b13_f64(dev)
     # one stale round and one exact round, each from m2
@@ -2753,6 +2824,7 @@ def lifecycle_update(fit, km, dev) -> dict:
         "exact round", refresh="exact")
     require(info3e.converged, f"exact round: {info3e}")
     n0_3 = m3e.factors.leaf_size
+    b6_grown[n0_3] = check_project(m3e.factors.u, m3e.plan.w_leaf)
     del m3e
     nz = lambda d: {k: v for k, v in d.items() if v}
     say(f"[8c lifecycle] model.update x2 (refresh='inverse', {UPDATE_Q} "
@@ -2776,6 +2848,10 @@ def lifecycle_update(fit, km, dev) -> dict:
         f"<= tol {STALE_TOL}, {t3s:.3f} s, launches {nz(l3s)}; "
         f"refresh='exact' round: leaf_factor at n0={n0_3}, residual "
         f"{info3e.residual:.3e}, {t3e:.3f} s, launches {nz(l3e)} ok")
+    say(f"[8c lifecycle] leaf_project at the grown leaf sizes of round 2 and "
+        f"the exact round against its plain version, within "
+        f"2*n0*eps*|U|^T|b|: max|dc| "
+        f"{', '.join(f'{e:.3e} (n0={n})' for n, e in b6_grown.items())} ok")
     res.update(launches=[l1, l2], walls=[t1, t2], gap=gap, floor=floor,
                stale=(info3s.iterations, info3s.residual, t3s),
                exact=(info3e.residual, t3e), t_serve=t_serve, acc=acc2,
@@ -2968,10 +3044,13 @@ def plain_lm_stages():
 def check_b14(shape, dtype, causal, gen, misalign=False):
     """B14 against its plain version on one set of random inputs: q, k, v
     ~ N(0, 1) of (B, Hq, Hkv, S, D) ``shape`` (with ``misalign``, views one
-    element into their buffers, so the kernel cannot stage them by 16-byte
-    copies).  bf16 gates each output within B14_BF16_REL of its value plus
-    B14_BF16_FLOOR of the largest; f32 within B14_F32_RTOL of the largest.
-    Returns max |o - o_plain|."""
+    element into their buffers, so neither TMA nor 16-byte copies can read
+    them).  The kernel that ran must be the one the shape calls for: float32
+    the CUDA-core kernel; bfloat16 the wgmma kernel where D % 8 == 0 and
+    the views are aligned, else the mma.sync kernel.  bf16 gates each
+    output within B14_BF16_REL of its value plus B14_BF16_FLOOR of the
+    largest; f32 within B14_F32_RTOL of the largest.  Returns max
+    |o - o_plain|."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
@@ -2980,11 +3059,20 @@ def check_b14(shape, dtype, causal, gen, misalign=False):
     q, k, v = (torch.randn(math.prod(sh) + 1, generator=gen, device=dev)
                .to(dtype)[int(misalign):][:math.prod(sh)].view(sh)
                for sh in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d)))
+    before = flash_attention.launches, flash_attention.wgmma_launches
     got = flash_attention(q, k, v, causal=causal)
+    total = flash_attention.launches - before[0]
+    wgmma = flash_attention.wgmma_launches - before[1]
     want = attention_ref(q, k, v, causal=causal)
     sync()
+    ran = "wgmma" if wgmma else "f32" if dtype == torch.float32 else "mma"
+    expect = ("f32" if dtype == torch.float32 else "wgmma"
+              if d % 8 == 0 and not misalign else "mma")
     name = (f"flash_attention {tuple(q.shape)}/{hkv} {dtype} causal={causal}"
-            f"{' misaligned' if misalign else ''}")
+            f"{' misaligned' if misalign else ''} [{ran} kernel]")
+    require(total == 1 and ran == expect,
+            f"{name}: one launch of the {expect} kernel ({total} launches, "
+            f"{wgmma} wgmma)")
     require(bool(torch.isfinite(got).all()), f"{name} output finite")
     diff = (got.float() - want.float()).abs()
     top = float(want.float().abs().max())
@@ -3046,7 +3134,7 @@ def lm_kernel_checks(cfg, dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(SEED + 30)
     b, s = LM_REQUESTS[0][:2]
     hd, h, kv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-    b14 = check_b14((1, h, kv, s, hd), torch.bfloat16, True, gen)
+    b14 = check_b14((b, h, kv, s, hd), torch.bfloat16, True, gen)
     for shape, causal in (((2, 4, 2, 200, 16), True),
                           ((2, 4, 2, 200, 112), True),
                           ((2, 4, 2, 200, 112), False),
@@ -3161,7 +3249,7 @@ def route_gap_f32(cfg, params, toks) -> float:
     sess = ServeSession(cfg32, p32, max_seq=s + 1)
     last, launches, plain = counted(lambda: sess.prefill({"tokens": toks}))
     require_launches(f"float32 prefill {b} x {s}", launches, plain,
-                     LM_LAUNCHES)
+                     LM_LAUNCHES_F32)
     del sess
     return route_gap(cfg32, p32, toks, last, "float32", gate=True)
 
@@ -3172,7 +3260,8 @@ def lm_timing(cfg, checks, launches, dev) -> list[dict]:
     ``launches`` are that prefill's counts."""
     from torch.nn import functional as F
 
-    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         launch_kernel)
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.ssd_chunk.ops import ssd_intra_chunk
     from repro_torch.kernels.ssd_chunk.ref import ssd_intra_chunk_ref
@@ -3183,18 +3272,32 @@ def lm_timing(cfg, checks, launches, dev) -> list[dict]:
     shape = (b, cfg.n_heads, s, cfg.head_dim)
     q, k, v = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
                for _ in range(3))
+    # the wgmma kernel (through the wrapper, as the prefill runs it) and
+    # the mma.sync kernel it replaced, on the same inputs, in turns
+    out = torch.empty_like(q)
+    turns = [time_ms(fn, 10) for fn in (
+        lambda: flash_attention(q, k, v),
+        lambda: launch_kernel("mma", q, k, v, out),
+        lambda: launch_kernel("mma", q, k, v, out),
+        lambda: flash_attention(q, k, v))]
     rec14 = kernel_record(
         "flash_attention", src + "flash_attention.cu",
         tpu + "flash_attention/flash_attention.py:77",
         launches["flash_attention"], checks["b14_err"],
-        time_ms(lambda: flash_attention(q, k, v), 5),
+        (turns[0] + turns[3]) / 2,
         time_ms(lambda: attention_ref(q, k, v), 2, warmup=1),
         bound_ms(*attention_cost(q, k), peak_flops=PEAK_BF16),
         library=time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True), 5),
         unit=f"one launch: {tuple(q.shape)} bf16, causal",
-        library_call="F.scaled_dot_product_attention(is_causal=True)")
-    del q, k, v
+        library_call="F.scaled_dot_product_attention(is_causal=True)",
+        kernel="wgmma (TMA, warp-specialised)",
+        wgmma_launches=launches["flash_attention_wgmma"],
+        previous_ms=(turns[1] + turns[2]) / 2,
+        previous="mma.sync (flash_attention_bf16)",
+        turns_ms={"wgmma": [turns[0], turns[3]],
+                  "mma.sync": [turns[1], turns[2]]})
+    del q, k, v, out
     nh = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
     args = ssd_inputs((b * nh, s // cfg.ssm_chunk, cfg.ssm_chunk,
                        cfg.ssm_state, cfg.ssm_head_dim), gen)
@@ -3216,6 +3319,12 @@ def lm_timing(cfg, checks, launches, dev) -> list[dict]:
         unit=f"one launch: {tuple(c.shape)} P={xdt.shape[3]} f32",
         library_chain_ms=time_ms(chain, 5),
         library_chain="torch.matmul + exp + masked_fill + torch.matmul")
+    say(f"[9 timing] flash_attention in turns (wgmma, mma.sync, mma.sync, "
+        f"wgmma): {', '.join(f'{t:.4f}' for t in turns)} ms; wgmma "
+        f"{rec14['ms']:.4f} ms against mma.sync {rec14['previous_ms']:.4f} "
+        f"ms ({rec14['previous_ms'] / rec14['ms']:.2f}x); launches per "
+        f"prefill: wgmma {rec14['wgmma_launches']} of "
+        f"{rec14['launches']}")
     for rec in (rec14, rec15):
         extra = ""
         if "library_chain_ms" in rec:

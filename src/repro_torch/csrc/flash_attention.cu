@@ -20,32 +20,71 @@
 // 4 B Hq S^2 D / 2 = 423 GFLOP, 0.43 ms at the 989 TFLOP/s of the bf16
 // tensor cores, against 0.13 ms for q, k, v and o at 3.35 TB/s.
 //
-// Design.  One block per (b Hq, 64-row query tile); the KV tiles of 64
-// rows run in a loop inside the block up to the diagonal: tiles above it
-// are never loaded.  The TPU kernel's sequential KV grid axis, whose VMEM
-// accumulators persist across steps, does not carry over (blocks run in
-// no order here), so each block keeps its running max, sum and
-// accumulator in registers.  Query head h reads KV head h / (Hq / Hkv): no
-// KV copy per query head.
-//   bfloat16 (the model's path): 4 warps, each owning 16 query rows, on
-//   the tensor cores through mma.sync.m16n8k16 (bf16 in, f32 out).  Q's
-//   fragments stay in registers; K and V tiles are staged in shared
-//   memory by 16-byte copies, rows padded by 16 bytes (conflict-free
-//   fragment loads; V's B fragments through ldmatrix.trans).  S = Q K^T
-//   lands in the accumulator layout, the online softmax reduces each row
-//   over the 4 lanes of a quad, and P is fed back from registers as the A
-//   operand of P V.  P is split into two bf16 terms, hi = bf16(P) and
-//   lo = bf16(P - hi), and P V takes one product for each, so P keeps ~16
-//   bits as the plain version's float32 P does (a single bf16 P moves
-//   outputs by more than their own rounding step).  D is padded to a
-//   multiple of 16 with zeros (a template per padded width).
-//   float32 (tests, the reduced config): 256 threads on CUDA cores, thread
-//   (ty, tx) owning rows ty + 16 i and score columns tx + 16 j (i, j < 4)
-//   and output columns tx + 16 c; float32 FMAs, a row's max and sum
-//   reduced over the 16 lanes that share it.
-// cp.async / TMA staging, wgmma and warp specialisation are later work.
+// Three kernels; the wrapper chooses one by dtype, head dim and alignment
+// before the launch (kernels/flash_attention/ops.py::variant).
+//
+// bfloat16, D % 8 == 0, 16-byte aligned q, k, v (the model's path):
+// flash_attention_bf16_wgmma, built for Hopper.
+//   Block: 128 query rows of one (b, h) and 384 threads.  Warpgroup 0 is
+//   the producer: one thread issues every TMA load, and setmaxnreg lowers
+//   its registers to 24.  Warpgroups 1 and 2 consume 64 rows each and are
+//   raised to 240 registers.  K and V tiles of 128 keys go through a ring
+//   of 3 stages in shared memory, with full (TMA bytes arrived) and empty
+//   (all 256 consumer threads done) mbarriers, so the loads of later tiles
+//   overlap the math on this one.  Q is loaded once.
+//   Copies: 3-D tensor maps over (planes, S, D), so rows past S of one
+//   head are zero-filled instead of read from the next head.  Each tile is
+//   loaded as boxes of 64 columns x rows, 128-byte swizzled; the second
+//   box covers columns 64..127 and is zero-filled past D.  A row of 112
+//   bf16 values (224 bytes) is not a whole number of 128-byte swizzle
+//   atoms, and a narrower swizzle would bring back bank conflicts on
+//   wgmma's reads, so the tile is two atom-wide boxes.  Q K^T then takes
+//   k-steps of 32 bytes inside one box, and a product over all of V spans
+//   both boxes, LBO apart.
+//   Math: S = Q K^T by wgmma.m64n128k16 with Q and K from shared memory
+//   (both K-major, as stored).  The online softmax runs in registers, in
+//   the log2 domain (one FFMA and one ex2.approx a score), masked only on
+//   the diagonal tile and the ragged tail.
+//   P goes back to wgmma as A from registers, since the accumulator layout
+//   of S is the A-fragment layout of 16-bit types.  P is split into
+//   hi = bf16(P) and lo = bf16(P - hi), and P V takes one m64nDk16 product
+//   for each, with V MN-major from shared memory (transposed B).  So P
+//   keeps ~16 bits, as the plain version's float32 P does: a single bf16
+//   P moves outputs by more than their own rounding step.  Inside a
+//   warpgroup, S_{j+1} = Q K_{j+1}^T and P_j V_j are issued together, and
+//   the softmax of S_{j+1} runs while P_j V_j is on the tensor cores.
+//   Order: the q-tiles of one (b, h) are neighbours in blockIdx, longest
+//   first.  Epilogue: divide by l, round to bf16, write rows < S and
+//   columns < D.  The CUtensorMaps are built on the host per call;
+//   cuTensorMapEncodeTiled is looked up in libcuda at run time
+//   (cudaGetDriverEntryPoint), so the library needs no -lcuda.
+//
+// Other bfloat16 inputs (a misaligned view, D % 8 != 0):
+// flash_attention_bf16, mma.sync.  One block of 4 warps per (b Hq, 64-row
+// query tile), each warp owning 16 query rows, through mma.sync.m16n8k16
+// (bf16 in, f32 out).  Q's fragments stay in registers; K and V tiles are
+// staged in shared memory (16-byte copies where d % 8 == 0 and the tensors
+// are aligned, else one element at a time), rows padded by 16 bytes
+// (conflict-free fragment loads; V's B fragments through ldmatrix.trans).
+// P is split into hi and lo as above, and D is padded to a multiple of 16
+// with zeros (a template per padded width).
+//
+// float32 (tests, the reduced config): flash_attention_f32.  256 threads on
+// CUDA cores per (b Hq, 64-row query tile), thread (ty, tx) owning rows
+// ty + 16 i and score columns tx + 16 j (i, j < 4) and output columns
+// tx + 16 c; float32 FMAs, a row's max and sum reduced over the 16 lanes
+// that share it.
+//
+// All three loop over KV tiles up to the diagonal (tiles above it are never
+// loaded) and keep the running max, sum and accumulator on chip: the TPU
+// kernel's sequential KV grid axis, whose VMEM accumulators persist across
+// steps, does not carry over (blocks run in no order here).  Query head h
+// reads KV head h / (Hq / Hkv): no KV copy per query head.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "kernel_epilogue.cuh"
 
@@ -437,6 +476,500 @@ int launch_mma(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16 on Hopper: TMA, wgmma and warp specialisation
+// ---------------------------------------------------------------------------
+
+constexpr int WG_BQ = 128;             // query rows per block: 2 x 64
+constexpr int WG_BK = 128;             // keys per KV tile (S: m64n128)
+constexpr int WG_STAGES = 3;           // K and V ring depth
+constexpr int kWgThreads = 384;        // producer + two consumer warpgroups
+constexpr int CHUNK = 64;              // columns per TMA box (128 bytes)
+constexpr uint32_t ROW_BYTES = CHUNK * 2;
+constexpr uint32_t Q_BOX = WG_BQ * ROW_BYTES;    // one chunk of the Q tile
+constexpr uint32_t KV_BOX = WG_BK * ROW_BYTES;   // one chunk of a K/V tile
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Spin until the phase of ``bar`` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// One box of a 3-D tensor map (column c0, row c1, head plane c2) into
+// shared memory; completion is reported to ``bar`` in bytes.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2) : "memory");
+}
+
+// wgmma shared-memory descriptor of a tile in the 128-byte swizzle that the
+// TMA boxes are written in: rows of 128 bytes, 8-row groups 1024 bytes
+// apart (SBO).  ``lbo``: the byte distance of the next 64-column atom
+// along MN, for the MN-major V; K-major tiles are one atom wide per k-step
+// and take 16.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Waits until at most N committed groups of products are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of accumulator registers
+// across the asynchronous products that own them.
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+#define WG_D8(i)                                                       \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),          \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+// The operand numbers of the accumulators, 8 to a WG_D8 group.
+#define WG_R0 "%0, %1, %2, %3, %4, %5, %6, %7"
+#define WG_R8 WG_R0 ", %8, %9, %10, %11, %12, %13, %14, %15"
+#define WG_R16 WG_R8 ", %16, %17, %18, %19, %20, %21, %22, %23"
+#define WG_R24 WG_R16 ", %24, %25, %26, %27, %28, %29, %30, %31"
+#define WG_R32 WG_R24 ", %32, %33, %34, %35, %36, %37, %38, %39"
+#define WG_R40 WG_R32 ", %40, %41, %42, %43, %44, %45, %46, %47"
+#define WG_R48 WG_R40 ", %48, %49, %50, %51, %52, %53, %54, %55"
+#define WG_R56 WG_R48 ", %56, %57, %58, %59, %60, %61, %62, %63"
+
+// wgmma.m64nNk16, f32 += bf16 x bf16.  ss: A (64 x 16) and B (N x 16) both
+// K-major in shared memory, scale_d 0 overwrites d.  rs: A from registers
+// (the m16n8k16 A fragment of each warp's 16 rows), B (16 x N) MN-major in
+// shared memory (transposed), accumulating.
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" WG_R56
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24),
+        WG_D8(32), WG_D8(40), WG_D8(48), WG_D8(56)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// wgmma_rs_nN: accumulators ACC (operands 0 .. N/2 - 1, bound by the
+// WG_D8 groups that follow), A's registers A0..A3, B's descriptor DB and
+// the scale-d flag P.
+#define WG_RS(N, A0, A1, A2, A3, DB, P, ACC, ...)                        \
+  __device__ __forceinline__ void wgmma_rs_n##N(float* d, const uint32_t* a, \
+                                                uint64_t db) {           \
+    asm volatile(                                                        \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %" #P ", 0;\n"                 \
+        "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {" ACC \
+        "}, {%" #A0 ", %" #A1 ", %" #A2 ", %" #A3 "}, %" #DB             \
+        ", p, 1, 1, 1;\n}\n"                                             \
+        : __VA_ARGS__                                                    \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));  \
+  }
+WG_RS(16, 8, 9, 10, 11, 12, 13, WG_R0, WG_D8(0))
+WG_RS(32, 16, 17, 18, 19, 20, 21, WG_R8, WG_D8(0), WG_D8(8))
+WG_RS(48, 24, 25, 26, 27, 28, 29, WG_R16, WG_D8(0), WG_D8(8), WG_D8(16))
+WG_RS(64, 32, 33, 34, 35, 36, 37, WG_R24, WG_D8(0), WG_D8(8), WG_D8(16),
+      WG_D8(24))
+WG_RS(80, 40, 41, 42, 43, 44, 45, WG_R32, WG_D8(0), WG_D8(8), WG_D8(16),
+      WG_D8(24), WG_D8(32))
+WG_RS(96, 48, 49, 50, 51, 52, 53, WG_R40, WG_D8(0), WG_D8(8), WG_D8(16),
+      WG_D8(24), WG_D8(32), WG_D8(40))
+WG_RS(112, 56, 57, 58, 59, 60, 61, WG_R48, WG_D8(0), WG_D8(8), WG_D8(16),
+      WG_D8(24), WG_D8(32), WG_D8(40), WG_D8(48))
+WG_RS(128, 64, 65, 66, 67, 68, 69, WG_R56, WG_D8(0), WG_D8(8), WG_D8(16),
+      WG_D8(24), WG_D8(32), WG_D8(40), WG_D8(48), WG_D8(56))
+
+#undef WG_RS
+#undef WG_R56
+#undef WG_R48
+#undef WG_R40
+#undef WG_R32
+#undef WG_R24
+#undef WG_R16
+#undef WG_R8
+#undef WG_R0
+#undef WG_D8
+
+// d (64 x N) += A B: N = DP, the padded head width (B spans one or two
+// 64-column atoms of V, LBO apart).
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
+                                         uint64_t db) {
+  static_assert(N % 16 == 0 && N >= 16 && N <= 128, "N");
+  if constexpr (N == 16) wgmma_rs_n16(d, a, db);
+  if constexpr (N == 32) wgmma_rs_n32(d, a, db);
+  if constexpr (N == 48) wgmma_rs_n48(d, a, db);
+  if constexpr (N == 64) wgmma_rs_n64(d, a, db);
+  if constexpr (N == 80) wgmma_rs_n80(d, a, db);
+  if constexpr (N == 96) wgmma_rs_n96(d, a, db);
+  if constexpr (N == 112) wgmma_rs_n112(d, a, db);
+  if constexpr (N == 128) wgmma_rs_n128(d, a, db);
+}
+
+// 2^x on the MUFU unit (flushes results below 2^-126 to zero).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The online softmax of one KV tile on the S accumulator of a consumer
+// warpgroup, in place: sc becomes P; returns the rescale factor of each of
+// the thread's two rows.  Scores are taken in the log2 domain (``scale`` =
+// log2(e) / sqrt(D) > 0, so the row max of the raw scores gives that of
+// the scaled ones) and exp(s scale - m) is one FFMA and one ex2.  MASK
+// only on the diagonal tile and the ragged tail.
+template <bool MASK>
+__device__ __forceinline__ void tile_softmax(float* sc, int k0, int row0,
+                                             int s, int causal, float scale,
+                                             int t, float& m0, float& m1,
+                                             float& l0, float& l1,
+                                             float& al0, float& al1) {
+  float mx0 = NEG_INF, mx1 = NEG_INF;
+#pragma unroll
+  for (int i = 0; i < WG_BK / 2; ++i) {
+    if (MASK) {
+      const int col = k0 + 8 * (i / 4) + 2 * t + (i & 1);
+      const int row = row0 + ((i & 2) ? 8 : 0);
+      if (col >= s || (causal && col > row)) sc[i] = NEG_INF;
+    }
+    if (i & 2)
+      mx1 = fmaxf(mx1, sc[i]);
+    else
+      mx0 = fmaxf(mx0, sc[i]);
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+  }
+  const float mn0 = fmaxf(m0, mx0 * scale), mn1 = fmaxf(m1, mx1 * scale);
+  al0 = ex2(m0 - mn0);
+  al1 = ex2(m1 - mn1);
+  float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+  for (int i = 0; i < WG_BK / 2; ++i) {
+    const float p = ex2(fmaf(sc[i], scale, (i & 2) ? -mn1 : -mn0));
+    sc[i] = p;
+    if (i & 2)
+      sum1 += p;
+    else
+      sum0 += p;
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    sum0 += __shfl_xor_sync(0xffffffffu, sum0, off);
+    sum1 += __shfl_xor_sync(0xffffffffu, sum1, off);
+  }
+  l0 = al0 * l0 + sum0;
+  l1 = al1 * l1 + sum1;
+  m0 = mn0;
+  m1 = mn1;
+}
+
+// Block: 128 query rows of one (b, h); warpgroup 0 produces (one thread
+// issues every TMA load), warpgroups 1 and 2 consume 64 rows each.  Shared
+// memory (1024-byte aligned, each box in the 128-byte swizzle): the Q tile
+// as NC chunks of 64 columns, then WG_STAGES stages of K and of V, each NC
+// chunks, then the barriers: full_q, full_k[st], full_v[st], empty[st].
+template <int DP>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   __nv_bfloat16* __restrict__ o, int hq, int hkv, int s,
+                   int d, int causal, float scale) {
+  constexpr int NC = (DP + CHUNK - 1) / CHUNK;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sq = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t sk = sq + NC * Q_BOX;
+  const uint32_t sv = sk + WG_STAGES * NC * KV_BOX;
+  const uint32_t bars = sv + WG_STAGES * NC * KV_BOX;
+  const uint32_t full_q = bars;
+  const auto full_k = [&](int st) { return bars + 8 * (1 + st); };
+  const auto full_v = [&](int st) { return bars + 8 * (1 + WG_STAGES + st); };
+  const auto empty = [&](int st) {
+    return bars + 8 * (1 + 2 * WG_STAGES + st);
+  };
+
+  // The q-tiles of one (b, h) are neighbours in blockIdx, so the blocks
+  // in flight share a few heads' K and V in L2; within a head the longest
+  // tile comes first, so the grid ends on short tiles.
+  const int tiles = (s + WG_BQ - 1) / WG_BQ;
+  const int bh = blockIdx.x / tiles;
+  const int q0 = (tiles - 1 - static_cast<int>(blockIdx.x % tiles)) * WG_BQ;
+  const int kvh = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
+  const int ktiles = (s + WG_BK - 1) / WG_BK;
+  const int ntiles =
+      causal ? min(ktiles, (q0 + WG_BQ - 1) / WG_BK + 1) : ktiles;
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int st = 0; st < WG_STAGES; ++st) {
+      mbar_init(full_k(st), 1);
+      mbar_init(full_v(st), 1);
+      mbar_init(empty(st), 2 * 128);            // every consumer thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer: keeps the ring full ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(full_q, NC * Q_BOX);
+      for (int c = 0; c < NC; ++c)
+        tma_load(sq + c * Q_BOX, &tq, full_q, c * CHUNK, q0, bh);
+      for (int j = 0; j < ntiles; ++j) {
+        const int st = j % WG_STAGES;
+        const uint32_t phase = (j / WG_STAGES) & 1;
+        mbar_wait(empty(st), phase ^ 1);
+        mbar_expect_tx(full_k(st), NC * KV_BOX);
+        for (int c = 0; c < NC; ++c)
+          tma_load(sk + (st * NC + c) * KV_BOX, &tk, full_k(st), c * CHUNK,
+                   j * WG_BK, kvh);
+        mbar_expect_tx(full_v(st), NC * KV_BOX);
+        for (int c = 0; c < NC; ++c)
+          tma_load(sv + (st * NC + c) * KV_BOX, &tv, full_v(st), c * CHUNK,
+                   j * WG_BK, kvh);
+      }
+    }
+  } else {
+    // ---- consumers: S = Q K^T, online softmax, O += P V ----
+    // Tile j's products S_j = Q K_j^T and O += P_{j-1} V_{j-1} are issued
+    // together; the softmax of S_j then runs while P_{j-1} V_{j-1} is on
+    // the tensor cores, and stage j - 1 is released when that product is
+    // done.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int cw = threadIdx.x / 128 - 1;
+    const int lane = threadIdx.x % 32, t = lane % 4;
+    const int first = q0 + 64 * cw;               // this warpgroup's rows
+    const int row0 = first + 16 * (threadIdx.x % 128 / 32) + lane / 4;
+    const uint32_t qa = sq + cw * 64 * ROW_BYTES;
+    float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
+    float acc[DP / 2], sc[WG_BK / 2];
+    uint32_t hi[WG_BK / 16][4], lo[WG_BK / 16][4];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+    const auto stage_phase = [](int j) {
+      return static_cast<uint32_t>(j / WG_STAGES) & 1u;
+    };
+    // S = Q K_j^T, issued and committed (one group).
+    const auto issue_qk = [&](int j) {
+      const int st = j % WG_STAGES;
+      mbar_wait(full_k(st), stage_phase(j));
+#pragma unroll
+      for (int ks = 0; ks < DP / 16; ++ks) {
+        const uint32_t off = (ks % 4) * 32;   // k-step in the row
+        const uint32_t kb = sk + (st * NC + ks / 4) * KV_BOX + off;
+        wgmma_ss_n128(sc, sw128_desc(qa + (ks / 4) * Q_BOX + off, 16),
+                        sw128_desc(kb, 16), ks > 0);
+      }
+      wgmma_commit();
+    };
+    // O += P V_j with P in its hi and lo terms, issued and committed.
+    const auto issue_pv = [&](int j) {
+      const int st = j % WG_STAGES;
+      mbar_wait(full_v(st), stage_phase(j));
+#pragma unroll
+      for (int kk = 0; kk < WG_BK / 16; ++kk) {
+        const uint64_t vd = sw128_desc(
+            sv + st * NC * KV_BOX + kk * 16 * ROW_BYTES, KV_BOX);
+        wgmma_rs<DP>(acc, hi[kk], vd);
+        wgmma_rs<DP>(acc, lo[kk], vd);
+      }
+      wgmma_commit();
+    };
+    // The softmax of S_j (masked on the diagonal tile and the ragged
+    // tail), leaving P_j in sc; returns the rescale factors.
+    const auto softmax = [&](int j, float& al0, float& al1) {
+      const int k0 = j * WG_BK;
+      if ((causal && k0 + WG_BK - 1 > first) || k0 + WG_BK > s)
+        tile_softmax<true>(sc, k0, row0, s, causal, scale, t, m0, m1, l0, l1,
+                           al0, al1);
+      else
+        tile_softmax<false>(sc, k0, row0, s, causal, scale, t, m0, m1, l0,
+                            l1, al0, al1);
+    };
+    // P in two bf16 terms, hi = bf16(P) and lo = bf16(P - hi), as the A
+    // fragments of P V: the accumulator layout of S is the A layout.  The
+    // rounded hi values are read back from the packed bits (P - hi is
+    // exact in float32).
+    const auto split_p = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < WG_BK / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float a = sc[8 * kk + 2 * r], b = sc[8 * kk + 2 * r + 1];
+          const uint32_t h = pack_bf16(a, b);
+          hi[kk][r] = h;
+          lo[kk][r] = pack_bf16(a - __uint_as_float(h << 16),
+                                b - __uint_as_float(h & 0xffff0000u));
+        }
+    };
+
+    mbar_wait(full_q, 0);
+    float al0, al1;
+    wgmma_fence();
+    issue_qk(0);
+    wgmma_wait<0>();
+    fence_regs<WG_BK / 2>(sc);
+    softmax(0, al0, al1);
+    split_p();
+    for (int j = 1; j < ntiles; ++j) {
+      fence_regs<DP / 2>(acc);
+      wgmma_fence();
+      issue_qk(j);
+      issue_pv(j - 1);
+      wgmma_wait<1>();                            // S_j is in
+      fence_regs<WG_BK / 2>(sc);
+      softmax(j, al0, al1);
+      wgmma_wait<0>();                            // P_{j-1} V_{j-1} done
+      fence_regs<DP / 2>(acc);
+      mbar_arrive(empty((j - 1) % WG_STAGES));
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) acc[i] *= (i & 2) ? al1 : al0;
+      split_p();
+    }
+    fence_regs<DP / 2>(acc);
+    wgmma_fence();
+    issue_pv(ntiles - 1);
+    wgmma_wait<0>();
+    fence_regs<DP / 2>(acc);
+    mbar_arrive(empty((ntiles - 1) % WG_STAGES));
+    const size_t plane = static_cast<size_t>(s) * d;
+    __nv_bfloat16* ob = o + bh * plane;
+    const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+#pragma unroll
+    for (int i = 0; i < DP / 2; i += 2) {
+      const int col = 8 * (i / 4) + 2 * t;
+      const int row = row0 + ((i & 2) ? 8 : 0);
+      const float inv = (i & 2) ? inv1 : inv0;
+      if (row < s && col < d)
+        *reinterpret_cast<__nv_bfloat162*>(
+            ob + static_cast<size_t>(row) * d + col) =
+            __floats2bfloat162_rn(acc[i] * inv, acc[i + 1] * inv);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up in libcuda through the runtime so the
+// library needs no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled tensor_map_encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A (planes, s, d) bf16 tensor as a 3-D map read in boxes of 64 columns x
+// ``rows`` rows of one plane, 128-byte swizzled; the TMA fills rows past s
+// and columns past d with zeros.  Returns a CUDA error code.
+int encode_map(CUtensorMap* map, const void* base, int planes, int s, int d,
+               int rows) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(planes)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
+                                 static_cast<cuuint64_t>(s) * d * 2};
+  const cuuint32_t box[3] = {CHUNK, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : cudaErrorInvalidValue;
+}
+
+template <int DP>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, int b,
+                 int hq, int hkv, int s, int d, int causal, float scale,
+                 cudaStream_t stream) {
+  constexpr int NC = (DP + CHUNK - 1) / CHUNK;
+  const size_t smem =
+      1024 + NC * (Q_BOX + 2 * WG_STAGES * KV_BOX) + 8 * (1 + 3 * WG_STAGES);
+  CUtensorMap tq, tk, tv;
+  int err = encode_map(&tq, q, b * hq, s, d, WG_BQ);
+  if (!err) err = encode_map(&tk, k, b * hkv, s, d, WG_BK);
+  if (!err) err = encode_map(&tv, v, b * hkv, s, d, WG_BK);
+  if (!err) err = launch_with_smem(flash_wgmma_kernel<DP>, smem);
+  if (err) return err;
+  const long long blocks =
+      static_cast<long long>(b) * hq * ((s + WG_BQ - 1) / WG_BQ);
+  if (blocks > 2147483647LL) return cudaErrorInvalidConfiguration;
+  flash_wgmma_kernel<DP><<<static_cast<unsigned>(blocks), kWgThreads, smem,
+                           stream>>>(tq, tk, tv,
+                                     static_cast<__nv_bfloat16*>(o), hq, hkv,
+                                     s, d, causal, scale * LOG2E);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The launch checks every dtype shares: returns a CUDA error code, or -1
 // when there is nothing to launch, else 0 with ``blocks`` set.
 int check_launch(int b, int hq, int hkv, int s, int d, long long* blocks) {
@@ -486,5 +1019,35 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
     case 6: return launch_mma<96>(q, k, v, o, blocks, hq, hkv, s, d, causal, sc, st);
     case 7: return launch_mma<112>(q, k, v, o, blocks, hq, hkv, s, d, causal, sc, st);
     default: return launch_mma<128>(q, k, v, o, blocks, hq, hkv, s, d, causal, sc, st);
+  }
+}
+
+// bfloat16 through TMA and wgmma: needs d % 8 == 0 (TMA row strides are
+// multiples of 16 bytes) and 16-byte aligned q, k and v; the wrapper sends
+// other bfloat16 inputs to flash_attention_bf16.
+extern "C" int flash_attention_bf16_wgmma(const void* q, const void* k,
+                                          const void* v, void* o, int b,
+                                          int hq, int hkv, int s, int d,
+                                          int causal, double scale,
+                                          void* stream) {
+  long long blocks = 0;
+  const int bad = check_launch(b, hq, hkv, s, d, &blocks);
+  if (bad) return bad < 0 ? 0 : bad;
+  const auto aligned = [](const void* ptr) {
+    return reinterpret_cast<size_t>(ptr) % 16 == 0;
+  };
+  if (d % 8 || !aligned(q) || !aligned(k) || !aligned(v) || !aligned(o))
+    return cudaErrorInvalidValue;
+  const auto st = static_cast<cudaStream_t>(stream);
+  const float sc = static_cast<float>(scale);
+  switch ((d + 15) / 16) {
+    case 1: return launch_wgmma<16>(q, k, v, o, b, hq, hkv, s, d, causal, sc, st);
+    case 2: return launch_wgmma<32>(q, k, v, o, b, hq, hkv, s, d, causal, sc, st);
+    case 3: return launch_wgmma<48>(q, k, v, o, b, hq, hkv, s, d, causal, sc, st);
+    case 4: return launch_wgmma<64>(q, k, v, o, b, hq, hkv, s, d, causal, sc, st);
+    case 5: return launch_wgmma<80>(q, k, v, o, b, hq, hkv, s, d, causal, sc, st);
+    case 6: return launch_wgmma<96>(q, k, v, o, b, hq, hkv, s, d, causal, sc, st);
+    case 7: return launch_wgmma<112>(q, k, v, o, b, hq, hkv, s, d, causal, sc, st);
+    default: return launch_wgmma<128>(q, k, v, o, b, hq, hkv, s, d, causal, sc, st);
   }
 }

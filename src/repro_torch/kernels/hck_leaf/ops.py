@@ -18,6 +18,15 @@ from repro_torch.kernels.hck_leaf.ref import (hck_leaf_factor_ref,
                                               hck_leaf_solve_ref)
 
 
+def load_width(r: int, itemsize: int, ptr: int) -> int:
+    """Columns of U that one thread of the ``leaf_project`` kernel reads per
+    load: 16 bytes (4 floats, 2 doubles) where r is a multiple of that and
+    u's base address ``ptr`` is 16-byte aligned (every row then starts
+    aligned), else 1 (the kernel's scalar path)."""
+    width = 16 // itemsize
+    return width if r % width == 0 and ptr % 16 == 0 else 1
+
+
 def leaf_project(u: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """c = U^T b per leaf: (P, n0, r), (P, n0, k) -> (P, r, k)."""
     if u.ndim != 3 or b.ndim != 3 or u.shape[:2] != b.shape[:2]:
@@ -33,7 +42,7 @@ def leaf_project(u: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return c
     _build.launch("hck_leaf_project",
                   f"hck_leaf_project_{_build.SUFFIX[u.dtype]}", dev, u, b, c,
-                  p, n0, r, k)
+                  p, n0, r, k, load_width(r, u.element_size(), u.data_ptr()))
     leaf_project.launches += 1
     return c
 
