@@ -8,10 +8,12 @@ result.  Phases, each of which raises on failure:
   1. device   the card's name and power limit (nvidia-smi);
   2. build    nvcc builds every kernel library (in parallel); each kernel
               entry's registers and spills (all eight instances of B14's
-              wgmma kernel there, none spilling),
-              and the wgmma (HGMMA), TMA-load (UTMALDG) and mbarrier
-              (SYNCS) instructions of B14's library (HGMMA and UTMALDG
-              required);
+              wgmma kernel, all six of B10's tensor-core kernel, B15's
+              wgmma kernel and all four of its mma.sync kernel there, none
+              spilling), and the wgmma (HGMMA), mma.sync (HMMA), TMA-load
+              (UTMALDG) and mbarrier (SYNCS) instructions of the B14, B10
+              and B15 libraries (HGMMA and UTMALDG required of all three,
+              HMMA of B15's too);
  2b. lm       Zamba2-7B serving at full width in bf16 (random weights from
               SEED): B14 (``flash_attention``) and B15
               (``ssd_intra_chunk``) against their plain versions (the
@@ -19,15 +21,18 @@ result.  Phases, each of which raises on failure:
               bf16 and f32; each B14 check names the kernel that ran and
               requires the one its shape calls for: wgmma for aligned bf16
               with D % 8 == 0, mma.sync for a misaligned view, the CUDA-
-              core kernel for f32), two requests through ``ServeSession``
-              (4 x 3,840 prompt tokens + 64 greedy, 1 x 1,280 + 16) with
-              the launch counts read around each prefill (B14 14, all of
-              them its wgmma kernel; B15 81) and each decode (none), the
+              core kernel for f32; each B15 check likewise: wgmma for
+              N and P multiples of 4 up to 64 and aligned views, mma.sync
+              otherwise), two requests through ``ServeSession`` (4 x 3,840
+              prompt tokens + 64 greedy, 1 x 1,280 + 16) with the launch
+              counts read around each prefill (B14 14 and B15 81, all of
+              them their wgmma kernels) and each decode (none), the
               kernel route against the plain route (gated in f32), one
-              prefill and four decode steps profiled, B14 (its wgmma and
-              mma.sync kernels in turns) and B15 timed (their rows join
-              phase 9's); runs first, so that its memory is freed before
-              the KRR phases;
+              prefill and four decode steps profiled, B14 and B15 (each
+              its wgmma and mma.sync kernels in turns) timed, B15's row with the
+              prefill's device time and tokens/s (their rows join phase
+              9's); runs first, so that its memory is freed before the KRR
+              phases;
   3. fit      the full-width covtype KRR fit through ``krr.fit`` (synthetic
               data at that width): the kernels' launch counts read around
               exactly this call; then the same fit stage by stage, timed,
@@ -58,12 +63,20 @@ result.  Phases, each of which raises on failure:
               dense oracle;
  8b. solvers  the exact-kernel solvers: B10 (``kernel_matvec``) and B11
               (``pairwise_kernel``) against their plain versions (covtype,
-              ragged and wide shapes, f32 and f64); at ``bench_cg.py``'s
+              ragged and wide shapes, f32 and f64; each B10 check names the
+              kernel that ran and requires the one its dtype, base
+              kernel and width call for: the tensor-core kernel for f32
+              gaussian and imq with d <= 64, the CUDA-core kernel for
+              laplace, f64 and d 90; the CUDA-core kernel also on the
+              covtype-width f32 gaussian and imq inputs; k 1, 16 and 160
+              for the tensor-core kernel's N of 8, 16 and 32); at
+              ``bench_cg.py``'s
               shape in f64 ``krr.fit_exact`` and EigenPro against the dense
               solve and the preconditioned and plain iteration counts;
               exact-kernel KRR at covtype width through ``krr.fit_exact``
-              (launch counts read around exactly this call, its stages
-              timed, its residual through B10) and its predictions; and
+              (launch counts read around exactly this call, every B10
+              launch on the tensor-core kernel, its stages timed, its
+              residual through B10) and its predictions; and
               ``gp.mle_grid(logdet="slq")`` at covtype width against the
               exact surface, with the SLQ logdet gated in f64 at n = 4,096
               (its quadrature and its probe draws apart, with a faulty
@@ -88,7 +101,10 @@ result.  Phases, each of which raises on failure:
               and one "exact" round;
   9. timing   kernel, plain-version and library times at the fit, serving,
               sweep, exact-solver, lifecycle and LM prefill shapes, beside
-              each kernel's bound;
+              each kernel's bound (B10 and B15 beside the bound of the
+              tensor-core route they take and that of f32 CUDA cores; B10's
+              tensor-core and CUDA-core kernels in turns, with the exact-KRR
+              fit's wall time, iterations and seconds per apply);
  10. profile  torch.profiler over one full-width fit, over five 4096-query
               requests and over one sigma row of the NLL surface: device
               time by kernel, and the device's busy share.
@@ -164,9 +180,11 @@ STALE_TOL, STALE_MAXITER = 1e-2, 30
 LM_ARCH = "zamba2-7b"
 LM_REQUESTS = ((4, 3840, 64), (1, 1280, 16))
 LM_LAUNCHES = {"flash_attention": 14, "flash_attention_wgmma": 14,
-               "ssd_intra_chunk": 81}
-# The float32 route's prefill: B14's CUDA-core kernel, no wgmma launch.
-LM_LAUNCHES_F32 = {"flash_attention": 14, "ssd_intra_chunk": 81}
+               "ssd_intra_chunk": 81, "ssd_intra_chunk_wgmma": 81}
+# The float32 route's prefill: B14's CUDA-core kernel, no wgmma launch of
+# B14; B15 the same as in bf16 (its inputs are float32 in both).
+LM_LAUNCHES_F32 = {"flash_attention": 14, "ssd_intra_chunk": 81,
+                   "ssd_intra_chunk_wgmma": 81}
 # B14 in bf16 against its plain version: each output is rounded to bf16
 # once from float32 sums taken in another order, so the two may sit one
 # rounding step apart (2^-8 of the value, 2^-7 at a binade edge; allowed
@@ -177,12 +195,14 @@ LM_LAUNCHES_F32 = {"flash_attention": 14, "ssd_intra_chunk": 81}
 # keys and 112 features.
 B14_BF16_REL, B14_BF16_FLOOR, B14_F32_RTOL = 2.0 ** -6, 1e-4, 1e-5
 # B15 in f32: 1e-5 of the componentwise magnitude ((|C||B|^T * L)|X|),
-# summation order over up to 256 keys and 64-128 features.
+# summation order over up to 256 keys and 64-128 features, and products
+# in split TF32 (~2^-21 of each).
 B15_RTOL = 1e-5
 # Kernel route against the plain route, gated in float32 (the same random
 # weights upcast): B14's f32 outputs differ from the plain version's by
-# summation order (~1e-6 of each), B15's not at all (bit for bit on the
-# card), and 81 blocks amplify such differences; the last-token logits
+# summation order (~1e-6 of each), B15's by its split TF32 products and
+# summation order (~2e-7 of its magnitude), and 81 blocks amplify such
+# differences; the last-token logits
 # must agree within 2e-3 of the largest, and the greedy tokens wherever
 # the plain route's top-2 margin exceeds twice that.  In bf16 the same
 # comparison is printed, not gated: a one-step rounding flip in a few of
@@ -196,6 +216,10 @@ LM_LOGIT_RTOL = 2e-3
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 PEAK_BF16 = 989e12                 # dense bf16 on the tensor cores
+PEAK_TF32 = 495e12                 # dense TF32 on the tensor cores
+# 16 special-function results (exp2, rsqrt) a clock on each of 132 SMs at
+# the 1.98 GHz the data sheet's rates assume (67e12 = 132 x 128 x 2 x 1.98e9)
+PEAK_SFU = 16 * 132 * 1.98e9
 
 
 def say(*parts) -> None:
@@ -308,11 +332,13 @@ def plain_versions() -> list:
 
 
 def reset_counts() -> None:
-    """Set every kernel's launch count (B14's wgmma count too) and plain
-    version's call count to 0."""
+    """Set every kernel's launch count (B14's and B15's wgmma counts and
+    B10's tensor-core count too) and plain version's call count to 0."""
     for fn in kernel_wrappers().values():
         fn.launches = 0
     kernel_wrappers()["flash_attention"].wgmma_launches = 0
+    kernel_wrappers()["kernel_matvec"].tc_launches = 0
+    kernel_wrappers()["ssd_intra_chunk"].wgmma_launches = 0
     for fn in plain_versions():
         fn.calls = 0
 
@@ -321,11 +347,16 @@ def read_counts() -> tuple[dict, dict]:
     """(launches by kernel, calls by plain version).  B14's launches are
     its total ("flash_attention") and those of its wgmma kernel
     ("flash_attention_wgmma"); the mma.sync and CUDA-core kernels took the
-    difference."""
+    difference.  B10's and B15's likewise: "kernel_matvec" and its
+    tensor-core kernel's ("kernel_matvec_tc"), "ssd_intra_chunk" and its
+    wgmma kernel's ("ssd_intra_chunk_wgmma")."""
     wrappers = kernel_wrappers()
     launches = {name: fn.launches for name, fn in wrappers.items()}
     launches["flash_attention_wgmma"] = (
         wrappers["flash_attention"].wgmma_launches)
+    launches["kernel_matvec_tc"] = wrappers["kernel_matvec"].tc_launches
+    launches["ssd_intra_chunk_wgmma"] = (
+        wrappers["ssd_intra_chunk"].wgmma_launches)
     return launches, {fn.__name__: fn.calls for fn in plain_versions()}
 
 
@@ -733,11 +764,14 @@ def phase_device() -> tuple[str, str]:
 
 def phase_build() -> None:
     """Phase 2: nvcc builds every kernel of the paths, all in parallel; the
-    registers and spills of each kernel entry, named by cu++filt (the
-    eight instances of B14's wgmma kernel, DP 16 to 128, must all be there
-    and none may spill) and the Hopper instructions in B14's library (HGMMA:
-    wgmma, UTMALDG: TMA loads, SYNCS: mbarrier operations), which must
-    hold wgmma and TMA loads."""
+    registers and spills of each kernel entry, named by cu++filt (the eight
+    instances of B14's wgmma kernel, DP 16 to 128, the six of B10's
+    tensor-core kernel, gaussian and imq by 8, 16 and 32 columns, B15's
+    wgmma kernel and the four of its mma.sync kernel must all be there and
+    none may spill) and the Hopper instructions in the B14, B10 and B15
+    libraries (HGMMA: wgmma, HMMA: mma.sync, UTMALDG: TMA loads, SYNCS:
+    mbarrier operations): all three must hold wgmma and TMA loads, B15's
+    mma.sync too."""
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
@@ -759,27 +793,34 @@ def phase_build() -> None:
         [str(cufilt), "-p", *(mangled for _, mangled, _ in entries)],
         capture_output=True, text=True, check=True,
         timeout=60).stdout.splitlines()
-    wgmma = []
+    # the Hopper entries of each redesigned kernel: (how many instances)
+    hopper = {"flash_wgmma_kernel": 8, "matvec_tc_kernel": 6,
+              "ssd_mma_kernel": 4, "ssd_wgmma_kernel": 1}
+    spills = {entry: [] for entry in hopper}
     for (name, mangled, lines), label in zip(entries, labels):
         for line in lines:
             say(f"[2 build] {name} {label}: {line}")
-        if "flash_wgmma_kernel" in mangled:
-            wgmma += [line for line in lines if "spill" in line]
-    require(len(wgmma) == 8 and all(
-        " 0 bytes spill stores, 0 bytes spill loads" in line
-        for line in wgmma), f"the eight flash_wgmma_kernel entries (DP 16 "
-        f"to 128) do not spill: {wgmma}")
-    lib = _build.library_path("flash_attention")
+        for entry in hopper:
+            if entry in mangled:
+                spills[entry] += [line for line in lines if "spill" in line]
+    for entry, count in hopper.items():
+        require(len(spills[entry]) == count and all(
+            " 0 bytes spill stores, 0 bytes spill loads" in line
+            for line in spills[entry]), f"the {count} {entry} entries do "
+            f"not spill: {spills[entry]}")
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
-                          capture_output=True, text=True, check=True,
-                          timeout=300).stdout.splitlines()
-    ops = {op: sum(op in line for line in sass)
-           for op in ("HGMMA", "UTMALDG", "SYNCS")}
-    say(f"[2 build] flash_attention SASS instructions: {ops}")
-    require(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0,
-            "flash_attention's library holds wgmma (HGMMA) and TMA loads "
-            "(UTMALDG)")
+    for lib, needed in (("flash_attention", ("HGMMA", "UTMALDG")),
+                        ("kernel_matvec", ("HGMMA", "UTMALDG")),
+                        ("ssd_chunk", ("HGMMA", "UTMALDG", "HMMA"))):
+        sass = subprocess.run(
+            [str(cuobjdump), "-sass", str(_build.library_path(lib))],
+            capture_output=True, text=True, check=True,
+            timeout=300).stdout.splitlines()
+        ops = {op: sum(op in line for line in sass)
+               for op in ("HGMMA", "HMMA", "UTMALDG", "SYNCS")}
+        say(f"[2 build] {lib} SASS instructions: {ops}")
+        require(all(ops[op] > 0 for op in needed),
+                f"{lib}'s library holds {' and '.join(needed)}")
 
 
 def phase_fit(dev) -> dict:
@@ -815,7 +856,8 @@ def phase_fit(dev) -> dict:
                 "hck_leaf_project": 1, "oos_contract": 0,
                 "kernel_matvec": 0, "kernel_tile": 0, "policy_dist": 0,
                 "leaf_update": 0, "flash_attention": 0,
-                "flash_attention_wgmma": 0, "ssd_intra_chunk": 0}
+                "flash_attention_wgmma": 0, "ssd_intra_chunk": 0,
+                "kernel_matvec_tc": 0, "ssd_intra_chunk_wgmma": 0}
     require(launches == expected,
             f"fit launches {launches} == expected {expected}")
     require(all(v == 0 for v in plain_calls.values()),
@@ -1385,7 +1427,8 @@ def phase_sweep(fit, dev) -> dict:
                 "leaf_matvec": 3 * len(LAMS) + KPCA_ITERS + 2,
                 "hck_leaf_project": 3, "kernel_matvec": 0, "kernel_tile": 0,
                 "policy_dist": 0, "leaf_update": 0, "flash_attention": 0,
-                "flash_attention_wgmma": 0, "ssd_intra_chunk": 0}
+                "flash_attention_wgmma": 0, "ssd_intra_chunk": 0,
+                "kernel_matvec_tc": 0, "ssd_intra_chunk_wgmma": 0}
     got = {k: v for k, v in launches.items() if k != "oos_contract"}
     require(got == expected, f"sweep launches {got} == expected {expected}")
     require(launches["oos_contract"] > 0, "oos_contract on the sweep path")
@@ -1706,6 +1749,19 @@ def kernel_matvec_cost(b, m, d, k, itemsize):
     return nbytes, kernel_flops(b * m, b + m, d) + 2 * k * b * m
 
 
+def kernel_matvec_tc_bound(b, m, d, k):
+    """The least time of kernel_matvec's tensor-core route: the larger of
+    its bytes (kernel_matvec_cost's), three TF32 passes over 2 (d + k)
+    flops a pair at PEAK_TF32 (the function's d and k: the kernel's padding
+    to multiples of 8 is work of its instruction shape, not of the
+    function), and one exp2 (or rsqrt) a pair at PEAK_SFU."""
+    times = {"bytes": kernel_matvec_cost(b, m, d, k, 4)[0] / PEAK_BYTES,
+             "operations": max(3 * 2 * (d + k) * b * m / PEAK_TF32,
+                               b * m / PEAK_SFU)}
+    by = max(times, key=times.get)
+    return times[by] * 1e3, by
+
+
 def tile_cost(n, m, d):
     """pairwise_kernel: X and Y read once, the (n, m) float32 tile written
     once; the n * m kernel values."""
@@ -1733,22 +1789,33 @@ def kernel_matvec_gap(got, both) -> tuple[float, float]:
 def check_kernel_matvec(xc, y, v, name, rtol, sigma=SIGMA, chunk=2048):
     """B10 against its plain version: max |z - z_plain| <= rtol *
     max (K |V|), with K |V| the plain version's product with |V| (K > 0
-    for the three base kernels).  The kernel sums the distances directly
-    and the contraction in tiles of 64, the plain version uses the norm
-    identity and cuBLAS; rtol is the documented f32 matvec bound, 1e-4
-    (1e-10 in float64), or tighter where a caller says why.  Returns
-    (rel, err, the plain [K V, K |V|])."""
-    from repro_torch.kernels.matvec_stage.ops import kernel_matvec
+    for the three base kernels).  The kernel that ran must be the one
+    ``ops.route`` names for the dtype, base kernel and width: f32 gaussian
+    and imq with d <= 64 on the tensor cores (split TF32, the norm
+    identity, every launch a ``tc_launches`` one), laplace, f64 and wider
+    rows on the CUDA cores (distances summed directly, none).  The plain version uses the norm identity and
+    cuBLAS; rtol is the documented f32 matvec bound, 1e-4 (1e-10 in
+    float64), or tighter where a caller says why.  Returns (rel, err, the
+    plain [K V, K |V|], the route that ran)."""
+    from repro_torch.kernels.matvec_stage import ops
 
-    got = kernel_matvec(xc, y, v, name=name, sigma=sigma)
+    before = ops.kernel_matvec.launches, ops.kernel_matvec.tc_launches
+    got = ops.kernel_matvec(xc, y, v, name=name, sigma=sigma)
+    total = ops.kernel_matvec.launches - before[0]
+    tc = ops.kernel_matvec.tc_launches - before[1]
     both = plain_kernel_matvec(xc, y, torch.cat([v, v.abs()], dim=1), name,
                                sigma, chunk)
     sync()
+    ran = "tc" if tc else "cuda_core"
+    want = ops.route(xc.dtype, name, xc.shape[1])
+    require(ran == want and total > 0 and tc in (0, total),
+            f"kernel_matvec[{name}] {xc.dtype}: the {want} kernel ran "
+            f"({total} launches, {tc} on the tensor cores)")
     require(bool(torch.isfinite(got).all()), f"kernel_matvec[{name}] finite")
     rel, err = kernel_matvec_gap(got, both)
-    require(rel <= rtol, f"kernel_matvec[{name}] {tuple(xc.shape)} x "
-            f"{tuple(v.shape)}: rel {rel:.3e} <= {rtol}")
-    return rel, err, both
+    require(rel <= rtol, f"kernel_matvec[{name}] [{ran}] {tuple(xc.shape)} "
+            f"x {tuple(v.shape)}: rel {rel:.3e} <= {rtol}")
+    return rel, err, both, ran
 
 
 def check_tile(x, y, name, atol, sigma=SIGMA, chunk=4096):
@@ -1790,6 +1857,20 @@ def phase_solver_kernels(fit, dev) -> dict:
             xc, x, v, name, FULL_RTOL,
             chunk=32 if name == "laplace" else 2048)))
     res["kernel_matvec"] = rows[0][1][1]
+    # the CUDA-core kernel, which f32 gaussian and imq take for d > 64, on
+    # the same inputs against the same plain results and gate
+    from repro_torch.kernels.matvec_stage.ops import launch_kernel
+
+    core = []
+    for name, r in rows[:2]:
+        z = torch.empty_like(r[2][:, :N_CLASSES])
+        launch_kernel("cuda_core", x, x, v, z, name=name, sigma=SIGMA)
+        rel = kernel_matvec_gap(z, r[2])[0]
+        require(bool(torch.isfinite(z).all()) and rel <= FULL_RTOL,
+                f"kernel_matvec[{name}] [cuda_core] at covtype width: rel "
+                f"{rel:.3e} <= {FULL_RTOL}")
+        core.append(f"{name} [cuda_core] rel {rel:.3e}")
+        del z
     # the control: B10 with Y's ragged tail (464,809 mod 64 = 41 rows) and
     # its V rows dropped must fail the full-width gate
     from repro_torch.kernels.matvec_stage.ops import kernel_matvec
@@ -1801,36 +1882,54 @@ def phase_solver_kernels(fit, dev) -> dict:
             f"rel {lost:.3e} > {FULL_RTOL} (the gate sees a lost tile)")
     say("[8b solvers] kernel_matvec at covtype width, Xc (464809, 54) "
         "(laplace 2048 rows) x Y (464809, 54) x V (464809, 7) f32: "
-        + ", ".join(f"{n} rel {r[0]:.3e}" for n, r in rows)
+        + ", ".join(f"{n} [{r[3]}] rel {r[0]:.3e}" for n, r in rows)
+        + f", on the same inputs {', '.join(core)}"
         + f" (tolerance {FULL_RTOL} of max K|V|) ok; control, gaussian with "
         f"Y's last {tail} rows dropped: rel {lost:.3e} > {FULL_RTOL}, caught")
     del rows
     for dtype, rtol in ((torch.float32, 1e-4), (torch.float64, 1e-10)):
         o = dict(dtype=dtype, device=dev)
+        ragged = []
         for name in ("gaussian", "imq", "laplace"):
             a, b_ = (math.sqrt(2.0 / 55) * torch.randn(s, generator=gen, **o)
                      for s in ((4097, 55), (3001, 55)))
-            check_kernel_matvec(a, b_, torch.randn((3001, 7), generator=gen,
-                                                  **o), name, rtol, chunk=256)
-        say(f"[8b solvers] kernel_matvec ragged b 4097, m 3001, d 55, k 7 "
-            f"{str(dtype)[6:]}, gaussian, imq and laplace within {rtol} ok")
+            r = check_kernel_matvec(a, b_, torch.randn(
+                (3001, 7), generator=gen, **o), name, rtol, chunk=256)
+            ragged.append(f"{name} [{r[3]}] rel {r[0]:.3e}")
+        say(f"[8b solvers] kernel_matvec ragged b 4097, m 3001, d 55 (the "
+            f"tensor-core kernel pads it to 56), k 7 {str(dtype)[6:]}: "
+            f"{', '.join(ragged)}; within {rtol} ok")
     wide = []
     xs = x[:16384]
-    for k in (1, 160):
+    for k in (1, 16, 160):
         vk = torch.randn((xs.shape[0], k), generator=gen, device=dev)
         for name in ("gaussian", "imq", "laplace"):
-            wide.append(check_kernel_matvec(xs, xs, vk, name, 1e-4,
-                                            chunk=128 if name == "laplace"
-                                            else 2048)[0])
-    say(f"[8b solvers] kernel_matvec n 16384, d 54, k 1 and 160 f32, three "
-        f"kernels: max rel {max(wide):.3e} (tolerance 1e-4) ok")
+            r = check_kernel_matvec(xs, xs, vk, name, 1e-4,
+                                    chunk=128 if name == "laplace" else 2048)
+            wide.append(f"k {k} {name} [{r[3]}] rel {r[0]:.3e}")
+    say(f"[8b solvers] kernel_matvec n 16384, d 54, f32: {', '.join(wide)} "
+        f"(tolerance 1e-4) ok")
+    # rows wider than the tensor-core kernel keeps resident: f32 gaussian
+    # and imq go to the CUDA-core kernel
+    a, b_ = (math.sqrt(2.0 / 90) * torch.randn((n, 90), generator=gen,
+                                               device=dev)
+             for n in (16384, 16384))
+    v90 = torch.randn((16384, N_CLASSES), generator=gen, device=dev)
+    d90 = [check_kernel_matvec(a, b_, v90, name, 1e-4)
+           for name in ("gaussian", "imq")]
+    say(f"[8b solvers] kernel_matvec n 16384, d 90, k {N_CLASSES} f32: "
+        + ", ".join(f"{n} [{r[3]}] rel {r[0]:.3e}"
+                    for n, r in zip(("gaussian", "imq"), d90))
+        + " (tolerance 1e-4) ok")
+    del a, b_, v90, d90
     x64 = x[:2048].double()
     v64 = torch.randn((2048, 3), generator=gen, dtype=torch.float64,
                       device=dev)
-    f64 = [check_kernel_matvec(x64, x64, v64, name, 1e-10, chunk=256)[0]
+    f64 = [check_kernel_matvec(x64, x64, v64, name, 1e-10, chunk=256)
            for name in ("gaussian", "imq", "laplace")]
-    say(f"[8b solvers] kernel_matvec n 2048, d 54, k 3 f64, three kernels: "
-        f"max rel {max(f64):.3e} (tolerance 1e-10) ok")
+    say(f"[8b solvers] kernel_matvec n 2048, d 54, k 3 f64, three kernels "
+        f"[{', '.join(sorted({r[3] for r in f64}))}]: max rel "
+        f"{max(r[0] for r in f64):.3e} (tolerance 1e-10) ok")
 
     tiles = []
     for name in ("gaussian", "imq", "laplace"):
@@ -1969,7 +2068,8 @@ def phase_exact_krr(fit, dev) -> dict:
         # ------------------------------------------------------------------
         res = model.result
         it = res.iterations
-        expected = {"kernel_matvec": it + 1}
+        # f32 gaussian: every B10 launch on the tensor-core kernel
+        expected = {"kernel_matvec": it + 1, "kernel_matvec_tc": it + 1}
         if pre:
             expected.update(gram_chol=LEVELS + 1, cross_solve=LEVELS,
                             leaf_factor=1, leaf_solve=it + 1)
@@ -2030,7 +2130,8 @@ def phase_exact_krr(fit, dev) -> dict:
     return {"launches": pc["launches"], "plain_launches": plain["launches"],
             "stages": stages, "peak": peak, "alpha": model.alpha,
             "iterations": {"preconditioned": pc_it,
-                           "plain": model.result.iterations}}
+                           "plain": model.result.iterations},
+            "plain_wall_s": plain["t_fit"], "plain_s_per_apply": per_plain}
 
 
 def phase_slq(sw, dev) -> dict:
@@ -2246,28 +2347,59 @@ def slq_f64_gate(dev) -> dict:
 
 
 def solver_timing(ex, kres) -> list[dict]:
-    """Phase 9, exact solvers: B10 at the exact-KRR path's shape and B11 at
-    16,384 x 16,384, beside their bounds and plain times."""
+    """Phase 9, exact solvers: B10 at the exact-KRR path's shape (its
+    tensor-core kernel, which the path takes, and the CUDA-core kernel,
+    which laplace and f64 keep, on the same inputs in turns) and B11 at
+    16,384 x 16,384, beside their bounds and plain times.  B10's bound is
+    its route's (kernel_matvec_tc_bound), beside the f32 CUDA-core bound of
+    its first design; its record carries the plain-CG exact-KRR fit's wall
+    time, iterations and seconds per operator apply."""
     from repro_torch.kernels.kernel_tile.ops import pairwise_kernel
     from repro_torch.kernels.kernel_tile.ref import pairwise_kernel_ref
-    from repro_torch.kernels.matvec_stage.ops import kernel_matvec
+    from repro_torch.kernels.matvec_stage.ops import (kernel_matvec,
+                                                      launch_kernel)
 
     src, tpu = "src/repro_torch/csrc/", "src/repro/kernels/"
     x, alpha = ex["x"], ex["alpha"]
     n = x.shape[0]
-    ms = time_ms(lambda: kernel_matvec(x, x, alpha, sigma=SIGMA), 2,
-                 warmup=1)
+    z = torch.empty_like(alpha)
+    core = lambda: launch_kernel("cuda_core", x, x, alpha, z,
+                                 name="gaussian", sigma=SIGMA)
+    turns = [time_ms(fn, 2, warmup=1) for fn in (
+        lambda: kernel_matvec(x, x, alpha, sigma=SIGMA), core, core,
+        lambda: kernel_matvec(x, x, alpha, sigma=SIGMA))]
     # the plain version ran at this shape in phase 8b (a): warm already
     plain = time_ms(lambda: plain_kernel_matvec(x, x, alpha, "gaussian",
                                                 SIGMA), 1, warmup=0)
     records = [kernel_record(
         "kernel_matvec", src + "kernel_matvec.cu",
         tpu + "matvec_stage/matvec_stage.py:70", ex["launches"]
-        ["kernel_matvec"], kres["kernel_matvec"], ms, plain,
-        bound_ms(*kernel_matvec_cost(n, n, D, N_CLASSES, 4)),
+        ["kernel_matvec"], kres["kernel_matvec"], (turns[0] + turns[3]) / 2,
+        plain, kernel_matvec_tc_bound(n, n, D, N_CLASSES),
         unit=f"one launch: exact K ({n} x {n}, d {D}) times ({n}, "
              f"{N_CLASSES})",
-        launches_plain_cg=ex["plain_launches"]["kernel_matvec"])]
+        kernel="split TF32 (TMA, wgmma, warp-specialised)",
+        tc_launches=ex["launches"]["kernel_matvec_tc"],
+        launches_plain_cg=ex["plain_launches"]["kernel_matvec"],
+        bound_f32_ms=bound_ms(*kernel_matvec_cost(n, n, D, N_CLASSES, 4))[0],
+        previous_ms=(turns[1] + turns[2]) / 2,
+        previous="CUDA cores (kernel_matvec_f32)",
+        turns_ms={"tc": [turns[0], turns[3]],
+                  "cuda_core": [turns[1], turns[2]]},
+        exact_krr={"wall_s": ex["plain_wall_s"],
+                   "iterations": ex["iterations"]["plain"],
+                   "s_per_apply": ex["plain_s_per_apply"]})]
+    rec = records[0]
+    say(f"[9 timing] kernel_matvec in turns (tc, cuda_core, cuda_core, tc): "
+        f"{', '.join(f'{t:.3f}' for t in turns)} ms; tc {rec['ms']:.3f} ms "
+        f"against CUDA cores {rec['previous_ms']:.3f} ms "
+        f"({rec['previous_ms'] / rec['ms']:.2f}x); bound of the tc route "
+        f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}), of f32 CUDA cores "
+        f"{rec['bound_f32_ms']:.3f} ms; launches on the HCK-preconditioned "
+        f"path {rec['launches']} ({rec['tc_launches']} tc); plain-CG "
+        f"fit_exact {ex['plain_wall_s']:.3f} s, "
+        f"{ex['iterations']['plain']} iterations, "
+        f"{ex['plain_s_per_apply']:.3f} s an apply")
     xs, ys = x[:16384], ex["xt"][:16384]
     records.append(kernel_record(
         "kernel_tile", src + "kernel_tile.cu",
@@ -3106,19 +3238,35 @@ def ssd_inputs(shape, gen):
     return c, b, xdt, cs
 
 
-def check_b15(args):
+def check_b15(args, misalign=False):
     """B15 against its plain version: max |y - y_plain| <= B15_RTOL times
-    the largest componentwise magnitude (|C||B|^T * L)|X|.  Returns
+    the largest componentwise magnitude (|C||B|^T * L)|X|.  The kernel that
+    ran must be the one ``ops.variant`` names for the widths and addresses:
+    the wgmma kernel where N and P are multiples of 4 up to 64 and c, b,
+    xdt 16-byte aligned, else the mma.sync kernel (with ``misalign``, c, b
+    and xdt are views one element into their buffers).  Returns
     max |y - y_plain|."""
-    from repro_torch.kernels.ssd_chunk.ops import ssd_intra_chunk
+    from repro_torch.kernels.ssd_chunk import ops
     from repro_torch.kernels.ssd_chunk.ref import ssd_intra_chunk_ref
 
+    if misalign:
+        args = tuple(torch.cat([t.new_zeros(1), t.flatten()])[1:]
+                     .view(t.shape) if t.ndim == 4 else t for t in args)
     c, b, xdt, cs = args
-    got = ssd_intra_chunk(*args)
+    before = ops.ssd_intra_chunk.launches, ops.ssd_intra_chunk.wgmma_launches
+    got = ops.ssd_intra_chunk(*args)
+    total = ops.ssd_intra_chunk.launches - before[0]
+    wgmma = ops.ssd_intra_chunk.wgmma_launches - before[1]
     want = ssd_intra_chunk_ref(*args)
     mag = float(ssd_intra_chunk_ref(c.abs(), b.abs(), xdt.abs(), cs).max())
     sync()
-    name = f"ssd_intra_chunk {tuple(c.shape)} P={xdt.shape[3]}"
+    ran = "wgmma" if wgmma else "mma"
+    expect = ops.variant(c.shape[3], xdt.shape[3], c.data_ptr(),
+                         b.data_ptr(), xdt.data_ptr())
+    name = (f"ssd_intra_chunk {tuple(c.shape)} P={xdt.shape[3]}"
+            f"{' misaligned' if misalign else ''} [{ran} kernel]")
+    require(total == 1 and ran == expect, f"{name}: one launch of the "
+            f"{expect} kernel ({total} launches, {wgmma} wgmma)")
     require(bool(torch.isfinite(got).all()), f"{name} output finite")
     err = float((got - want).abs().max())
     require(err <= B15_RTOL * mag, f"{name}: {err:.3e} <= {B15_RTOL} x "
@@ -3147,8 +3295,13 @@ def lm_kernel_checks(cfg, dev) -> dict:
     full = (b * nh, s // cfg.ssm_chunk, cfg.ssm_chunk, cfg.ssm_state,
             cfg.ssm_head_dim)
     b15 = check_b15(ssd_inputs(full, gen))
-    for shape in ((6, 3, 100, 16, 24), (2, 2, 256, 128, 128)):
+    # Q, N and P not multiples of 8: (3, 2, 99, 61, 43) takes the mma.sync
+    # kernel with 4-byte copies, (2, 3, 130, 60, 44) the wgmma kernel; N =
+    # P = 128 and a misaligned view the mma.sync kernel
+    for shape in ((6, 3, 100, 16, 24), (2, 2, 256, 128, 128),
+                  (3, 2, 99, 61, 43), (2, 3, 130, 60, 44)):
         check_b15(ssd_inputs(shape, gen))
+    check_b15(ssd_inputs((2, 2, 256, 64, 64), gen), misalign=True)
     return {"b14_err": b14, "b15_err": b15}
 
 
@@ -3254,16 +3407,19 @@ def route_gap_f32(cfg, params, toks) -> float:
     return route_gap(cfg32, p32, toks, last, "float32", gate=True)
 
 
-def lm_timing(cfg, checks, launches, dev) -> list[dict]:
+def lm_timing(cfg, checks, launches, prefill, dev) -> list[dict]:
     """B14 and B15 at the 4 x 3,840 prefill's shapes: kernel, plain and
     library times beside their bounds (random inputs of those shapes);
-    ``launches`` are that prefill's counts."""
+    ``launches`` are that prefill's counts, ``prefill`` its first-call wall
+    time, tokens/s and profiled device time (B15's record carries them).
+    B15's bound is its tensor-core route's (its bytes, or three TF32 passes
+    at PEAK_TF32), beside the f32 CUDA-core bound of its first design."""
     from torch.nn import functional as F
 
     from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                          launch_kernel)
     from repro_torch.kernels.flash_attention.ref import attention_ref
-    from repro_torch.kernels.ssd_chunk.ops import ssd_intra_chunk
+    from repro_torch.kernels.ssd_chunk import ops as ssd_ops
     from repro_torch.kernels.ssd_chunk.ref import ssd_intra_chunk_ref
 
     src, tpu = "src/repro_torch/csrc/", "src/repro/kernels/"
@@ -3310,15 +3466,32 @@ def lm_timing(cfg, checks, launches, dev) -> list[dict]:
         decay = torch.exp(cs[..., :, None] - cs[..., None, :])
         return torch.matmul(sc * decay.masked_fill_(~mask, 0.0), xdt)
 
+    nbytes, flops = ssd_cost(c, xdt)
+    # the wgmma kernel (through the wrapper, as the prefill runs it) and the
+    # mma.sync kernel, on the same inputs, in turns
+    y15 = torch.empty_like(xdt)
+    turns15 = [time_ms(fn, 10) for fn in (
+        lambda: ssd_ops.ssd_intra_chunk(*args),
+        lambda: ssd_ops.launch_kernel("mma", *args, y15),
+        lambda: ssd_ops.launch_kernel("mma", *args, y15),
+        lambda: ssd_ops.ssd_intra_chunk(*args))]
     rec15 = kernel_record(
         "ssd_intra_chunk", src + "ssd_chunk.cu",
         tpu + "ssd_chunk/ssd_chunk.py:43", launches["ssd_intra_chunk"],
-        checks["b15_err"], time_ms(lambda: ssd_intra_chunk(*args), 10),
+        checks["b15_err"], (turns15[0] + turns15[3]) / 2,
         time_ms(lambda: ssd_intra_chunk_ref(*args), 3),
-        bound_ms(*ssd_cost(c, xdt)),
+        bound_ms(nbytes, 3 * flops, peak_flops=PEAK_TF32),
         unit=f"one launch: {tuple(c.shape)} P={xdt.shape[3]} f32",
+        kernel="split TF32: wgmma (TMA, warp-specialised)",
+        wgmma_launches=launches["ssd_intra_chunk_wgmma"],
+        previous_ms=(turns15[1] + turns15[2]) / 2,
+        previous="split TF32: mma.sync (ssd_intra_chunk_f32)",
+        turns_ms={"wgmma": [turns15[0], turns15[3]],
+                  "mma.sync": [turns15[1], turns15[2]]},
+        bound_f32_ms=bound_ms(nbytes, flops)[0],
         library_chain_ms=time_ms(chain, 5),
-        library_chain="torch.matmul + exp + masked_fill + torch.matmul")
+        library_chain="torch.matmul + exp + masked_fill + torch.matmul",
+        **prefill)
     say(f"[9 timing] flash_attention in turns (wgmma, mma.sync, mma.sync, "
         f"wgmma): {', '.join(f'{t:.4f}' for t in turns)} ms; wgmma "
         f"{rec14['ms']:.4f} ms against mma.sync {rec14['previous_ms']:.4f} "
@@ -3334,6 +3507,18 @@ def lm_timing(cfg, checks, launches, dev) -> list[dict]:
             f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, library "
             f"{rec['library_ms']} ms{extra}, bound {rec['bound_ms']:.4f} ms "
             f"({rec['bound_by']}), launches {rec['launches']} per prefill")
+    dev_ms = rec15["prefill_device_ms"]
+    say(f"[9 timing] ssd_intra_chunk in turns (wgmma, mma.sync, mma.sync, "
+        f"wgmma): {', '.join(f'{t:.4f}' for t in turns15)} ms; wgmma "
+        f"{rec15['ms']:.4f} ms against mma.sync {rec15['previous_ms']:.4f} "
+        f"ms ({rec15['previous_ms'] / rec15['ms']:.2f}x); launches per "
+        f"prefill: wgmma {rec15['wgmma_launches']} of {rec15['launches']}")
+    say(f"[9 timing] ssd_intra_chunk on the tensor cores: bound of its "
+        f"route {rec15['bound_ms']:.4f} ms ({rec15['bound_by']}), of f32 "
+        f"CUDA cores {rec15['bound_f32_ms']:.4f} ms; the 4 x 3,840 prefill "
+        f"{rec15['prefill_s']:.3f} s on its first call "
+        f"({rec15['prefill_tokens_per_s']:,.0f} tokens/s), device time "
+        + (f"{dev_ms:.1f} ms" if dev_ms is not None else "not measured"))
     return [rec14, rec15]
 
 
@@ -3370,9 +3555,13 @@ def phase_lm(dev) -> list[dict]:
     from repro_torch.serving.serve_loop import ServeSession
 
     b, s = big.shape
-    profile_device(f"one {LM_ARCH} prefill ({b} x {s})",
-                   lambda: ServeSession(cfg, params, max_seq=s + 1).prefill(
-                       {"tokens": big}), 1, 16)
+    prof = profile_device(f"one {LM_ARCH} prefill ({b} x {s})",
+                          lambda: ServeSession(cfg, params,
+                                               max_seq=s + 1).prefill(
+                              {"tokens": big}), 1, 16)
+    prefill = {"prefill_s": results[0]["prefill_s"],
+               "prefill_tokens_per_s": b * s / results[0]["prefill_s"],
+               "prefill_device_ms": prof and prof["device_ms"]}
     route_gap(cfg, params, big, results[0]["last"], "bf16", gate=False)
     params = {k: {n: t.float() for n, t in v.items()}
               for k, v in params.items()}
@@ -3381,7 +3570,7 @@ def phase_lm(dev) -> list[dict]:
     launches = results[0]["launches"]
     del params, results
     torch.cuda.empty_cache()
-    records = lm_timing(cfg, checks, launches, dev)
+    records = lm_timing(cfg, checks, launches, prefill, dev)
     torch.cuda.empty_cache()
     say(f"[2b lm] phase done in {time.perf_counter() - t0:.1f} s")
     return records
@@ -3518,9 +3707,11 @@ def phase_timing(fit, res, served) -> list[dict]:
     return records
 
 
-def profile_device(what: str, fn, repeats: int, top: int) -> None:
+def profile_device(what: str, fn, repeats: int, top: int) -> dict | None:
     """Run ``fn`` ``repeats`` times unprofiled (host clock), then under
-    torch.profiler: device time per run by device op, and the busy share."""
+    torch.profiler: device time per run by device op, and the busy share.
+    Returns {"wall_ms", "device_ms"} per run, or None when the profiler
+    recorded no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -3543,7 +3734,7 @@ def profile_device(what: str, fn, repeats: int, top: int) -> None:
     if not rows:
         say(f"[10 profile] {what}: the profiler recorded no device time: not "
             "measured")
-        return
+        return None
     rows.sort(key=lambda row: -row[1])
     dev_us = sum(row[1] for row in rows)
     launches = sum(row[2] for row in rows)
@@ -3552,6 +3743,7 @@ def profile_device(what: str, fn, repeats: int, top: int) -> None:
         f"{dev_us / 1e3 / wall_ms:.3f}")
     for key, us, count in rows[:top]:
         say(f"[10 profile]   {us:11.2f} us  x{count:6.1f}  {key[:90]}")
+    return {"wall_ms": wall_ms, "device_ms": dev_us / 1e3}
 
 
 def phase_profile(fit, eng, sw) -> None:

@@ -86,9 +86,12 @@
 
 #include <cstdint>
 
+#include "hopper.cuh"
 #include "kernel_epilogue.cuh"
 
 namespace {
+
+using namespace hopper;
 
 constexpr int BQ = 64, BK = 64, kThreads = 256, DMAX = 128;
 constexpr int TC = DMAX / 16;          // output columns per thread
@@ -490,96 +493,6 @@ constexpr uint32_t Q_BOX = WG_BQ * ROW_BYTES;    // one chunk of the Q tile
 constexpr uint32_t KV_BOX = WG_BK * ROW_BYTES;   // one chunk of a K/V tile
 constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Spin until the phase of ``bar`` with this parity has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-
-// One box of a 3-D tensor map (column c0, row c1, head plane c2) into
-// shared memory; completion is reported to ``bar`` in bytes.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2) : "memory");
-}
-
-// wgmma shared-memory descriptor of a tile in the 128-byte swizzle that the
-// TMA boxes are written in: rows of 128 bytes, 8-row groups 1024 bytes
-// apart (SBO).  ``lbo``: the byte distance of the next 64-column atom
-// along MN, for the MN-major V; K-major tiles are one atom wide per k-step
-// and take 16.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// Waits until at most N committed groups of products are in flight.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving reads or writes of accumulator registers
-// across the asynchronous products that own them.
-template <int N>
-__device__ __forceinline__ void fence_regs(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-#define WG_D8(i)                                                       \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),          \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-// The operand numbers of the accumulators, 8 to a WG_D8 group.
-#define WG_R0 "%0, %1, %2, %3, %4, %5, %6, %7"
-#define WG_R8 WG_R0 ", %8, %9, %10, %11, %12, %13, %14, %15"
-#define WG_R16 WG_R8 ", %16, %17, %18, %19, %20, %21, %22, %23"
-#define WG_R24 WG_R16 ", %24, %25, %26, %27, %28, %29, %30, %31"
-#define WG_R32 WG_R24 ", %32, %33, %34, %35, %36, %37, %38, %39"
-#define WG_R40 WG_R32 ", %40, %41, %42, %43, %44, %45, %46, %47"
-#define WG_R48 WG_R40 ", %48, %49, %50, %51, %52, %53, %54, %55"
-#define WG_R56 WG_R48 ", %56, %57, %58, %59, %60, %61, %62, %63"
-
 // wgmma.m64nNk16, f32 += bf16 x bf16.  ss: A (64 x 16) and B (N x 16) both
 // K-major in shared memory, scale_d 0 overwrites d.  rs: A from registers
 // (the m16n8k16 A fragment of each warp's 16 rows), B (16 x N) MN-major in
@@ -624,15 +537,6 @@ WG_RS(128, 64, 65, 66, 67, 68, 69, WG_R56, WG_D8(0), WG_D8(8), WG_D8(16),
       WG_D8(24), WG_D8(32), WG_D8(40), WG_D8(48), WG_D8(56))
 
 #undef WG_RS
-#undef WG_R56
-#undef WG_R48
-#undef WG_R40
-#undef WG_R32
-#undef WG_R24
-#undef WG_R16
-#undef WG_R8
-#undef WG_R0
-#undef WG_D8
 
 // d (64 x N) += A B: N = DP, the padded head width (B spans one or two
 // 64-column atoms of V, LBO apart).
@@ -648,13 +552,6 @@ __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
   if constexpr (N == 96) wgmma_rs_n96(d, a, db);
   if constexpr (N == 112) wgmma_rs_n112(d, a, db);
   if constexpr (N == 128) wgmma_rs_n128(d, a, db);
-}
-
-// 2^x on the MUFU unit (flushes results below 2^-126 to zero).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // The online softmax of one KV tile on the S accumulator of a consumer
@@ -754,13 +651,13 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_init(full_v(st), 1);
       mbar_init(empty(st), 2 * 128);            // every consumer thread
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    fence_mbarrier_init();
   }
   __syncthreads();
 
   if (threadIdx.x < 128) {
     // ---- producer: keeps the ring full ----
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    setmaxnreg_dec<24>();
     if (threadIdx.x == 0) {
       mbar_expect_tx(full_q, NC * Q_BOX);
       for (int c = 0; c < NC; ++c)
@@ -785,7 +682,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     // together; the softmax of S_j then runs while P_{j-1} V_{j-1} is on
     // the tensor cores, and stage j - 1 is released when that product is
     // done.
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    setmaxnreg_inc<240>();
     const int cw = threadIdx.x / 128 - 1;
     const int lane = threadIdx.x % 32, t = lane % 4;
     const int first = q0 + 64 * cw;               // this warpgroup's rows
@@ -898,53 +795,13 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// cuTensorMapEncodeTiled, looked up in libcuda through the runtime so the
-// library needs no -lcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled tensor_map_encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
 // A (planes, s, d) bf16 tensor as a 3-D map read in boxes of 64 columns x
 // ``rows`` rows of one plane, 128-byte swizzled; the TMA fills rows past s
 // and columns past d with zeros.  Returns a CUDA error code.
 int encode_map(CUtensorMap* map, const void* base, int planes, int s, int d,
                int rows) {
-  const EncodeTiled encode = tensor_map_encoder();
-  if (encode == nullptr) return cudaErrorSymbolNotFound;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
-                              static_cast<cuuint64_t>(s),
-                              static_cast<cuuint64_t>(planes)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
-                                 static_cast<cuuint64_t>(s) * d * 2};
-  const cuuint32_t box[3] = {CHUNK, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? 0 : cudaErrorInvalidValue;
+  return hopper::encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base,
+                            planes, s, d, CHUNK, rows);
 }
 
 template <int DP>
