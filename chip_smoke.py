@@ -9,8 +9,10 @@ result.  Phases, each of which raises on failure:
   2. build    nvcc builds every kernel library (in parallel); each kernel
               entry's registers and spills (all eight instances of B14's
               wgmma kernel, all six of B10's tensor-core kernel, B15's
-              wgmma kernel and all four of its mma.sync kernel there, none
-              spilling), and the wgmma (HGMMA), mma.sync (HMMA), TMA-load
+              wgmma kernel and all four of its mma.sync kernel, both of
+              B3's kernel and both of B12's register-tiled kernel there,
+              none spilling), and the wgmma (HGMMA), mma.sync
+              (HMMA), TMA-load
               (UTMALDG) and mbarrier (SYNCS) instructions of the B14, B10
               and B15 libraries (HGMMA and UTMALDG required of all three,
               HMMA of B15's too);
@@ -39,11 +41,15 @@ result.  Phases, each of which raises on failure:
               with its solve residual through the port's own matvec;
   4. kernels  each kernel against its plain PyTorch version on the card, at
               the shapes the fit and serving paths give it (f32) and at a
-              small shape (f64), with the tolerance stated on its line;
+              small shape (f64), with the tolerance stated on its line; B3
+              also at n0 142, 167 and 240 (f32) and 169 (f64), and with an
+              indefinite pivot in its last panel;
   5. exact    an n = 4,096 fit at covtype width in f64 against the dense
               oracle, the f32 fit against the f64 one on the same tree and
               landmarks, and the f32 engine against the f64 Algorithm-3
-              oracle;
+              oracle; the f32 fit and an ssd_chunked call again under
+              set_float32_matmul_precision("high"), bit for bit the same
+              (the entry points keep TF32 off);
   6. serve    the fitted full-width model served through ``model.engine``
               (warmup, 16 requests of mixed sizes and one of all 116,203
               test queries), the launch counts read around exactly this
@@ -84,7 +90,10 @@ result.  Phases, each of which raises on failure:
               call of the phase;
   8c. lifecycle  the life of a model after its fit: B12
               (``policy_dist``) against its plain version (covtype levels,
-              "l2" and "l1", f32; n = 4,096 f64); ``krr.fit(landmarks=
+              "l2" and "l1", f32, its register-tiled kernel bit for bit
+              equal to its pair_tile kernel's; n = 4,096 f64), the
+              k-means and leverage indices through it equal to the plain
+              route's (f32, covtype levels 0, 6, 11); ``krr.fit(landmarks=
               "kmeans" | "leverage", rank_budget=262,080)`` at covtype
               width (launch counts read around each fit, distinct
               landmark rows, prefix masks within the budget, the f32
@@ -101,8 +110,11 @@ result.  Phases, each of which raises on failure:
               and one "exact" round;
   9. timing   kernel, plain-version and library times at the fit, serving,
               sweep, exact-solver, lifecycle and LM prefill shapes, beside
-              each kernel's bound (B10 and B15 beside the bound of the
-              tensor-core route they take and that of f32 CUDA cores; B10's
+              each kernel's bound (B3 at the fit's and the stacked sweep's
+              shapes, and in f64; B12's register-tiled kernel in turns
+              with the design it replaced, per Lloyd round and at level 0;
+              B10 and B15 beside the bound of the tensor-core route they
+              take and that of f32 CUDA cores; B10's
               tensor-core and CUDA-core kernels in turns, with the exact-KRR
               fit's wall time, iterations and seconds per apply);
  10. profile  torch.profiler over one full-width fit, over five 4096-query
@@ -215,6 +227,7 @@ LM_LOGIT_RTOL = 2e-3
 # float32 FLOP/s outside the tensor cores.
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+PEAK_F64 = 34e12                   # float64 outside the tensor cores
 PEAK_BF16 = 989e12                 # dense bf16 on the tensor cores
 PEAK_TF32 = 495e12                 # dense TF32 on the tensor cores
 # 16 special-function results (exp2, rsqrt) a clock on each of 132 SMs at
@@ -331,14 +344,23 @@ def plain_versions() -> list:
             ssd_ref.ssd_intra_chunk_ref]
 
 
+# The launch counts of one kernel of a library with several, by the key
+# read_counts gives them: (wrapper, attribute).  The wrapper's total is its
+# own key; the other kernels of the library took the difference.
+SUB_COUNTS = {"flash_attention_wgmma": ("flash_attention", "wgmma_launches"),
+              "kernel_matvec_tc": ("kernel_matvec", "tc_launches"),
+              "ssd_intra_chunk_wgmma": ("ssd_intra_chunk", "wgmma_launches"),
+              "policy_dist_tiled": ("policy_dist", "tiled_launches")}
+
+
 def reset_counts() -> None:
-    """Set every kernel's launch count (B14's and B15's wgmma counts and
-    B10's tensor-core count too) and plain version's call count to 0."""
-    for fn in kernel_wrappers().values():
+    """Set every kernel's launch count (the SUB_COUNTS too) and plain
+    version's call count to 0."""
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
         fn.launches = 0
-    kernel_wrappers()["flash_attention"].wgmma_launches = 0
-    kernel_wrappers()["kernel_matvec"].tc_launches = 0
-    kernel_wrappers()["ssd_intra_chunk"].wgmma_launches = 0
+    for name, attr in SUB_COUNTS.values():
+        setattr(wrappers[name], attr, 0)
     for fn in plain_versions():
         fn.calls = 0
 
@@ -347,16 +369,14 @@ def read_counts() -> tuple[dict, dict]:
     """(launches by kernel, calls by plain version).  B14's launches are
     its total ("flash_attention") and those of its wgmma kernel
     ("flash_attention_wgmma"); the mma.sync and CUDA-core kernels took the
-    difference.  B10's and B15's likewise: "kernel_matvec" and its
-    tensor-core kernel's ("kernel_matvec_tc"), "ssd_intra_chunk" and its
-    wgmma kernel's ("ssd_intra_chunk_wgmma")."""
+    difference.  B10's, B15's, B3's and B12's likewise: "kernel_matvec"
+    and its tensor-core kernel's ("kernel_matvec_tc"), "ssd_intra_chunk"
+    and its wgmma kernel's ("ssd_intra_chunk_wgmma"), "policy_dist" and its
+    register-tiled kernel's ("policy_dist_tiled")."""
     wrappers = kernel_wrappers()
     launches = {name: fn.launches for name, fn in wrappers.items()}
-    launches["flash_attention_wgmma"] = (
-        wrappers["flash_attention"].wgmma_launches)
-    launches["kernel_matvec_tc"] = wrappers["kernel_matvec"].tc_launches
-    launches["ssd_intra_chunk_wgmma"] = (
-        wrappers["ssd_intra_chunk"].wgmma_launches)
+    for key, (name, attr) in SUB_COUNTS.items():
+        launches[key] = getattr(wrappers[name], attr)
     return launches, {fn.__name__: fn.calls for fn in plain_versions()}
 
 
@@ -373,9 +393,13 @@ def counted(fn):
 def require_launches(what: str, launches: dict, plain_calls: dict,
                      expected: dict) -> None:
     """``what`` launched exactly ``expected`` (every other kernel 0 times)
-    and ran no plain version."""
+    and ran no plain version.  Unless ``expected`` names it, every B12
+    launch must be of its register-tiled kernel (the kernel its wrapper
+    chooses for every shape of these paths in float32)."""
     want = dict.fromkeys(launches, 0)
     want.update(expected)
+    if "policy_dist_tiled" not in expected:
+        want["policy_dist_tiled"] = want["policy_dist"]
     require(launches == want, f"{what}: launches {launches} == expected "
             f"{want}")
     require(not any(plain_calls.values()),
@@ -495,9 +519,16 @@ def cross_dist_cost(dist, linv):
 
 
 def factor_cost(dleaf):
-    """leaf_factor: D read, L and L^-1 written; n0^3 / 3 flops for each."""
+    """leaf_factor: the lower triangle of D read, as the kernel reads it,
+    in the 32-byte sectors its rows touch; L and L^-1 written whole (zeros
+    above the diagonal included); n0^3 / 3 flops for each."""
     p, n0, _ = dleaf.shape
-    return 3 * dleaf.element_size() * p * n0 * n0, 2 * p * n0 ** 3 / 3
+    s = dleaf.element_size()
+    row = torch.arange(p * n0, dtype=torch.int64)
+    first = row * n0 * s                      # byte offset of each row
+    last = first + (row % n0 + 1) * s - 1     # of its diagonal entry's end
+    sectors = int((last // 32 - first // 32 + 1).sum())
+    return 32 * sectors + 2 * s * p * n0 * n0, 2 * p * n0 ** 3 / 3
 
 
 def matvec_cost(adiag, u, b):
@@ -795,7 +826,8 @@ def phase_build() -> None:
         timeout=60).stdout.splitlines()
     # the Hopper entries of each redesigned kernel: (how many instances)
     hopper = {"flash_wgmma_kernel": 8, "matvec_tc_kernel": 6,
-              "ssd_mma_kernel": 4, "ssd_wgmma_kernel": 1}
+              "ssd_mma_kernel": 4, "ssd_wgmma_kernel": 1,
+              "leaf_factor_kernel": 2, "policy_dist_tiled_kernel": 2}
     spills = {entry: [] for entry in hopper}
     for (name, mangled, lines), label in zip(entries, labels):
         for line in lines:
@@ -857,7 +889,8 @@ def phase_fit(dev) -> dict:
                 "kernel_matvec": 0, "kernel_tile": 0, "policy_dist": 0,
                 "leaf_update": 0, "flash_attention": 0,
                 "flash_attention_wgmma": 0, "ssd_intra_chunk": 0,
-                "kernel_matvec_tc": 0, "ssd_intra_chunk_wgmma": 0}
+                "kernel_matvec_tc": 0, "ssd_intra_chunk_wgmma": 0,
+                "policy_dist_tiled": 0}
     require(launches == expected,
             f"fit launches {launches} == expected {expected}")
     require(all(v == 0 for v in plain_calls.values()),
@@ -1033,13 +1066,57 @@ def phase_kernels_small(dev) -> None:
     bad = torch.eye(16, device=dev).expand(2, 16, 16).clone()
     bad[1, 5, 5] = -1.0                         # leaf 1 is indefinite
     lo, _ = leaf_factor(bad)
+    # the same in the ragged last panel of B3's kernel (n0 40)
+    bad40 = torch.eye(40, device=dev).expand(2, 40, 40).clone()
+    bad40[1, 35, 35] = -1.0
+    lo40, _ = leaf_factor(bad40)
     sync()
     require(bool(torch.isnan(chol[1]).any() and torch.isfinite(chol[0]).all()),
             "gram_chol: an indefinite block gives NaN, no clamp")
-    require(bool(torch.isnan(lo[1]).any() and torch.isfinite(lo[0]).all()),
-            "leaf_factor: an indefinite block gives NaN, no clamp")
-    say("[4 kernels] an indefinite Gram block and an indefinite leaf give "
-        "NaN (no pivot clamp) ok")
+    for what, out in (("n0 16", lo), ("n0 40, last panel", lo40)):
+        require(bool(torch.isnan(out[1]).any()
+                     and torch.isfinite(out[0]).all()),
+                f"leaf_factor ({what}): an indefinite block gives NaN, no "
+                "clamp")
+    say("[4 kernels] an indefinite Gram block and an indefinite leaf (n0 16, "
+        "and n0 40 in B3's ragged last panel) give NaN (no pivot clamp) ok")
+    check_factor_sizes(dev)
+
+
+def factor_leaves(p, n0, dtype, gen):
+    """p SPD leaves of n0: Gaussian Grams (sigma 1) of close points in D
+    features (mean squared distance ~0.5) plus 1e-2 I, kappa ~4e3 to 7e3
+    (tests/test_torch_leaf_policy_redesign.py's leaves, drawn here)."""
+    x = torch.randn((p, n0, D), generator=gen, device=gen.device,
+                    dtype=torch.float64) * (0.5 / math.sqrt(D))
+    k = torch.exp(-0.5 * torch.cdist(x, x) ** 2)
+    return (k + 1e-2 * torch.eye(n0, dtype=torch.float64, device=gen.device)
+            ).to(dtype).contiguous()
+
+
+def check_factor_sizes(dev) -> None:
+    """Phase 4: B3's gates (check_factor) at the grown leaf sizes and the
+    largest tile the kernel takes: n0 142, 167 and 240 in f32 (ragged last
+    panels of 14, 7 and 16 columns), 169 in f64; each launch of the
+    kernel (counted)."""
+    from repro_torch.kernels.hck_leaf.ops import leaf_factor
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    rows = []
+    for n0, dtype, p in ((142, torch.float32, 512), (167, torch.float32, 256),
+                         (240, torch.float32, 128), (169, torch.float64, 128)):
+        dleaf = factor_leaves(p, n0, dtype, gen)
+        before = leaf_factor.launches
+        rtol = 1e-4 if dtype == torch.float32 else 1e-10
+        rel, rel_inv, _, back, inv_err = check_factor(dleaf, rtol)
+        require(leaf_factor.launches == before + 1,
+                f"leaf_factor at n0 {n0} launched its kernel")
+        rows.append(f"n0 {n0} {str(dtype)[6:]} (P {p}): L rel {rel:.3e}, "
+                    f"L^-1 rel {rel_inv:.3e}, backward {back:.3e}, inverse "
+                    f"{inv_err:.3e}")
+    say("[4 kernels] leaf_factor at the grown and largest "
+        "leaf sizes: " + "; ".join(rows) + " (L within 1e-4 in f32, L and "
+        "L^-1 within 1e-10 in f64, both componentwise bounds) ok")
 
 
 def phase_exact(dev) -> None:
@@ -1103,6 +1180,73 @@ def phase_exact(dev) -> None:
     require(rel <= 1e-4, f"engine vs oracle rel {rel:.3e} <= 1e-4")
     say(f"[5 exact] f32 engine vs oos_reference_batch (f64) on 64 queries: "
         f"rel {rel:.3e} <= 1e-4 ok")
+    tf32_guard(lambda: krr.fit(
+        x32, labels, kernel=ker, lam=LAM, rank=RANK, leaf_size=LEAF,
+        classification=True, directions=dirs, landmark_index=idx), m32, q,
+        dev)
+
+
+def tf32_guard(refit, m32, q, dev) -> None:
+    """Phase 5, ROADMAP C11: the port's entry points keep single-pass TF32
+    off whatever the caller allows.  The f32 fit at n = 4,096 (``refit``,
+    which gave ``m32``) and a small ``ssd_chunked`` call run again under
+    ``torch.set_float32_matmul_precision("high")`` and must give the same
+    outputs, bit for bit, as with the flag off (the fit is first repeated
+    with the flag off: it is deterministic); the refitted model's
+    predictions are made under the flag too, so the queries' routing
+    projections and the engine run under it.  Control: a plain f32 product
+    under the flag strays ~1e3 times further from its f64 value than one
+    without, so the flag does act on this card."""
+    from repro_torch.models.ssm import ssd_chunked
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    b, s, h, p, g, n = 2, 512, 8, 64, 2, 64
+    x = torch.randn((b, s, h, p), generator=gen, device=dev)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, s, h), generator=gen, device=dev))
+    a = -torch.exp(torch.rand((h,), generator=gen, device=dev))
+    bm, cm = (torch.randn((b, s, g, n), generator=gen, device=dev)
+              for _ in range(2))
+    u, v = (torch.randn((512, 512), generator=gen, device=dev)
+            for _ in range(2))
+    exact = u.double() @ v.double()
+    y_off = ssd_chunked(x, dt, a, bm, cm)
+    again = refit()
+    off_err = rel_max(u @ v, exact)
+    torch.set_float32_matmul_precision("high")
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        hi_err = rel_max(u @ v, exact)
+        m_hi = refit()
+        z_hi = m_hi.predict(q)
+        y_hi = ssd_chunked(x, dt, a, bm, cm)
+        after = (torch.get_float32_matmul_precision(),
+                  torch.backends.cudnn.allow_tf32)
+    finally:
+        torch.set_float32_matmul_precision("highest")
+        torch.backends.cudnn.allow_tf32 = False
+    sync()
+    require(torch.equal(again.alpha, m32.alpha),
+            "the f32 fit at n=4,096 repeats bit for bit")
+    require(hi_err > 100 * off_err, f"control: an f32 product under "
+            f"precision 'high' is off by {hi_err:.3e} against {off_err:.3e} "
+            "without it (TF32 acts on this card)")
+    require(after == ("high", True), "the caller's flags are back after "
+            f"the calls: {after}")
+    require(torch.equal(m_hi.alpha, m32.alpha)
+            and torch.equal(z_hi, m32.predict(q)),
+            "krr.fit under set_float32_matmul_precision('high') gives the "
+            "same alpha and predictions as without")
+    require(torch.equal(y_hi, y_off), "ssd_chunked under "
+            "set_float32_matmul_precision('high') gives the same output as "
+            "without")
+    say(f"[5 exact] TF32 guard (ROADMAP C11): under "
+        f"set_float32_matmul_precision('high') and cuDNN TF32 on, the f32 "
+        f"fit at n={EXACT_N} (alpha, predictions) and ssd_chunked "
+        f"{(b, s, h, p)} "
+        f"equal their outputs with the flags off, bit for bit; the caller's "
+        f"flags are restored; control: a 512^2 f32 product under the flag "
+        f"rel {hi_err:.3e} from f64, {off_err:.3e} without ok")
 
 
 def phase_serve(fit) -> dict:
@@ -1262,15 +1406,44 @@ def sweep_timing(sw, res) -> list[dict]:
     stacked = time_ms(lambda: lops.leaf_factor(dleaf), 5)
     loop = time_ms(lambda: [lops.leaf_factor(d) for d in singles], 5)
     plain = time_ms(lambda: lref.hck_leaf_factor_ref(dleaf), 3)
+    chain = time_ms(lambda: factor_chain(dleaf), 3)
     bound = bound_ms(*factor_cost(dleaf))
     say(f"[9 timing] leaf_factor stacked over G={len(LAMS)} ridges "
-        f"({tuple(dleaf.shape)}): one launch {stacked:.4f} ms, {len(LAMS)} "
-        f"single launches {loop:.4f} ms, plain {plain:.4f} ms, bound "
-        f"{bound[0]:.4f} ms ({bound[1]})")
+        f"({tuple(dleaf.shape)}): one launch {stacked:.4f} ms, "
+        f"{len(LAMS)} single launches {loop:.4f} ms, "
+        f"plain {plain:.4f} ms, chain torch.linalg.cholesky + "
+        f"solve_triangular {chain:.4f} ms, bound {bound[0]:.4f} ms "
+        f"({bound[1]})")
     records[0]["leaf_factor_stacked"] = {
         "G": len(LAMS), "ms": stacked, "single_launches_ms": loop,
-        "plain_ms": plain, "bound_ms": bound[0]}
+        "plain_ms": plain, "library_chain_ms": chain, "bound_ms": bound[0]}
     return records
+
+
+def factor_chain(dleaf):
+    """B3's function as a chain of two PyTorch calls (the yardstick: no
+    one call computes both L and L^-1)."""
+    eye = torch.eye(dleaf.shape[-1], dtype=dleaf.dtype, device=dleaf.device)
+    return torch.linalg.solve_triangular(torch.linalg.cholesky(dleaf),
+                                         eye.expand_as(dleaf), upper=False)
+
+
+def factor_f64(dleaf, rec) -> None:
+    """Phase 9: B3 in float64 (the kernel the f64 fits of phases 5, 8b and
+    8c launch), on the fit's leaves cast to f64: the first EXACT_N / LEAF
+    of them (the shape of phase 5's f64 fit) and all of them, beside the
+    bound (f64 flops at the CUDA-core f64 rate)."""
+    from repro_torch.kernels.hck_leaf.ops import leaf_factor
+
+    rec["f64"] = {}
+    for what, d in (("exact_fit", dleaf[:EXACT_N // LEAF]), ("fit", dleaf)):
+        d = d.double().contiguous()
+        ms = time_ms(lambda d=d: leaf_factor(d), 10)
+        bound = bound_ms(*factor_cost(d), peak_flops=PEAK_F64)
+        rec["f64"][what] = {"shape": list(d.shape), "ms": ms,
+                            "bound_ms": bound[0], "bound_by": bound[1]}
+        say(f"[9 timing] leaf_factor f64 {tuple(d.shape)}: kernel "
+            f"{ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
 
 
 def sweep_launches(plan, f):
@@ -1428,7 +1601,8 @@ def phase_sweep(fit, dev) -> dict:
                 "hck_leaf_project": 3, "kernel_matvec": 0, "kernel_tile": 0,
                 "policy_dist": 0, "leaf_update": 0, "flash_attention": 0,
                 "flash_attention_wgmma": 0, "ssd_intra_chunk": 0,
-                "kernel_matvec_tc": 0, "ssd_intra_chunk_wgmma": 0}
+                "kernel_matvec_tc": 0, "ssd_intra_chunk_wgmma": 0,
+                "policy_dist_tiled": 0}
     got = {k: v for k, v in launches.items() if k != "oos_contract"}
     require(got == expected, f"sweep launches {got} == expected {expected}")
     require(launches["oos_contract"] > 0, "oos_contract on the sweep path")
@@ -2484,11 +2658,19 @@ def check_policy_dist(blocks, centers, metric, rtol):
     <= rtol * max d_plain (1e-5 in float32, 1e-12 in float64).  Both sum
     the features directly, in one order; the kernel fuses each
     multiply-add."""
-    from repro_torch.kernels.policy_stage.ops import policy_dist
+    from repro_torch.kernels.policy_stage import ops
     from repro_torch.kernels.policy_stage.ref import policy_dist_ref
 
-    got = policy_dist(blocks, centers, metric=metric)
+    got = ops.policy_dist(blocks, centers, metric=metric)
     want = policy_dist_ref(blocks, centers, metric=metric)
+    if ops.route(blocks.dtype, blocks.shape[2]) == "tiled":
+        # the register-tiled kernel sums as the pair_tile kernel does
+        old = torch.empty_like(got)
+        ops.launch_kernel("pair_tile", blocks, centers, old, metric=metric)
+        sync()
+        require(torch.equal(got, old), f"policy_dist[{metric}] "
+                f"{tuple(blocks.shape)}: tiled and pair_tile kernels equal "
+                "bit for bit")
     sync()
     rel = check_rel(f"policy_dist[{metric}] {tuple(blocks.shape)}", got, want,
                     rtol)
@@ -2558,11 +2740,42 @@ def lifecycle_b12(fit, dev) -> dict:
                                    x64.view(8, EXACT_N // 8, D)[:, :RANK]
                                    .contiguous(), "l1", 1e-12)
     say("[8c lifecycle] policy_dist vs plain, f32 at covtype width: "
-        + "; ".join(rows) + " (tolerance 1e-5 of the largest distance) ok; "
-        f"f64 at "
+        + "; ".join(rows) + " (tolerance 1e-5 of the largest distance; the "
+        "register-tiled kernel equal to the pair_tile kernel bit for bit) ok; "
+        "f64 at "
         f"n={EXACT_N}: l2 rel {rel64:.3e}, l1 rel {rel64_1:.3e} (tolerance "
         f"1e-12) ok")
+    policy_indices_f32(f, dev)
     return {"err": max(errs)}
+
+
+def policy_indices_f32(f, dev) -> None:
+    """Phase 8c (a): at covtype width in f32, levels 0, 6 and 11 of the
+    fit's tree, the k-means and leverage indices through B12 (its
+    register-tiled kernel, counted) equal the plain route's, from the same
+    draws."""
+    from repro_torch.kernels.policy_stage.ops import policy_dist
+    from repro_torch.landmarks.policy import get_policy
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    rows = []
+    for name in ("kmeans", "leverage"):
+        pol = get_policy(name)
+        for lvl in (0, LEVELS // 2, LEVELS - 1):
+            blocks = f.x_sorted.view(1 << lvl, f.n >> lvl, D)
+            draws = pol.draws(1 << lvl, f.n >> lvl, RANK, dtype=torch.float32,
+                              device=dev, generator=gen)
+            before = policy_dist.tiled_launches
+            idx_k, idx_p = route_indices(pol, blocks, draws)
+            tiled = policy_dist.tiled_launches - before
+            require(tiled > 0, f"{name} level {lvl}: the kernel route ran "
+                    "the register-tiled kernel")
+            require(torch.equal(idx_k, idx_p), f"f32 {name} level {lvl}: "
+                    "kernel and plain routes' indices equal")
+            rows.append(f"{name} level {lvl} ({tiled} tiled launches)")
+    say("[8c lifecycle] f32 at covtype width, the policies' indices through "
+        "the register-tiled kernel equal the plain route's: "
+        + ", ".join(rows) + " ok")
 
 
 def policy_fit(fit, dev, name):
@@ -2637,7 +2850,7 @@ def policy_parity_f64(dev) -> dict:
                              "gram_chol": EXACT_LEVELS + 1,
                              "cross_solve": EXACT_LEVELS,
                              "policy_dist": (9 if name == "kmeans" else 2)
-                             * EXACT_LEVELS})
+                             * EXACT_LEVELS, "policy_dist_tiled": 0})
         plain_idx = []
         for lvl in range(EXACT_LEVELS):
             blocks = x_sorted.view(1 << lvl, EXACT_N >> lvl, D)
@@ -3024,53 +3237,42 @@ def b13_f64(dev) -> str:
 
 def lifecycle_timing(fit, km, up, b12) -> list[dict]:
     """Phase 9, lifecycle: B12 at the k-means fit's twelve launch shapes
-    (one Lloyd round) and the leverage pilot's, B13 at round 1's launch,
-    beside their bounds, plain and library times."""
-    from repro_torch.kernels.policy_stage.ops import policy_dist
-    from repro_torch.kernels.policy_stage.ref import policy_dist_ref
+    (one Lloyd round) and the leverage pilot's, its register-tiled kernel
+    against the pair_tile kernel in turns, B13 at round 1's launch, beside
+    their bounds, plain and library times."""
     from repro_torch.kernels.update_stage.ops import leaf_update
     from repro_torch.kernels.update_stage.ref import leaf_update_ref
 
     src, tpu = "src/repro_torch/csrc/", "src/repro/kernels/"
     f = km["model"].factors
-    ms, pl, lib, bd = [], [], [], []
+    rows = []
     for lvl in range(LEVELS):
         blocks = f.x_sorted.view(1 << lvl, f.n >> lvl, D)
-        lm = f.landmarks[lvl]
-        ms.append(time_ms(lambda: policy_dist(blocks, lm), 5))
-        pl.append(time_ms(lambda: policy_dist_ref(blocks, lm), 2, warmup=1))
-        lib.append(time_ms(lambda: torch.cdist(blocks, lm) ** 2, 3))
-        bd.append(bound_ms(*policy_dist_cost(blocks, lm)))
-    part = lambda i: {"ms": ms[i], "plain_ms": pl[i], "library_ms": lib[i],
-                      "bound_ms": bd[i][0]}
+        rows.append(dist_timing(blocks, f.landmarks[lvl], "l2", reps=5))
+    round_ = {k: sum(r[k] for r in rows) for k in rows[0]
+              if k not in ("turns_ms", "bound_by")}
     whole = f.x_sorted.view(1, f.n, D)
     pilot = whole[:, :2 * RANK].contiguous()
-    lev = {"ms": time_ms(lambda: policy_dist(whole, pilot), 5),
-           "plain_ms": time_ms(lambda: policy_dist_ref(whole, pilot), 2,
-                               warmup=1),
-           "library_ms": time_ms(lambda: torch.cdist(whole, pilot) ** 2, 3),
-           "bound_ms": bound_ms(*policy_dist_cost(whole, pilot))[0]}
     mid = LEVELS // 2
     blocks_m, lm_m = f.x_sorted.view(1 << mid, f.n >> mid, D), f.landmarks[mid]
-    l1 = {"ms": time_ms(lambda: policy_dist(blocks_m, lm_m, metric="l1"), 5),
-          "plain_ms": time_ms(lambda: policy_dist_ref(blocks_m, lm_m,
-                                                      metric="l1"), 2,
-                              warmup=1),
-          "library_ms": time_ms(lambda: torch.cdist(blocks_m, lm_m, p=1), 3),
-          "bound_ms": bound_ms(*policy_dist_cost(blocks_m, lm_m, "l1"))[0]}
-    parts = {f"level{lvl}": part(lvl) for lvl in (0, mid, LEVELS - 1)}
+    parts = {f"level{lvl}": rows[lvl] for lvl in (0, mid, LEVELS - 1)}
+    parts["leverage_pilot_level0"] = dist_timing(whole, pilot, "l2", reps=5)
+    parts[f"l1_level{mid}"] = dist_timing(blocks_m, lm_m, "l1", reps=5)
     fit_launches = km["launches"]["policy_dist"] + km["lev_launches"]
     rec12 = kernel_record(
         "policy_dist", src + "policy_dist.cu",
         tpu + "policy_stage/policy_stage.py:48", fit_launches, b12["err"],
-        sum(ms), sum(pl), (sum(b[0] for b in bd), bd[0][1]),
-        library=sum(lib),
+        round_["ms"], round_["plain_ms"], (round_["bound_ms"], "bytes"),
+        library=round_["library_ms"],
         unit=f"one k-means assignment round: {LEVELS} launches, one per "
              f"level (B x m = {f.n} rows, r = {RANK}, d = {D}, f32)",
         library_call="torch.cdist(p=2) ** 2 (p=1 for l1)",
+        previous_ms=round_["previous_ms"],
+        direct_sum_floor_ms=round_["direct_sum_floor_ms"],
         launches_kmeans_fit=km["launches"]["policy_dist"],
-        launches_leverage_fit=km["lev_launches"],
-        leverage_pilot_level0=lev, **{f"l1_level{mid}": l1}, **parts)
+        launches_leverage_fit=km["lev_launches"], **parts)
+    require(all(r["bound_by"] == "bytes" for r in rows),
+            "policy_dist's bound is its bytes at every level")
     lo, linv, b, c = up["b13_args"]
     eye = torch.eye(b.shape[1], device=b.device)
 
@@ -3100,16 +3302,51 @@ def lifecycle_timing(fit, km, up, b12) -> list[dict]:
         if "library_chain_ms" in rec:
             extra = (f", chain {rec['library_chain']} "
                      f"{rec['library_chain_ms']:.4f} ms")
+        if "previous_ms" in rec:
+            extra += (f", previous design {rec['previous_ms']:.4f} ms, "
+                      f"direct-sum issue floor "
+                      f"{rec['direct_sum_floor_ms']:.4f} ms")
         say(f"[9 timing] {rec['name']} ({rec['unit']}): kernel "
             f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, library "
             f"{rec['library_ms']} ms{extra}, bound {rec['bound_ms']:.4f} ms "
             f"({rec['bound_by']}), launches {rec['launches']}")
-    for key in (*parts, "leverage_pilot_level0", f"l1_level{mid}"):
+    for key in parts:
         p = rec12[key]
-        say(f"[9 timing]   policy_dist {key}: kernel {p['ms']:.4f} ms, plain "
-            f"{p['plain_ms']:.4f} ms, library {p['library_ms']:.4f} ms, bound "
-            f"{p['bound_ms']:.4f} ms")
+        say(f"[9 timing]   policy_dist {key}: kernel {p['ms']:.4f} ms, "
+            f"previous design {p['previous_ms']:.4f} ms (in turns: "
+            f"{p['turns_ms']}), plain {p['plain_ms']:.4f} ms, library "
+            f"{p['library_ms']:.4f} ms, bound {p['bound_ms']:.4f} ms, "
+            f"direct-sum issue floor {p['direct_sum_floor_ms']:.4f} ms")
     return [rec12, rec13]
+
+
+def dist_timing(blocks, centers, metric, reps) -> dict:
+    """B12 at one launch's shape: its register-tiled kernel (the path) and
+    the pair_tile kernel it replaced in turns (tiled, pair_tile, pair_tile,
+    tiled), the plain version, one torch.cdist call, the bound (bytes),
+    and the direct sum's issue floor: an FSUB and an FFMA (or FADD) per
+    feature and pair at 132 SMs x 128 lanes x 1.98 GHz."""
+    from repro_torch.kernels.policy_stage import ops
+    from repro_torch.kernels.policy_stage.ref import policy_dist_ref
+
+    b, m, d = blocks.shape
+    r = centers.shape[1]
+    out = torch.empty((b, m, r), dtype=blocks.dtype, device=blocks.device)
+    turns = [time_ms(lambda k=k: ops.launch_kernel(k, blocks, centers, out,
+                                                   metric=metric), reps)
+             for k in ("tiled", "pair_tile", "pair_tile", "tiled")]
+    library = ((lambda: torch.cdist(blocks, centers, p=1)) if metric == "l1"
+               else (lambda: torch.cdist(blocks, centers) ** 2))
+    bound = bound_ms(*policy_dist_cost(blocks, centers, metric))
+    return {"ms": (turns[0] + turns[3]) / 2,
+            "previous_ms": (turns[1] + turns[2]) / 2,
+            "turns_ms": {"tiled": [turns[0], turns[3]],
+                         "pair_tile": [turns[1], turns[2]]},
+            "plain_ms": time_ms(lambda: policy_dist_ref(
+                blocks, centers, metric=metric), 2, warmup=1),
+            "library_ms": time_ms(library, 3),
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "direct_sum_floor_ms": 2 * d * b * m * r / PEAK_F32 * 2e3}
 
 
 def phase_lifecycle(fit, sw, dev) -> dict:
@@ -3637,17 +3874,15 @@ def phase_timing(fit, res, served) -> list[dict]:
         w_largest_level={"ms": ms[-1], "plain_ms": pl[-1],
                          "bound_ms": bd[-1][0]}))
     dleaf = args["dleaf"]
-    chain = lambda: torch.linalg.solve_triangular(
-        torch.linalg.cholesky(dleaf), torch.eye(
-            LEAF, device=dleaf.device).expand_as(dleaf), upper=False)
     records.append(kernel_record(
         "leaf_factor", src + "leaf_factor.cu",
         tpu + "hck_leaf/hck_leaf.py:194", fl["leaf_factor"],
         res["leaf_factor"], time_ms(lambda: lops.leaf_factor(dleaf), 10),
         time_ms(lambda: lref.hck_leaf_factor_ref(dleaf), 10),
         bound_ms(*factor_cost(dleaf)), unit="one launch",
-        library_chain_ms=time_ms(chain, 10),
+        library_chain_ms=time_ms(lambda: factor_chain(dleaf), 10),
         library_chain="torch.linalg.cholesky + solve_triangular"))
+    factor_f64(dleaf, records[-1])
     a = args["solve"]
     records.append(kernel_record(
         "leaf_solve", src + "leaf_solve.cu", tpu + "hck_leaf/hck_leaf.py:123",
@@ -3693,6 +3928,9 @@ def phase_timing(fit, res, served) -> list[dict]:
         if "library_chain_ms" in rec:
             extra = (f", chain {rec['library_chain']} "
                      f"{rec['library_chain_ms']:.4f} ms")
+        if "previous_ms" in rec:
+            extra += (f", previous design {rec['previous_ms']:.4f} ms (in "
+                      f"turns: {rec['turns_ms']})")
         say(f"[9 timing] {rec['name']} ({rec['unit']}): kernel "
             f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, library "
             f"{rec['library_ms']} ms{extra}, bound {rec['bound_ms']:.4f} ms "
@@ -3779,7 +4017,9 @@ def main() -> int:
     from repro_torch import device
 
     dev = device.resolve("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in f32
+    # the plain versions that this script calls directly, in full f32 (the
+    # port's entry points turn TF32 off themselves: phase 5 checks it)
+    torch.set_float32_matmul_precision("highest")
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     kind, _ = phase_device()

@@ -33,6 +33,7 @@ from repro_torch.core.kernels_fn import KERNEL_METRIC, BaseKernel
 from repro_torch.core.krr import _health_probe
 from repro_torch.core.partition import rp_directions
 from repro_torch.kernels.registry import SolveConfig
+from repro_torch.precision import entry_point
 
 Tensor = torch.Tensor
 
@@ -88,6 +89,7 @@ class HCKGaussianProcess:
                 - 0.5 * n * math.log(2 * math.pi))
 
 
+@entry_point
 def fit_gp(
     x, y, *, kernel: BaseKernel, noise: float, rank: int, levels: int,
     solve_config: SolveConfig | None = None, device=None,
@@ -240,6 +242,7 @@ def slq_row(factors: HCKFactors, y_sorted: Tensor, noises, *,
     return torch.stack(quads), lds
 
 
+@entry_point
 def mle_grid(
     x, y, *, levels: int, rank: int, sigmas, noises, name: str = "gaussian",
     jitter: float = 1e-5, solve_config: SolveConfig | None = None,

@@ -28,6 +28,7 @@ from repro_torch.core import hmatrix
 from repro_torch.core.hck import HCKFactors
 from repro_torch.core.kernels_fn import BaseKernel
 from repro_torch.kernels.registry import SolveConfig
+from repro_torch.precision import entry_point
 
 Tensor = torch.Tensor
 
@@ -117,6 +118,7 @@ class KPCAModel:
     def _scale(self) -> Tensor:
         return torch.sqrt(torch.clamp(self.evals, min=1e-30))
 
+    @entry_point
     def transform(self, queries: Tensor) -> Tensor:
         """(q, d) -> (q, dim) coordinates in the principal subspace."""
         dim = self.embedding.shape[1]
@@ -125,6 +127,7 @@ class KPCAModel:
         return proj / self._scale()[None]
 
 
+@entry_point
 def kpca_fit(
     f: HCKFactors, kernel: BaseKernel, dim: int, *, iters: int = 50,
     v0: Tensor | None = None, generator: torch.Generator | None = None,

@@ -36,6 +36,7 @@ from repro_torch.core.kernels_fn import BaseKernel
 from repro_torch.core.partition import (auto_levels, auto_levels_ceil,
                                         pad_points)
 from repro_torch.kernels.registry import SolveConfig
+from repro_torch.precision import entry_point
 
 Tensor = torch.Tensor
 
@@ -87,11 +88,13 @@ class HCKRegressor:
 
         return PredictEngine.attach(self)
 
+    @entry_point
     def predict(self, queries: Tensor) -> Tensor:
         """(q, d) -> (q,) when fit with 1-D y, else (q, k) scores."""
         z = self.engine(queries)
         return z[:, 0] if self.squeeze else z
 
+    @entry_point
     def predict_class(self, queries: Tensor) -> Tensor:
         """(q, d) -> (q,) predicted class labels (classification fits)."""
         if self.classes is None:
@@ -129,6 +132,7 @@ def _health_probe(stage: str, value, config: SolveConfig | None) -> None:
     del stage, value, config
 
 
+@entry_point
 def fit(
     x, y, *, kernel: BaseKernel, lam: float, rank: int,
     leaf_size: int | None = None, levels: int | None = None,
@@ -283,6 +287,7 @@ def _stale_preconditioner(f_new: HCKFactors, inv_base, n0_old: int,
     return precond
 
 
+@entry_point
 def fit_incremental(
     model: HCKRegressor, x_new, y_new, *, refresh: str = "inverse",
     policy=None, generator: torch.Generator | None = None, pad_index=None,
@@ -467,6 +472,7 @@ def _path_scores(factors: HCKFactors, alphas: Tensor, x_val: Tensor,
             / torch.linalg.vector_norm(yv))
 
 
+@entry_point
 def fit_path(
     x, y, *, kernel: BaseKernel, lams, rank: int | None = None,
     leaf_size: int | None = None, levels: int | None = None,
@@ -570,12 +576,14 @@ class ExactKRR:
         return ExactKernelOp(self.x, self.kernel, self.solve_config,
                              row_chunk=self.row_chunk)
 
+    @entry_point
     def predict(self, queries) -> Tensor:
         """(q, d) -> (q,) when fit with 1-D y, else (q, k) scores."""
         queries = torch.as_tensor(queries, device=self.x.device)
         z = self._op().cross_matvec(queries, self.alpha)
         return z[:, 0] if self.squeeze else z
 
+    @entry_point
     def predict_class(self, queries) -> Tensor:
         """(q, d) -> (q,) predicted class labels (classification fits)."""
         if self.classes is None:
@@ -652,6 +660,7 @@ def _hck_preconditioner(x: Tensor, *, kernel: BaseKernel, lam: float,
     return precond, factors, inv
 
 
+@entry_point
 def fit_exact(
     x, y, *, kernel: BaseKernel, lam: float, rank: int = 64,
     leaf_size: int | None = None, levels: int | None = None,

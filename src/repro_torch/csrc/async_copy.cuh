@@ -1,0 +1,39 @@
+// cp.async copies of single elements from device memory into shared
+// memory, used where a tile is staged into a padded or transposed layout
+// that a bulk (TMA) copy cannot write: leaf_factor.cu (B3, rows of odd
+// stride) and policy_dist.cu (B12, feature-major tiles).  The copies run
+// asynchronously to the issuing threads, so a block keeps every load of a
+// tile in flight at once (and, with two buffers, behind its math).
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace acopy {
+
+// One float or double from ``src`` into ``dst``; when ``valid`` is false
+// nothing is read and ``dst`` is zero-filled (``src`` must still be a
+// mapped address).
+template <typename T>
+__device__ __forceinline__ void element(T* dst, const T* src, bool valid) {
+  static_assert(sizeof(T) == 4 || sizeof(T) == 8, "4- or 8-byte elements");
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s),
+               "l"(src), "n"(static_cast<int>(sizeof(T))),
+               "r"(valid ? static_cast<int>(sizeof(T)) : 0)
+               : "memory");
+}
+
+// Closes the group of copies this thread has issued since the last commit.
+__device__ __forceinline__ void commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed groups are pending.
+template <int N>
+__device__ __forceinline__ void wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+}  // namespace acopy

@@ -1,6 +1,7 @@
 // Block-cooperative Cholesky factorization of one SPD tile held in shared
-// memory, shared by the gram_chol (build_stage.cu) and leaf_factor
-// (leaf_factor.cu) kernels.  The CUDA counterpart of
+// memory, shared by the gram_chol (build_stage.cu), gram_chol_dist
+// (build_dist.cu) and leaf_update (leaf_update.cu) kernels; leaf_factor.cu
+// takes its chol_sqrt.  The CUDA counterpart of
 // src/repro/kernels/build_stage/build_stage.py::_cholesky_in_vmem.
 //
 // The TPU body extracts each column with one-hot contractions because

@@ -7,77 +7,423 @@
 //   (_factor_body, _tri_inv_in_vmem).
 //
 // Shapes: dleaf (P, n0, n0) -> lo, linv (P, n0, n0), row-major and
-// contiguous; T is float or double and every sum is taken in T.
+// contiguous; T is float or double and every sum is taken in T.  Only the
+// lower triangle of D is read; both outputs hold zeros above the diagonal.
 //
 // Bound on the H100: bytes at the covtype shape (P = 4,096, n0 = 128,
-// f32): 805 MB (D read, L and L^-1 written), ~0.24 ms at 3.35 TB/s,
-// against ~4 GFLOP (n0^3 / 3 for the factor, n0^3 / 3 for the inverse).
-// Each block's two m-step sequential loops make it latency-bound per block;
-// the card hides that with several blocks per SM (66 KB of shared memory
-// each in f32, so three per SM).
+// f32): 679 MB (the lower triangle of D read in the 32-byte sectors its
+// rows touch, L and L^-1 written whole), ~0.20 ms at 3.35 TB/s, against
+// ~5.7 GFLOP (n0^3 / 3 for the factor, n0^3 / 3 for the inverse,
+// ~0.09 ms at the f32 CUDA-core rate).  Each leaf is a chain of dependent
+// steps, so the kernel is bound by that chain's latency unless the card
+// runs many leaves side by side; no tensor cores (the work is below the
+// bytes bound).
 //
-// Design: one block per leaf.  The tile is loaded with coalesced copies
-// into shared memory (row stride n0 + 1), factored in place by the shared
-// right-looking Cholesky (chol_smem.cuh: no pivot clamp, NaN for a block
-// that is not positive definite) and written as L.  Then L is inverted in
-// place, one row at a time by forward substitution:
-//   X[i][c] = (delta_ic - sum_{k=c}^{i-1} L[i][k] X[k][c]) / L[i][i],
-// with row i of L copied to a buffer first, since rows < i already hold X
-// and row i is overwritten; threads take the columns c <= i.  One tile
-// only: n0 (n0 + 1) + n0 values, so n0 <= 240 in f32 and <= 169 in f64
-// (the wrapper raises beyond).
+// One block per leaf.  The tile is staged with cp.async into shared
+// memory at an odd row stride (column reads by a warp fall on distinct
+// banks) and factored in panels of NB = 32 columns, the last one ragged:
+//   1. warp 0 factors the 32 x 32 diagonal block in registers, lane i
+//      holding row i: each pivot's square root and reciprocal (stored),
+//      the column scaled by it and passed to every lane through a small
+//      shared buffer (no block barrier); the next pivot is computed while
+//      the column is in flight;
+//   2. all threads compute the panel below, L21 = A21 L11^-T, by forward
+//      substitution on each row (not by a product with an inverse, which
+//      would lose the componentwise backward-error bound);
+//   3. all threads apply A22 -= L21 L21^T to the lower triangle only, in
+//      register tiles.
+// Then L^-1 = X by block columns from the right (Du Croz and Higham,
+// "Stability of methods for matrix inversion", IMA J. Numer. Anal. 12,
+// 1992: the method that bounds the left residual |X L - I|): block column
+// j solves X_(:,j) L_jj = [I; -sum_{k>j} X_(:,k) L_(k,j)] by back
+// substitution on each row, so every row of X is a substitution with the
+// computed L and |X L - I| <= c n0 eps |X| |L| entry by entry.
+//
+// A block has 128 threads, so that three leaves of n0 = 128 (66.5 KB of
+// shared memory each in f32) share an SM and one leaf's serial steps
+// overlap the others' work.  A thread owns 4 rows x 4 columns of a
+// 32-column panel (rows rg + 16 i, columns cg + 8 j); the 8 lanes of a row
+// group pass each solved column by __shfl_sync.  Three barriers per panel
+// of the factor and two or three per block column of the inverse, against
+// two per column (2 n0 in all) in the column-by-column design this kernel
+// replaced, and a dependent chain of O(n0) steps per leaf in place of
+// O(n0^2).  The step loops stay loops (the fully unrolled panels do not
+// fit the instruction cache).  Shared memory: the (n0, n0 | 1) tile, n0
+// reciprocal pivots and a column buffer of 32, so n0 <= 240 in f32 and
+// <= 169 in f64 (the wrapper raises beyond).
+//
+// No pivot is clamped: a block that is not positive definite gives NaN.
+// Each block reads only its own leaf, so a leaf's factors do not
+// depend on the launch it is part of (invert_multi relies on that).
 #include <cuda_runtime.h>
 
-#include "chol_smem.cuh"
+#include "async_copy.cuh"
+#include "chol_smem.cuh"        // chol_sqrt
 #include "kernel_epilogue.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;
+constexpr int kMinBlocksF32 = 3;          // n0 = 128 f32 blocks an SM holds
+constexpr int kWarps = kThreads / 32;
+constexpr int kGroups = kThreads / 8;     // row groups of 8 lanes
+constexpr int NB = 32;                     // panel width
+constexpr int kDiagGroup = 8;              // diagonal-factor steps a trip
+constexpr int kPassRows = 4 * kGroups;    // rows of one register pass
+constexpr unsigned kFull = 0xffffffffu;
 
+__device__ __forceinline__ float fmadd(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+__device__ __forceinline__ double fmadd(double a, double b, double c) {
+  return fma(a, b, c);
+}
+
+// 32 values of the column buffer, 16 bytes a load (every lane reads the
+// same addresses: broadcasts).
+__device__ __forceinline__ void load_col(float (&cb)[NB], const float* col) {
+#pragma unroll
+  for (int q = 0; q < NB / 4; ++q) {
+    const float4 f = reinterpret_cast<const float4*>(col)[q];
+    cb[4 * q] = f.x;
+    cb[4 * q + 1] = f.y;
+    cb[4 * q + 2] = f.z;
+    cb[4 * q + 3] = f.w;
+  }
+}
+
+__device__ __forceinline__ void load_col(double (&cb)[NB],
+                                         const double* col) {
+#pragma unroll
+  for (int q = 0; q < NB / 2; ++q) {
+    const double2 f = reinterpret_cast<const double2*>(col)[q];
+    cb[2 * q] = f.x;
+    cb[2 * q + 1] = f.y;
+  }
+}
+
+// Step 1: warp 0 factors the diagonal block at (kb, kb), w <= NB wide,
+// lane i holding row kb + i in registers; v[t] is its entry in column
+// kDiagGroup g + t during the g-th group of steps (the row shifts down by
+// kDiagGroup columns a group, so the loop over groups stays a loop and its
+// code small).  Column j: l_jj = sqrt(a_jj) and l_ij = a_ij (1 / l_jj);
+// lane i puts l_ij in slot i - j of the shared column buffer ``col``
+// (lanes at or above j put zeros in the slots they map to), and every
+// lane reads the buffer back 16 bytes a load and takes a_ic -= l_ij l_cj
+// for all c > j.  Entries above the diagonal take these updates too but
+// are never read or stored.  The next pivot comes ahead of that broadcast:
+// lane j + 1 takes a_(j+1)(j+1) - l_(j+1)j^2 from its own l_(j+1)j (the
+// same fused multiply-add the broadcast would give it), and its square
+// root and reciprocal run while the column goes through shared memory.
+// Writes L11 (lower triangle) column by column and rdiag[kb + i] =
+// 1 / L_ii.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-leaf_factor_kernel(const T* __restrict__ dleaf, T* __restrict__ lo,
-                   T* __restrict__ linv, int n0) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int lda = n0 + 1;
-  T* a = reinterpret_cast<T*>(smem_raw);              // (n0, lda)
-  T* row = a + static_cast<size_t>(n0) * lda;         // (n0,)
-  const size_t off = static_cast<size_t>(blockIdx.x) * n0 * n0;
-  const int tid = threadIdx.x;
-  const int nn = n0 * n0;
+__device__ __forceinline__ void factor_diag(T* a, int lda, T* rdiag, T* col,
+                                            int kb, int w, int lane) {
+  T v[NB];
+  const bool live = lane < w;
+  T* row = a + (kb + min(lane, w - 1)) * lda + kb;
+#pragma unroll
+  for (int c = 0; c < NB; ++c) v[c] = (live && c < w) ? row[c] : T(0);
+  T rd = T(0);
+  T piv = chol_sqrt(__shfl_sync(kFull, v[0], 0));
+  T rp = T(1) / piv;
+#pragma unroll 1
+  for (int g = 0; kDiagGroup * g < w; ++g) {
+#pragma unroll
+    for (int s = 0; s < kDiagGroup; ++s) {
+      const int j = kDiagGroup * g + s;
+      if (j >= w) break;
+      const T lj = lane > j ? v[s] * rp : (lane == j ? piv : T(0));
+      if (lane == j) rd = rp;
+      const T piv_next = chol_sqrt(__shfl_sync(
+          kFull, fmadd(-lj, lj, v[s + 1]), (j + 1) & (NB - 1)));
+      if (live && lane >= j) row[j] = lj;
+      col[(lane - j) & (NB - 1)] = lane > j ? lj : T(0);
+      __syncwarp();
+      T cb[NB];
+      load_col(cb, col);
+      rp = T(1) / piv_next;
+      piv = piv_next;
+#pragma unroll
+      for (int t = s + 1; t < NB; ++t) v[t] = fmadd(-lj, cb[t - s], v[t]);
+      __syncwarp();                   // read before the next step writes
+    }
+#pragma unroll
+    for (int t = 0; t < NB - kDiagGroup; ++t) v[t] = v[t + kDiagGroup];
+#pragma unroll
+    for (int t = NB - kDiagGroup; t < NB; ++t) v[t] = T(0);
+  }
+  if (live) rdiag[kb + lane] = rd;
+}
 
-  for (int e = tid; e < nn; e += blockDim.x)
-    a[(e / n0) * lda + e % n0] = dleaf[off + e];
-  chol_smem(a, n0, lda);
-  for (int e = tid; e < nn; e += blockDim.x)
-    lo[off + e] = a[(e / n0) * lda + e % n0];
+// Step 2 on rows p0 + rg + 16 i (i < NII): y L11^T = a for the row's panel
+// entries, column by column; the owner of column j (lane cg = j % 8 of the
+// row group) passes y_j = a_j / L_jj to its 7 neighbours, which subtract
+// y_j L_kj from their columns k > j.
+template <int NII, typename T>
+__device__ __forceinline__ void forward_pass(T* a, int lda, const T* rdiag,
+                                             int kb, int w, int p0, int n0) {
+  const int tid = threadIdx.x, cg = tid & 7, rg = tid >> 3;
+  const int src0 = (tid & 31) & ~7;
+  T y[NII][4];
+  int rows[NII];
+#pragma unroll
+  for (int i = 0; i < NII; ++i) {
+    rows[i] = p0 + rg + kGroups * i;
+    const T* r = a + min(rows[i], n0 - 1) * lda + kb;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+      y[i][jj] = (cg + 8 * jj < w) ? r[cg + 8 * jj] : T(0);
+  }
+#pragma unroll
+  for (int jo = 0; jo < 4; ++jo) {       // column j = 8 jo + j8
+#pragma unroll 1
+    for (int j8 = 0; j8 < 8; ++j8) {
+      const int j = 8 * jo + j8;
+      if (j >= w) break;
+      const T rj = rdiag[kb + j];
+      T lkj[4];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int k = cg + 8 * jj;
+        lkj[jj] = (k > j && k < w) ? a[(kb + k) * lda + kb + j] : T(0);
+      }
+#pragma unroll
+      for (int i = 0; i < NII; ++i) {
+        const T yj = __shfl_sync(kFull, y[i][jo], src0 + j8) * rj;
+        if (cg == j8) y[i][jo] = yj;
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+          if (cg + 8 * jj > j) y[i][jj] = fmadd(-yj, lkj[jj], y[i][jj]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < NII; ++i) {
+    if (rows[i] >= n0) continue;
+    T* r = a + rows[i] * lda + kb;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+      if (cg + 8 * jj < w) r[cg + 8 * jj] = y[i][jj];
+  }
+}
 
-  for (int i = 0; i < n0; ++i) {
-    __syncthreads();                    // row i - 1 of X is complete
-    for (int c = tid; c <= i; c += blockDim.x) row[c] = a[i * lda + c];
-    __syncthreads();
-    const T pivot = row[i];
-    for (int c = tid; c <= i; c += blockDim.x) {
-      T s = (c == i) ? T(1) : T(0);
-      for (int k = c; k < i; ++k) s -= row[k] * a[k * lda + c];
-      a[i * lda + c] = s / pivot;
+// Step 3 on rows p0 + rg + 16 i (i < NII) and columns cb + cg + 8 j:
+// a[r][c] -= sum_k a[r][kb + k] a[c][kb + k] for c <= r.
+template <int NII, typename T>
+__device__ __forceinline__ void update_pass(T* a, int lda, int kb, int w,
+                                            int cb, int p0, int n0) {
+  const int tid = threadIdx.x, cg = tid & 7, rg = tid >> 3;
+  int rows[NII], cols[4], pr[NII], pc[4];  // pr, pc: offsets into a
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj) {
+    cols[jj] = cb + cg + 8 * jj;
+    pc[jj] = min(cols[jj], n0 - 1) * lda + kb;
+  }
+  T acc[NII][4];
+#pragma unroll
+  for (int i = 0; i < NII; ++i) {
+    rows[i] = p0 + rg + kGroups * i;
+    const int r = min(rows[i], n0 - 1);
+    pr[i] = r * lda + kb;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+      acc[i][jj] = a[r * lda + min(cols[jj], n0 - 1)];
+  }
+#pragma unroll 4
+  for (int k = 0; k < w; ++k) {
+    T lc[4], li[NII];
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) lc[jj] = a[pc[jj] + k];
+#pragma unroll
+    for (int i = 0; i < NII; ++i) li[i] = a[pr[i] + k];
+#pragma unroll
+    for (int i = 0; i < NII; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+        acc[i][jj] = fmadd(-li[i], lc[jj], acc[i][jj]);
+  }
+#pragma unroll
+  for (int i = 0; i < NII; ++i)
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+      if (rows[i] < n0 && cols[jj] <= rows[i])
+        a[rows[i] * lda + cols[jj]] = acc[i][jj];
+}
+
+// The inverse on rows p0 + rg + 16 i (i < NII) of block column j0 (w
+// wide): rhs = e_(r - j0) - sum_{k >= j0 + w} X[r][k] L[k][j0 + c] (X is
+// zero above its diagonal, so k stops at the row's own group), then
+// x L_jj = rhs by back substitution, column w - 1 first.  The caller's
+// rows of the panel are overwritten after a barrier: the other threads
+// still read L there.
+template <int NII, typename T>
+__device__ __forceinline__ void inverse_pass(T* a, int lda, const T* rdiag,
+                                             int j0, int w, int p0, int n0) {
+  const int tid = threadIdx.x, cg = tid & 7, rg = tid >> 3;
+  const int src0 = (tid & 31) & ~7;
+  int rows[NII], xr[NII];                  // xr, lc: offsets into a
+  T x[NII][4];
+#pragma unroll
+  for (int i = 0; i < NII; ++i) {
+    rows[i] = p0 + rg + kGroups * i;
+    xr[i] = min(rows[i], n0 - 1) * lda;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+      x[i][jj] = (rows[i] - j0 == cg + 8 * jj) ? T(1) : T(0);
+  }
+  int lc[4];
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj) lc[jj] = j0 + min(cg + 8 * jj, w - 1);
+  // k above this pass's rows feeds every row group; k in the pass's row
+  // group t feeds groups t and below only (X is zero above its diagonal)
+#pragma unroll
+  for (int t = -1; t < NII; ++t) {
+    const int k0 = t < 0 ? j0 + w : max(j0 + w, p0 + kGroups * t);
+    const int k1 = t < 0 ? p0 : min(n0, p0 + kGroups * (t + 1));
+#pragma unroll 4
+    for (int k = k0; k < k1; ++k) {
+      T l[4], xv[NII];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) l[jj] = a[lc[jj] + k * lda];
+#pragma unroll
+      for (int i = 0; i < NII; ++i)
+        if (i >= t) xv[i] = a[xr[i] + k];
+#pragma unroll
+      for (int i = 0; i < NII; ++i)
+        if (i >= t)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj)
+            x[i][jj] = fmadd(-xv[i], l[jj], x[i][jj]);
+    }
+  }
+#pragma unroll
+  for (int co = 3; co >= 0; --co) {      // column c = 8 co + c8
+#pragma unroll 1
+    for (int c8 = 7; c8 >= 0; --c8) {
+      const int c = 8 * co + c8;
+      if (c >= w) continue;
+      const T rc = rdiag[j0 + c];
+      T lck[4];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int k = cg + 8 * jj;
+        lck[jj] = (k < c) ? a[(j0 + c) * lda + j0 + k] : T(0);
+      }
+#pragma unroll
+      for (int i = 0; i < NII; ++i) {
+        const T xc = __shfl_sync(kFull, x[i][co], src0 + c8) * rc;
+        if (cg == c8) x[i][co] = xc;
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+          if (cg + 8 * jj < c) x[i][jj] = fmadd(-xc, lck[jj], x[i][jj]);
+      }
     }
   }
   __syncthreads();
-  for (int e = tid; e < nn; e += blockDim.x)
-    linv[off + e] = a[(e / n0) * lda + e % n0];
+#pragma unroll
+  for (int i = 0; i < NII; ++i) {
+    if (rows[i] >= n0) continue;
+    T* r = a + rows[i] * lda + j0;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+      if (cg + 8 * jj < w) r[cg + 8 * jj] = x[i][jj];
+  }
+}
+
+// Byte offset of the kernel's column buffer (NB values, 16-byte
+// aligned) after the tile and the reciprocal pivots; the buffer ends its
+// shared memory.
+__host__ __device__ constexpr size_t col_offset(int n0, int lda,
+                                                size_t item) {
+  return ((static_cast<size_t>(n0) * lda + n0) * item + 15) / 16 * 16;
+}
+
+// Runs pass ``Pass<NII>`` with NII = the rows of each thread that rows
+// [p0, n0) need (kGroups rows each), at most 4 (the same for every
+// thread).
+#define LEAF_PASS(pass, p0, n0, ...)                                  \
+  do {                                                                \
+    switch (min(4, ((n0) - (p0) + kGroups - 1) / kGroups)) {          \
+      case 1: pass<1>(__VA_ARGS__); break;                            \
+      case 2: pass<2>(__VA_ARGS__); break;                            \
+      case 3: pass<3>(__VA_ARGS__); break;                            \
+      default: pass<4>(__VA_ARGS__); break;                           \
+    }                                                                 \
+  } while (0)
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads,
+                                  sizeof(T) == 4 ? kMinBlocksF32 : 1)
+leaf_factor_kernel(const T* __restrict__ dleaf, T* __restrict__ lo,
+                           T* __restrict__ linv, int n0) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lda = n0 | 1;
+  T* a = reinterpret_cast<T*>(smem_raw);              // (n0, lda)
+  T* rdiag = a + n0 * lda;                            // (n0,)
+  T* col = reinterpret_cast<T*>(smem_raw + col_offset(n0, lda, sizeof(T)));
+  const size_t off = static_cast<size_t>(blockIdx.x) * n0 * n0;
+  const T* src = dleaf + off;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  for (int r = warp; r < n0; r += kWarps)
+    for (int c = lane; c < n0; c += 32) {
+      if (c <= r)
+        acopy::element(a + r * lda + c, src + static_cast<size_t>(r) * n0 + c,
+                       true);
+      else
+        a[r * lda + c] = T(0);
+    }
+  acopy::commit();
+  acopy::wait<0>();
+  __syncthreads();
+
+  for (int kb = 0; kb < n0; kb += NB) {
+    const int w = min(NB, n0 - kb);
+    if (warp == 0) factor_diag(a, lda, rdiag, col, kb, w, lane);
+    __syncthreads();                  // L11 and its pivots are final
+    const int below = kb + w;
+    if (below >= n0) break;
+    for (int p0 = below; p0 < n0; p0 += kPassRows)
+      LEAF_PASS(forward_pass, p0, n0, a, lda, rdiag, kb, w, p0, n0);
+    __syncthreads();                  // L21 is final
+    for (int cb = below; cb < n0; cb += NB)
+      for (int p0 = cb; p0 < n0; p0 += kPassRows)
+        LEAF_PASS(update_pass, p0, n0, a, lda, kb, w, cb, p0, n0);
+    __syncthreads();                  // A22 is updated
+  }
+  T* lout = lo + off;
+  for (int r = warp; r < n0; r += kWarps)
+    for (int c = lane; c < n0; c += 32)
+      lout[static_cast<size_t>(r) * n0 + c] = a[r * lda + c];
+
+  // Bottom passes first: a pass reads L of its block column only in rows
+  // at or above its own, so once the lower pass has stored X the upper
+  // one may still read the rows it needs.
+  for (int j0 = ((n0 - 1) / NB) * NB; j0 >= 0; j0 -= NB) {
+    const int w = min(NB, n0 - j0);
+    for (int p0 = j0 + ((n0 - j0 - 1) / kPassRows) * kPassRows; p0 >= j0;
+         p0 -= kPassRows)
+      LEAF_PASS(inverse_pass, p0, n0, a, lda, rdiag, j0, w, p0, n0);
+    __syncthreads();                  // block column j0 of X is final
+  }
+  T* xout = linv + off;
+  for (int r = warp; r < n0; r += kWarps)
+    for (int c = lane; c < n0; c += 32)
+      xout[static_cast<size_t>(r) * n0 + c] = a[r * lda + c];
 }
 
 template <typename T>
 int launch(const void* dleaf, void* lo, void* linv, int p, int n0,
            void* stream) {
   if (p == 0 || n0 == 0) return 0;
-  const size_t smem = (static_cast<size_t>(n0) * (n0 + 1) + n0) * sizeof(T);
-  const int err = launch_with_smem(leaf_factor_kernel<T>, smem);
+  const auto kernel = leaf_factor_kernel<T>;
+  const size_t smem = col_offset(n0, n0 | 1, sizeof(T)) + NB * sizeof(T);
+  const int err = launch_with_smem(kernel, smem);
   if (err) return err;
-  leaf_factor_kernel<T><<<p, kThreads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<p, kThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(dleaf), static_cast<T*>(lo),
       static_cast<T*>(linv), n0);
   return static_cast<int>(cudaGetLastError());

@@ -48,9 +48,11 @@ def leaf_project(u: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def factor_smem(n0: int, itemsize: int) -> int:
-    """Shared memory of one leaf_factor block: the (n0, n0 + 1) tile and a
-    row buffer."""
-    return (n0 * (n0 + 1) + n0) * itemsize
+    """Shared memory of one leaf_factor block (panels of 32 columns): the
+    (n0, n0) tile at row stride n0 | 1, the n0 reciprocal pivots and a
+    16-byte-aligned column buffer of 32 values; so n0 <= 240 in float32
+    and <= 169 in float64."""
+    return -(-(n0 * (n0 | 1) + n0) * itemsize // 16) * 16 + 32 * itemsize
 
 
 def solve_smem(n0: int, r: int, k: int, itemsize: int) -> int:

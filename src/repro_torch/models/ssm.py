@@ -16,6 +16,7 @@ import torch
 from torch import Tensor
 
 from repro_torch.kernels.registry import get_impl, resolve_backend
+from repro_torch.precision import entry_point
 
 
 def stage_ssd_intra_chunk(c: Tensor, b: Tensor, xdt: Tensor, cs: Tensor
@@ -36,6 +37,7 @@ def _fold_groups(m: Tensor, b: int, nc: int, chunk: int, h: int) -> Tensor:
     return m.expand(b, g, h // g, nc, chunk, n).reshape(b * h, nc, chunk, n)
 
 
+@entry_point
 def ssd_chunked(x: Tensor, dt: Tensor, a: Tensor, bmat: Tensor,
                 cmat: Tensor, *, chunk: int = 256) -> Tensor:
     """Chunked SSD scan.  x (B, S, H, P), dt (B, S, H) positive, a (H,)

@@ -21,6 +21,7 @@ from repro_torch.core import oos
 from repro_torch.core.hck import HCKFactors
 from repro_torch.core.kernels_fn import BaseKernel
 from repro_torch.kernels.registry import SolveConfig
+from repro_torch.precision import entry_point
 
 Tensor = torch.Tensor
 
@@ -108,6 +109,7 @@ class PredictEngine:
                     config=model.solve_config, **kwargs)
         return model._engine
 
+    @entry_point
     def apply(self, queries: Tensor) -> Tensor:
         """(q, d) -> (q, k).  Pads to the shape bucket with copies of the
         last row (they route like real queries and are sliced off) and

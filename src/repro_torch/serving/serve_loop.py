@@ -17,6 +17,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention_backends as ab
 from repro_torch.models import transformer as tf
 from repro_torch.models.model_zoo import make_decode_step, make_prefill_step
+from repro_torch.precision import entry_point
 
 
 @dataclasses.dataclass
@@ -30,6 +31,7 @@ class ServeSession:
     caches: dict | None = None
     pos: int = 0
 
+    @entry_point
     def prefill(self, batch: dict) -> Tensor:
         """Run the prompt (B, S), build the decode caches, return the last
         token's logits (B, V)."""
@@ -68,6 +70,7 @@ class ServeSession:
                 f: torch.stack([getattr(st, f) for st in states])
                 for f in ab.HCKDecodeState.FIELDS}
 
+    @entry_point
     def decode(self, tokens: Tensor, *, steps: int, temperature: float = 0.0,
                generator: torch.Generator | None = None) -> Tensor:
         """Generate ``steps`` tokens after ``tokens`` (B, 1): greedy, or

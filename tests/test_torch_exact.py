@@ -1,10 +1,13 @@
 """Port parity: exact-kernel KRR (repro_torch.core.krr.fit_exact and
-ExactKRR), ``gp.mle_grid(logdet="slq")``, the baselines, GP sampling, the
-converters of this slice, and the float32 solve of the structured inverse
-(ROADMAP C4).
+ExactKRR), ``gp.mle_grid(logdet="slq")``, the baselines, GP sampling and
+the converters of this slice.  ``test_torch_exact_pallas.py`` holds the
+same fits against the reference's Pallas route, and the float32 solve of
+the structured inverse (ROADMAP C4): the two slow halves of this slice's
+tests sit in two files, so that a scheduler that gives each file one
+worker runs them side by side.
 
-The JAX reference fits in float64 under its ``xla`` backend and its Pallas
-kernels in interpret mode; the port fits the same numpy data on the CPU
+The JAX reference fits in float64 under its ``xla`` backend (here) and its
+Pallas kernels in interpret mode; the port fits the same numpy data on the CPU
 with the reference's draws injected: the preconditioner's padding rows,
 noise, directions and landmarks, EigenPro's subsample, the SLQ probes and
 the baselines' draws.  n = 450 does not fill the preconditioner's tree,
@@ -32,7 +35,7 @@ from repro.kernels.registry import SolveConfig as JSolveConfig
 from repro_torch import convert
 from repro_torch.core import baselines, gp, hck, hmatrix, krr, sampling
 from repro_torch.core.kernels_fn import BaseKernel
-from repro_torch.core.partition import auto_levels, pad_points
+from repro_torch.core.partition import auto_levels
 
 N, D, RANK = 450, 4, 32
 SIGMA, JITTER, LAM, TOL = 1.0, 1e-5, 1.0, 1e-9
@@ -92,10 +95,10 @@ def precond_draws(key, x, rank):
                                               rank))
 
 
-@pytest.fixture(scope="module", params=["xla", "pallas"])
-def exact_fits(request, f64):
-    """Per case: (reference model, port model fitted on the CPU, queries)."""
-    cfg = JSolveConfig(backend=request.param, interpret=True)
+def fit_cases(backend):
+    """Per case: (reference model under ``backend``, port model fitted on
+    the CPU, queries)."""
+    cfg = JSolveConfig(backend=backend, interpret=True)
     key = jax.random.PRNGKey(3)
     out = {}
     for case in CASES:
@@ -115,6 +118,12 @@ def exact_fits(request, f64):
                            device="cpu", row_chunk=128, **opts, **kw, **draws)
         out[case] = (m, pm, q)
     return out
+
+
+@pytest.fixture(scope="module", params=["xla"])
+def exact_fits(request, f64):
+    """Per case: (reference model, port model fitted on the CPU, queries)."""
+    return fit_cases(request.param)
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -366,41 +375,3 @@ def test_sampling_matches_reference(f64):
     own = sampling.sample_prior(f, ridge=1.0, num_samples=2,
                                 generator=torch.Generator().manual_seed(4))
     assert own.shape == (2, 256) and bool(torch.isfinite(own).all())
-
-
-# ---------------------------------------------------------------------------
-# ROADMAP C4: the float32 structured-inverse solve at covtype width
-# ---------------------------------------------------------------------------
-
-def test_f32_fit_solves_at_covtype_width():
-    """krr.fit in float32 on the CPU at n = 116,000 (padded to 131,072),
-    covtype's width and chip_smoke.py's synthetic data: the residual
-    ||(K_hck + lam I) alpha - y|| / ||y|| through the port's own f32 matvec
-    reaches the f32 floor, eps32 ||K_hck 1|| / ||1||.  The explicit
-    inverse blocks (the reference's xla route) reach 1.12e-2 here, 7x
-    above that floor; the fused leaf_solve route that apply_inverse now
-    takes reaches ~3e-5."""
-    n, d, classes = 116_000, 54, 7
-    gen = torch.Generator().manual_seed(0)
-    g = torch.randn((d, classes), generator=gen)
-    x = math.sqrt(2.0 / d) * torch.randn((n, d), generator=gen)
-    t = x @ g
-    labels = torch.argmax(torch.sin(3.0 * t) + 0.5 * t * t, dim=1)
-    model = krr.fit(x, labels, kernel=BaseKernel("gaussian", 1.0, 1e-5),
-                    lam=1e-2, rank=128, classification=True, device="cpu",
-                    generator=torch.Generator().manual_seed(1))
-    f = model.factors
-    assert f.n == 131_072 and f.levels == 10 and model.alpha.dtype == \
-        torch.float32
-    # targets in tree order, the padding rows copying their sources'
-    targets = torch.where(labels[:, None] == torch.arange(classes), 1.0, -1.0)
-    _, y_pad, _ = pad_points(x, targets, 128, 10,
-                             generator=torch.Generator().manual_seed(1))
-    y_sorted = y_pad[f.tree.perm]
-    resid = y_sorted - hmatrix.matvec(f, model.alpha) - 1e-2 * model.alpha
-    rel = float(torch.linalg.vector_norm(resid)
-                / torch.linalg.vector_norm(y_sorted))
-    ones = torch.ones((f.n, 1))
-    floor = torch.finfo(torch.float32).eps * float(
-        torch.linalg.vector_norm(hmatrix.matvec(f, ones)) / math.sqrt(f.n))
-    assert rel <= floor, (rel, floor)

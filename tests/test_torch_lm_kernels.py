@@ -13,6 +13,7 @@ the card, where chip_smoke.py holds them against these plain versions.
 """
 import types
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -147,13 +148,34 @@ def _ssd_block(seed, bh=6, nc=2, q=16, n=8, p=8):
     return c, b, xdt, cs
 
 
+def _state(*arrays):
+    """The process state a float32 comparison depends on, for the failure
+    message: JAX's x64 flag and default matmul precision, the dtypes the
+    JAX side computed in, torch's float32 matmul flags and threads."""
+    return (f"jax_enable_x64={jax.config.jax_enable_x64} "
+            f"jax_default_matmul_precision="
+            f"{jax.config.jax_default_matmul_precision} jax dtypes "
+            f"{[str(a.dtype) for a in arrays]} torch allow_tf32 "
+            f"{torch.backends.cuda.matmul.allow_tf32} threads "
+            f"{torch.get_num_threads()}")
+
+
 def test_ssd_intra_chunk_matches_reference_and_pallas():
     args = _ssd_block(0)
     got = ssd_intra_chunk_ref(*map(torch.from_numpy, args))
     assert got.dtype == torch.float32
     jargs = tuple(map(jnp.asarray, args))
-    _close(got, jssd_ref(*jargs), 1e-5)
-    _close(got, jssd_intra_chunk(*jargs, interpret=True), 1e-5)
+    # the JAX side pinned: float32 inputs (above) and full-precision
+    # products, whatever another test left in jax.config (ROADMAP C9)
+    with jax.default_matmul_precision("highest"):
+        want_ref = jssd_ref(*jargs)
+        want_pallas = jssd_intra_chunk(*jargs, interpret=True)
+    state = _state(*jargs, want_ref, want_pallas)
+    for want in (want_ref, want_pallas):
+        try:
+            _close(got, want, 1e-5)
+        except AssertionError as err:
+            raise AssertionError(f"{err}; {state}") from None
     launches = ssd_ops.ssd_intra_chunk.launches
     torch.testing.assert_close(
         ssd_ops.ssd_intra_chunk(*map(torch.from_numpy, args)), got, rtol=0,
