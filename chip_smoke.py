@@ -10,12 +10,14 @@ result.  Phases, each of which raises on failure:
               entry's registers and spills (all eight instances of B14's
               wgmma kernel, all six of B10's tensor-core kernel, B15's
               wgmma kernel and all four of its mma.sync kernel, both of
-              B3's kernel and both of B12's register-tiled kernel there,
-              none spilling), and the wgmma (HGMMA), mma.sync
+              B3's kernel, both of B12's register-tiled kernel, both of
+              B8's grouped kernel and all four of B9's grouped tensor-core
+              kernel there, none spilling; any ptxas C7519 line of
+              build_dist), and the wgmma (HGMMA), mma.sync
               (HMMA), TMA-load
-              (UTMALDG) and mbarrier (SYNCS) instructions of the B14, B10
-              and B15 libraries (HGMMA and UTMALDG required of all three,
-              HMMA of B15's too);
+              (UTMALDG) and mbarrier (SYNCS) instructions of the B14, B10,
+              B15 and B8/B9 libraries (HGMMA and UTMALDG required of the
+              first three, HMMA of B15's and of build_dist);
  2b. lm       Zamba2-7B serving at full width in bf16 (random weights from
               SEED): B14 (``flash_attention``) and B15
               (``ssd_intra_chunk``) against their plain versions (the
@@ -59,14 +61,19 @@ result.  Phases, each of which raises on failure:
               grid, ``krr.fit_path`` over the 4 lambdas scored on the test
               set, the best model served for a few requests, ``kpca_fit``
               and a transform; the launch counts read around exactly this
-              path, each stage timed;
+              path (per sigma one grouped B8 launch for the Sigma levels,
+              one B8 gram_dist launch for the leaves, one grouped B9 launch
+              for U and W), each stage timed;
   8. gates    the sweep's kernels B8 and B9 against their plain versions
-              (covtype and small shapes, f32 and f64), the sweep's factors
+              (every level of the grouped launches at covtype shapes in
+              f32; ragged groups and the per-level kernels at small shapes,
+              f32 and f64; NaN for an indefinite tile), the sweep's factors
               against ``build_hck``'s, ``invert_multi`` against
               ``invert_with_leaf``, the NLL surface against the dense
-              oracle (n = 4,096) and against the naive per-point path (full
-              width), ``fit_path`` against ``krr.fit``, KPCA against its
-              dense oracle;
+              oracle (n = 4,096) and, at full width, against the naive
+              per-point path on the sweep's own factors (with the two
+              factor sets' NLL in f64 against each other), ``fit_path``
+              against ``krr.fit``, KPCA against its dense oracle;
  8b. solvers  the exact-kernel solvers: B10 (``kernel_matvec``) and B11
               (``pairwise_kernel``) against their plain versions (covtype,
               ragged and wide shapes, f32 and f64; each B10 check names the
@@ -111,7 +118,9 @@ result.  Phases, each of which raises on failure:
   9. timing   kernel, plain-version and library times at the fit, serving,
               sweep, exact-solver, lifecycle and LM prefill shapes, beside
               each kernel's bound (B3 at the fit's and the stacked sweep's
-              shapes, and in f64; B12's register-tiled kernel in turns
+              shapes, and in f64; B8's and B9's grouped launches in turns
+              with the per-level designs, per sigma, at the largest level
+              and the top levels; B12's register-tiled kernel in turns
               with the design it replaced, per Lloyd round and at level 0;
               B10 and B15 beside the bound of the tensor-core route they
               take and that of f32 CUDA cores; B10's
@@ -309,6 +318,8 @@ def kernel_wrappers() -> dict:
             "cross_solve": build_ops.build_cross,
             "gram_chol_dist": build_ops.build_gram_dist,
             "cross_solve_dist": build_ops.build_cross_dist,
+            "gram_chol_dist_levels": build_ops.build_gram_dist_levels,
+            "cross_solve_dist_levels": build_ops.build_cross_dist_levels,
             "leaf_factor": leaf_ops.leaf_factor,
             "leaf_solve": leaf_ops.leaf_solve,
             "leaf_matvec": leaf_ops.leaf_matvec,
@@ -336,6 +347,8 @@ def plain_versions() -> list:
 
     return [build_ref.build_gram_ref, build_ref.build_cross_ref,
             build_ref.build_gram_dist_ref, build_ref.build_cross_dist_ref,
+            build_ref.build_gram_dist_levels_ref,
+            build_ref.build_cross_dist_levels_ref,
             leaf_ref.hck_leaf_factor_ref, leaf_ref.hck_leaf_solve_ref,
             leaf_ref.hck_leaf_matvec_ref, leaf_ref.hck_leaf_project_ref,
             oos_ref.oos_contract_ref, matvec_ref.kernel_matvec_ref,
@@ -798,11 +811,13 @@ def phase_build() -> None:
     registers and spills of each kernel entry, named by cu++filt (the eight
     instances of B14's wgmma kernel, DP 16 to 128, the six of B10's
     tensor-core kernel, gaussian and imq by 8, 16 and 32 columns, B15's
-    wgmma kernel and the four of its mma.sync kernel must all be there and
-    none may spill) and the Hopper instructions in the B14, B10 and B15
-    libraries (HGMMA: wgmma, HMMA: mma.sync, UTMALDG: TMA loads, SYNCS:
-    mbarrier operations): all three must hold wgmma and TMA loads, B15's
-    mma.sync too."""
+    wgmma kernel and the four of its mma.sync kernel, B3's and B12's two,
+    B8's two grouped and B9's four grouped tensor-core kernels (NT 4, 8,
+    12, 16) must all be there and none may spill), ptxas's C7519 lines of
+    build_dist, and the Hopper instructions in the B14, B10, B15 and
+    B8/B9 libraries (HGMMA: wgmma, HMMA: mma.sync, UTMALDG: TMA loads,
+    SYNCS: mbarrier operations): the first three must hold wgmma and TMA
+    loads, B15's and build_dist mma.sync."""
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
@@ -810,6 +825,9 @@ def phase_build() -> None:
     say(f"[2 build] {', '.join(_build.KERNELS)} built in "
         f"{time.perf_counter() - t0:.2f} s")
     entries = []  # (library, mangled entry name, its ptxas lines)
+    for line in logs.get("build_dist", "").splitlines():
+        if "C7519" in line:     # an injected warpgroup.arrive (none wanted)
+            say(f"[2 build] build_dist: {line.strip()}")
     for name, log in logs.items():
         head, *chunks = log.split("Compiling entry function")
         for line in head.splitlines():
@@ -827,7 +845,8 @@ def phase_build() -> None:
     # the Hopper entries of each redesigned kernel: (how many instances)
     hopper = {"flash_wgmma_kernel": 8, "matvec_tc_kernel": 6,
               "ssd_mma_kernel": 4, "ssd_wgmma_kernel": 1,
-              "leaf_factor_kernel": 2, "policy_dist_tiled_kernel": 2}
+              "leaf_factor_kernel": 2, "policy_dist_tiled_kernel": 2,
+              "gram_chol_levels_kernel": 2, "cross_levels_tc_kernel": 4}
     spills = {entry: [] for entry in hopper}
     for (name, mangled, lines), label in zip(entries, labels):
         for line in lines:
@@ -843,7 +862,8 @@ def phase_build() -> None:
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
     for lib, needed in (("flash_attention", ("HGMMA", "UTMALDG")),
                         ("kernel_matvec", ("HGMMA", "UTMALDG")),
-                        ("ssd_chunk", ("HGMMA", "UTMALDG", "HMMA"))):
+                        ("ssd_chunk", ("HGMMA", "UTMALDG", "HMMA")),
+                        ("build_dist", ("HMMA",))):
         sass = subprocess.run(
             [str(cuobjdump), "-sass", str(_build.library_path(lib))],
             capture_output=True, text=True, check=True,
@@ -884,6 +904,7 @@ def phase_fit(dev) -> dict:
 
     expected = {"gram_chol": LEVELS + 1, "cross_solve": LEVELS,
                 "gram_chol_dist": 0, "cross_solve_dist": 0,
+                "gram_chol_dist_levels": 0, "cross_solve_dist_levels": 0,
                 "leaf_factor": 1, "leaf_solve": 3, "leaf_matvec": 3,
                 "hck_leaf_project": 1, "oos_contract": 0,
                 "kernel_matvec": 0, "kernel_tile": 0, "policy_dist": 0,
@@ -1332,10 +1353,37 @@ def after_padding(fit, dev) -> torch.Generator:
     return gen
 
 
+def cross_dist_tc_bound(pairs):
+    """The least time of the grouped cross_solve_dist's tensor-core route
+    over (dist, linv) pairs: the larger of the bytes (cross_dist_cost's:
+    D and Linv read once, U written once), three TF32 passes over the two
+    triangular products at PEAK_TF32, and one exp (or rsqrt) an entry of K
+    at PEAK_SFU."""
+    nbytes = sum(cross_dist_cost(d, li)[0] for d, li in pairs)
+    products = sum(2 * d.shape[0] * d.shape[1] * d.shape[2]
+                   * (d.shape[2] + 1) for d, _ in pairs)
+    entries = sum(d.numel() for d, _ in pairs)
+    times = {"bytes": nbytes / PEAK_BYTES,
+             "operations": max(3 * products / PEAK_TF32,
+                               entries / PEAK_SFU)}
+    by = max(times, key=times.get)
+    return times[by] * 1e3, by
+
+
+def in_turns(new, old, reps):
+    """Mean ms of ``new`` and ``old`` timed in turns (new, old, old, new):
+    (new, old, [new's two], [old's two])."""
+    a, b, c, d = (time_ms(fn, reps) for fn in (new, old, old, new))
+    return (a + d) / 2, (b + c) / 2, [a, d], [b, c]
+
+
 def sweep_timing(sw, res) -> list[dict]:
-    """Phase 9, sweep: B8 and B9 per launch at sigma 1, summed per sigma,
-    beside their bounds and plain times; B3's stacked launch at G = 4
-    against four single launches."""
+    """Phase 9, sweep: B8 and B9 at sigma 1, summed per sigma: the grouped
+    launches of the path timed in turns with the per-level designs they
+    replace (one launch a level: chol_smem.cuh's factor, cross_products.cuh
+    on CUDA cores), beside their bounds and plain times; parts: the largest
+    level alone and the top levels; B3's stacked launch at G = 4 against
+    four single launches."""
     from repro_torch.core import hmatrix
     from repro_torch.kernels.build_stage import ops as bops
     from repro_torch.kernels.build_stage import ref as bref
@@ -1345,57 +1393,107 @@ def sweep_timing(sw, res) -> list[dict]:
     args = sweep_launches(sw["plan"], sw["f1"])
     src, tpu = "src/repro_torch/csrc/", "src/repro/kernels/"
     sl, gl = sw["launches"], sw["grid_launches"]
+    opts = dict(sigma=SIGMA, jitter=JITTER)
 
-    def per_sigma(kernel, plain, launch_args, cost, reps):
-        ms = [time_ms(lambda a=a: kernel(*a), reps) for a in launch_args]
-        pl = [time_ms(lambda a=a: plain(*a), reps) for a in launch_args]
-        bd = [bound_ms(*cost(*a)) for a in launch_args]
-        return ms, pl, bd
+    def gram_part(ds):
+        new, old, tn, to = in_turns(
+            lambda: bops.build_gram_dist_levels(ds, **opts),
+            lambda: [bops.build_gram_dist(d, **opts) for d in ds], 5)
+        cost = [gram_dist_cost(d, True) for d in ds]
+        return {"ms": new, "per_level_ms": old,
+                "plain_ms": time_ms(
+                    lambda: bref.build_gram_dist_levels_ref(ds, **opts), 3),
+                "bound_ms": bound_ms(sum(c[0] for c in cost),
+                                     sum(c[1] for c in cost))[0],
+                "turns_ms": {"grouped": tn, "per_level": to}}
 
-    def part(ms, pl, bd):
-        return {"ms": sum(ms), "plain_ms": sum(pl),
-                "bound_ms": sum(b[0] for b in bd)}
-
-    g = lambda d, c: bops.build_gram_dist(d, sigma=SIGMA, jitter=JITTER,
-                                          want_chol=c)
-    gp = lambda d, c: bref.build_gram_dist_ref(d, sigma=SIGMA, jitter=JITTER,
-                                               want_chol=c)
-    ms, pl, bd = per_sigma(g, gp, args["gram"], gram_dist_cost, 5)
+    sig = args["sigma"]
+    parts = {"sigma_levels": gram_part(sig),
+             "sigma_largest_level": gram_part(sig[-1:]),
+             "sigma_top_levels": gram_part(sig[:-1])}
+    ad = args["adiag"]
+    adiag = {"ms": time_ms(lambda: bops.build_gram_dist(
+                 ad, want_chol=False, **opts), 5),
+             "plain_ms": time_ms(lambda: bref.build_gram_dist_ref(
+                 ad, want_chol=False, **opts), 3),
+             "bound_ms": bound_ms(*gram_dist_cost(ad, False))[0]}
+    costs = [gram_dist_cost(d, True) for d in sig] + [gram_dist_cost(ad,
+                                                                     False)]
+    total = parts["sigma_levels"]
     records = [kernel_record(
         "gram_chol_dist", src + "build_dist.cu",
-        tpu + "build_stage/build_stage.py:215", sl["gram_chol_dist"],
-        res["gram_chol_dist"], sum(ms), sum(pl),
-        (sum(b[0] for b in bd), max(bd, key=lambda b: b[0])[1]),
-        unit=f"one sigma: {len(ms)} launches",
-        launches_per_mle_grid=gl["gram_chol_dist"],
-        sigma_levels=part(ms[:-1], pl[:-1], bd[:-1]),
-        sigma_largest_level=part(ms[-2:-1], pl[-2:-1], bd[-2:-1]),
-        adiag=part(ms[-1:], pl[-1:], bd[-1:]))]
-    c = lambda d, li: bops.build_cross_dist(d, li, sigma=SIGMA)
-    cp = lambda d, li: bref.build_cross_dist_ref(d, li, sigma=SIGMA)
-    ms, pl, bd = per_sigma(c, cp, args["cross"], cross_dist_cost, 5)
+        tpu + "build_stage/build_stage.py:215",
+        sl["gram_chol_dist_levels"] + sl["gram_chol_dist"],
+        res["gram_chol_dist"], total["ms"] + adiag["ms"],
+        total["plain_ms"] + adiag["plain_ms"],
+        bound_ms(sum(c[0] for c in costs), sum(c[1] for c in costs)),
+        unit=f"one sigma: one grouped launch ({len(sig)} Sigma levels) "
+             "and the leaves' Adiag (gram_dist)",
+        kernel="grouped over the levels, B3's blocked factor "
+               "(chol_blocked.cuh)",
+        launches_grouped=sl["gram_chol_dist_levels"],
+        launches_per_mle_grid=(gl["gram_chol_dist_levels"]
+                               + gl["gram_chol_dist"]),
+        previous_ms=total["per_level_ms"] + adiag["ms"],
+        previous="one launch a level, chol_smem.cuh's column-by-column "
+                 "factor", **parts, adiag=adiag)]
+
+    def cross_part(pairs):
+        ds, lis = zip(*pairs)
+        new, old, tn, to = in_turns(
+            lambda: bops.build_cross_dist_levels(ds, lis, sigma=SIGMA),
+            lambda: [bops.build_cross_dist(d, li, sigma=SIGMA)
+                     for d, li in pairs], 5)
+        return {"ms": new, "per_level_ms": old,
+                "plain_ms": time_ms(lambda: bref.build_cross_dist_levels_ref(
+                    ds, lis, sigma=SIGMA), 3),
+                "bound_ms": cross_dist_tc_bound(pairs)[0],
+                "bound_f32_ms": bound_ms(
+                    sum(cross_dist_cost(*a)[0] for a in pairs),
+                    sum(cross_dist_cost(*a)[1] for a in pairs))[0],
+                "turns_ms": {"grouped": tn, "per_level": to}}
+
+    cross = args["cross"]
+    parts = {"all": cross_part(cross), "u": cross_part(cross[:1]),
+             "w_levels": cross_part(cross[1:]),
+             "w_largest_level": cross_part(cross[-1:])}
+    total = parts.pop("all")
     records.append(kernel_record(
         "cross_solve_dist", src + "build_dist.cu",
-        tpu + "build_stage/build_stage.py:254", sl["cross_solve_dist"],
-        res["cross_solve_dist"], sum(ms), sum(pl),
-        (sum(b[0] for b in bd), max(bd, key=lambda b: b[0])[1]),
-        unit=f"one sigma: {len(ms)} launches",
-        launches_per_mle_grid=gl["cross_solve_dist"],
-        u=part(ms[:1], pl[:1], bd[:1]), w_levels=part(ms[1:], pl[1:], bd[1:]),
-        w_largest_level=part(ms[-1:], pl[-1:], bd[-1:])))
+        tpu + "build_stage/build_stage.py:254",
+        sl["cross_solve_dist_levels"] + sl["cross_solve_dist"],
+        res["cross_solve_dist"], total["ms"], total["plain_ms"],
+        cross_dist_tc_bound(cross),
+        unit=f"one sigma: one grouped launch (U and {len(cross) - 1} W "
+             "levels)",
+        kernel="grouped over the levels, split TF32 on mma.sync",
+        launches_grouped=sl["cross_solve_dist_levels"],
+        launches_per_mle_grid=(gl["cross_solve_dist_levels"]
+                               + gl["cross_solve_dist"]),
+        bound_f32_ms=total["bound_f32_ms"],
+        previous_ms=total["per_level_ms"],
+        previous="one launch a level, cross_products.cuh on CUDA cores",
+        turns_ms=total["turns_ms"], **parts))
     for rec in records:
         say(f"[9 timing] {rec['name']} ({rec['unit']}): kernel "
-            f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, library "
+            f"{rec['ms']:.4f} ms (per-level design {rec['previous_ms']:.4f} "
+            f"ms in turns), plain {rec['plain_ms']:.4f} ms, library "
             f"{rec['library_ms']} ms, bound {rec['bound_ms']:.4f} ms "
             f"({rec['bound_by']}), launches {rec['launches']} on the sweep "
-            f"path, {rec['launches_per_mle_grid']} per mle_grid")
-        for key in ("sigma_levels", "sigma_largest_level", "adiag", "u",
-                    "w_levels", "w_largest_level"):
+            f"path ({rec['launches_grouped']} grouped), "
+            f"{rec['launches_per_mle_grid']} per mle_grid")
+        for key in ("sigma_levels", "sigma_largest_level",
+                    "sigma_top_levels", "adiag", "u", "w_levels",
+                    "w_largest_level"):
             if key in rec:
                 p = rec[key]
                 say(f"[9 timing]   {rec['name']} {key}: kernel "
-                    f"{p['ms']:.4f} ms, plain {p['plain_ms']:.4f} ms, bound "
-                    f"{p['bound_ms']:.4f} ms")
+                    f"{p['ms']:.4f} ms, per-level design "
+                    f"{p.get('per_level_ms', p['ms']):.4f} ms, plain "
+                    f"{p['plain_ms']:.4f} ms, bound {p['bound_ms']:.4f} ms")
+    say(f"[9 timing] cross_solve_dist f32 CUDA-core bound "
+        f"{records[1]['bound_f32_ms']:.4f} ms; turns (grouped, per level) "
+        f"{records[1]['turns_ms']}")
     # B3 stacked over the grid (invert_multi) against one launch per ridge
     f = sw["f1"]
     eye = torch.eye(LEAF, device=f.adiag.device)
@@ -1447,55 +1545,54 @@ def factor_f64(dleaf, rec) -> None:
 
 
 def sweep_launches(plan, f):
-    """The arguments of every B8 and B9 launch of one sweep_factors pass on
-    ``plan`` at the bandwidth of factors ``f``: gram_chol_dist per level
-    (Sigma), gram_dist for the leaves (Adiag), cross_solve_dist for U and
-    per level for W."""
+    """The inputs of one sweep_factors pass on ``plan`` at the bandwidth of
+    factors ``f``: every level's Sigma distance tile (one grouped
+    gram_chol_dist launch), the leaves' (one gram_dist launch, Adiag) and
+    (dist, parent Linv) of U and of every level's W (one grouped
+    cross_solve_dist launch)."""
     from repro_torch.core.hck import sigma_linv
 
-    linv = [sigma_linv(c) for c in f.sigma_cho]
+    linv = [sigma_linv(c).contiguous() for c in f.sigma_cho]
     return {
-        "gram": [(d, True) for d in plan.lm_self] + [(plan.leaf_self, False)],
-        "cross": [(plan.leaf_cross, linv[-1].contiguous())]
-        + [(plan.lm_cross[lvl - 1], linv[lvl - 1].contiguous())
+        "sigma": list(plan.lm_self), "adiag": plan.leaf_self,
+        "cross": [(plan.leaf_cross, linv[-1])]
+        + [(plan.lm_cross[lvl - 1], linv[lvl - 1])
            for lvl in range(1, plan.levels)],
     }
 
 
-def check_gram_dist(dist, want_chol, rtol, name="gaussian", sigma=SIGMA,
+def check_gram_dist(dist, got, rtol, name="gaussian", sigma=SIGMA,
                     jitter=JITTER):
-    """B8 against its plain version on the same cached distances: the
-    Gram is one epilogue per entry (rtol also bounds the ulp that the
-    card's exp and torch's may differ by); the factor is held to the
-    Gram-family factor bound, 1e-4 relative in float32 (1e-10 in
-    float64)."""
-    from repro_torch.kernels.build_stage.ops import build_gram_dist
+    """B8's output ``got`` (gram, factor or None; the grouped or the
+    per-level kernel's) against the per-level plain version on the same
+    cached distances: the Gram is one epilogue per entry (rtol also bounds
+    the ulp that the card's exp and torch's may differ by); the factor is
+    held to the Gram-family factor bound, 1e-4 relative in float32 (1e-10
+    in float64)."""
     from repro_torch.kernels.build_stage.ref import build_gram_dist_ref
 
-    opts = dict(name=name, sigma=sigma, jitter=jitter, want_chol=want_chol)
-    got, want = build_gram_dist(dist, **opts), build_gram_dist_ref(dist,
-                                                                   **opts)
+    want = build_gram_dist_ref(dist, name=name, sigma=sigma, jitter=jitter,
+                               want_chol=got[1] is not None)
     sync()
     errs = [check_rel(f"gram_chol_dist[{name}] gram", got[0], want[0], rtol)]
-    if want_chol:
+    if got[1] is not None:
         errs.append(check_rel(f"gram_chol_dist[{name}] chol", got[1],
                               want[1], rtol))
     return max(errs), float(max((g - w).abs().max() for g, w in
                                 zip(got, want) if g is not None))
 
 
-def check_cross_dist(dist, linv, rtol, name="gaussian", sigma=SIGMA):
-    """B9 against its plain version.  U = K Linv^T Linv is amplified by
+def check_cross_dist(dist, linv, got, rtol, name="gaussian", sigma=SIGMA):
+    """B9's output ``got`` (the grouped or the per-level kernel's) against
+    the per-level plain version.  U = K Linv^T Linv is amplified by
     kappa(Sigma), so, as for B2 (check_cross), the gate is the
     componentwise bound of the two products, |dU| <= 4 (2r + 1) eps
     |K| |Linv|^T |Linv|: 2r for the two length-r sums, 1 for the
     epilogue's rounding (the distances are the same cached tile on both
     sides).  In float64 also rel <= rtol (1e-10)."""
     from repro_torch.core.kernels_fn import kernel_epilogue
-    from repro_torch.kernels.build_stage.ops import build_cross_dist
     from repro_torch.kernels.build_stage.ref import build_cross_dist_ref
 
-    got = build_cross_dist(dist, linv, name=name, sigma=sigma)
     want = build_cross_dist_ref(dist, linv, name=name, sigma=sigma)
     sync()
     require(bool(torch.isfinite(got).all()),
@@ -1594,8 +1691,9 @@ def phase_sweep(fit, dev) -> dict:
     peak = torch.cuda.max_memory_allocated() / 2**30
 
     expected = {"gram_chol": 0, "cross_solve": 0,
-                "gram_chol_dist": 5 * (LEVELS + 1),
-                "cross_solve_dist": 5 * LEVELS, "leaf_factor": 5,
+                "gram_chol_dist": 5, "gram_chol_dist_levels": 5,
+                "cross_solve_dist": 0, "cross_solve_dist_levels": 5,
+                "leaf_factor": 5,
                 "leaf_solve": 4 * len(LAMS) + 3 * len(LAMS),
                 "leaf_matvec": 3 * len(LAMS) + KPCA_ITERS + 2,
                 "hck_leaf_project": 3, "kernel_matvec": 0, "kernel_tile": 0,
@@ -1645,56 +1743,104 @@ def phase_sweep_gates(fit, sw, dev) -> dict:
                                       landmark_indices, sweep_factors,
                                       to_dense)
     from repro_torch.core.kernels_fn import BaseKernel
+    from repro_torch.kernels.build_stage.ops import (build_cross_dist,
+                                                     build_cross_dist_levels,
+                                                     build_gram_dist,
+                                                     build_gram_dist_levels)
     from repro_torch.kernels.build_stage.ref import direct_dist
 
     res = {}
     plan, f1 = sw["plan"], sw["f1"]
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
 
-    # B8 and B9 at the sweep's covtype shapes, f32
+    # B8 and B9 at the sweep's covtype shapes, f32: every level of the
+    # grouped launches (the path's) and the leaves' Adiag against the
+    # per-level plain versions
     args = sweep_launches(plan, f1)
-    errs = [check_gram_dist(d, c, 1e-4) for d, c in args["gram"]]
+    opts = dict(sigma=SIGMA, jitter=JITTER)
+    grams = build_gram_dist_levels(args["sigma"], **opts)
+    adiag = build_gram_dist(args["adiag"], want_chol=False, **opts)
+    errs = [check_gram_dist(d, got, 1e-4)
+            for d, got in zip(args["sigma"], grams)]
+    errs.append(check_gram_dist(args["adiag"], adiag, 1e-4))
     res["gram_chol_dist"] = max(e[1] for e in errs)
-    say(f"[8 gates] gram_chol_dist Sigma of all {LEVELS} levels (with "
-        f"chol) and Adiag {tuple(plan.leaf_self.shape)}: rel "
-        f"{max(e[0] for e in errs):.3e}, max|d| {res['gram_chol_dist']:.3e} "
-        f"(tolerance 1e-4 relative) ok")
-    errs = [check_cross_dist(d, li, None) for d, li in args["cross"]]
+    say(f"[8 gates] gram_chol_dist: Sigma of all {LEVELS} levels in one "
+        f"grouped launch (with chol) and Adiag "
+        f"{tuple(plan.leaf_self.shape)}: rel {max(e[0] for e in errs):.3e}, "
+        f"max|d| {res['gram_chol_dist']:.3e} (tolerance 1e-4 relative) ok")
+    dists, linvs = zip(*args["cross"])
+    us = build_cross_dist_levels(dists, linvs, sigma=SIGMA)
+    errs = [check_cross_dist(d, li, u, None)
+            for d, li, u in zip(dists, linvs, us)]
     res["cross_solve_dist"] = max(e[1] for e in errs)
-    say(f"[8 gates] cross_solve_dist U {tuple(plan.leaf_cross.shape)} and W "
-        f"of levels 1..{LEVELS - 1}: rel {max(e[0] for e in errs):.3e}, "
-        f"max|d| {res['cross_solve_dist']:.3e} (componentwise "
-        f"4 (2r + 1) eps |K||Linv^T||Linv|) ok")
+    say(f"[8 gates] cross_solve_dist: U {tuple(plan.leaf_cross.shape)} and "
+        f"W of levels 1..{LEVELS - 1} in one grouped launch (split TF32): "
+        f"rel {max(e[0] for e in errs):.3e}, max|d| "
+        f"{res['cross_solve_dist']:.3e} (componentwise 4 (2r + 1) eps "
+        f"|K||Linv^T||Linv|) ok")
 
-    # small shapes, f32 and f64, all three base kernels (laplace: l1 plan)
+    # small shapes, f32 and f64, all three base kernels (laplace: l1 plan):
+    # ragged groups (1, 2 and 3 tiles of m 24 and one of m 16; U-like
+    # m 48 beside W-like m 32, one node in a group; r 16 and r 9) through
+    # the grouped kernels, and the per-level kernels on the same inputs
     for dtype, rtol in ((torch.float32, 1e-4), (torch.float64, 1e-10)):
         o = dict(dtype=dtype, device=dev)
         for name in ("gaussian", "imq", "laplace"):
             metric = "l1" if name == "laplace" else "l2"
+            kw = dict(name=name, sigma=SIGMA)
             pts = torch.randn((6, 24, 5), generator=gen, **o)
-            check_gram_dist(direct_dist(pts, pts, metric), True, rtol,
-                            name=name, jitter=1e-3)
-            check_gram_dist(direct_dist(pts, pts, metric), False, rtol,
-                            name=name, jitter=1e-3)
-            a = torch.randn((4, 16, 16), generator=gen, **o)
-            li = torch.linalg.inv(torch.linalg.cholesky(
-                a @ a.mT / 16 + torch.eye(16, **o))).contiguous()
-            q = torch.randn((4, 48, 5), generator=gen, **o)
-            z = torch.randn((4, 16, 5), generator=gen, **o)
-            check_cross_dist(direct_dist(q, z, metric), li, rtol, name=name)
-        say(f"[8 gates] {str(dtype)[6:]} small shapes: gram_chol_dist (with "
-            f"and without chol) and cross_solve_dist for gaussian, imq and "
+            p16 = torch.randn((2, 16, 5), generator=gen, **o)
+            selfs = [direct_dist(p, p, metric)
+                     for p in (pts[:1], pts[1:3], pts[3:], p16)]
+            for d, got in zip(selfs, build_gram_dist_levels(
+                    selfs, jitter=1e-3, **kw)):
+                check_gram_dist(d, got, rtol, jitter=1e-3, **kw)
+            for chol in (True, False):
+                d = direct_dist(pts, pts, metric)
+                check_gram_dist(d, build_gram_dist(
+                    d, jitter=1e-3, want_chol=chol, **kw), rtol, jitter=1e-3,
+                    **kw)
+            a = torch.randn((7, 16, 16), generator=gen, **o)
+            lis = torch.linalg.inv(torch.linalg.cholesky(
+                a @ a.mT / 16 + torch.eye(16, **o)))
+            linvs = [lis[:4].contiguous(), lis[4:5].contiguous(),
+                     lis[5:].contiguous()]
+            z = torch.randn((7, 16, 5), generator=gen, **o)
+            dists = [direct_dist(torch.randn((4, 48, 5), generator=gen, **o),
+                                 z[:4], metric),
+                     direct_dist(torch.randn((1, 32, 5), generator=gen, **o),
+                                 z[4:5], metric),
+                     direct_dist(torch.randn((2, 32, 5), generator=gen, **o),
+                                 z[5:], metric)]
+            for d, li, u in zip(dists, linvs, build_cross_dist_levels(
+                    dists, linvs, **kw)):
+                check_cross_dist(d, li, u, rtol, **kw)
+            check_cross_dist(dists[0], linvs[0], build_cross_dist(
+                dists[0], linvs[0], **kw), rtol, **kw)
+            # r = 9: Linv staged a value at a time, U stored a value at a time
+            a9 = torch.randn((3, 9, 9), generator=gen, **o)
+            li9 = torch.linalg.inv(torch.linalg.cholesky(
+                a9 @ a9.mT / 9 + torch.eye(9, **o))).contiguous()
+            d9 = direct_dist(torch.randn((3, 20, 5), generator=gen, **o),
+                             torch.randn((3, 9, 5), generator=gen, **o),
+                             metric)
+            (u9,) = build_cross_dist_levels([d9], [li9], **kw)
+            check_cross_dist(d9, li9, u9, rtol, **kw)
+        say(f"[8 gates] {str(dtype)[6:]} small shapes: gram_chol_dist and "
+            f"cross_solve_dist grouped over ragged levels, and per level "
+            f"(gram_chol_dist with and without chol), for gaussian, imq and "
             f"laplace within {rtol} ok")
-    from repro_torch.kernels.build_stage.ops import build_gram_dist
     pts = torch.randn((3, 16, 5), generator=gen, device=dev)
     pts[1, 7] = pts[1, 2]
-    _, chol = build_gram_dist(direct_dist(pts, pts, "l2"), sigma=0.1,
-                              jitter=-1e-3)
+    d = direct_dist(pts, pts, "l2")
+    (_, chol), = build_gram_dist_levels([d], sigma=0.1, jitter=-1e-3)
+    _, chol1 = build_gram_dist(d, sigma=0.1, jitter=-1e-3)
     sync()
-    require(bool(torch.isnan(chol[1]).any() and torch.isfinite(chol[0]).all()),
-            "gram_chol_dist: an indefinite tile gives NaN, no clamp")
+    for c in (chol, chol1):
+        require(bool(torch.isnan(c[1]).any() and torch.isfinite(c[0]).all()),
+                "gram_chol_dist: an indefinite tile gives NaN, no clamp")
     say("[8 gates] an indefinite distance tile gives NaN in gram_chol_dist "
-        "(no pivot clamp) ok")
+        "(grouped and per level; no pivot clamp) ok")
 
     # sweep_factors against build_hck: n = 4,096 in f64, full width in f32
     x64 = make_data(EXACT_N, 8, dev, torch.Generator(device=dev).manual_seed(
@@ -1783,36 +1929,72 @@ def phase_sweep_gates(fit, sw, dev) -> dict:
         f"f32 vs f64 max rel {rel32:.3e} <= 1e-4 ok")
 
     # NLL surface at full width against the naive per-point path
+    # (invert_with_leaf, apply_inverse per point).  Gated, per sigma, at
+    # the f32 noise floor eps32 ||K 1|| / ||1||: (a) the f32 surface
+    # against that path run on the sweep's own factors; (b) the sweep's
+    # factors (B8's blocked factor, B9's split-TF32 products) against
+    # build_hck's (B1's and B2's designs), through the NLL of both sets in
+    # f64; (c) each row's argmin over lambda against the naive path on
+    # build_hck's factors.  Printed beside them, not gated: the f32 surface
+    # against that path, and each path's f32 NLL against its own factors'
+    # f64 NLL.
     nll, xp, y_t = sw["nll"], sw["xp"], sw["target"]
+    own = torch.empty_like(nll)
     naive = torch.empty_like(nll)
+    naive64 = torch.empty_like(nll, dtype=torch.float64)
+    sweep64 = torch.empty_like(naive64)
     floors = []
     ones = torch.ones((xp.shape[0], 1), dtype=xp.dtype, device=dev)
     for i, sg in enumerate(SIGMAS):
         kern = BaseKernel("gaussian", sg, JITTER)
+        fs = sweep_factors(plan, kern)
+        f = build_hck(xp, levels=LEVELS, rank=RANK, kernel=kern,
+                      generator=after_padding(fit, dev))
+        ys = y_t[f.tree.perm][:, None]
+        require(torch.equal(fs.tree.perm, f.tree.perm),
+                f"full-width sweep and build_hck share the tree, sigma {sg}")
+        pairs = ((own, fs), (naive, f), (sweep64, to_f64(fs)),
+                 (naive64, to_f64(f)))
         for j, lam in enumerate(LAMS):
-            f = build_hck(xp, levels=LEVELS, rank=RANK, kernel=kern,
-                          generator=after_padding(fit, dev))
-            inv, _ = hmatrix.invert_with_leaf(f, lam)
-            naive[i, j] = nll_of(inv, y_t[f.tree.perm][:, None])
-            del inv
+            for out, fac in pairs:
+                inv, _ = hmatrix.invert_with_leaf(fac, lam)
+                out[i, j] = nll_of(inv, ys.to(fac.u.dtype))
+                del inv
         floors.append(torch.finfo(torch.float32).eps * float(
             torch.linalg.vector_norm(hmatrix.matvec(f, ones))
             / math.sqrt(xp.shape[0])))
-        del f
-    rel = ((nll - naive).abs() / naive.abs()).max(dim=1).values
+        del f, fs, pairs
+    rel = ((nll - own).abs() / own.abs()).max(dim=1).values
+    rel64 = ((sweep64 - naive64).abs() / naive64.abs()).max(dim=1).values
     for i, sg in enumerate(SIGMAS):
         require(float(rel[i]) <= floors[i],
                 f"full-width NLL sigma {sg}: rel {float(rel[i]):.3e} <= "
                 f"floor {floors[i]:.3e}")
+        require(float(rel64[i]) <= floors[i],
+                f"full-width NLL sigma {sg}, factors in f64: rel "
+                f"{float(rel64[i]):.3e} <= floor {floors[i]:.3e}")
     require(torch.equal(nll.argmin(dim=1), naive.argmin(dim=1)),
             "each row's argmin over lambda agrees with the naive path")
     res["nll_full"] = [float(v) for v in rel]
-    say("[8 gates] full-width NLL surface vs the naive path (build_hck, "
-        "invert_with_leaf, apply_inverse per point): max rel per sigma "
-        + ", ".join(f"{sg}: {float(rel[i]):.3e} <= {floors[i]:.3e}"
-                    for i, sg in enumerate(SIGMAS))
-        + " (tolerance: the f32 noise floor eps32 ||K 1|| / ||1|| at that "
-        "sigma); argmin over lambda agrees in every row ok")
+    fmt = lambda t: [float(f"{v:.3e}") for v in t.tolist()]
+    to_hck = (nll - naive).abs() / naive.abs()
+    err_sweep = (nll.double() - sweep64).abs() / sweep64.abs()
+    err_naive = (naive.double() - naive64).abs() / naive64.abs()
+    say("[8 gates] full-width NLL surface vs the naive path (invert_with_leaf,"
+        " apply_inverse per point) on the sweep's own factors, max rel per "
+        "sigma " + ", ".join(f"{sg}: {float(rel[i]):.3e} <= {floors[i]:.3e}"
+                             for i, sg in enumerate(SIGMAS))
+        + " (the f32 noise floor eps32 ||K 1|| / ||1||); the sweep's factors "
+        "vs build_hck's, NLL in f64, max rel " + ", ".join(
+            f"{sg}: {float(rel64[i]):.3e}" for i, sg in enumerate(SIGMAS))
+        + " (same floor); argmin over lambda agrees with the naive path on "
+        "build_hck's factors in every row ok")
+    say("[8 gates] full-width NLL, not gated, rel per lambda: the f32 "
+        "surface vs the naive path on build_hck's factors " + "; ".join(
+            f"{sg}: {fmt(to_hck[i])}" for i, sg in enumerate(SIGMAS))
+        + "; each path's f32 NLL vs its own factors' f64 NLL, sweep / naive "
+        + "; ".join(f"{sg}: {fmt(err_sweep[i])} / {fmt(err_naive[i])}"
+                    for i, sg in enumerate(SIGMAS)))
 
     # fit_path against krr.fit at each lambda (same tree and landmarks).
     # The padding rows are near-duplicates, so K + lam I has eigenvalues
@@ -2333,7 +2515,8 @@ def phase_slq(sw, dev) -> dict:
             lambda: gp.mle_grid(xp, y_t, slq_probe_vectors=probes, **kw))
     # -----------------------------------------------------------------------
     t_slq = time.perf_counter() - t
-    # per sigma: sweep_factors (B8 per level and the leaves, B9 per level),
+    # per sigma: sweep_factors (B8 grouped over the levels and the leaves,
+    # B9 grouped over U and the levels),
     # one inversion at the reference ridge (B3), a B5 matvec per Lanczos
     # step, and per PCG iteration (and its start) one B5 matvec and one B4
     # preconditioner apply
@@ -2342,7 +2525,8 @@ def phase_slq(sw, dev) -> dict:
     require(pcg_applies >= n_s * len(LAMS), f"SLQ surface launches: at "
             f"least one PCG apply per grid point, read {pcg_applies}")
     require_launches("the SLQ surface", launches, plain_calls, dict(
-        gram_chol_dist=n_s * (LEVELS + 1), cross_solve_dist=n_s * LEVELS,
+        gram_chol_dist=n_s, gram_chol_dist_levels=n_s,
+        cross_solve_dist_levels=n_s,
         leaf_factor=n_s, leaf_solve=pcg_applies,
         leaf_matvec=lanczos + pcg_applies))
     t = time.perf_counter()

@@ -17,7 +17,9 @@ the card.  The hyperparameter sweep engine splits that work:
 :func:`build_sweep_plan` partitions, draws the landmarks and caches every
 bandwidth-independent distance tile once (:class:`SweepPlan`), and
 :func:`sweep_factors` instantiates the factors at one bandwidth from them
-through the ``build_gram_dist`` and ``build_cross_dist`` stages.
+through the ``build_gram_dist`` stage (the leaves) and the grouped
+``build_gram_dist_levels`` and ``build_cross_dist_levels`` stages (every
+level in one launch each).
 :func:`build_hck_reference` is the per-node transcription of Algorithm 2
 and :func:`to_dense` the dense reconstruction, both oracles for tests.
 
@@ -526,25 +528,38 @@ def replan_policy(
                        levels, rank, n0)
 
 
-def _stage_gram_dist(dist: Tensor, kernel: BaseKernel, config: SolveConfig,
-                     *, want_chol: bool = True):
-    """Cached (B, m, m) tiles through the ``build_gram_dist`` stage:
-    (gram (B, m, m), lower Cholesky or None)."""
+def _stage_gram_dist(dist: Tensor, kernel: BaseKernel, config: SolveConfig):
+    """Cached (B, m, m) tiles through the ``build_gram_dist`` stage
+    without a factor: gram (B, m, m) (the leaf Adiag blocks)."""
     dist = dist.contiguous()
     backend = resolve_backend(config, "build_gram_dist", dist)
     return get_impl("build_gram_dist", backend)(
         dist, name=kernel.name, sigma=kernel.sigma, jitter=kernel.jitter,
-        want_chol=want_chol)
+        want_chol=False)[0]
 
 
-def _stage_cross_dist(dist: Tensor, linv_parent: Tensor, kernel: BaseKernel,
-                      config: SolveConfig) -> Tensor:
-    """Cached (B, m, r) tiles through the ``build_cross_dist`` stage:
-    kappa(D) Linv^T Linv (B, m, r)."""
-    dist, linv_parent = dist.contiguous(), linv_parent.contiguous()
-    backend = resolve_backend(config, "build_cross_dist", dist, linv_parent)
-    return get_impl("build_cross_dist", backend)(
-        dist, linv_parent, name=kernel.name, sigma=kernel.sigma)
+def _stage_gram_dist_levels(dists, kernel: BaseKernel,
+                            config: SolveConfig) -> list:
+    """Every level's cached (B, m, m) tiles through the grouped
+    ``build_gram_dist_levels`` stage, one launch: per level (gram, lower
+    Cholesky)."""
+    dists = [d.contiguous() for d in dists]
+    backend = resolve_backend(config, "build_gram_dist_levels", *dists)
+    return get_impl("build_gram_dist_levels", backend)(
+        dists, name=kernel.name, sigma=kernel.sigma, jitter=kernel.jitter)
+
+
+def _stage_cross_dist_levels(dists, linvs, kernel: BaseKernel,
+                             config: SolveConfig) -> list:
+    """Cached (B, m, r) tiles of every level with their parents' Linv
+    through the grouped ``build_cross_dist_levels`` stage, one launch: per
+    level kappa(D) Linv^T Linv (B, m, r)."""
+    dists = [d.contiguous() for d in dists]
+    linvs = [li.contiguous() for li in linvs]
+    backend = resolve_backend(config, "build_cross_dist_levels", *dists,
+                              *linvs)
+    return get_impl("build_cross_dist_levels", backend)(
+        dists, linvs, name=kernel.name, sigma=kernel.sigma)
 
 
 def sweep_factors(plan: SweepPlan, kernel: BaseKernel,
@@ -553,9 +568,10 @@ def sweep_factors(plan: SweepPlan, kernel: BaseKernel,
     """:class:`HCKFactors` at one bandwidth from a :class:`SweepPlan`: the
     per-sigma pass of the sweep engine.
 
-    Per level one ``build_gram_dist`` launch for Sigma and its Cholesky
-    factor (then :func:`sigma_linv`, recomputed at every sigma), one for
-    the leaf Adiag blocks, and ``build_cross_dist`` launches for U and
+    One grouped ``build_gram_dist_levels`` launch for every level's Sigma
+    and its Cholesky factor (then :func:`sigma_linv` per level, recomputed
+    at every sigma), one ``build_gram_dist`` launch for the leaf Adiag
+    blocks, and one grouped ``build_cross_dist_levels`` launch for U and
     every level's W: the kernel nonlinearity and the factorization only,
     no partition, no landmark draw, no distance work.  With the plan drawn
     as a ``build_hck`` call draws, the result matches that call for any
@@ -577,26 +593,22 @@ def sweep_factors(plan: SweepPlan, kernel: BaseKernel,
             f"name={kernel.name!r}")
     levels, rank = plan.levels, plan.rank
     n_leaves, n0 = plan.num_leaves, plan.leaf_size
-    sigma, sigma_cho, sigma_li = [], [], []
-    for lvl in range(levels):
-        s, c = _stage_gram_dist(plan.lm_self[lvl], kernel, config)
-        sigma.append(s)
-        sigma_cho.append(c)
-        sigma_li.append(sigma_linv(c))
-    sigma, sigma_cho = tuple(sigma), tuple(sigma_cho)
+    grams = _stage_gram_dist_levels(plan.lm_self, kernel, config)
+    sigma = tuple(s for s, _ in grams)
+    sigma_cho = tuple(c for _, c in grams)
+    sigma_li = [sigma_linv(c) for c in sigma_cho]
     rank_mask = None
     if rank_budget is not None:
         rank_mask = _budget.allocate_rank_masks(sigma, rank_budget, rank)
         sigma, sigma_cho, sigma_li = _apply_rank_masks(
             rank_mask, sigma, sigma_cho, sigma_li)
-    adiag, _ = _stage_gram_dist(plan.leaf_self, kernel, config,
-                                want_chol=False)
-    u = _stage_cross_dist(plan.leaf_cross, sigma_li[-1], kernel,
-                          config).reshape(n_leaves, n0, rank)
-    w = tuple(
-        _stage_cross_dist(plan.lm_cross[lvl - 1], sigma_li[lvl - 1], kernel,
-                          config).reshape(1 << lvl, rank, rank)
-        for lvl in range(1, levels))
+    adiag = _stage_gram_dist(plan.leaf_self, kernel, config)
+    cross = _stage_cross_dist_levels(
+        (plan.leaf_cross,) + plan.lm_cross, [sigma_li[-1]] + sigma_li[:-1],
+        kernel, config)
+    u = cross[0].reshape(n_leaves, n0, rank)
+    w = tuple(cross[lvl].reshape(1 << lvl, rank, rank)
+              for lvl in range(1, levels))
     if rank_mask is not None:
         u = u * torch.repeat_interleave(rank_mask[-1], 2, dim=0)[:, None, :]
         w = _mask_transfer_ops(w, rank_mask)

@@ -1,7 +1,8 @@
-// cp.async copies of single elements from device memory into shared
-// memory, used where a tile is staged into a padded or transposed layout
-// that a bulk (TMA) copy cannot write: leaf_factor.cu (B3, rows of odd
-// stride) and policy_dist.cu (B12, feature-major tiles).  The copies run
+// cp.async copies of single elements (or of 16 bytes) from device memory
+// into shared memory, used where a tile is staged into a padded or
+// transposed layout that a bulk (TMA) copy cannot write: leaf_factor.cu
+// (B3, rows of odd stride), policy_dist.cu (B12, feature-major tiles) and
+// build_dist.cu (B8's odd-stride tiles, B9's padded Linv).  The copies run
 // asynchronously to the issuing threads, so a block keeps every load of a
 // tile in flight at once (and, with two buffers, behind its math).
 #pragma once
@@ -23,6 +24,16 @@ __device__ __forceinline__ void element(T* dst, const T* src, bool valid) {
                "l"(src), "n"(static_cast<int>(sizeof(T))),
                "r"(valid ? static_cast<int>(sizeof(T)) : 0)
                : "memory");
+}
+
+// 16 bytes (both addresses 16-byte aligned); when ``valid`` is false
+// nothing is read and ``dst`` is zero-filled (``src`` must still be a
+// mapped address).
+__device__ __forceinline__ void bytes16(void* dst, const void* src,
+                                        bool valid) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 16 : 0) : "memory");
 }
 
 // Closes the group of copies this thread has issued since the last commit.

@@ -2,10 +2,13 @@
 ``csrc/build_dist.cu``).
 
 ``build_gram`` launches ``gram_chol`` (B1), ``build_cross`` launches
-``cross_solve`` (B2); the sweep engine's ``build_gram_dist`` launches
-``gram_chol_dist`` or, without a factor, ``gram_dist`` (B8) and
-``build_cross_dist`` launches ``cross_solve_dist`` (B9).  On CPU tensors
-each wrapper computes its plain version
+``cross_solve`` (B2); for one tree level the sweep engine's
+``build_gram_dist`` launches ``gram_chol_dist`` or, without a factor,
+``gram_dist`` (B8) and ``build_cross_dist`` launches ``cross_solve_dist``
+(B9).  The grouped forms cover every level of one sigma in one launch:
+``build_gram_dist_levels`` (B8's Sigma levels, B3's blocked factor) and
+``build_cross_dist_levels`` (B9's U and W levels; split TF32 on the tensor
+cores in float32).  On CPU tensors each wrapper computes its plain version
 (:mod:`repro_torch.kernels.build_stage.ref`); on CUDA tensors it launches
 the kernel or raises.  Each wrapper's ``launches`` counts its kernel
 launches.
@@ -16,10 +19,10 @@ import torch
 
 from repro_torch.core.kernels_fn import KERNEL_METRIC
 from repro_torch.kernels import _build
-from repro_torch.kernels.build_stage.ref import (build_cross_dist_ref,
-                                                 build_cross_ref,
-                                                 build_gram_dist_ref,
-                                                 build_gram_ref)
+from repro_torch.kernels.build_stage.ref import (
+    build_cross_dist_levels_ref, build_cross_dist_ref, build_cross_ref,
+    build_gram_dist_levels_ref, build_gram_dist_ref, build_gram_ref)
+from repro_torch.kernels.hck_leaf.ops import factor_smem
 
 #: feature columns staged per chunk (build_stage.cu)
 DC = 32
@@ -27,6 +30,9 @@ DC = 32
 #: and its largest rank (16 thread columns of 8 outputs)
 _ROW_TILES = (128, 64, 32, 16)
 MAX_CROSS_RANK = 128
+#: groups (tree levels) one grouped launch takes (csrc/build_dist.cu
+#: kMaxGroups): 32 levels is 2**32 leaves
+MAX_GROUPS = 32
 
 
 def gram_smem(m: int, itemsize: int) -> int:
@@ -52,6 +58,14 @@ def cross_dist_smem(bm: int, r: int, itemsize: int) -> int:
     return (r + bm) * (r + 1) * itemsize
 
 
+def check_cross_rank(r: int, stage: str) -> None:
+    """``ValueError`` when r exceeds :data:`MAX_CROSS_RANK`."""
+    if r > MAX_CROSS_RANK:
+        raise ValueError(f"{stage}: rank r={r} above {MAX_CROSS_RANK} "
+                         "needs the panel form of the kernel, which is later "
+                         "work")
+
+
 def cross_rows(m: int, r: int, itemsize: int, smem=cross_smem,
                stage: str = "build_cross") -> int:
     """Row-tile height of cross_solve (or, with ``smem=cross_dist_smem``,
@@ -59,10 +73,7 @@ def cross_rows(m: int, r: int, itemsize: int, smem=cross_smem,
     needs at most :data:`repro_torch.kernels._build.SMEM_MAX` bytes and
     that does not overshoot m by a whole smaller tile; ``ValueError`` when
     r exceeds :data:`MAX_CROSS_RANK` or no tile fits."""
-    if r > MAX_CROSS_RANK:
-        raise ValueError(f"{stage}: rank r={r} above {MAX_CROSS_RANK} "
-                         "needs the panel form of the kernel, which is later "
-                         "work")
+    check_cross_rank(r, stage)
     fits = [bm for bm in _ROW_TILES
             if smem(bm, r, itemsize) <= _build.SMEM_MAX]
     if not fits:
@@ -202,7 +213,107 @@ def build_cross_dist(
     return out
 
 
+def level_table(stage: str, rows) -> torch.Tensor:
+    """The host table of a grouped launch: one int64 row per group, (the
+    group's three tensors' data pointers, nodes, m), as
+    csrc/build_dist.cu's read_table takes it; ``ValueError`` past
+    :data:`MAX_GROUPS` groups."""
+    if len(rows) > MAX_GROUPS:
+        raise ValueError(f"{stage}: {len(rows)} levels, above the "
+                         f"{MAX_GROUPS} one launch takes")
+    return torch.tensor([[a.data_ptr(), b.data_ptr(), c.data_ptr(), nodes, m]
+                         for a, b, c, nodes, m in rows], dtype=torch.int64)
+
+
+def build_gram_dist_levels(
+    dists, *, name: str = "gaussian", sigma: float = 1.0,
+    jitter: float = 0.0,
+) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """Every level's (B_l, m_l, m_l) cached distances -> per level (gram =
+    kappa_sigma(D) + jitter*m_l I, its lower Cholesky factor), in one
+    launch (``gram_chol_dist_levels``)."""
+    _check_name(name)
+    dists = list(dists)
+    if any(d.ndim != 3 or d.shape[1] != d.shape[2] for d in dists):
+        raise ValueError("build_gram_dist_levels needs dists (B, m, m) per "
+                         f"level; got {[tuple(d.shape) for d in dists]}")
+    if not dists:
+        return []
+    dev = _build.cuda_device("build_gram_dist_levels", *dists)
+    if dev is None:
+        return build_gram_dist_levels_ref(dists, name=name, sigma=sigma,
+                                          jitter=jitter)
+    for d in dists:
+        m = d.shape[1]
+        _build.check_smem("build_gram_dist_levels",
+                          factor_smem(m, d.element_size()),
+                          f"an ({m}, {m}) tile")
+    out = [(torch.empty_like(d), torch.empty_like(d)) for d in dists]
+    rows = [(d, g, c, d.shape[0], d.shape[1])
+            for d, (g, c) in zip(dists, out) if d.numel()]
+    table = level_table("build_gram_dist_levels", rows)
+    if rows:
+        _build.launch("build_dist",
+                      f"gram_chol_dist_levels_{_build.SUFFIX[dists[0].dtype]}",
+                      dev, table, len(rows), _build.EPILOGUE_KIND[name],
+                      float(sigma), float(jitter))
+        build_gram_dist_levels.launches += 1
+    return out
+
+
+def build_cross_dist_levels(
+    dists, linvs, *, name: str = "gaussian", sigma: float = 1.0,
+) -> list[torch.Tensor]:
+    """Every level's (B_l, m_l, r) cached distances and (B_l, r, r) parent
+    Linv -> per level U = kappa_sigma(D) Linv^T Linv (B_l, m_l, r), in one
+    launch (``cross_solve_dist_levels``); one r for all levels.
+
+    Each Linv must be lower triangular, as ``hck.sigma_linv`` and the
+    rank masks' identity padding give it: the float32 kernel skips Linv's
+    8 x 8 blocks above the diagonal (it reads the diagonal blocks whole),
+    while the float64 kernel and the plain version take the full r x r
+    matrix."""
+    _check_name(name)
+    dists, linvs = list(dists), list(linvs)
+    r = dists[0].shape[-1] if dists else 0
+    if len(dists) != len(linvs) or any(
+            d.ndim != 3 or li.shape != (d.shape[0], r, r) or d.shape[2] != r
+            for d, li in zip(dists, linvs)):
+        raise ValueError(
+            "build_cross_dist_levels needs per level dist (B, m, r) and linv "
+            f"(B, r, r) of one r; got {[tuple(d.shape) for d in dists]}, "
+            f"{[tuple(li.shape) for li in linvs]}")
+    if not dists:
+        return []
+    dev = _build.cuda_device("build_cross_dist_levels", *dists, *linvs)
+    if dev is None:
+        return build_cross_dist_levels_ref(dists, linvs, name=name,
+                                           sigma=sigma)
+    dtype = dists[0].dtype
+    stage = "build_cross_dist_levels"
+    check_cross_rank(r, stage)
+    if dtype == torch.float64:      # the CUDA-core tile: one height for all
+        bm = (cross_rows(max(d.shape[1] for d in dists), r,
+                         dists[0].element_size(),
+                         smem=cross_dist_smem, stage=stage),)
+    else:
+        bm = ()
+    out = [torch.empty_like(d) for d in dists]
+    rows = [(d, li, u, d.shape[0], d.shape[1])
+            for d, li, u in zip(dists, linvs, out) if d.numel()]
+    table = level_table(stage, rows)
+    if rows:
+        _build.launch("build_dist",
+                      f"cross_solve_dist_levels_{_build.SUFFIX[dtype]}", dev,
+                      table, len(rows), r, *bm, _build.EPILOGUE_KIND[name],
+                      float(sigma))
+        build_cross_dist_levels.launches += 1
+    return out
+
+
 build_gram.launches = 0
 build_cross.launches = 0
 build_gram_dist.launches = 0
 build_cross_dist.launches = 0
+build_gram_dist_levels.launches = 0
+build_cross_dist_levels.launches = 0

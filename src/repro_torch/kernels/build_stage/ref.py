@@ -23,7 +23,11 @@ rebuild is the kernel nonlinearity plus the factorization only:
   * ``build_gram_dist``:  D_b (m, m) -> kappa_sigma(D_b) + jitter*m I
                           [+ lower Cholesky];
   * ``build_cross_dist``: D_b (m, r), Linv_b (r, r) ->
-                          kappa_sigma(D_b) Linv_b^T Linv_b.
+                          kappa_sigma(D_b) Linv_b^T Linv_b;
+
+and their grouped forms over a list of levels, ``build_gram_dist_levels``
+(with the factor) and ``build_cross_dist_levels``, each a loop over the
+per-level plain versions.
 """
 from __future__ import annotations
 
@@ -131,7 +135,30 @@ def build_cross_dist_ref(
     return (kernel_epilogue(name, sigma)(dist) @ linv.mT) @ linv
 
 
+def build_gram_dist_levels_ref(
+    dists, *, name: str = "gaussian", sigma: float = 1.0,
+    jitter: float = 0.0,
+) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """Per level (B_l, m_l, m_l) -> (gram, lower Cholesky): the per-level
+    plain version on each."""
+    build_gram_dist_levels_ref.calls += 1
+    return [build_gram_dist_ref(d, name=name, sigma=sigma, jitter=jitter)
+            for d in dists]
+
+
+def build_cross_dist_levels_ref(
+    dists, linvs, *, name: str = "gaussian", sigma: float = 1.0,
+) -> list[torch.Tensor]:
+    """Per level (B_l, m_l, r), (B_l, r, r) -> U (B_l, m_l, r): the
+    per-level plain version on each."""
+    build_cross_dist_levels_ref.calls += 1
+    return [build_cross_dist_ref(d, li, name=name, sigma=sigma)
+            for d, li in zip(dists, linvs)]
+
+
 build_gram_ref.calls = 0
 build_cross_ref.calls = 0
 build_gram_dist_ref.calls = 0
 build_cross_dist_ref.calls = 0
+build_gram_dist_levels_ref.calls = 0
+build_cross_dist_levels_ref.calls = 0

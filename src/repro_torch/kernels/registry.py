@@ -44,6 +44,14 @@ STAGES = (
     "ssd_intra_chunk",
 )
 
+#: stages of the port alone: the sweep engine's grouped forms of
+#: ``build_gram_dist`` and ``build_cross_dist``, every tree level of one
+#: sigma in one launch (the reference launches once per level)
+PORT_STAGES = (
+    "build_gram_dist_levels",
+    "build_cross_dist_levels",
+)
+
 
 @dataclasses.dataclass(frozen=True)
 class SolveConfig:
@@ -99,8 +107,9 @@ _REGISTRY: dict[tuple[str, str], Callable] = {}
 def register(stage: str, backend: str):
     """Decorator: register ``fn`` as the ``backend`` implementation of
     ``stage``.  Later registrations override earlier ones."""
-    if stage not in STAGES:
-        raise ValueError(f"unknown stage {stage!r}; stages: {STAGES}")
+    if stage not in STAGES + PORT_STAGES:
+        raise ValueError(f"unknown stage {stage!r}; stages: "
+                         f"{STAGES + PORT_STAGES}")
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; backends: {BACKENDS}")
 
@@ -130,8 +139,9 @@ def resolve_backend(config: SolveConfig | None, stage: str,
     backend must match the device: "torch" on CUDA tensors and "cuda" on
     CPU tensors raise ``ValueError``.
     """
-    if stage not in STAGES:
-        raise ValueError(f"unknown stage {stage!r}; stages: {STAGES}")
+    if stage not in STAGES + PORT_STAGES:
+        raise ValueError(f"unknown stage {stage!r}; stages: "
+                         f"{STAGES + PORT_STAGES}")
     kinds = {t.device.type for t in tensors}
     if len(kinds) != 1:
         raise ValueError(f"stage {stage!r} got tensors on {sorted(kinds)}; "
@@ -226,6 +236,46 @@ def _build_cross_dist_cuda(dist, linv, *, name="gaussian", sigma=1.0):
     from repro_torch.kernels.build_stage.ops import build_cross_dist
 
     return build_cross_dist(dist, linv, name=name, sigma=sigma)
+
+
+@register("build_gram_dist_levels", "torch")
+def _build_gram_dist_levels_torch(dists, *, name="gaussian", sigma=1.0,
+                                  jitter=0.0):
+    """Per level (B,m,m) distances -> (kappa(D) + jitter*m I, lower
+    Cholesky), plain."""
+    from repro_torch.kernels.build_stage.ref import build_gram_dist_levels_ref
+
+    return build_gram_dist_levels_ref(dists, name=name, sigma=sigma,
+                                      jitter=jitter)
+
+
+@register("build_gram_dist_levels", "cuda")
+def _build_gram_dist_levels_cuda(dists, *, name="gaussian", sigma=1.0,
+                                 jitter=0.0):
+    """Per level (B,m,m) distances -> (kappa(D) + jitter*m I, lower
+    Cholesky), one CUDA launch."""
+    from repro_torch.kernels.build_stage.ops import build_gram_dist_levels
+
+    return build_gram_dist_levels(dists, name=name, sigma=sigma,
+                                  jitter=jitter)
+
+
+@register("build_cross_dist_levels", "torch")
+def _build_cross_dist_levels_torch(dists, linvs, *, name="gaussian",
+                                   sigma=1.0):
+    """Per level (B,m,r),(B,r,r) -> kappa(D) Linv^T Linv, plain."""
+    from repro_torch.kernels.build_stage.ref import build_cross_dist_levels_ref
+
+    return build_cross_dist_levels_ref(dists, linvs, name=name, sigma=sigma)
+
+
+@register("build_cross_dist_levels", "cuda")
+def _build_cross_dist_levels_cuda(dists, linvs, *, name="gaussian",
+                                  sigma=1.0):
+    """Per level (B,m,r),(B,r,r) -> kappa(D) Linv^T Linv, one CUDA launch."""
+    from repro_torch.kernels.build_stage.ops import build_cross_dist_levels
+
+    return build_cross_dist_levels(dists, linvs, name=name, sigma=sigma)
 
 
 @register("leaf_factor", "torch")
