@@ -10,14 +10,15 @@ result.  Phases, each of which raises on failure:
               entry's registers and spills (all eight instances of B14's
               wgmma kernel, all six of B10's tensor-core kernel, B15's
               wgmma kernel and all four of its mma.sync kernel, both of
-              B3's kernel, both of B12's register-tiled kernel, both of
-              B8's grouped kernel and all four of B9's grouped tensor-core
-              kernel there, none spilling; any ptxas C7519 line of
-              build_dist), and the wgmma (HGMMA), mma.sync
-              (HMMA), TMA-load
-              (UTMALDG) and mbarrier (SYNCS) instructions of the B14, B10,
-              B15 and B8/B9 libraries (HGMMA and UTMALDG required of the
-              first three, HMMA of B15's and of build_dist);
+              B3's kernel, both of B12's register-tiled kernel, all four
+              of B1's grouped kernel, all four of B2's and of B9's grouped
+              tensor-core kernels and both of B8's grouped kernel there,
+              none spilling; any ptxas C7519 line of build_stage and
+              build_dist), and the wgmma (HGMMA), mma.sync (HMMA),
+              TMA-load (UTMALDG) and mbarrier (SYNCS) instructions of the
+              B14, B10, B15, B1/B2 and B8/B9 libraries (HGMMA and UTMALDG
+              required of the first three, HMMA of B15's, build_stage and
+              build_dist);
  2b. lm       Zamba2-7B serving at full width in bf16 (random weights from
               SEED): B14 (``flash_attention``) and B15
               (``ssd_intra_chunk``) against their plain versions (the
@@ -42,10 +43,15 @@ result.  Phases, each of which raises on failure:
               exactly this call; then the same fit stage by stage, timed,
               with its solve residual through the port's own matvec;
   4. kernels  each kernel against its plain PyTorch version on the card, at
-              the shapes the fit and serving paths give it (f32) and at a
-              small shape (f64), with the tolerance stated on its line; B3
-              also at n0 142, 167 and 240 (f32) and 169 (f64), and with an
-              indefinite pivot in its last panel;
+              the shapes the fit and serving paths give it (f32; B1 and B2
+              as the fit's two grouped launches, every level gated) and at
+              a small shape (f64), with the tolerance stated on its line;
+              B1 and B2 also grouped over ragged levels at d 5 and 90 (f32
+              and f64), at the grown leaves n0 142 and 167 through
+              leaf_stage_factors, and in an f64 build_hck at d 90 against
+              the plain path on the CPU; B3 also at n0 142, 167 and 240
+              (f32) and 169 (f64), and with an indefinite pivot in its last
+              panel;
   5. exact    an n = 4,096 fit at covtype width in f64 against the dense
               oracle, the f32 fit against the f64 one on the same tree and
               landmarks, and the f32 engine against the f64 Algorithm-3
@@ -66,13 +72,14 @@ result.  Phases, each of which raises on failure:
               for U and W), each stage timed;
   8. gates    the sweep's kernels B8 and B9 against their plain versions
               (every level of the grouped launches at covtype shapes in
-              f32; ragged groups and the per-level kernels at small shapes,
-              f32 and f64; NaN for an indefinite tile), the sweep's factors
-              against ``build_hck``'s, ``invert_multi`` against
+              f32; ragged groups and the one-group launches at small
+              shapes, f32 and f64; NaN for an indefinite tile), the
+              sweep's factors against ``build_hck``'s (bit for bit at full
+              width in f32), ``invert_multi`` against
               ``invert_with_leaf``, the NLL surface against the dense
               oracle (n = 4,096) and, at full width, against the naive
               per-point path on the sweep's own factors (with the two
-              factor sets' NLL in f64 against each other), ``fit_path``
+              factor sets' NLL in f64 equal), ``fit_path``
               against ``krr.fit``, KPCA against its dense oracle;
  8b. solvers  the exact-kernel solvers: B10 (``kernel_matvec``) and B11
               (``pairwise_kernel``) against their plain versions (covtype,
@@ -117,10 +124,12 @@ result.  Phases, each of which raises on failure:
               and one "exact" round;
   9. timing   kernel, plain-version and library times at the fit, serving,
               sweep, exact-solver, lifecycle and LM prefill shapes, beside
-              each kernel's bound (B3 at the fit's and the stacked sweep's
-              shapes, and in f64; B8's and B9's grouped launches in turns
-              with the per-level designs, per sigma, at the largest level
-              and the top levels; B12's register-tiled kernel in turns
+              each kernel's bound (B1's and B2's grouped launches with the
+              direct sum's issue floor, B1's Sigma and Adiag as two
+              launches in turns with one; B3 at the fit's and the stacked
+              sweep's shapes, and in
+              f64; B8's and B9's grouped launches per sigma, at the largest
+              level and the top levels; B12's register-tiled kernel in turns
               with the design it replaced, per Lloyd round and at level 0;
               B10 and B15 beside the bound of the tensor-core route they
               take and that of f32 CUDA cores; B10's
@@ -316,6 +325,8 @@ def kernel_wrappers() -> dict:
 
     return {"gram_chol": build_ops.build_gram,
             "cross_solve": build_ops.build_cross,
+            "gram_chol_levels": build_ops.build_gram_levels,
+            "cross_solve_levels": build_ops.build_cross_levels,
             "gram_chol_dist": build_ops.build_gram_dist,
             "cross_solve_dist": build_ops.build_cross_dist,
             "gram_chol_dist_levels": build_ops.build_gram_dist_levels,
@@ -346,6 +357,7 @@ def plain_versions() -> list:
     from repro_torch.kernels.update_stage import ref as update_ref
 
     return [build_ref.build_gram_ref, build_ref.build_cross_ref,
+            build_ref.build_gram_levels_ref, build_ref.build_cross_levels_ref,
             build_ref.build_gram_dist_ref, build_ref.build_cross_dist_ref,
             build_ref.build_gram_dist_levels_ref,
             build_ref.build_cross_dist_levels_ref,
@@ -632,18 +644,22 @@ def check_rel(name: str, got, want, rtol: float) -> float:
 
 
 def check_build(points, want_chol, rtol, name="gaussian", sigma=SIGMA,
-                jitter=JITTER):
-    """B1 against its plain version.  The kernel sums (p - q)^2 directly,
-    the plain version uses the norm identity: in float32 the Gram entries
-    differ by ~eps * (|p|^2 + |q|^2) and the factors by that amplified by
-    the Cholesky's conditioning; rtol is the documented f32 bound of the
-    Gram-family factors, 1e-4 (1e-10 in float64)."""
+                jitter=JITTER, got=None):
+    """B1 (``got``, one level of a grouped launch, else a one-group launch
+    of build_gram) against its plain version.  The kernel sums (p - q)^2
+    directly, the plain version uses the norm identity: in float32 the
+    Gram entries differ by ~eps * (|p|^2 + |q|^2) and the factors by that
+    amplified by the Cholesky's conditioning; rtol is the documented f32
+    bound of the Gram-family factors, 1e-4 (1e-10 in float64).  The
+    kernel's Gram is exactly symmetric."""
     from repro_torch.kernels.build_stage.ops import build_gram
     from repro_torch.kernels.build_stage.ref import build_gram_ref
 
     opts = dict(name=name, sigma=sigma, jitter=jitter, want_chol=want_chol)
-    got, want = build_gram(points, **opts), build_gram_ref(points, **opts)
+    got = build_gram(points, **opts) if got is None else got
+    want = build_gram_ref(points, **opts)
     sync()
+    require(torch.equal(got[0], got[0].mT), f"gram_chol[{name}] symmetric")
     errs = [check_rel(f"gram_chol[{name}] gram", got[0], want[0], rtol)]
     if want_chol:
         errs.append(check_rel(f"gram_chol[{name}] chol", got[1], want[1],
@@ -651,12 +667,13 @@ def check_build(points, want_chol, rtol, name="gaussian", sigma=SIGMA,
     return max(errs), float((got[0] - want[0]).abs().max())
 
 
-def check_cross(args, rtol, name="gaussian"):
-    """B2 against its plain version.  U = K Linv^T Linv is amplified by
-    kappa(Sigma), large where padding rows put near-duplicate landmarks in
-    one node (phase 4 prints it), so, as the reference's registry argues
-    for U and W, no relative bound holds entry by entry.  The gate is the componentwise
-    bound of the two products, |dU| <= 4 (2r + d) eps |K| |Linv|^T |Linv|:
+def check_cross(args, rtol, name="gaussian", got=None):
+    """B2 (``got``, one level of a grouped launch, else a one-group launch
+    of build_cross) against its plain version.  U = K Linv^T Linv is
+    amplified by kappa(Sigma), large where padding rows put near-duplicate
+    landmarks in one node (phase 4 prints it), so, as the reference's
+    registry argues for U and W, no relative bound holds entry by entry.
+    The gate is the componentwise bound of the two products, |dU| <= 4 (2r + d) eps |K| |Linv|^T |Linv|:
     2r for the two length-r sums of each side, d for the kernel values,
     whose distances the kernel sums directly and the plain version through
     the norm identity.  In float64 also rel <= rtol (1e-10)."""
@@ -665,7 +682,7 @@ def check_cross(args, rtol, name="gaussian"):
     from repro_torch.kernels.build_stage.ref import build_cross_ref
 
     pts, lm, linv = args
-    got = build_cross(*args, name=name, sigma=SIGMA)
+    got = build_cross(*args, name=name, sigma=SIGMA) if got is None else got
     want = build_cross_ref(*args, name=name, sigma=SIGMA)
     sync()
     require(bool(torch.isfinite(got).all()), f"cross_solve[{name}] finite")
@@ -812,12 +829,14 @@ def phase_build() -> None:
     instances of B14's wgmma kernel, DP 16 to 128, the six of B10's
     tensor-core kernel, gaussian and imq by 8, 16 and 32 columns, B15's
     wgmma kernel and the four of its mma.sync kernel, B3's and B12's two,
-    B8's two grouped and B9's four grouped tensor-core kernels (NT 4, 8,
-    12, 16) must all be there and none may spill), ptxas's C7519 lines of
-    build_dist, and the Hopper instructions in the B14, B10, B15 and
-    B8/B9 libraries (HGMMA: wgmma, HMMA: mma.sync, UTMALDG: TMA loads,
-    SYNCS: mbarrier operations): the first three must hold wgmma and TMA
-    loads, B15's and build_dist mma.sync."""
+    B1's four grouped kernels (f32 and f64, with and without the factor),
+    B2's and B9's four grouped tensor-core kernels each (NT 4, 8, 12, 16)
+    and B8's two grouped kernels must all be there and none may spill),
+    ptxas's C7519 lines of build_stage and build_dist, and the Hopper
+    instructions in the B14, B10, B15, B1/B2 and B8/B9 libraries (HGMMA:
+    wgmma, HMMA: mma.sync, UTMALDG: TMA loads, SYNCS: mbarrier
+    operations): the first three must hold wgmma and TMA loads, B15's,
+    build_stage and build_dist mma.sync."""
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
@@ -825,9 +844,10 @@ def phase_build() -> None:
     say(f"[2 build] {', '.join(_build.KERNELS)} built in "
         f"{time.perf_counter() - t0:.2f} s")
     entries = []  # (library, mangled entry name, its ptxas lines)
-    for line in logs.get("build_dist", "").splitlines():
-        if "C7519" in line:     # an injected warpgroup.arrive (none wanted)
-            say(f"[2 build] build_dist: {line.strip()}")
+    for lib in ("build_stage", "build_dist"):
+        for line in logs.get(lib, "").splitlines():
+            if "C7519" in line:  # an injected warpgroup.arrive (none wanted)
+                say(f"[2 build] {lib}: {line.strip()}")
     for name, log in logs.items():
         head, *chunks = log.split("Compiling entry function")
         for line in head.splitlines():
@@ -846,7 +866,8 @@ def phase_build() -> None:
     hopper = {"flash_wgmma_kernel": 8, "matvec_tc_kernel": 6,
               "ssd_mma_kernel": 4, "ssd_wgmma_kernel": 1,
               "leaf_factor_kernel": 2, "policy_dist_tiled_kernel": 2,
-              "gram_chol_levels_kernel": 2, "cross_levels_tc_kernel": 4}
+              "gram_chol_levels_kernel": 2, "cross_levels_tc_kernel": 4,
+              "gram_points_kernel": 4, "cross_points_tc_kernel": 4}
     spills = {entry: [] for entry in hopper}
     for (name, mangled, lines), label in zip(entries, labels):
         for line in lines:
@@ -863,6 +884,7 @@ def phase_build() -> None:
     for lib, needed in (("flash_attention", ("HGMMA", "UTMALDG")),
                         ("kernel_matvec", ("HGMMA", "UTMALDG")),
                         ("ssd_chunk", ("HGMMA", "UTMALDG", "HMMA")),
+                        ("build_stage", ("HMMA",)),
                         ("build_dist", ("HMMA",))):
         sass = subprocess.run(
             [str(cuobjdump), "-sass", str(_build.library_path(lib))],
@@ -902,7 +924,8 @@ def phase_fit(dev) -> dict:
     # ---------------------------------------------------------------------
     peak = torch.cuda.max_memory_allocated() / 2**30
 
-    expected = {"gram_chol": LEVELS + 1, "cross_solve": LEVELS,
+    expected = {"gram_chol": 1, "cross_solve": 0, "gram_chol_levels": 1,
+                "cross_solve_levels": 1,
                 "gram_chol_dist": 0, "cross_solve_dist": 0,
                 "gram_chol_dist_levels": 0, "cross_solve_dist_levels": 0,
                 "leaf_factor": 1, "leaf_solve": 3, "leaf_matvec": 3,
@@ -981,23 +1004,36 @@ def phase_kernels(fit, dev) -> dict:
     """Phase 4: each kernel against its plain version on the card."""
     from repro_torch.kernels.build_stage.ref import build_cross_ref
 
+    from repro_torch.kernels.build_stage.ops import (build_cross_levels,
+                                                     build_gram,
+                                                     build_gram_levels)
+
     model, res = fit["model"], {}
     f = model.factors
     args = fit_launches(f, fit["inv"], fit["b"])
-    # B1 at the largest Sigma level (with its factor) and for the leaves
-    lm_args, leaf_args = args["gram"][LEVELS - 1], args["gram"][-1]
-    res["gram_chol"] = max(check_build(*lm_args, 1e-4)[1],
-                           check_build(*leaf_args, 1e-4)[1])
-    say(f"[4 kernels] gram_chol Sigma {tuple(lm_args[0].shape)} with chol "
-        f"and Adiag {tuple(leaf_args[0].shape)}: max|d| "
-        f"{res['gram_chol']:.3e} (tolerance 1e-4 relative) ok")
-    errs = [check_cross(a, None) for a in (args["cross"][0],
-                                           args["cross"][-1])]
+    # B1 as krr.fit launches it: every Sigma level (with its factor) in one
+    # grouped launch, the leaves' Adiag in a launch without a factor; each
+    # level against its plain version
+    pts, wants = zip(*args["gram"])
+    grams = build_gram_levels(pts[:-1], sigma=SIGMA, jitter=JITTER)
+    grams.append(build_gram(pts[-1], sigma=SIGMA, jitter=JITTER,
+                            want_chol=False))
+    errs = [check_build(p, w, 1e-4, got=g)
+            for p, w, g in zip(pts, wants, grams)]
+    res["gram_chol"] = max(e[1] for e in errs)
+    say(f"[4 kernels] gram_chol_levels: Sigma of all {LEVELS} levels with "
+        f"chol in one grouped launch and Adiag {tuple(pts[-1].shape)} in "
+        f"one without: rel {max(e[0] for e in errs):.3e}, max|d| "
+        f"{res['gram_chol']:.3e} (tolerance 1e-4 relative; every Gram "
+        f"exactly symmetric) ok")
+    us = build_cross_levels(*zip(*args["cross"]), sigma=SIGMA)
+    errs = [check_cross(a, None, got=u) for a, u in zip(args["cross"], us)]
     res["cross_solve"] = max(e[1] for e in errs)
-    say(f"[4 kernels] cross_solve U {tuple(args['cross'][0][0].shape)} and "
-        f"W {tuple(args['cross'][-1][0].shape)} r={RANK}: rel "
-        f"{max(e[0] for e in errs):.3e}, max|d| {res['cross_solve']:.3e} "
-        f"(componentwise 4 (2r + d) eps |K||Linv^T||Linv|) ok")
+    say(f"[4 kernels] cross_solve_levels: U {tuple(args['cross'][0][0].shape)}"
+        f" and W of levels 1..{LEVELS - 1} in one grouped launch (split "
+        f"TF32), r={RANK}: rel {max(e[0] for e in errs):.3e}, max|d| "
+        f"{res['cross_solve']:.3e} (componentwise 4 (2r + d) eps "
+        f"|K||Linv^T||Linv| on every level) ok")
     # the same gap between the plain version in f32 and in f64: it is the
     # f32 round-off of U, amplified by kappa(Sigma) of the parent
     u_args = args["cross"][0]
@@ -1101,7 +1137,99 @@ def phase_kernels_small(dev) -> None:
                 "clamp")
     say("[4 kernels] an indefinite Gram block and an indefinite leaf (n0 16, "
         "and n0 40 in B3's ragged last panel) give NaN (no pivot clamp) ok")
+    check_build_levels(dev)
     check_factor_sizes(dev)
+
+
+def check_build_levels(dev) -> None:
+    """Phase 4, small shapes: B1 and B2 grouped over ragged levels (f32
+    and f64, every base kernel, d 5 and 90: 90 is past B12's tiled limit
+    and takes twelve feature chunks), the update's grown leaves (n0 142
+    and 167) through leaf_stage_factors (one-group launches, counted), and
+    an f64 build_hck at d 90 against the plain path on the CPU with the
+    same draws (to_dense within 1e-10)."""
+    from repro_torch.core import hck
+    from repro_torch.core.kernels_fn import BaseKernel
+    from repro_torch.kernels.build_stage import ops as bops
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    for dtype, rtol in ((torch.float32, 1e-4), (torch.float64, 1e-10)):
+        o = dict(dtype=dtype, device=dev)
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, **o) * math.sqrt(
+                2 / shape[-1])
+
+        def linv_of(p, r):
+            a = torch.randn((p, r, r), generator=gen, **o)
+            return torch.linalg.inv(torch.linalg.cholesky(
+                a @ a.mT / r + torch.eye(r, **o))).contiguous()
+
+        for name in ("gaussian", "imq", "laplace"):
+            for d in (5, 90):
+                pts = [rnd(1, 24, d), rnd(2, 24, d), rnd(3, 70, d),
+                       rnd(5, 16, d)]
+                for p, g in zip(pts[:3], bops.build_gram_levels(
+                        pts[:3], name=name, jitter=1e-3)):
+                    check_build(p, True, rtol, name=name, jitter=1e-3, got=g)
+                (g,) = bops.build_gram_levels(pts[3:], name=name, jitter=1e-3,
+                                              want_chol=False)
+                check_build(pts[3], False, rtol, name=name, jitter=1e-3,
+                            got=g)
+                cross = [(rnd(4, 48, d), rnd(4, 16, d), linv_of(4, 16)),
+                         (rnd(1, 32, d), rnd(1, 16, d), linv_of(1, 16)),
+                         (rnd(2, 130, d), rnd(2, 16, d), linv_of(2, 16))]
+                for a, u in zip(cross, bops.build_cross_levels(
+                        *zip(*cross), name=name)):
+                    check_cross(a, rtol, name=name, got=u)
+        say(f"[4 kernels] {str(dtype)[6:]} small shapes: gram_chol_levels "
+            f"(m 24, 24, 70 with chol in one launch, 16 without in one) and "
+            f"cross_solve_levels (m 48, 32, 130, r 16) grouped over ragged "
+            f"levels, gaussian, imq and laplace, d 5 and 90, within {rtol} "
+            f"(the cross gate componentwise) ok")
+    # the grown leaves of model.update through leaf_stage_factors
+    ker = BaseKernel("gaussian", SIGMA, JITTER)
+    rows = []
+    for n0g in (142, 167):
+        blocks = torch.randn((64, n0g, D), generator=gen, device=dev) * 0.2
+        lm = torch.randn((64, RANK, D), generator=gen, device=dev) * 0.2
+        a = torch.randn((64, RANK, RANK), generator=gen, device=dev)
+        li = torch.linalg.inv(torch.linalg.cholesky(
+            a @ a.mT / RANK + torch.eye(RANK, device=dev))).contiguous()
+        (adiag, u), launches, plain_calls = counted(
+            lambda: hck.leaf_stage_factors(blocks, lm, li, ker))
+        require_launches(f"leaf_stage_factors at n0 {n0g}", launches,
+                         plain_calls, {"gram_chol": 1, "cross_solve": 1})
+        g_err = check_build(blocks, False, 1e-4, got=(adiag, None))[1]
+        c_rel, c_err = check_cross((blocks, lm, li), None, got=u)
+        rows.append(f"n0 {n0g}: Adiag max|d| {g_err:.3e}, U rel {c_rel:.3e}")
+    say("[4 kernels] leaf_stage_factors at the grown leaf sizes (one-group "
+        "launches of B1 without a factor and of B2, counted): "
+        + "; ".join(rows) + " ok")
+    # an f64 build at d 90, card against CPU, the same draws
+    levels, n, d = 3, 1024, 90
+    x = torch.randn((n, d), generator=gen, device=dev,
+                    dtype=torch.float64) * math.sqrt(2 / d)
+    dirs = [torch.randn((1 << lvl, d), generator=gen, device=dev,
+                        dtype=torch.float64) for lvl in range(levels)]
+    idx = [hck.landmark_indices(1 << lvl, n >> lvl, 16, device=dev,
+                                generator=gen) for lvl in range(levels)]
+    ker64 = BaseKernel("laplace", 2.0, 1e-6)
+    fc, launches, plain_calls = counted(lambda: hck.build_hck(
+        x, levels=levels, rank=16, kernel=ker64, directions=dirs,
+        landmark_index=idx))
+    require_launches("f64 build_hck at d 90", launches, plain_calls,
+                     {"gram_chol_levels": 1, "gram_chol": 1,
+                      "cross_solve_levels": 1})
+    fp = hck.build_hck(x.cpu(), levels=levels, rank=16, kernel=ker64,
+                       directions=[t.cpu() for t in dirs],
+                       landmark_index=[t.cpu() for t in idx])
+    gap = rel_max(hck.to_dense(fc).cpu(), hck.to_dense(fp))
+    require(gap <= 1e-10, f"f64 build_hck d 90 card vs CPU to_dense rel "
+            f"{gap:.3e} <= 1e-10")
+    say(f"[4 kernels] f64 build_hck (n {n}, d {d}, laplace, rank 16: two "
+        f"grouped launches and Adiag's) vs the plain path on the CPU with "
+        f"the same draws: to_dense rel {gap:.3e} <= 1e-10 ok")
 
 
 def factor_leaves(p, n0, dtype, gen):
@@ -1353,16 +1481,13 @@ def after_padding(fit, dev) -> torch.Generator:
     return gen
 
 
-def cross_dist_tc_bound(pairs):
-    """The least time of the grouped cross_solve_dist's tensor-core route
-    over (dist, linv) pairs: the larger of the bytes (cross_dist_cost's:
-    D and Linv read once, U written once), three TF32 passes over the two
-    triangular products at PEAK_TF32, and one exp (or rsqrt) an entry of K
-    at PEAK_SFU."""
-    nbytes = sum(cross_dist_cost(d, li)[0] for d, li in pairs)
-    products = sum(2 * d.shape[0] * d.shape[1] * d.shape[2]
-                   * (d.shape[2] + 1) for d, _ in pairs)
-    entries = sum(d.numel() for d, _ in pairs)
+def cross_tc_bound(nbytes, shapes):
+    """The least time of a grouped cross kernel's tensor-core route (B2's
+    and B9's) over levels of (B, m, r) shapes: the larger of ``nbytes``,
+    three TF32 passes over the two triangular products at PEAK_TF32, and
+    one exp (or rsqrt) an entry of K at PEAK_SFU."""
+    products = sum(2 * b * m * r * (r + 1) for b, m, r in shapes)
+    entries = sum(b * m * r for b, m, r in shapes)
     times = {"bytes": nbytes / PEAK_BYTES,
              "operations": max(3 * products / PEAK_TF32,
                                entries / PEAK_SFU)}
@@ -1370,18 +1495,17 @@ def cross_dist_tc_bound(pairs):
     return times[by] * 1e3, by
 
 
-def in_turns(new, old, reps):
-    """Mean ms of ``new`` and ``old`` timed in turns (new, old, old, new):
-    (new, old, [new's two], [old's two])."""
-    a, b, c, d = (time_ms(fn, reps) for fn in (new, old, old, new))
-    return (a + d) / 2, (b + c) / 2, [a, d], [b, c]
+def cross_dist_tc_bound(pairs):
+    """cross_tc_bound of the grouped cross_solve_dist over (dist, linv)
+    pairs, with cross_dist_cost's bytes (D and Linv read once, U written
+    once)."""
+    return cross_tc_bound(sum(cross_dist_cost(d, li)[0] for d, li in pairs),
+                          [tuple(d.shape) for d, _ in pairs])
 
 
 def sweep_timing(sw, res) -> list[dict]:
-    """Phase 9, sweep: B8 and B9 at sigma 1, summed per sigma: the grouped
-    launches of the path timed in turns with the per-level designs they
-    replace (one launch a level: chol_smem.cuh's factor, cross_products.cuh
-    on CUDA cores), beside their bounds and plain times; parts: the largest
+    """Phase 9, sweep: B8 and B9 at sigma 1, per sigma: the grouped launches
+    of the path beside their bounds and plain times; parts: the largest
     level alone and the top levels; B3's stacked launch at G = 4 against
     four single launches."""
     from repro_torch.core import hmatrix
@@ -1396,16 +1520,13 @@ def sweep_timing(sw, res) -> list[dict]:
     opts = dict(sigma=SIGMA, jitter=JITTER)
 
     def gram_part(ds):
-        new, old, tn, to = in_turns(
-            lambda: bops.build_gram_dist_levels(ds, **opts),
-            lambda: [bops.build_gram_dist(d, **opts) for d in ds], 5)
         cost = [gram_dist_cost(d, True) for d in ds]
-        return {"ms": new, "per_level_ms": old,
+        return {"ms": time_ms(lambda: bops.build_gram_dist_levels(ds, **opts),
+                              5),
                 "plain_ms": time_ms(
                     lambda: bref.build_gram_dist_levels_ref(ds, **opts), 3),
                 "bound_ms": bound_ms(sum(c[0] for c in cost),
-                                     sum(c[1] for c in cost))[0],
-                "turns_ms": {"grouped": tn, "per_level": to}}
+                                     sum(c[1] for c in cost))[0]}
 
     sig = args["sigma"]
     parts = {"sigma_levels": gram_part(sig),
@@ -1433,25 +1554,19 @@ def sweep_timing(sw, res) -> list[dict]:
                "(chol_blocked.cuh)",
         launches_grouped=sl["gram_chol_dist_levels"],
         launches_per_mle_grid=(gl["gram_chol_dist_levels"]
-                               + gl["gram_chol_dist"]),
-        previous_ms=total["per_level_ms"] + adiag["ms"],
-        previous="one launch a level, chol_smem.cuh's column-by-column "
-                 "factor", **parts, adiag=adiag)]
+                               + gl["gram_chol_dist"]), **parts,
+        adiag=adiag)]
 
     def cross_part(pairs):
         ds, lis = zip(*pairs)
-        new, old, tn, to = in_turns(
-            lambda: bops.build_cross_dist_levels(ds, lis, sigma=SIGMA),
-            lambda: [bops.build_cross_dist(d, li, sigma=SIGMA)
-                     for d, li in pairs], 5)
-        return {"ms": new, "per_level_ms": old,
+        return {"ms": time_ms(lambda: bops.build_cross_dist_levels(
+                    ds, lis, sigma=SIGMA), 5),
                 "plain_ms": time_ms(lambda: bref.build_cross_dist_levels_ref(
                     ds, lis, sigma=SIGMA), 3),
                 "bound_ms": cross_dist_tc_bound(pairs)[0],
                 "bound_f32_ms": bound_ms(
                     sum(cross_dist_cost(*a)[0] for a in pairs),
-                    sum(cross_dist_cost(*a)[1] for a in pairs))[0],
-                "turns_ms": {"grouped": tn, "per_level": to}}
+                    sum(cross_dist_cost(*a)[1] for a in pairs))[0]}
 
     cross = args["cross"]
     parts = {"all": cross_part(cross), "u": cross_part(cross[:1]),
@@ -1466,18 +1581,15 @@ def sweep_timing(sw, res) -> list[dict]:
         cross_dist_tc_bound(cross),
         unit=f"one sigma: one grouped launch (U and {len(cross) - 1} W "
              "levels)",
-        kernel="grouped over the levels, split TF32 on mma.sync",
+        kernel="grouped over the levels, split TF32 on mma.sync "
+               "(cross_tc.cuh)",
         launches_grouped=sl["cross_solve_dist_levels"],
         launches_per_mle_grid=(gl["cross_solve_dist_levels"]
                                + gl["cross_solve_dist"]),
-        bound_f32_ms=total["bound_f32_ms"],
-        previous_ms=total["per_level_ms"],
-        previous="one launch a level, cross_products.cuh on CUDA cores",
-        turns_ms=total["turns_ms"], **parts))
+        bound_f32_ms=total["bound_f32_ms"], **parts))
     for rec in records:
         say(f"[9 timing] {rec['name']} ({rec['unit']}): kernel "
-            f"{rec['ms']:.4f} ms (per-level design {rec['previous_ms']:.4f} "
-            f"ms in turns), plain {rec['plain_ms']:.4f} ms, library "
+            f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, library "
             f"{rec['library_ms']} ms, bound {rec['bound_ms']:.4f} ms "
             f"({rec['bound_by']}), launches {rec['launches']} on the sweep "
             f"path ({rec['launches_grouped']} grouped), "
@@ -1488,12 +1600,10 @@ def sweep_timing(sw, res) -> list[dict]:
             if key in rec:
                 p = rec[key]
                 say(f"[9 timing]   {rec['name']} {key}: kernel "
-                    f"{p['ms']:.4f} ms, per-level design "
-                    f"{p.get('per_level_ms', p['ms']):.4f} ms, plain "
-                    f"{p['plain_ms']:.4f} ms, bound {p['bound_ms']:.4f} ms")
+                    f"{p['ms']:.4f} ms, plain {p['plain_ms']:.4f} ms, bound "
+                    f"{p['bound_ms']:.4f} ms")
     say(f"[9 timing] cross_solve_dist f32 CUDA-core bound "
-        f"{records[1]['bound_f32_ms']:.4f} ms; turns (grouped, per level) "
-        f"{records[1]['turns_ms']}")
+        f"{records[1]['bound_f32_ms']:.4f} ms")
     # B3 stacked over the grid (invert_multi) against one launch per ridge
     f = sw["f1"]
     eye = torch.eye(LEAF, device=f.adiag.device)
@@ -1563,12 +1673,12 @@ def sweep_launches(plan, f):
 
 def check_gram_dist(dist, got, rtol, name="gaussian", sigma=SIGMA,
                     jitter=JITTER):
-    """B8's output ``got`` (gram, factor or None; the grouped or the
-    per-level kernel's) against the per-level plain version on the same
-    cached distances: the Gram is one epilogue per entry (rtol also bounds
-    the ulp that the card's exp and torch's may differ by); the factor is
-    held to the Gram-family factor bound, 1e-4 relative in float32 (1e-10
-    in float64)."""
+    """B8's output ``got`` (gram, factor or None; a grouped or a one-group
+    launch's, or gram_dist's) against the per-level plain version on the
+    same cached distances: the Gram is one epilogue per entry (rtol also
+    bounds the ulp that the card's exp and torch's may differ by); the
+    factor is held to the Gram-family factor bound, 1e-4 relative in
+    float32 (1e-10 in float64)."""
     from repro_torch.kernels.build_stage.ref import build_gram_dist_ref
 
     want = build_gram_dist_ref(dist, name=name, sigma=sigma, jitter=jitter,
@@ -1583,7 +1693,7 @@ def check_gram_dist(dist, got, rtol, name="gaussian", sigma=SIGMA,
 
 
 def check_cross_dist(dist, linv, got, rtol, name="gaussian", sigma=SIGMA):
-    """B9's output ``got`` (the grouped or the per-level kernel's) against
+    """B9's output ``got`` (a grouped or a one-group launch's) against
     the per-level plain version.  U = K Linv^T Linv is amplified by
     kappa(Sigma), so, as for B2 (check_cross), the gate is the
     componentwise bound of the two products, |dU| <= 4 (2r + 1) eps
@@ -1690,7 +1800,8 @@ def phase_sweep(fit, dev) -> dict:
     # ---------------------------------------------------------------------
     peak = torch.cuda.max_memory_allocated() / 2**30
 
-    expected = {"gram_chol": 0, "cross_solve": 0,
+    expected = {"gram_chol": 0, "cross_solve": 0, "gram_chol_levels": 0,
+                "cross_solve_levels": 0,
                 "gram_chol_dist": 5, "gram_chol_dist_levels": 5,
                 "cross_solve_dist": 0, "cross_solve_dist_levels": 5,
                 "leaf_factor": 5,
@@ -1782,7 +1893,7 @@ def phase_sweep_gates(fit, sw, dev) -> dict:
     # small shapes, f32 and f64, all three base kernels (laplace: l1 plan):
     # ragged groups (1, 2 and 3 tiles of m 24 and one of m 16; U-like
     # m 48 beside W-like m 32, one node in a group; r 16 and r 9) through
-    # the grouped kernels, and the per-level kernels on the same inputs
+    # the grouped wrappers, and the one-group wrappers on the same inputs
     for dtype, rtol in ((torch.float32, 1e-4), (torch.float64, 1e-10)):
         o = dict(dtype=dtype, device=dev)
         for name in ("gaussian", "imq", "laplace"):
@@ -1827,9 +1938,9 @@ def phase_sweep_gates(fit, sw, dev) -> dict:
             (u9,) = build_cross_dist_levels([d9], [li9], **kw)
             check_cross_dist(d9, li9, u9, rtol, **kw)
         say(f"[8 gates] {str(dtype)[6:]} small shapes: gram_chol_dist and "
-            f"cross_solve_dist grouped over ragged levels, and per level "
-            f"(gram_chol_dist with and without chol), for gaussian, imq and "
-            f"laplace within {rtol} ok")
+            f"cross_solve_dist grouped over ragged levels, and one level a "
+            f"launch (gram_chol_dist with and without chol), for gaussian, "
+            f"imq and laplace within {rtol} ok")
     pts = torch.randn((3, 16, 5), generator=gen, device=dev)
     pts[1, 7] = pts[1, 2]
     d = direct_dist(pts, pts, "l2")
@@ -1840,7 +1951,7 @@ def phase_sweep_gates(fit, sw, dev) -> dict:
         require(bool(torch.isnan(c[1]).any() and torch.isfinite(c[0]).all()),
                 "gram_chol_dist: an indefinite tile gives NaN, no clamp")
     say("[8 gates] an indefinite distance tile gives NaN in gram_chol_dist "
-        "(grouped and per level; no pivot clamp) ok")
+        "(grouped and one level a launch; no pivot clamp) ok")
 
     # sweep_factors against build_hck: n = 4,096 in f64, full width in f32
     x64 = make_data(EXACT_N, 8, dev, torch.Generator(device=dev).manual_seed(
@@ -1868,6 +1979,19 @@ def phase_sweep_gates(fit, sw, dev) -> dict:
     for k, v in gaps.items():
         require(v <= 1e-4, f"full-width f32 sweep vs build_hck {k} {v:.3e}")
     res["sweep_vs_build"] = gaps
+    bits = {fld: max(float((a - b).abs().max()) for a, b in zip(
+        getattr(f1, fld), getattr(fw, fld))) for fld in ("sigma", "sigma_cho",
+                                                         "w")}
+    bits.update(u=float((f1.u - fw.u).abs().max()),
+                adiag=float((f1.adiag - fw.adiag).abs().max()))
+    res["sweep_vs_build_abs"] = bits
+    require(not any(bits.values()), f"full-width f32 sweep_factors and "
+            f"build_hck bit for bit at sigma 1: {bits}")
+    say("[8 gates] sweep_factors vs build_hck at sigma 1, full width f32, "
+        "largest |difference| per field: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in bits.items()) + " (each 0: the same "
+        "direct-sum distances, epilogue, blocked factor and split-TF32 "
+        "products) ok")
     say("[8 gates] sweep_factors vs build_hck (krr.fit's factors), full "
         "width f32: " + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
         + " (each <= 1e-4; U and W through matvec) ok")
@@ -1929,15 +2053,15 @@ def phase_sweep_gates(fit, sw, dev) -> dict:
         f"f32 vs f64 max rel {rel32:.3e} <= 1e-4 ok")
 
     # NLL surface at full width against the naive per-point path
-    # (invert_with_leaf, apply_inverse per point).  Gated, per sigma, at
-    # the f32 noise floor eps32 ||K 1|| / ||1||: (a) the f32 surface
-    # against that path run on the sweep's own factors; (b) the sweep's
-    # factors (B8's blocked factor, B9's split-TF32 products) against
-    # build_hck's (B1's and B2's designs), through the NLL of both sets in
-    # f64; (c) each row's argmin over lambda against the naive path on
-    # build_hck's factors.  Printed beside them, not gated: the f32 surface
-    # against that path, and each path's f32 NLL against its own factors'
-    # f64 NLL.
+    # (invert_with_leaf, apply_inverse per point).  Gated, per sigma: (a)
+    # the f32 surface against that path run on the sweep's own factors, at
+    # the f32 noise floor eps32 ||K 1|| / ||1||; (b) the sweep's factors
+    # (B8, B9 from cached distances) against build_hck's (B1, B2 from
+    # points), through the NLL of both sets in f64: equal (the two factor
+    # sets are equal bit for bit); (c) each row's argmin over lambda
+    # against the naive path on build_hck's factors.  Printed beside them,
+    # not gated: the f32 surface against that path, and each path's f32
+    # NLL against its own factors' f64 NLL.
     nll, xp, y_t = sw["nll"], sw["xp"], sw["target"]
     own = torch.empty_like(nll)
     naive = torch.empty_like(nll)
@@ -1970,9 +2094,9 @@ def phase_sweep_gates(fit, sw, dev) -> dict:
         require(float(rel[i]) <= floors[i],
                 f"full-width NLL sigma {sg}: rel {float(rel[i]):.3e} <= "
                 f"floor {floors[i]:.3e}")
-        require(float(rel64[i]) <= floors[i],
-                f"full-width NLL sigma {sg}, factors in f64: rel "
-                f"{float(rel64[i]):.3e} <= floor {floors[i]:.3e}")
+        require(bool(torch.equal(sweep64[i], naive64[i])),
+                f"full-width NLL sigma {sg}, factors in f64: the sweep's "
+                f"and build_hck's equal (rel {float(rel64[i]):.3e})")
     require(torch.equal(nll.argmin(dim=1), naive.argmin(dim=1)),
             "each row's argmin over lambda agrees with the naive path")
     res["nll_full"] = [float(v) for v in rel]
@@ -1987,7 +2111,7 @@ def phase_sweep_gates(fit, sw, dev) -> dict:
         + " (the f32 noise floor eps32 ||K 1|| / ||1||); the sweep's factors "
         "vs build_hck's, NLL in f64, max rel " + ", ".join(
             f"{sg}: {float(rel64[i]):.3e}" for i, sg in enumerate(SIGMAS))
-        + " (same floor); argmin over lambda agrees with the naive path on "
+        + " (equal); argmin over lambda agrees with the naive path on "
         "build_hck's factors in every row ok")
     say("[8 gates] full-width NLL, not gated, rel per lambda: the f32 "
         "surface vs the naive path on build_hck's factors " + "; ".join(
@@ -2326,8 +2450,9 @@ def phase_bench_cg(dev) -> dict:
         it = model.result.iterations
         expected = {"kernel_matvec": it + 1}
         if pre:
-            expected.update(gram_chol=levels + 1, cross_solve=levels,
-                            leaf_factor=1, leaf_solve=it + 1)
+            expected.update(gram_chol=1, gram_chol_levels=1,
+                            cross_solve_levels=1, leaf_factor=1,
+                            leaf_solve=it + 1)
         require_launches(f"fit_exact (tol {tol}, precondition={pre})",
                          launches, plain_calls, expected)
         return model, {k: v for k, v in launches.items() if v}
@@ -2427,8 +2552,9 @@ def phase_exact_krr(fit, dev) -> dict:
         # f32 gaussian: every B10 launch on the tensor-core kernel
         expected = {"kernel_matvec": it + 1, "kernel_matvec_tc": it + 1}
         if pre:
-            expected.update(gram_chol=LEVELS + 1, cross_solve=LEVELS,
-                            leaf_factor=1, leaf_solve=it + 1)
+            expected.update(gram_chol=1, gram_chol_levels=1,
+                            cross_solve_levels=1, leaf_factor=1,
+                            leaf_solve=it + 1)
         require_launches(f"the exact-KRR path (precondition={pre})",
                          launches, plain_calls, expected)
         require(bool(torch.isfinite(model.alpha).all()), "alpha finite")
@@ -2978,8 +3104,8 @@ def policy_fit(fit, dev, name):
     t_fit = time.perf_counter() - t
     per_level = 9 if name == "kmeans" else 2
     require_launches(f"krr.fit(landmarks={name!r}, rank_budget)", launches,
-                     plain_calls, {"gram_chol": LEVELS + 1,
-                                   "cross_solve": LEVELS, "leaf_factor": 1,
+                     plain_calls, {"gram_chol": 1, "gram_chol_levels": 1,
+                                   "cross_solve_levels": 1, "leaf_factor": 1,
                                    "leaf_solve": 3, "leaf_matvec": 3,
                                    "hck_leaf_project": 1,
                                    "policy_dist": per_level * LEVELS})
@@ -3031,8 +3157,8 @@ def policy_parity_f64(dev) -> dict:
             rank_budget=budget, directions=dirs, policy_draws=draws))
         require_launches(f"n={EXACT_N} f64 build_hck(policy={name!r})",
                          launches, plain_calls, {
-                             "gram_chol": EXACT_LEVELS + 1,
-                             "cross_solve": EXACT_LEVELS,
+                             "gram_chol": 1, "gram_chol_levels": 1,
+                             "cross_solve_levels": 1,
                              "policy_dist": (9 if name == "kmeans" else 2)
                              * EXACT_LEVELS, "policy_dist_tiled": 0})
         plain_idx = []
@@ -3530,7 +3656,7 @@ def dist_timing(blocks, centers, metric, reps) -> dict:
                 blocks, centers, metric=metric), 2, warmup=1),
             "library_ms": time_ms(library, 3),
             "bound_ms": bound[0], "bound_by": bound[1],
-            "direct_sum_floor_ms": 2 * d * b * m * r / PEAK_F32 * 2e3}
+            "direct_sum_floor_ms": direct_sum_floor_ms(b * m * r, d)}
 
 
 def phase_lifecycle(fit, sw, dev) -> dict:
@@ -4006,6 +4132,95 @@ def kernel_record(name, source, replaces, launches, err, ms, plain, bound,
             "bound_by": bound[1], "library_ms": library, **extra}
 
 
+def direct_sum_floor_ms(pairs: int, d: int) -> float:
+    """The direct sum's issue floor: an FSUB and an FFMA (or FADD) per
+    feature and distinct pair at 132 SMs x 128 lanes x 1.98 GHz (PEAK_F32 /
+    2 instructions a second)."""
+    return 2 * d * pairs / (PEAK_F32 / 2) * 1e3
+
+
+def build_timing(args, fl, res) -> list[dict]:
+    """Phase 9, fit: B1 and B2 as krr.fit launches them (B1: one grouped
+    launch for the 12 Sigma levels with their factors, one launch without
+    a factor for the leaves' Adiag; B2: one grouped launch for U and the
+    11 W levels), beside the plain versions, the bound of the route (bytes
+    or f32 operations for B1; bytes or three TF32 passes for B2, whose f32
+    CUDA-core bound is printed beside) and the direct sum's issue floor
+    (B1 over each tile's distinct pairs); parts: B1's Sigma levels, its
+    largest level and its Adiag; B2's U, its W levels and its largest W
+    level.  The per-level designs both replaced, and B1 with the Adiag in
+    the Sigma launch, were timed in turns with these launches before they
+    were removed (PERF.md section 6)."""
+    from repro_torch.kernels.build_stage import ops as bops
+    from repro_torch.kernels.build_stage import ref as bref
+
+    src, tpu = "src/repro_torch/csrc/", "src/repro/kernels/"
+    opts = dict(sigma=SIGMA, jitter=JITTER)
+    pts = [p for p, _ in args["gram"]]     # Sigma levels, then the leaves
+
+    def gram_part(ps, want):
+        cost = [gram_cost(p, want) for p in ps]
+        return {"ms": time_ms(lambda: bops.build_gram_levels(
+                    ps, want_chol=want, **opts), 5),
+                "plain_ms": time_ms(lambda: bref.build_gram_levels_ref(
+                    ps, want_chol=want, **opts), 3),
+                "bound_ms": bound_ms(sum(c[0] for c in cost),
+                                     sum(c[1] for c in cost))[0]}
+
+    two = time_ms(lambda: (bops.build_gram_levels(pts[:-1], **opts),
+                           bops.build_gram(pts[-1], want_chol=False, **opts)),
+                  5)
+    parts = {"sigma_levels": gram_part(pts[:-1], True),
+             "sigma_largest_level": gram_part(pts[-2:-1], True),
+             "adiag": gram_part(pts[-1:], False)}
+    cost = [gram_cost(p, w) for p, w in args["gram"]]
+    records = [kernel_record(
+        "gram_chol", src + "build_stage.cu",
+        tpu + "build_stage/build_stage.py:124",
+        fl["gram_chol"] + fl["gram_chol_levels"], res["gram_chol"], two,
+        parts["sigma_levels"]["plain_ms"] + parts["adiag"]["plain_ms"],
+        bound_ms(sum(c[0] for c in cost), sum(c[1] for c in cost)),
+        unit=f"one fit: one grouped launch ({LEVELS} Sigma levels with "
+             "their factors) and one for the leaves' Adiag (no factor)",
+        kernel="grouped over the levels, register-tiled direct-sum "
+               "distances, B3's blocked factor (chol_blocked.cuh)",
+        direct_sum_floor_ms=sum(direct_sum_floor_ms(
+            p.shape[0] * p.shape[1] * (p.shape[1] + 1) // 2, p.shape[2])
+            for p in pts), **parts)]
+
+    cross = args["cross"]
+
+    def cross_part(c):
+        return {"ms": time_ms(lambda: bops.build_cross_levels(
+                    *zip(*c), sigma=SIGMA), 5),
+                "plain_ms": time_ms(lambda: bref.build_cross_levels_ref(
+                    *zip(*c), sigma=SIGMA), 3),
+                "bound_ms": cross_tc_bound(
+                    sum(cross_cost(*a)[0] for a in c),
+                    [a[0].shape[:2] + a[1].shape[1:2] for a in c])[0]}
+
+    total = cross_part(cross)
+    records.append(kernel_record(
+        "cross_solve", src + "build_stage.cu",
+        tpu + "build_stage/build_stage.py:157",
+        fl["cross_solve"] + fl["cross_solve_levels"], res["cross_solve"],
+        total["ms"], total["plain_ms"],
+        cross_tc_bound(sum(cross_cost(*a)[0] for a in cross),
+                       [a[0].shape[:2] + a[1].shape[1:2] for a in cross]),
+        unit=f"one fit: one grouped launch (U and {len(cross) - 1} W "
+             "levels)",
+        kernel="grouped over the levels, register-tiled direct-sum "
+               "distances, split TF32 on mma.sync (cross_tc.cuh)",
+        bound_f32_ms=bound_ms(sum(cross_cost(*a)[0] for a in cross),
+                              sum(cross_cost(*a)[1] for a in cross))[0],
+        direct_sum_floor_ms=sum(direct_sum_floor_ms(
+            a[0].shape[0] * a[0].shape[1] * a[1].shape[1], a[0].shape[2])
+            for a in cross),
+        u=cross_part(cross[:1]), w_levels=cross_part(cross[1:]),
+        w_largest_level=cross_part(cross[-1:])))
+    return records
+
+
 def phase_timing(fit, res, served) -> list[dict]:
     """Phase 9: kernel, plain and library times beside the bounds."""
     from repro_torch.kernels.build_stage import ops as bops
@@ -4021,42 +4236,7 @@ def phase_timing(fit, res, served) -> list[dict]:
     src, tpu = "src/repro_torch/csrc/", "src/repro/kernels/"
     records = []
 
-    def per_fit(kernel, plain, launches_args, cost, reps):
-        """Sum over one fit's launches of kernel, plain and bound ms; the
-        largest level's launch on its own."""
-        ms = [time_ms(lambda a=a: kernel(*a), reps) for a in launches_args]
-        pl = [time_ms(lambda a=a: plain(*a), reps) for a in launches_args]
-        bd = [bound_ms(*cost(*a)) for a in launches_args]
-        return ms, pl, bd
-
-    gram_args = [(a[0], a[1]) for a in args["gram"]]
-    g = lambda p, c: bops.build_gram(p, sigma=SIGMA, jitter=JITTER,
-                                     want_chol=c)
-    gp = lambda p, c: bref.build_gram_ref(p, sigma=SIGMA, jitter=JITTER,
-                                          want_chol=c)
-    ms, pl, bd = per_fit(g, gp, gram_args, gram_cost, 5)
-    big = LEVELS - 1
-    records.append(kernel_record(
-        "gram_chol", src + "build_stage.cu",
-        tpu + "build_stage/build_stage.py:124", fl["gram_chol"],
-        res["gram_chol"], sum(ms), sum(pl),
-        (sum(b[0] for b in bd), max(bd, key=lambda b: b[0])[1]),
-        unit=f"one fit: {len(ms)} launches",
-        sigma_largest_level={"ms": ms[big], "plain_ms": pl[big],
-                             "bound_ms": bd[big][0]},
-        adiag={"ms": ms[-1], "plain_ms": pl[-1], "bound_ms": bd[-1][0]}))
-    c = lambda p, z, li: bops.build_cross(p, z, li, sigma=SIGMA)
-    cp = lambda p, z, li: bref.build_cross_ref(p, z, li, sigma=SIGMA)
-    ms, pl, bd = per_fit(c, cp, args["cross"], cross_cost, 5)
-    records.append(kernel_record(
-        "cross_solve", src + "build_stage.cu",
-        tpu + "build_stage/build_stage.py:157", fl["cross_solve"],
-        res["cross_solve"], sum(ms), sum(pl),
-        (sum(b[0] for b in bd), max(bd, key=lambda b: b[0])[1]),
-        unit=f"one fit: {len(ms)} launches",
-        u={"ms": ms[0], "plain_ms": pl[0], "bound_ms": bd[0][0]},
-        w_largest_level={"ms": ms[-1], "plain_ms": pl[-1],
-                         "bound_ms": bd[-1][0]}))
+    records += build_timing(args, fl, res)
     dleaf = args["dleaf"]
     records.append(kernel_record(
         "leaf_factor", src + "leaf_factor.cu",
@@ -4115,12 +4295,17 @@ def phase_timing(fit, res, served) -> list[dict]:
         if "previous_ms" in rec:
             extra += (f", previous design {rec['previous_ms']:.4f} ms (in "
                       f"turns: {rec['turns_ms']})")
+        if "direct_sum_floor_ms" in rec:
+            extra += (f", direct-sum issue floor "
+                      f"{rec['direct_sum_floor_ms']:.4f} ms")
+        if "bound_f32_ms" in rec:
+            extra += f", f32 CUDA-core bound {rec['bound_f32_ms']:.4f} ms"
         say(f"[9 timing] {rec['name']} ({rec['unit']}): kernel "
             f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, library "
             f"{rec['library_ms']} ms{extra}, bound {rec['bound_ms']:.4f} ms "
             f"({rec['bound_by']}), launches {rec['launches']}")
-        for part in ("sigma_largest_level", "adiag", "u", "w_largest_level",
-                     "oos_walk"):
+        for part in ("sigma_levels", "sigma_largest_level", "adiag", "u",
+                     "w_levels", "w_largest_level", "oos_walk"):
             if part in rec:
                 p = rec[part]
                 say(f"[9 timing]   {rec['name']} {part}: kernel "

@@ -9,14 +9,16 @@ balanced binary tree, stacked per level:
   * ``sigma_cho[l]``  lower Cholesky factor of sigma[l]   (2**l, r, r)
   * ``w[l-1]``        K(Xl_i, Xl_p) K(Xl_p, Xl_p)^-1      (2**l, r, r), l >= 1
 
-:func:`build_hck` is the batched build engine: the partition, then every
-factor of a level from one launch of one of two registry stages --
-``build_gram`` (Sigma and its Cholesky, and the leaf Adiag blocks) and
-``build_cross`` (the Sigma^-1-projected U and W blocks), CUDA kernels on
-the card.  The hyperparameter sweep engine splits that work:
-:func:`build_sweep_plan` partitions, draws the landmarks and caches every
-bandwidth-independent distance tile once (:class:`SweepPlan`), and
-:func:`sweep_factors` instantiates the factors at one bandwidth from them
+:func:`build_hck` is the batched build engine: the partition, then the
+factors of every level from three launches of two registry stages -- one
+grouped ``build_gram_levels`` launch (every level's Sigma and its
+Cholesky), one ``build_gram`` launch (the leaf Adiag blocks, no factor)
+and one grouped ``build_cross_levels`` launch (the Sigma^-1-projected U
+and every level's W), CUDA kernels on the card.  The hyperparameter
+sweep engine splits that work: :func:`build_sweep_plan` partitions, draws
+the landmarks and caches every bandwidth-independent distance tile once
+(:class:`SweepPlan`), and :func:`sweep_factors` instantiates the factors
+at one bandwidth from them
 through the ``build_gram_dist`` stage (the leaves) and the grouped
 ``build_gram_dist_levels`` and ``build_cross_dist_levels`` stages (every
 level in one launch each).
@@ -209,6 +211,17 @@ def _stage_build_gram(blocks: Tensor, kernel: BaseKernel,
         want_chol=want_chol)
 
 
+def _stage_build_gram_levels(blocks, kernel: BaseKernel,
+                             config: SolveConfig) -> list:
+    """Every level's node blocks (B, m, d) through the grouped
+    ``build_gram_levels`` stage, one launch: per level (gram, lower
+    Cholesky)."""
+    blocks = [b.contiguous() for b in blocks]
+    backend = resolve_backend(config, "build_gram_levels", *blocks)
+    return get_impl("build_gram_levels", backend)(
+        blocks, name=kernel.name, sigma=kernel.sigma, jitter=kernel.jitter)
+
+
 def sigma_linv(chol: Tensor) -> Tensor:
     """Explicit inverse Cholesky factors ``Linv = L^-1`` per node.
 
@@ -235,15 +248,30 @@ def _stage_build_cross(blocks: Tensor, lm_parent: Tensor, linv_parent: Tensor,
         blocks, lm_parent, linv_parent, name=kernel.name, sigma=kernel.sigma)
 
 
+def _stage_build_cross_levels(blocks, lm_parents, linv_parents,
+                              kernel: BaseKernel, config: SolveConfig) -> list:
+    """Every level's cross blocks through the grouped ``build_cross_levels``
+    stage, one launch: per level (B, m, d), (B, r, d), (B, r, r) -> K(P, Z)
+    Linv^T Linv (B, m, r)."""
+    blocks, lm_parents, linv_parents = (
+        [t.contiguous() for t in ts]
+        for ts in (blocks, lm_parents, linv_parents))
+    backend = resolve_backend(config, "build_cross_levels", *blocks,
+                              *lm_parents, *linv_parents)
+    return get_impl("build_cross_levels", backend)(
+        blocks, lm_parents, linv_parents, name=kernel.name,
+        sigma=kernel.sigma)
+
+
 def leaf_stage_factors(blocks: Tensor, lm_parent: Tensor, linv_parent: Tensor,
                        kernel: BaseKernel, config: SolveConfig | None = None):
     """Adiag and U of a group of leaf blocks (B, n0, d), with the PER-LEAF
     parent landmarks (B, r, d) and inverse Cholesky factors (B, r, r)
     (already repeated to leaf granularity): one ``build_gram`` launch
-    without a factor and one ``build_cross`` launch.  Every row of a stage
-    is independent, so these launches give what :func:`build_hck`'s
-    paired-sibling launches give.  Returns (adiag (B, n0, n0), u (B, n0,
-    r))."""
+    without a factor and one ``build_cross`` launch (one-group launches of
+    B1's and B2's grouped kernels).  Every row of a stage is independent,
+    so these launches give what :func:`build_hck`'s paired-sibling
+    launches give.  Returns (adiag (B, n0, n0), u (B, n0, r))."""
     config = config if config is not None else DEFAULT_CONFIG
     adiag, _ = _stage_build_gram(blocks, kernel, config, want_chol=False)
     u = _stage_build_cross(blocks, lm_parent, linv_parent, kernel, config)
@@ -252,30 +280,34 @@ def leaf_stage_factors(blocks: Tensor, lm_parent: Tensor, linv_parent: Tensor,
 
 def _middle_factors(landmarks: tuple, kernel: BaseKernel,
                     config: SolveConfig):
-    """Sigma, its Cholesky factor and Linv for every level: one
-    ``build_gram`` launch per level plus :func:`sigma_linv`."""
-    sigma, sigma_cho, sigma_li = [], [], []
-    for lm in landmarks:
-        s, c = _stage_build_gram(lm, kernel, config)
-        sigma.append(s)
-        sigma_cho.append(c)
-        sigma_li.append(sigma_linv(c))
-    return tuple(sigma), tuple(sigma_cho), sigma_li
+    """Sigma, its Cholesky factor and Linv for every level: one grouped
+    ``build_gram_levels`` launch plus :func:`sigma_linv` per level (no
+    launch for a 0-level build)."""
+    if not landmarks:
+        return (), (), []
+    grams = _stage_build_gram_levels(landmarks, kernel, config)
+    sigma_cho = tuple(c for _, c in grams)
+    return (tuple(s for s, _ in grams), sigma_cho,
+            [sigma_linv(c) for c in sigma_cho])
 
 
-def _transfer_ops(landmarks: tuple, sigma_li: list, kernel: BaseKernel,
-                  config: SolveConfig) -> tuple:
-    """W factors at levels 1..L-1, one ``build_cross`` launch per level at
-    parent granularity: sibling landmark blocks are paired, since they
-    share their parent's landmarks and Linv."""
+def _cross_factors(paired: Tensor, landmarks: tuple, sigma_li: list,
+                   kernel: BaseKernel, config: SolveConfig):
+    """U and the W factors of levels 1..L-1 in one grouped
+    ``build_cross_levels`` launch, at parent granularity: sibling leaves
+    (``paired``, (2**(L-1), 2 n0, d)) and sibling landmark blocks are
+    paired, since they share their parent's landmarks and Linv.  Returns
+    (u (2**L, n0, r), w)."""
     rank, d = landmarks[0].shape[1], landmarks[0].shape[2]
-    w = []
-    for lvl in range(1, len(landmarks)):
-        pair_lm = landmarks[lvl].reshape(1 << (lvl - 1), 2 * rank, d)
-        w.append(_stage_build_cross(
-            pair_lm, landmarks[lvl - 1], sigma_li[lvl - 1], kernel,
-            config).reshape(1 << lvl, rank, rank))
-    return tuple(w)
+    levels = len(landmarks)
+    blocks = [paired] + [landmarks[lvl].reshape(1 << (lvl - 1), 2 * rank, d)
+                         for lvl in range(1, levels)]
+    out = _stage_build_cross_levels(blocks, [landmarks[-1]] + list(
+        landmarks[:-1]), [sigma_li[-1]] + sigma_li[:-1], kernel, config)
+    n_leaves, n0 = 2 * paired.shape[0], paired.shape[1] // 2
+    return (out[0].reshape(n_leaves, n0, rank),
+            tuple(out[lvl].reshape(1 << lvl, rank, rank)
+                  for lvl in range(1, levels)))
 
 
 def _check_build_options(config: SolveConfig) -> None:
@@ -296,11 +328,12 @@ def build_hck(
 ) -> HCKFactors:
     """Partition ``x`` and instantiate all HCK factors (batched engine).
 
-    Level-synchronous Algorithm 2: per level one ``build_gram`` launch for
-    Sigma and its Cholesky factor, then one for the leaf Adiag blocks, one
-    ``build_cross`` launch for U (paired sibling leaves) and one per level
-    for W.  On the card every launch is a CUDA kernel; on the CPU the
-    plain versions run.
+    Algorithm 2 in three launches: one grouped ``build_gram_levels``
+    launch for every level's Sigma and its Cholesky factor; after the rank
+    masks one ``build_gram`` launch for the leaf Adiag blocks and one
+    grouped ``build_cross_levels`` launch for U (paired sibling leaves)
+    and every level's W.  On the card every launch is a CUDA kernel; on
+    the CPU the plain versions run.
 
     ``x`` (n, d) with n divisible by 2**levels (``partition.pad_points``
     pads); ``rank`` <= n / 2**levels.  ``method`` "rp" (random
@@ -352,10 +385,8 @@ def build_hck(
     if levels == 0:
         return HCKFactors(x_sorted, tree, (), (), (), (),
                           x.new_zeros((1, n0, 0)), adiag)
-    paired = leaves.reshape(n_leaves // 2, 2 * n0, d)
-    u = _stage_build_cross(paired, landmarks[-1], sigma_li[-1], kernel,
-                           config).reshape(n_leaves, n0, rank)
-    w = _transfer_ops(landmarks, sigma_li, kernel, config)
+    u, w = _cross_factors(leaves.reshape(n_leaves // 2, 2 * n0, d),
+                          landmarks, sigma_li, kernel, config)
     if rank_mask is not None:
         u = u * torch.repeat_interleave(rank_mask[-1], 2, dim=0)[:, None, :]
         w = _mask_transfer_ops(w, rank_mask)

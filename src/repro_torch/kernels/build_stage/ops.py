@@ -1,16 +1,21 @@
 """Wrappers of the build-stage CUDA kernels (``csrc/build_stage.cu`` and
 ``csrc/build_dist.cu``).
 
-``build_gram`` launches ``gram_chol`` (B1), ``build_cross`` launches
-``cross_solve`` (B2); for one tree level the sweep engine's
-``build_gram_dist`` launches ``gram_chol_dist`` or, without a factor,
-``gram_dist`` (B8) and ``build_cross_dist`` launches ``cross_solve_dist``
-(B9).  The grouped forms cover every level of one sigma in one launch:
-``build_gram_dist_levels`` (B8's Sigma levels, B3's blocked factor) and
-``build_cross_dist_levels`` (B9's U and W levels; split TF32 on the tensor
-cores in float32).  On CPU tensors each wrapper computes its plain version
+Every launch is grouped: one launch covers a list of tree levels, each a
+group of the launch's table (:func:`level_table`).  The build engine's
+``build_gram_levels`` launches ``gram_chol_levels`` (B1: every level's
+Sigma and its factor, or, in a launch without factors, Gram blocks) and
+``build_cross_levels`` launches ``cross_solve_levels`` (B2: U and every
+level's W; split TF32 on the tensor cores in float32); the sweep engine's
+``build_gram_dist_levels`` launches ``gram_chol_dist_levels`` (B8) and
+``build_cross_dist_levels`` launches ``cross_solve_dist_levels`` (B9).
+The single-level wrappers ``build_gram``, ``build_cross``,
+``build_gram_dist`` (with a factor) and ``build_cross_dist`` are one-group
+launches of the same kernels; ``build_gram_dist`` without a factor
+launches ``gram_dist`` (the sweep's leaf Adiag).  On CPU tensors each
+wrapper computes its plain version
 (:mod:`repro_torch.kernels.build_stage.ref`); on CUDA tensors it launches
-the kernel or raises.  Each wrapper's ``launches`` counts its kernel
+the kernel or raises.  Each wrapper's ``launches`` counts its own
 launches.
 """
 from __future__ import annotations
@@ -20,41 +25,50 @@ import torch
 from repro_torch.core.kernels_fn import KERNEL_METRIC
 from repro_torch.kernels import _build
 from repro_torch.kernels.build_stage.ref import (
-    build_cross_dist_levels_ref, build_cross_dist_ref, build_cross_ref,
-    build_gram_dist_levels_ref, build_gram_dist_ref, build_gram_ref)
+    build_cross_dist_levels_ref, build_cross_dist_ref, build_cross_levels_ref,
+    build_cross_ref, build_gram_dist_levels_ref, build_gram_dist_ref,
+    build_gram_levels_ref, build_gram_ref)
 from repro_torch.kernels.hck_leaf.ops import factor_smem
 
-#: feature columns staged per chunk (build_stage.cu)
+#: feature columns the float64 cross_solve_levels tile stages per chunk
 DC = 32
-#: cross_solve's row tiles (multiples of its 16 thread rows), largest first,
-#: and its largest rank (16 thread columns of 8 outputs)
+#: the float64 cross tiles' row heights (multiples of its 16 thread rows),
+#: largest first, and the largest rank (16 thread columns of 8 outputs)
 _ROW_TILES = (128, 64, 32, 16)
 MAX_CROSS_RANK = 128
-#: groups (tree levels) one grouped launch takes (csrc/build_dist.cu
+#: groups (tree levels) one grouped launch takes (csrc/level_groups.cuh
 #: kMaxGroups): 32 levels is 2**32 leaves
 MAX_GROUPS = 32
+#: values of gram_chol_levels' staging: two chunks of 8 features of 64 row
+#: and 64 column points, 132 values a feature (build_stage.cu gram::)
+_GRAM_STAGE = 2 * 8 * 132
 
 
 def gram_smem(m: int, itemsize: int) -> int:
-    """Shared memory of one gram_chol block: the (m, m + 1) tile and an
-    (m, DC + 1) chunk of points."""
-    return (m * (m + 1) + m * (DC + 1)) * itemsize
+    """Shared memory of one gram_chol_levels block that factors an (m, m)
+    tile: the tile at row stride m | 1, the pivots and the column buffer
+    (as leaf_factor's), then the staged point chunks; so m <= 235 in
+    float32 and <= 163 in float64.  A launch without factors needs the
+    staging alone."""
+    return factor_smem(m, itemsize) + _GRAM_STAGE * itemsize
 
 
 def cross_smem(bm: int, r: int, itemsize: int) -> int:
-    """Shared memory of one cross_solve block of ``bm`` rows: Linv
-    (r, r + 1), a (bm, r + 1) tile and the point and landmark chunks."""
+    """Shared memory of one float64 cross_solve_levels block of ``bm``
+    rows: Linv (r, r + 1), a (bm, r + 1) tile and the point and landmark
+    chunks."""
     return ((r + bm) * (r + 1) + (bm + r) * (DC + 1)) * itemsize
 
 
 def gram_dist_smem(m: int, itemsize: int) -> int:
-    """Shared memory of one gram_chol_dist block: the (m, m + 1) tile."""
-    return m * (m + 1) * itemsize
+    """Shared memory of one gram_chol_dist_levels block: the factor's
+    (as leaf_factor's), so m <= 240 in f32 and m <= 169 in f64."""
+    return factor_smem(m, itemsize)
 
 
 def cross_dist_smem(bm: int, r: int, itemsize: int) -> int:
-    """Shared memory of one cross_solve_dist block of ``bm`` rows: Linv
-    (r, r + 1) and a (bm, r + 1) tile."""
+    """Shared memory of one float64 cross_solve_dist_levels block of
+    ``bm`` rows: Linv (r, r + 1) and a (bm, r + 1) tile."""
     return (r + bm) * (r + 1) * itemsize
 
 
@@ -68,11 +82,12 @@ def check_cross_rank(r: int, stage: str) -> None:
 
 def cross_rows(m: int, r: int, itemsize: int, smem=cross_smem,
                stage: str = "build_cross") -> int:
-    """Row-tile height of cross_solve (or, with ``smem=cross_dist_smem``,
-    of cross_solve_dist): the largest of :data:`_ROW_TILES` whose block
-    needs at most :data:`repro_torch.kernels._build.SMEM_MAX` bytes and
-    that does not overshoot m by a whole smaller tile; ``ValueError`` when
-    r exceeds :data:`MAX_CROSS_RANK` or no tile fits."""
+    """Row-tile height of the float64 cross tiles (cross_solve_levels, or
+    with ``smem=cross_dist_smem`` cross_solve_dist_levels): the largest of
+    :data:`_ROW_TILES` whose block needs at most
+    :data:`repro_torch.kernels._build.SMEM_MAX` bytes and that does not
+    overshoot m by a whole smaller tile; ``ValueError`` when r exceeds
+    :data:`MAX_CROSS_RANK` or no tile fits."""
     check_cross_rank(r, stage)
     fits = [bm for bm in _ROW_TILES
             if smem(bm, r, itemsize) <= _build.SMEM_MAX]
@@ -88,11 +103,55 @@ def _check_name(name: str) -> None:
                          f"{sorted(KERNEL_METRIC)}")
 
 
+def level_table(stage: str, rows) -> torch.Tensor:
+    """The host table of a grouped launch: one int64 row per group, (the
+    data pointers of the group's tensors in the stage's order, 0 for None,
+    its nodes, its m), as csrc/level_groups.cuh's read_table takes it;
+    ``ValueError`` past :data:`MAX_GROUPS` groups."""
+    if len(rows) > MAX_GROUPS:
+        raise ValueError(f"{stage}: {len(rows)} levels, above the "
+                         f"{MAX_GROUPS} one launch takes")
+    return torch.tensor([[0 if t is None else t.data_ptr() for t in row[:-2]]
+                         + list(row[-2:]) for row in rows], dtype=torch.int64)
+
+
+# ---------------------------------------------------------------------------
+# B1 and B2: the build engine's stages, from points
+# ---------------------------------------------------------------------------
+
+def _gram_levels(stage, dev, points, want_chol, name, sigma, jitter):
+    """Allocate and launch one gram_chol_levels over the levels ``points``
+    (with or without factors): ([(gram, chol or None)], launched)."""
+    if len({p.shape[2] for p in points}) > 1:
+        raise ValueError(f"{stage} needs one d for all levels; got "
+                         f"{[tuple(p.shape) for p in points]}")
+    if want_chol:
+        for p in points:
+            m = p.shape[1]
+            _build.check_smem(stage, gram_smem(m, p.element_size()),
+                              f"an ({m}, {m}) tile")
+    out = [(p.new_empty((p.shape[0], p.shape[1], p.shape[1])),
+            p.new_empty((p.shape[0], p.shape[1], p.shape[1])) if want_chol
+            else None) for p in points]
+    rows = [(p, g, c, p.shape[0], p.shape[1])
+            for p, (g, c) in zip(points, out) if g.numel()]
+    table = level_table(stage, rows)
+    if not rows:
+        return out, False
+    _build.launch("build_stage",
+                  f"gram_chol_levels_{_build.SUFFIX[points[0].dtype]}", dev,
+                  table, len(rows), points[0].shape[2],
+                  _build.EPILOGUE_KIND[name], float(sigma), float(jitter),
+                  int(bool(want_chol)))
+    return out, True
+
+
 def build_gram(
     points: torch.Tensor, *, name: str = "gaussian", sigma: float = 1.0,
     jitter: float = 0.0, want_chol: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """(B, m, d) -> gram (B, m, m) = K(P, P) + jitter*m I [+ lower Cholesky]."""
+    """(B, m, d) -> gram (B, m, m) = K(P, P) + jitter*m I [+ lower
+    Cholesky]: one level of ``gram_chol_levels``."""
     _check_name(name)
     if points.ndim != 3:
         raise ValueError(f"build_gram needs points (B, m, d); got "
@@ -101,52 +160,145 @@ def build_gram(
     if dev is None:
         return build_gram_ref(points, name=name, sigma=sigma, jitter=jitter,
                               want_chol=want_chol)
-    bsz, m, d = points.shape
-    _build.check_smem("build_gram", gram_smem(m, points.element_size()),
-                      f"an ({m}, {m}) tile")
-    gram = torch.empty((bsz, m, m), dtype=points.dtype, device=dev)
-    chol = torch.empty_like(gram) if want_chol else None
-    if gram.numel() == 0:
-        return gram, chol
-    _build.launch("build_stage",
-                  f"gram_chol_{_build.SUFFIX[points.dtype]}", dev, points,
-                  gram, chol, bsz, m, d, _build.EPILOGUE_KIND[name],
-                  float(sigma), float(jitter * m))
-    build_gram.launches += 1
-    return gram, chol
+    (out,), launched = _gram_levels("build_gram", dev, [points], want_chol,
+                                    name, sigma, jitter)
+    build_gram.launches += launched
+    return out
+
+
+def build_gram_levels(
+    points, *, name: str = "gaussian", sigma: float = 1.0,
+    jitter: float = 0.0, want_chol: bool = True,
+) -> list[tuple[torch.Tensor, torch.Tensor | None]]:
+    """Every level's (B_l, m_l, d) points -> per level (gram = K(P, P) +
+    jitter*m_l I, its lower Cholesky factor, or None without
+    ``want_chol``), in one launch (``gram_chol_levels``)."""
+    _check_name(name)
+    points = list(points)
+    if any(p.ndim != 3 for p in points):
+        raise ValueError("build_gram_levels needs points (B, m, d) per "
+                         f"level; got {[tuple(p.shape) for p in points]}")
+    if not points:
+        return []
+    dev = _build.cuda_device("build_gram_levels", *points)
+    if dev is None:
+        return build_gram_levels_ref(points, name=name, sigma=sigma,
+                                     jitter=jitter, want_chol=want_chol)
+    out, launched = _gram_levels("build_gram_levels", dev, points, want_chol,
+                                 name, sigma, jitter)
+    build_gram_levels.launches += launched
+    return out
+
+
+def _check_cross(stage, points, landmarks, linvs) -> None:
+    r = landmarks[0].shape[1] if landmarks else 0
+    d = points[0].shape[2] if points and points[0].ndim == 3 else 0
+    if len(points) != len(landmarks) or len(points) != len(linvs) or any(
+            p.ndim != 3 or z.ndim != 3 or li.ndim != 3
+            or z.shape != (p.shape[0], r, d) or p.shape[2] != d
+            or li.shape != (p.shape[0], r, r)
+            for p, z, li in zip(points, landmarks, linvs)):
+        raise ValueError(
+            f"{stage} needs points (B, m, d), landmarks (B, r, d) and linv "
+            f"(B, r, r) of one r and one d; got "
+            f"{[tuple(p.shape) for p in points]}, "
+            f"{[tuple(z.shape) for z in landmarks]}, "
+            f"{[tuple(li.shape) for li in linvs]}")
+
+
+def _cross_levels(stage, dev, points, landmarks, linvs, name, sigma):
+    """Allocate and launch one cross_solve_levels: ([U], launched)."""
+    r, d = landmarks[0].shape[1], points[0].shape[2]
+    dtype = points[0].dtype
+    check_cross_rank(r, stage)
+    if dtype == torch.float64:      # the CUDA-core tile: one height for all
+        bm = (cross_rows(max(p.shape[1] for p in points), r,
+                         points[0].element_size(), stage=stage),)
+    else:
+        bm = ()
+    out = [p.new_empty((p.shape[0], p.shape[1], r)) for p in points]
+    rows = [(p, z, li, u, p.shape[0], p.shape[1])
+            for p, z, li, u in zip(points, landmarks, linvs, out)
+            if u.numel()]
+    table = level_table(stage, rows)
+    if not rows:
+        return out, False
+    _build.launch("build_stage", f"cross_solve_levels_{_build.SUFFIX[dtype]}",
+                  dev, table, len(rows), r, d, *bm,
+                  _build.EPILOGUE_KIND[name], float(sigma))
+    return out, True
 
 
 def build_cross(
     points: torch.Tensor, landmarks: torch.Tensor, linv: torch.Tensor, *,
     name: str = "gaussian", sigma: float = 1.0,
 ) -> torch.Tensor:
-    """(B, m, d), (B, r, d), (B, r, r) -> U (B, m, r) = K(P, Z) Linv^T Linv."""
+    """(B, m, d), (B, r, d), (B, r, r) -> U (B, m, r) = K(P, Z) Linv^T Linv:
+    one level of ``cross_solve_levels``.  Linv must be lower triangular
+    (see :func:`build_cross_levels`)."""
     _check_name(name)
-    if (points.ndim != 3 or landmarks.ndim != 3 or linv.ndim != 3
-            or landmarks.shape[0] != points.shape[0]
-            or landmarks.shape[2] != points.shape[2]
-            or linv.shape != (points.shape[0], landmarks.shape[1],
-                              landmarks.shape[1])):
-        raise ValueError(
-            "build_cross needs points (B, m, d), landmarks (B, r, d) and "
-            f"linv (B, r, r); got {tuple(points.shape)}, "
-            f"{tuple(landmarks.shape)}, {tuple(linv.shape)}")
+    _check_cross("build_cross", [points], [landmarks], [linv])
     dev = _build.cuda_device("build_cross", points, landmarks, linv)
     if dev is None:
         return build_cross_ref(points, landmarks, linv, name=name,
                                sigma=sigma)
-    bsz, m, d = points.shape
-    r = landmarks.shape[1]
-    out = torch.empty((bsz, m, r), dtype=points.dtype, device=dev)
-    if out.numel() == 0:
-        return out
-    bm = cross_rows(m, r, points.element_size())
-    _build.launch("build_stage",
-                  f"cross_solve_{_build.SUFFIX[points.dtype]}", dev, points,
-                  landmarks, linv, out, bsz, m, r, d, bm,
-                  _build.EPILOGUE_KIND[name], float(sigma))
-    build_cross.launches += 1
+    (out,), launched = _cross_levels("build_cross", dev, [points],
+                                     [landmarks], [linv], name, sigma)
+    build_cross.launches += launched
     return out
+
+
+def build_cross_levels(
+    points, landmarks, linvs, *, name: str = "gaussian", sigma: float = 1.0,
+) -> list[torch.Tensor]:
+    """Every level's (B_l, m_l, d) points, (B_l, r, d) parent landmarks and
+    (B_l, r, r) parent Linv -> per level U = K(P, Z) Linv^T Linv (B_l, m_l,
+    r), in one launch (``cross_solve_levels``); one r and one d for all
+    levels.
+
+    Each Linv must be lower triangular, as ``hck.sigma_linv`` and the
+    rank masks' identity padding give it: the float32 kernel skips Linv's
+    8 x 8 blocks above the diagonal (it reads the diagonal blocks whole),
+    while the float64 kernel and the plain version take the full r x r
+    matrix."""
+    _check_name(name)
+    points, landmarks, linvs = list(points), list(landmarks), list(linvs)
+    _check_cross("build_cross_levels", points, landmarks, linvs)
+    if not points:
+        return []
+    dev = _build.cuda_device("build_cross_levels", *points, *landmarks,
+                             *linvs)
+    if dev is None:
+        return build_cross_levels_ref(points, landmarks, linvs, name=name,
+                                      sigma=sigma)
+    out, launched = _cross_levels("build_cross_levels", dev, points,
+                                  landmarks, linvs, name, sigma)
+    build_cross_levels.launches += launched
+    return out
+
+
+# ---------------------------------------------------------------------------
+# B8 and B9: the sweep engine's stages, from cached distances
+# ---------------------------------------------------------------------------
+
+def _gram_dist_levels(stage, dev, dists, name, sigma, jitter):
+    """Allocate and launch one gram_chol_dist_levels: ([(gram, chol)],
+    launched)."""
+    for d in dists:
+        m = d.shape[1]
+        _build.check_smem(stage, gram_dist_smem(m, d.element_size()),
+                          f"an ({m}, {m}) tile")
+    out = [(torch.empty_like(d), torch.empty_like(d)) for d in dists]
+    rows = [(d, g, c, d.shape[0], d.shape[1])
+            for d, (g, c) in zip(dists, out) if d.numel()]
+    table = level_table(stage, rows)
+    if not rows:
+        return out, False
+    _build.launch("build_dist",
+                  f"gram_chol_dist_levels_{_build.SUFFIX[dists[0].dtype]}",
+                  dev, table, len(rows), _build.EPILOGUE_KIND[name],
+                  float(sigma), float(jitter))
+    return out, True
 
 
 def build_gram_dist(
@@ -154,7 +306,8 @@ def build_gram_dist(
     jitter: float = 0.0, want_chol: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """(B, m, m) cached distances -> gram (B, m, m) = kappa_sigma(D) +
-    jitter*m I [+ lower Cholesky]."""
+    jitter*m I [+ lower Cholesky]: with the factor one level of
+    ``gram_chol_dist_levels``, without it ``gram_dist``."""
     _check_name(name)
     if dist.ndim != 3 or dist.shape[1] != dist.shape[2]:
         raise ValueError(f"build_gram_dist needs dist (B, m, m); got "
@@ -163,66 +316,19 @@ def build_gram_dist(
     if dev is None:
         return build_gram_dist_ref(dist, name=name, sigma=sigma,
                                    jitter=jitter, want_chol=want_chol)
-    bsz, m, _ = dist.shape
     if want_chol:
-        _build.check_smem("build_gram_dist",
-                          gram_dist_smem(m, dist.element_size()),
-                          f"an ({m}, {m}) tile")
-    gram = torch.empty_like(dist)
-    chol = torch.empty_like(dist) if want_chol else None
-    if gram.numel() == 0:
-        return gram, chol
-    sfx = _build.SUFFIX[dist.dtype]
-    opts = (_build.EPILOGUE_KIND[name], float(sigma), float(jitter * m))
-    if want_chol:
-        _build.launch("build_dist", f"gram_chol_dist_{sfx}", dev, dist, gram,
-                      chol, bsz, m, *opts)
-    else:
-        _build.launch("build_dist", f"gram_dist_{sfx}", dev, dist, gram, bsz,
-                      m, *opts)
-    build_gram_dist.launches += 1
-    return gram, chol
-
-
-def build_cross_dist(
-    dist: torch.Tensor, linv: torch.Tensor, *, name: str = "gaussian",
-    sigma: float = 1.0,
-) -> torch.Tensor:
-    """(B, m, r) cached distances, (B, r, r) -> U (B, m, r) =
-    kappa_sigma(D) Linv^T Linv."""
-    _check_name(name)
-    if (dist.ndim != 3 or linv.ndim != 3
-            or linv.shape != (dist.shape[0], dist.shape[2], dist.shape[2])):
-        raise ValueError(
-            "build_cross_dist needs dist (B, m, r) and linv (B, r, r); got "
-            f"{tuple(dist.shape)}, {tuple(linv.shape)}")
-    dev = _build.cuda_device("build_cross_dist", dist, linv)
-    if dev is None:
-        return build_cross_dist_ref(dist, linv, name=name, sigma=sigma)
-    bsz, m, r = dist.shape
-    out = torch.empty_like(dist)
-    if out.numel() == 0:
+        (out,), launched = _gram_dist_levels("build_gram_dist", dev, [dist],
+                                             name, sigma, jitter)
+        build_gram_dist.launches += launched
         return out
-    bm = cross_rows(m, r, dist.element_size(), smem=cross_dist_smem,
-                    stage="build_cross_dist")
-    _build.launch("build_dist",
-                  f"cross_solve_dist_{_build.SUFFIX[dist.dtype]}", dev, dist,
-                  linv, out, bsz, m, r, bm, _build.EPILOGUE_KIND[name],
-                  float(sigma))
-    build_cross_dist.launches += 1
-    return out
-
-
-def level_table(stage: str, rows) -> torch.Tensor:
-    """The host table of a grouped launch: one int64 row per group, (the
-    group's three tensors' data pointers, nodes, m), as
-    csrc/build_dist.cu's read_table takes it; ``ValueError`` past
-    :data:`MAX_GROUPS` groups."""
-    if len(rows) > MAX_GROUPS:
-        raise ValueError(f"{stage}: {len(rows)} levels, above the "
-                         f"{MAX_GROUPS} one launch takes")
-    return torch.tensor([[a.data_ptr(), b.data_ptr(), c.data_ptr(), nodes, m]
-                         for a, b, c, nodes, m in rows], dtype=torch.int64)
+    bsz, m, _ = dist.shape
+    gram = torch.empty_like(dist)
+    if gram.numel():
+        _build.launch("build_dist", f"gram_dist_{_build.SUFFIX[dist.dtype]}",
+                      dev, dist, gram, bsz, m, _build.EPILOGUE_KIND[name],
+                      float(sigma), float(jitter * m))
+        build_gram_dist.launches += 1
+    return gram, None
 
 
 def build_gram_dist_levels(
@@ -243,21 +349,54 @@ def build_gram_dist_levels(
     if dev is None:
         return build_gram_dist_levels_ref(dists, name=name, sigma=sigma,
                                           jitter=jitter)
-    for d in dists:
-        m = d.shape[1]
-        _build.check_smem("build_gram_dist_levels",
-                          factor_smem(m, d.element_size()),
-                          f"an ({m}, {m}) tile")
-    out = [(torch.empty_like(d), torch.empty_like(d)) for d in dists]
-    rows = [(d, g, c, d.shape[0], d.shape[1])
-            for d, (g, c) in zip(dists, out) if d.numel()]
-    table = level_table("build_gram_dist_levels", rows)
-    if rows:
-        _build.launch("build_dist",
-                      f"gram_chol_dist_levels_{_build.SUFFIX[dists[0].dtype]}",
-                      dev, table, len(rows), _build.EPILOGUE_KIND[name],
-                      float(sigma), float(jitter))
-        build_gram_dist_levels.launches += 1
+    out, launched = _gram_dist_levels("build_gram_dist_levels", dev, dists,
+                                      name, sigma, jitter)
+    build_gram_dist_levels.launches += launched
+    return out
+
+
+def _cross_dist_levels(stage, dev, dists, linvs, name, sigma):
+    """Allocate and launch one cross_solve_dist_levels: ([U], launched)."""
+    dtype, r = dists[0].dtype, dists[0].shape[-1]
+    check_cross_rank(r, stage)
+    if dtype == torch.float64:      # the CUDA-core tile: one height for all
+        bm = (cross_rows(max(d.shape[1] for d in dists), r,
+                         dists[0].element_size(),
+                         smem=cross_dist_smem, stage=stage),)
+    else:
+        bm = ()
+    out = [torch.empty_like(d) for d in dists]
+    rows = [(d, li, u, d.shape[0], d.shape[1])
+            for d, li, u in zip(dists, linvs, out) if d.numel()]
+    table = level_table(stage, rows)
+    if not rows:
+        return out, False
+    _build.launch("build_dist",
+                  f"cross_solve_dist_levels_{_build.SUFFIX[dtype]}", dev,
+                  table, len(rows), r, *bm, _build.EPILOGUE_KIND[name],
+                  float(sigma))
+    return out, True
+
+
+def build_cross_dist(
+    dist: torch.Tensor, linv: torch.Tensor, *, name: str = "gaussian",
+    sigma: float = 1.0,
+) -> torch.Tensor:
+    """(B, m, r) cached distances, (B, r, r) -> U (B, m, r) =
+    kappa_sigma(D) Linv^T Linv: one level of ``cross_solve_dist_levels``.
+    Linv must be lower triangular (see :func:`build_cross_dist_levels`)."""
+    _check_name(name)
+    if (dist.ndim != 3 or linv.ndim != 3
+            or linv.shape != (dist.shape[0], dist.shape[2], dist.shape[2])):
+        raise ValueError(
+            "build_cross_dist needs dist (B, m, r) and linv (B, r, r); got "
+            f"{tuple(dist.shape)}, {tuple(linv.shape)}")
+    dev = _build.cuda_device("build_cross_dist", dist, linv)
+    if dev is None:
+        return build_cross_dist_ref(dist, linv, name=name, sigma=sigma)
+    (out,), launched = _cross_dist_levels("build_cross_dist", dev, [dist],
+                                          [linv], name, sigma)
+    build_cross_dist.launches += launched
     return out
 
 
@@ -289,30 +428,16 @@ def build_cross_dist_levels(
     if dev is None:
         return build_cross_dist_levels_ref(dists, linvs, name=name,
                                            sigma=sigma)
-    dtype = dists[0].dtype
-    stage = "build_cross_dist_levels"
-    check_cross_rank(r, stage)
-    if dtype == torch.float64:      # the CUDA-core tile: one height for all
-        bm = (cross_rows(max(d.shape[1] for d in dists), r,
-                         dists[0].element_size(),
-                         smem=cross_dist_smem, stage=stage),)
-    else:
-        bm = ()
-    out = [torch.empty_like(d) for d in dists]
-    rows = [(d, li, u, d.shape[0], d.shape[1])
-            for d, li, u in zip(dists, linvs, out) if d.numel()]
-    table = level_table(stage, rows)
-    if rows:
-        _build.launch("build_dist",
-                      f"cross_solve_dist_levels_{_build.SUFFIX[dtype]}", dev,
-                      table, len(rows), r, *bm, _build.EPILOGUE_KIND[name],
-                      float(sigma))
-        build_cross_dist_levels.launches += 1
+    out, launched = _cross_dist_levels("build_cross_dist_levels", dev, dists,
+                                       linvs, name, sigma)
+    build_cross_dist_levels.launches += launched
     return out
 
 
 build_gram.launches = 0
 build_cross.launches = 0
+build_gram_levels.launches = 0
+build_cross_levels.launches = 0
 build_gram_dist.launches = 0
 build_cross_dist.launches = 0
 build_gram_dist_levels.launches = 0

@@ -10,6 +10,10 @@ Both are per-node maps batched over every node of one tree level
                      with ``Linv_b`` the inverse Cholesky factor of the
                      parent's middle factor (``Sigma^-1 = Linv^T Linv``).
 
+and their grouped forms over a list of tree levels (one launch each on
+the card), ``build_gram_levels`` (a factor where asked) and
+``build_cross_levels``, each a loop over the per-level plain versions.
+
 The base kernel is evaluated through :mod:`repro_torch.core.kernels_fn`,
 so in float64 both agree with the reference's ``xla`` path to round-off.
 A block that is not positive definite gets a factor whose lower triangle
@@ -68,6 +72,27 @@ def build_cross_ref(
     build_cross_ref.calls += 1
     kxu = get_kernel(name)(points, landmarks, sigma=sigma)       # (B, m, r)
     return (kxu @ linv.mT) @ linv
+
+
+def build_gram_levels_ref(
+    points, *, name: str = "gaussian", sigma: float = 1.0,
+    jitter: float = 0.0, want_chol: bool = True,
+) -> list[tuple[torch.Tensor, torch.Tensor | None]]:
+    """Per level (B_l, m_l, d) -> (gram, lower Cholesky or None): the
+    per-level plain version on each."""
+    build_gram_levels_ref.calls += 1
+    return [build_gram_ref(p, name=name, sigma=sigma, jitter=jitter,
+                           want_chol=want_chol) for p in points]
+
+
+def build_cross_levels_ref(
+    points, landmarks, linvs, *, name: str = "gaussian", sigma: float = 1.0,
+) -> list[torch.Tensor]:
+    """Per level (B_l, m_l, d), (B_l, r, d), (B_l, r, r) -> U (B_l, m_l,
+    r): the per-level plain version on each."""
+    build_cross_levels_ref.calls += 1
+    return [build_cross_ref(p, z, li, name=name, sigma=sigma)
+            for p, z, li in zip(points, landmarks, linvs)]
 
 
 def direct_dist(x: torch.Tensor, y: torch.Tensor,
@@ -158,6 +183,8 @@ def build_cross_dist_levels_ref(
 
 build_gram_ref.calls = 0
 build_cross_ref.calls = 0
+build_gram_levels_ref.calls = 0
+build_cross_levels_ref.calls = 0
 build_gram_dist_ref.calls = 0
 build_cross_dist_ref.calls = 0
 build_gram_dist_levels_ref.calls = 0

@@ -44,10 +44,13 @@ STAGES = (
     "ssd_intra_chunk",
 )
 
-#: stages of the port alone: the sweep engine's grouped forms of
-#: ``build_gram_dist`` and ``build_cross_dist``, every tree level of one
-#: sigma in one launch (the reference launches once per level)
+#: stages of the port alone: the grouped forms of ``build_gram`` and
+#: ``build_cross`` (the build engine) and of ``build_gram_dist`` and
+#: ``build_cross_dist`` (the sweep engine, one sigma), every tree level in
+#: one launch (the reference launches once per level)
 PORT_STAGES = (
+    "build_gram_levels",
+    "build_cross_levels",
     "build_gram_dist_levels",
     "build_cross_dist_levels",
 )
@@ -200,6 +203,49 @@ def _build_cross_cuda(points, landmarks, linv, *, name="gaussian",
     from repro_torch.kernels.build_stage.ops import build_cross
 
     return build_cross(points, landmarks, linv, name=name, sigma=sigma)
+
+
+@register("build_gram_levels", "torch")
+def _build_gram_levels_torch(points, *, name="gaussian", sigma=1.0,
+                             jitter=0.0, want_chol=True):
+    """Per level (B,m,d) -> (K(P,P) + jitter*m I, lower Cholesky or None),
+    one want_chol for all levels, plain."""
+    from repro_torch.kernels.build_stage.ref import build_gram_levels_ref
+
+    return build_gram_levels_ref(points, name=name, sigma=sigma,
+                                 jitter=jitter, want_chol=want_chol)
+
+
+@register("build_gram_levels", "cuda")
+def _build_gram_levels_cuda(points, *, name="gaussian", sigma=1.0,
+                            jitter=0.0, want_chol=True):
+    """Per level (B,m,d) -> (K(P,P) + jitter*m I, lower Cholesky or None),
+    one want_chol for all levels, one CUDA launch."""
+    from repro_torch.kernels.build_stage.ops import build_gram_levels
+
+    return build_gram_levels(points, name=name, sigma=sigma, jitter=jitter,
+                             want_chol=want_chol)
+
+
+@register("build_cross_levels", "torch")
+def _build_cross_levels_torch(points, landmarks, linvs, *, name="gaussian",
+                              sigma=1.0):
+    """Per level (B,m,d),(B,r,d),(B,r,r) -> K(P,Z) Linv^T Linv, plain."""
+    from repro_torch.kernels.build_stage.ref import build_cross_levels_ref
+
+    return build_cross_levels_ref(points, landmarks, linvs, name=name,
+                                  sigma=sigma)
+
+
+@register("build_cross_levels", "cuda")
+def _build_cross_levels_cuda(points, landmarks, linvs, *, name="gaussian",
+                             sigma=1.0):
+    """Per level (B,m,d),(B,r,d),(B,r,r) -> K(P,Z) Linv^T Linv, one CUDA
+    launch."""
+    from repro_torch.kernels.build_stage.ops import build_cross_levels
+
+    return build_cross_levels(points, landmarks, linvs, name=name,
+                              sigma=sigma)
 
 
 @register("build_gram_dist", "torch")
