@@ -12,9 +12,10 @@ result.  Phases, each of which raises on failure:
               wgmma kernel and all four of its mma.sync kernel, both of
               B3's kernel, both of B12's register-tiled kernel, all four
               of B1's grouped kernel, all four of B2's and of B9's grouped
-              tensor-core kernels and both of B8's grouped kernel there,
-              none spilling; any ptxas C7519 line of build_stage and
-              build_dist), and the wgmma (HGMMA), mma.sync (HMMA),
+              tensor-core kernels, both of B8's grouped kernel, B7's ten
+              and B4's eight there, none spilling; any ptxas C7519 line of
+              build_stage and build_dist), and the wgmma (HGMMA), mma.sync
+              (HMMA),
               TMA-load (UTMALDG) and mbarrier (SYNCS) instructions of the
               B14, B10, B15, B1/B2 and B8/B9 libraries (HGMMA and UTMALDG
               required of the first three, HMMA of B15's, build_stage and
@@ -44,8 +45,14 @@ result.  Phases, each of which raises on failure:
               with its solve residual through the port's own matvec;
   4. kernels  each kernel against its plain PyTorch version on the card, at
               the shapes the fit and serving paths give it (f32; B1 and B2
-              as the fit's two grouped launches, every level gated) and at
-              a small shape (f64), with the tolerance stated on its line;
+              as the fit's two grouped launches, every level gated; B7 one
+              stage at a time and both terms in one launch) and at a small
+              shape (f64), with the tolerance stated on its line; B3's L
+              and L^-1 (and B13's) exactly zero above the diagonal, which
+              B4 skips; B4 where it stages Linv and U and where it reads
+              them in place (n0 17, 142, 240, k 1, 7, 16, S = P and P/2);
+              B7 at d 90 and 780 and in chunks of rows, and its NaN rows
+              for indices out of range;
               B1 and B2 also grouped over ragged levels at d 5 and 90 (f32
               and f64), at the grown leaves n0 142 and 167 through
               leaf_stage_factors, and in an f64 build_hck at d 90 against
@@ -61,7 +68,8 @@ result.  Phases, each of which raises on failure:
   6. serve    the fitted full-width model served through ``model.engine``
               (warmup, 16 requests of mixed sizes and one of all 116,203
               test queries), the launch counts read around exactly this
-              run, and its test accuracy;
+              run (one B7 launch a bucket, both terms, and nothing else),
+              and its test accuracy;
   7. sweep    the sigma x lambda sweep engine at covtype width:
               ``build_sweep_plan`` once, ``gp.mle_grid`` over the 4 x 4
               grid, ``krr.fit_path`` over the 4 lambdas scored on the test
@@ -134,7 +142,12 @@ result.  Phases, each of which raises on failure:
               B10 and B15 beside the bound of the tensor-core route they
               take and that of f32 CUDA cores; B10's
               tensor-core and CUDA-core kernels in turns, with the exact-KRR
-              fit's wall time, iterations and seconds per apply);
+              fit's wall time, iterations and seconds per apply; B4 and B7
+              by device time (calls queued behind a spin kernel) and by
+              events around calls, B7's
+              one launch in turns with two; B4's bound over Linv's lower
+              triangle beside the one over all of Linv, and B4's and B5's
+              launches on every counted path);
  10. profile  torch.profiler over one full-width fit, over five 4096-query
               requests and over one sigma row of the NLL surface: device
               time by kernel, and the device's busy share.
@@ -375,7 +388,8 @@ def plain_versions() -> list:
 SUB_COUNTS = {"flash_attention_wgmma": ("flash_attention", "wgmma_launches"),
               "kernel_matvec_tc": ("kernel_matvec", "tc_launches"),
               "ssd_intra_chunk_wgmma": ("ssd_intra_chunk", "wgmma_launches"),
-              "policy_dist_tiled": ("policy_dist", "tiled_launches")}
+              "policy_dist_tiled": ("policy_dist", "tiled_launches"),
+              "oos_contract_pair": ("oos_contract", "pair_launches")}
 
 
 def reset_counts() -> None:
@@ -397,7 +411,8 @@ def read_counts() -> tuple[dict, dict]:
     difference.  B10's, B15's, B3's and B12's likewise: "kernel_matvec"
     and its tensor-core kernel's ("kernel_matvec_tc"), "ssd_intra_chunk"
     and its wgmma kernel's ("ssd_intra_chunk_wgmma"), "policy_dist" and its
-    register-tiled kernel's ("policy_dist_tiled")."""
+    register-tiled kernel's ("policy_dist_tiled"); B7's launches with both
+    terms of a bucket ("oos_contract_pair")."""
     wrappers = kernel_wrappers()
     launches = {name: fn.launches for name, fn in wrappers.items()}
     for key, (name, attr) in SUB_COUNTS.items():
@@ -463,6 +478,26 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     sync()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    sync()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device time per call of ``fn``: ``reps`` calls queued behind a spin
+    kernel (torch.cuda._sleep, ~2.5 ms of the card's time a call) that
+    outlasts the host's launches, so the events around them time the
+    card's work back to back, not the host's wrapper and launch time
+    (which events around calls measure where the kernels are short)."""
+    for _ in range(2):
+        fn()
+    sync()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(5_000_000 * reps)
     start.record()
     for _ in range(reps):
         fn()
@@ -543,17 +578,23 @@ def cross_dist_cost(dist, linv):
     return nbytes, b * m * r + 2 * b * m * r * (r + 1)
 
 
+def tri_bytes(p, n0, s):
+    """Bytes of p lower triangles of (n0, n0) row-major blocks of s-byte
+    entries, in the 32-byte sectors their rows touch (a row from its start
+    to its diagonal entry)."""
+    row = torch.arange(p * n0, dtype=torch.int64)
+    first = row * n0 * s                      # byte offset of each row
+    last = first + (row % n0 + 1) * s - 1     # of its diagonal entry's end
+    return 32 * int((last // 32 - first // 32 + 1).sum())
+
+
 def factor_cost(dleaf):
     """leaf_factor: the lower triangle of D read, as the kernel reads it,
     in the 32-byte sectors its rows touch; L and L^-1 written whole (zeros
     above the diagonal included); n0^3 / 3 flops for each."""
     p, n0, _ = dleaf.shape
     s = dleaf.element_size()
-    row = torch.arange(p * n0, dtype=torch.int64)
-    first = row * n0 * s                      # byte offset of each row
-    last = first + (row % n0 + 1) * s - 1     # of its diagonal entry's end
-    sectors = int((last // 32 - first // 32 + 1).sum())
-    return 32 * sectors + 2 * s * p * n0 * n0, 2 * p * n0 ** 3 / 3
+    return tri_bytes(p, n0, s) + 2 * s * p * n0 * n0, 2 * p * n0 ** 3 / 3
 
 
 def matvec_cost(adiag, u, b):
@@ -565,15 +606,18 @@ def matvec_cost(adiag, u, b):
     return nbytes, 2 * p * n0 * k * (n0 + r)
 
 
-def solve_cost(linv, u, sig, b):
-    """leaf_solve: Linv, U, the Sig blocks and b read, x and c written;
-    per column two products with the lower triangular Linv (n0^2 flops
-    each), U^T b and U (Sig c)."""
+def solve_cost(linv, u, sig, b, whole_linv=False):
+    """leaf_solve: Linv's lower triangle read, as the kernel reads it, in
+    the 32-byte sectors its rows touch (all of Linv with ``whole_linv``,
+    the count of the design it replaced), U, the Sig blocks and b read, x
+    and c written; per column two products with the triangle (n0^2 flops
+    each), U^T b, Sig c and U (Sig c)."""
     p, n0, r = u.shape
     k = b.shape[2]
-    nbytes = linv.element_size() * (p * n0 * n0 + p * n0 * r
-                                    + sig.shape[0] * r * r
-                                    + 2 * p * n0 * k + p * r * k)
+    s = linv.element_size()
+    tri = s * p * n0 * n0 if whole_linv else tri_bytes(p, n0, s)
+    nbytes = tri + s * (p * n0 * r + sig.shape[0] * r * r
+                        + 2 * p * n0 * k + p * r * k)
     return nbytes, 2 * p * k * (n0 * n0 + 2 * n0 * r + r * r)
 
 
@@ -598,6 +642,16 @@ def contract_cost(points, weights, queries, pidx, widx):
               + 8 * 2 * q)
     rows = pidx.unique().numel() * m + q
     return nbytes, kernel_flops(q * m, rows, d) + q * m * 2 * k
+
+
+def pair_cost(xl, wl, lm, ct, queries, leaf, parent):
+    """Bytes and flops of the one-launch form: both terms' distinct blocks,
+    and the queries, the two indices and the output once."""
+    q, d = queries.shape
+    k = wl.shape[2]
+    b1, f1 = contract_cost(xl, wl, queries, leaf, leaf)
+    b2, f2 = contract_cost(lm, ct, queries, parent, leaf)
+    return b1 + b2 - 4 * (q * d + q * k) - 16 * q, f1 + f2 - 2 * q * d
 
 
 # ---------------------------------------------------------------------------
@@ -715,6 +769,9 @@ def check_factor(dleaf, rtol):
     lo, li = leaf_factor(dleaf)
     wlo, wli = hck_leaf_factor_ref(dleaf)
     sync()
+    require(not bool(torch.triu(li, 1).any() or torch.triu(lo, 1).any()),
+            "leaf_factor: L and L^-1 exactly zero above the diagonal (B4 "
+            "skips that triangle)")
     rel = check_rel("leaf_factor L", lo, wlo, rtol)
     require(bool(torch.isfinite(li).all()), "leaf_factor L^-1 finite")
     rel_inv = rel_max(li, wli)
@@ -770,30 +827,71 @@ def check_project(u, b):
     return float(err.max())
 
 
-def check_contract(args, *, name, rtol):
-    """B7 on the card against its plain version: max |dz| <= rtol *
-    max |z_plain|.  The kernel sums (p - x)^2 directly, the plain version
-    uses the ||p||^2 + ||x||^2 - 2 p.x identity, which loses about
-    eps * (||p||^2 + ||x||^2) per distance, and the two sum in other
-    orders; rtol is 1e-4 in float32 (the documented f32 bound of
-    predictions) and 1e-10 in float64."""
-    from repro_torch.kernels.oos_stage.ops import oos_contract
-    from repro_torch.kernels.oos_stage.ref import oos_contract_ref
+def check_contract(args, *, name, rtol, pair=False, leaf_block=None):
+    """B7 on the card against its plain version: one stage
+    (``oos_contract``) or both terms of a bucket in one launch (``pair``:
+    ``oos_local_walk``); max |dz| <= rtol * max |z_plain|.  The kernel
+    sums (p - x)^2 directly, the plain version uses the ||p||^2 + ||x||^2
+    - 2 p.x identity, which loses about eps * (||p||^2 + ||x||^2) per
+    distance, and the two sum in other orders; rtol is 1e-4 in float32
+    (the documented f32 bound of predictions) and 1e-10 in float64."""
+    from repro_torch.kernels.oos_stage import ops, ref
 
-    got = oos_contract(*args, name=name, sigma=SIGMA)
-    want = oos_contract_ref(*args, name=name, sigma=SIGMA)
+    kernel = ops.oos_local_walk if pair else ops.oos_contract
+    plain = ref.oos_local_walk_ref if pair else ref.oos_contract_ref
+    got = kernel(*args, name=name, sigma=SIGMA, leaf_block=leaf_block)
+    want = plain(*args, name=name, sigma=SIGMA)
     sync()
     err = float((got - want).abs().max())
     scale = float(want.abs().max())
-    require(bool(torch.isfinite(got).all()), f"oos_contract[{name}] finite")
+    what = "oos_local_walk" if pair else "oos_contract"
+    require(bool(torch.isfinite(got).all()), f"{what}[{name}] finite")
     require(err <= rtol * scale,
-            f"oos_contract[{name}] max|dz| {err:.3e} <= {rtol} * {scale:.3e}")
+            f"{what}[{name}] max|dz| {err:.3e} <= {rtol} * {scale:.3e}")
     return err, scale
 
 
+def check_contract_nan(dev) -> None:
+    """B7's NaN rule on the card: a query with a block index out of range
+    (in either term of the one-launch form, or the one stage) gets a NaN
+    row; every other row is the one it gets with valid indices, bit for
+    bit."""
+    from repro_torch.kernels.oos_stage import ops
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    o = dict(generator=gen, device=dev)
+    xl, wl = torch.randn((16, 24, 5), **o), torch.randn((16, 24, 3), **o)
+    lm, ct = torch.randn((8, 12, 5), **o), torch.randn((16, 12, 3), **o)
+    qs = torch.randn((64, 5), **o)
+    leaf = torch.sort(torch.randint(0, 16, (64,), **o)).values
+    good = ops.oos_local_walk(xl, wl, lm, ct, qs, leaf, leaf >> 1)
+    for what, lf, par in (("leaf 16", 16, None), ("leaf -1", -1, None),
+                          ("parent 8", None, 8)):
+        bl, bp = leaf.clone(), (leaf >> 1).clone()
+        if lf is not None:
+            bl[7] = lf
+        else:
+            bp[7] = par
+        z = ops.oos_local_walk(xl, wl, lm, ct, qs, bl, bp)
+        one = ops.oos_contract(xl, wl, qs, bl, bl)
+        sync()
+        keep = torch.arange(64, device=dev) != 7
+        require(bool(torch.isnan(z[7]).all()) and torch.equal(z[keep],
+                                                              good[keep]),
+                f"oos_local_walk ({what}): NaN row 7, the rest unchanged")
+        if lf is not None:
+            require(bool(torch.isnan(one[7]).all())
+                    and bool(torch.isfinite(one[keep]).all()),
+                    f"oos_contract ({what}): NaN row 7, the rest finite")
+    say("[4 kernels] oos_contract and oos_local_walk: an index out of range "
+        "(leaf 16 and -1, parent 8) gives a NaN row, every other row bit "
+        "for bit unchanged ok")
+
+
 def bucket_inputs(f, plan, queries):
-    """The oos_local / oos_walk launch arguments of one 4096-query bucket,
-    exactly as apply_plan builds them."""
+    """The launch arguments of one 4096-query bucket exactly as apply_plan
+    builds them: oos_local's and oos_walk's (one stage each) and the
+    one-launch form's (both)."""
     from repro_torch.core.partition import group_by_leaf, route
 
     leaf = route(f.tree, queries)
@@ -801,21 +899,28 @@ def bucket_inputs(f, plan, queries):
     ls = leaf[order].contiguous()
     qs = queries[order].contiguous()
     xb = f.x_sorted.view(f.num_leaves, f.leaf_size, D)
+    parent = (ls >> 1).contiguous()
     local = (xb, plan.w_leaf, qs, ls, ls)
-    walk = (f.landmarks[-1], plan.c_tilde, qs, (ls >> 1).contiguous(), ls)
-    return local, walk
+    walk = (f.landmarks[-1], plan.c_tilde, qs, parent, ls)
+    pair = (xb, plan.w_leaf, f.landmarks[-1], plan.c_tilde, qs, ls, parent)
+    return local, walk, pair
 
 
 # ---------------------------------------------------------------------------
 # Phases
 # ---------------------------------------------------------------------------
 
-def phase_device() -> tuple[str, str]:
-    """Phase 1: the card's name and power limit."""
-    smi = subprocess.run(
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def phase_device() -> tuple[str, str]:
+    """Phase 1: the card's name and power limit."""
+    smi = card()
     kind = torch.cuda.get_device_name(0)
     say(f"[1 device] {smi}")
     say(f"[1 device] torch {torch.__version__} cuda {torch.version.cuda} "
@@ -830,8 +935,11 @@ def phase_build() -> None:
     tensor-core kernel, gaussian and imq by 8, 16 and 32 columns, B15's
     wgmma kernel and the four of its mma.sync kernel, B3's and B12's two,
     B1's four grouped kernels (f32 and f64, with and without the factor),
-    B2's and B9's four grouped tensor-core kernels each (NT 4, 8, 12, 16)
-    and B8's two grouped kernels must all be there and none may spill),
+    B2's and B9's four grouped tensor-core kernels each (NT 4, 8, 12, 16),
+    B8's two grouped kernels, B7's ten (f32 reading 1, 2 or 4 features at
+    a time, f64 1 or 2, each squared-L2 and L1) and B4's eight (f32 and
+    f64, Linv and U each staged or read in place) must all be there and
+    none may spill),
     ptxas's C7519 lines of build_stage and build_dist, and the Hopper
     instructions in the B14, B10, B15, B1/B2 and B8/B9 libraries (HGMMA:
     wgmma, HMMA: mma.sync, UTMALDG: TMA loads, SYNCS: mbarrier
@@ -867,7 +975,8 @@ def phase_build() -> None:
               "ssd_mma_kernel": 4, "ssd_wgmma_kernel": 1,
               "leaf_factor_kernel": 2, "policy_dist_tiled_kernel": 2,
               "gram_chol_levels_kernel": 2, "cross_levels_tc_kernel": 4,
-              "gram_points_kernel": 4, "cross_points_tc_kernel": 4}
+              "gram_points_kernel": 4, "cross_points_tc_kernel": 4,
+              "oos_contract_kernel": 10, "leaf_solve_kernel": 8}
     spills = {entry: [] for entry in hopper}
     for (name, mangled, lines), label in zip(entries, labels):
         for line in lines:
@@ -934,7 +1043,7 @@ def phase_fit(dev) -> dict:
                 "leaf_update": 0, "flash_attention": 0,
                 "flash_attention_wgmma": 0, "ssd_intra_chunk": 0,
                 "kernel_matvec_tc": 0, "ssd_intra_chunk_wgmma": 0,
-                "policy_dist_tiled": 0}
+                "policy_dist_tiled": 0, "oos_contract_pair": 0}
     require(launches == expected,
             f"fit launches {launches} == expected {expected}")
     require(all(v == 0 for v in plain_calls.values()),
@@ -1057,12 +1166,14 @@ def phase_kernels(fit, dev) -> dict:
     say(f"[4 kernels] leaf_project {tuple(f.u.shape)}: max|dc| "
         f"{res['hck_leaf_project']:.3e} (tolerance 2*n0*eps*|U|^T|b| per "
         f"entry) ok")
-    local, walk = bucket_inputs(f, model.plan, fit["xt"][:4096])
-    for stage, a in (("oos_local", local), ("oos_walk", walk)):
-        err, scale = check_contract(a, name="gaussian", rtol=1e-4)
+    local, walk, pair = bucket_inputs(f, model.plan, fit["xt"][:4096])
+    for stage, a, both in (("oos_local", local, False),
+                           ("oos_walk", walk, False),
+                           ("oos_local_walk", pair, True)):
+        err, scale = check_contract(a, name="gaussian", rtol=1e-4, pair=both)
         res[f"{stage}_err"] = err
-        say(f"[4 kernels] oos_contract {stage} q={a[2].shape[0]} "
-            f"m={a[0].shape[1]}: max|dz| {err:.3e} of max|z| {scale:.3e} "
+        say(f"[4 kernels] oos_contract {stage} q={a[4 if both else 2].shape[0]}"
+            f" m={a[0].shape[1]}: max|dz| {err:.3e} of max|z| {scale:.3e} "
             f"(tolerance 1e-4 relative) ok")
     phase_kernels_small(dev)
     return res
@@ -1092,10 +1203,19 @@ def phase_kernels_small(dev) -> None:
             widx = torch.randint(0, 16, (300,), generator=gen, device=dev)
             check_contract((pts, wts, rnd(300, 5), widx >> 1, widx),
                            name=name, rtol=rtol)
+            # the one-launch form: leaves of 24, parents' landmarks of 12,
+            # sorted leaves; again with blocks taken in chunks of 10 rows
+            leaf = torch.sort(widx).values
+            both = (rnd(16, 24, 5), rnd(16, 24, 3), rnd(8, 12, 5),
+                    rnd(16, 12, 3), rnd(300, 5), leaf, leaf >> 1)
+            for lb in (None, 10):
+                check_contract(both, name=name, rtol=rtol, pair=True,
+                               leaf_block=lb)
         _, _, _, back, inv_err = check_factor(spd(5, 40), rtol)
         li = torch.linalg.inv(torch.linalg.cholesky(spd(6, 24))).contiguous()
         check_leaf("solve", (li, rnd(6, 24, 8), rnd(3, 8, 8), rnd(6, 24, 3)),
                    rtol)
+        check_solve_shapes(dtype, rtol, rnd, spd, dev)
         check_leaf("matvec", (rnd(6, 24, 24), rnd(6, 24, 8), rnd(6, 24, 3)),
                    rtol)
         # B6: the scalar path (r 9, a view one element in), the 16-byte
@@ -1105,8 +1225,9 @@ def phase_kernels_small(dev) -> None:
                               ((3, 300, 12), 9), ((9, 2, 16), 17)):
             check_project(rnd(p, n0, r), rnd(p, n0, k))
         check_project(rnd(6 * 40 * 8 + 1)[1:].view(6, 40, 8), rnd(6, 40, 4))
-        say(f"[4 kernels] {tag} small shapes: gram_chol, cross_solve and "
-            f"oos_contract for gaussian, imq and laplace, leaf_factor "
+        say(f"[4 kernels] {tag} small shapes: gram_chol, cross_solve, "
+            f"oos_contract and oos_local_walk (whole blocks and chunks of 10 "
+            f"rows) for gaussian, imq and laplace, leaf_factor "
             f"(backward {back:.3e}, inverse {inv_err:.3e}), leaf_solve, "
             f"leaf_matvec within {rtol} relative, leaf_project (16-byte and "
             f"scalar loads, two row chunks, k 9 and 17, several leaves a "
@@ -1137,6 +1258,8 @@ def phase_kernels_small(dev) -> None:
                 "clamp")
     say("[4 kernels] an indefinite Gram block and an indefinite leaf (n0 16, "
         "and n0 40 in B3's ragged last panel) give NaN (no pivot clamp) ok")
+    check_contract_nan(dev)
+    check_contract_widths(dev)
     check_build_levels(dev)
     check_factor_sizes(dev)
 
@@ -1241,6 +1364,59 @@ def factor_leaves(p, n0, dtype, gen):
     k = torch.exp(-0.5 * torch.cdist(x, x) ** 2)
     return (k + 1e-2 * torch.eye(n0, dtype=torch.float64, device=gen.device)
             ).to(dtype).contiguous()
+
+
+def check_solve_shapes(dtype, rtol, rnd, spd, dev) -> None:
+    """Phase 4, small shapes: B4 where it stages Linv's triangle and U and
+    where it reads either in place (f32: n0 17 with 4-byte copies, k 1, 7
+    and 16 (two column groups), S = P and P/2, n0 240 with U read in
+    place; f64: n0 142 with U read in place, n0 240 with both), each within
+    ``rtol`` of its plain version; Linv exactly lower triangular, as every
+    producer of the port writes it."""
+    from repro_torch.kernels.hck_leaf.ops import solve_plan
+
+    shapes = [(6, 17, 8, 1, 3), (6, 16, 8, 7, 6), (6, 24, 12, 16, 3)]
+    shapes += ([(4, 240, 128, 7, 2)] if dtype == torch.float32 else
+               [(4, 142, 128, 7, 2), (2, 240, 128, 7, 1)])
+    seen = set()
+    for p, n0, r, k, s in shapes:
+        li = torch.linalg.solve_triangular(
+            torch.linalg.cholesky(spd(p, n0)),
+            torch.eye(n0, dtype=dtype, device=dev).expand(
+                p, n0, n0), upper=False).tril().contiguous()
+        args = (li, rnd(p, n0, r) / math.sqrt(n0), rnd(s, r, r) / r,
+                rnd(p, n0, k))
+        plan = solve_plan(n0, r, k, li.element_size(), li.data_ptr(),
+                          args[1].data_ptr(), args[2].data_ptr())
+        seen.add((plan["stage_l"], plan["stage_u"]))
+        check_leaf("solve", args, rtol)
+    say(f"[4 kernels] {str(dtype)[6:]} leaf_solve at (P, n0, r, k, S) "
+        f"{shapes}: staged (triangle, U) {sorted(seen)} within {rtol} ok")
+
+
+def check_contract_widths(dev) -> None:
+    """Phase 4: B7 at the widths of the repo's configs beside covtype's
+    (yearpredictionmsd d 90, mnist d 780 with 10 classes; mnist's blocks
+    do not fit a slot whole and go in chunks), f32 and f64, one stage and
+    the one-launch form, gaussian, against the plain versions."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    rows = []
+    for dtype, rtol in ((torch.float32, 1e-4), (torch.float64, 1e-10)):
+        for d, k in ((90, 1), (780, 10)):
+            def rnd(*shape):
+                return torch.randn(shape, generator=gen, dtype=dtype,
+                                   device=dev) / math.sqrt(d)
+            leaf = torch.sort(torch.randint(0, 32, (512,), generator=gen,
+                                            device=dev)).values
+            both = (rnd(32, 128, d), rnd(32, 128, k), rnd(16, 128, d),
+                    rnd(32, 128, k), rnd(512, d), leaf, leaf >> 1)
+            e1 = check_contract(both[:2] + both[4:6] + both[5:6],
+                                name="gaussian", rtol=rtol)[0]
+            e2 = check_contract(both, name="gaussian", rtol=rtol,
+                                pair=True)[0]
+            rows.append(f"{str(dtype)[6:]} d {d} k {k}: {e1:.3e}, {e2:.3e}")
+    say("[4 kernels] oos_contract and oos_local_walk at d 90 and 780 (m "
+        "128, 512 queries), max|dz|: " + "; ".join(rows) + " ok")
 
 
 def check_factor_sizes(dev) -> None:
@@ -1413,6 +1589,7 @@ def phase_serve(fit) -> dict:
     reset_counts()
     t0 = time.perf_counter()
     eng = model.engine
+    calls0 = eng.stats["calls"]
     buckets = eng.warmup()
     t_setup = time.perf_counter() - t0
     lat, start = [], 0
@@ -1432,8 +1609,12 @@ def phase_serve(fit) -> dict:
 
     require(full.shape == (N_TEST, N_CLASSES), "full request shape")
     require(bool(torch.isfinite(full).all()), "full request finite")
-    require(launches["oos_contract"] > 0,
-            f"the serving kernel launched on the serving path: {launches}")
+    calls = eng.stats["calls"] - calls0
+    require(launches["oos_contract"] == launches["oos_contract_pair"] == calls
+            and not any(v for key, v in launches.items()
+                        if key not in ("oos_contract", "oos_contract_pair")),
+            f"the serving path launched B7 once a bucket ({calls} buckets) "
+            f"and nothing else: {launches}")
     require(all(v == 0 for v in plain_calls.values()),
             f"no plain version ran on the serving path: {plain_calls}")
     again = eng(xt[:4096])
@@ -1812,9 +1993,12 @@ def phase_sweep(fit, dev) -> dict:
                 "flash_attention_wgmma": 0, "ssd_intra_chunk": 0,
                 "kernel_matvec_tc": 0, "ssd_intra_chunk_wgmma": 0,
                 "policy_dist_tiled": 0}
-    got = {k: v for k, v in launches.items() if k != "oos_contract"}
+    got = {k: v for k, v in launches.items()
+           if k not in ("oos_contract", "oos_contract_pair")}
     require(got == expected, f"sweep launches {got} == expected {expected}")
-    require(launches["oos_contract"] > 0, "oos_contract on the sweep path")
+    require(launches["oos_contract"] == launches["oos_contract_pair"] > 0,
+            "oos_contract on the sweep path, one launch a bucket: "
+            f"{launches['oos_contract']} == {launches['oos_contract_pair']}")
     require(all(v == 0 for v in plain_calls.values()),
             f"no plain version ran on the sweep path: {plain_calls}")
     require(nll.shape == (len(SIGMAS), len(LAMS))
@@ -3333,8 +3517,10 @@ def check_update_kernel(lo, linv, b, c, rtol):
                            ("L^-1", got[1], want[1], linv)):
         require(torch.equal(g[:, :n0, :n0], old)
                 and torch.equal(w[:, :n0, :n0], old)
-                and not bool(g[:, :n0, n0:].any()),
-                f"leaf_update {tag}: old quadrant bit for bit, zeros above")
+                and not bool(g[:, :n0, n0:].any())
+                and not bool(torch.triu(g, 1).any()),
+                f"leaf_update {tag}: old quadrant bit for bit, exact zeros "
+                "above the diagonal (B4 skips that triangle)")
     rel_l = check_rel("leaf_update L new rows", got[0][:, n0:], want[0][:, n0:],
                       rtol)
     rel_i = check_rel("leaf_update L^-1 new rows", got[1][:, n0:],
@@ -3377,14 +3563,18 @@ def grown_kernel_checks(f1, m1, ys1, xt) -> dict:
         t.contiguous() for t in (inv.linv, inv.u, inv.sigma[-1], b)), 1e-4)
     rel5, res["leaf_matvec"] = check_leaf("matvec", (f1.adiag, f1.u, b), 1e-4)
     res["hck_leaf_project"] = check_project(f1.u, m1.plan.w_leaf)
-    local, walk = bucket_inputs(m1.factors, m1.plan, xt[:4096])
-    for stage, a in (("oos_local", local), ("oos_walk", walk)):
-        res[stage] = check_contract(a, name="gaussian", rtol=1e-4)[0]
+    local, walk, pair = bucket_inputs(m1.factors, m1.plan, xt[:4096])
+    for stage, a, both in (("oos_local", local, False),
+                           ("oos_walk", walk, False),
+                           ("oos_local_walk", pair, True)):
+        res[stage] = check_contract(a, name="gaussian", rtol=1e-4,
+                                    pair=both)[0]
     say(f"[8c lifecycle] kernels at the grown leaf size n0={n0g} (128 + "
         f"{k}): gram_chol Adiag, cross_solve on the appended {k}-row slabs "
         f"(rel {rel2:.3e}, componentwise bound), leaf_factor (L rel "
         f"{rel3:.3e}), leaf_solve (rel {rel4:.3e}), leaf_matvec (rel "
-        f"{rel5:.3e}), leaf_project, oos_contract local and walk against "
+        f"{rel5:.3e}), leaf_project, oos_contract local, walk and both in "
+        f"one launch against "
         f"their plain versions, each within its phase-4 tolerance ok")
     return res
 
@@ -3446,8 +3636,9 @@ def lifecycle_update(fit, km, dev) -> dict:
     t = time.perf_counter()
     pred, ls, ps = counted(lambda: m2.predict(xt))
     t_serve = time.perf_counter() - t
-    require(ls["oos_contract"] > 0 and not any(ps.values()),
-            f"the updated model served through oos_contract: {ls}, {ps}")
+    require(ls["oos_contract"] == ls["oos_contract_pair"] == -(-N_TEST // 4096)
+            and not any(ps.values()), "the updated model served through "
+            f"oos_contract, one launch a bucket: {ls}, {ps}")
     want = oracle.predict(xt)
     gap = rel_max(pred, want)
     floor = res_floor(km, dev)
@@ -4221,7 +4412,84 @@ def build_timing(args, fl, res) -> list[dict]:
     return records
 
 
-def phase_timing(fit, res, served) -> list[dict]:
+def in_turns(new, old, reps, device=False):
+    """Times of ``new`` and ``old`` in turns (new, old, old, new): CUDA
+    events around ``reps`` calls, or with ``device`` the card's time alone
+    (device_ms).  (new's mean, old's mean, the four.)"""
+    t = [device_ms(fn, reps) if device else time_ms(fn, reps)
+         for fn in (new, old, old, new)]
+    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
+
+
+def solve_timing(a, fl, res, paths) -> dict:
+    """Phase 9, B4 at the fit's shape: the kernel's device time (and events
+    around calls), the plain version, the bound (Linv's lower triangle in
+    the 32-byte sectors its rows touch) beside the bound that counted all
+    of Linv, and B4's launches on every counted path.  The design it
+    replaced was timed in turns with it before it was removed (PERF.md
+    section 6)."""
+    from repro_torch.kernels.hck_leaf import ops as lops
+    from repro_torch.kernels.hck_leaf import ref as lref
+
+    return kernel_record(
+        "leaf_solve", "src/repro_torch/csrc/leaf_solve.cu",
+        "src/repro/kernels/hck_leaf/hck_leaf.py:123", fl["leaf_solve"],
+        res["leaf_solve"],
+        device_ms(lambda: lops.leaf_solve(*a), 20),
+        time_ms(lambda: lref.hck_leaf_solve_ref(*a), 20),
+        bound_ms(*solve_cost(*a)), unit="one launch (P 4096, n0 = r = 128, "
+        "k 7, f32; device time)",
+        call_ms=time_ms(lambda: lops.leaf_solve(*a), 20),
+        bound_whole_linv_ms=bound_ms(*solve_cost(*a, whole_linv=True))[0],
+        launches_by_path=paths["leaf_solve"])
+
+
+def contract_timing(f, model, fit, sl, res) -> dict:
+    """Phase 9, B7 on one 4096-query bucket: the one-launch form (both
+    terms) in turns with two launches of the kernel and the add they need,
+    by device time and by events around calls (the serving path's cost);
+    each term alone; plain versions and bounds (the distinct blocks the
+    bucket touches).  The design it replaced was timed in turns with
+    it before it was removed (PERF.md section 6)."""
+    from repro_torch.kernels.oos_stage import ops
+    from repro_torch.kernels.oos_stage import ref
+
+    local, walk, pair = bucket_inputs(f, model.plan, fit["xt"][:4096])
+    opts = dict(name="gaussian", sigma=SIGMA)
+
+    def one():
+        return ops.oos_local_walk(*pair, **opts)
+
+    def two():
+        return ops.oos_contract(*local, **opts) + ops.oos_contract(*walk,
+                                                                   **opts)
+
+    ms, ms_two, t = in_turns(one, two, 50, device=True)
+    call, call_two, tc = in_turns(one, two, 50)
+    parts = {}
+    for stage, sargs in (("oos_local", local), ("oos_walk", walk)):
+        parts[stage] = {
+            "ms": device_ms(lambda: ops.oos_contract(*sargs, **opts), 50),
+            "plain_ms": time_ms(lambda: ref.oos_contract_ref(*sargs, **opts),
+                                20),
+            "bound_ms": bound_ms(*contract_cost(*sargs))[0],
+            "max_abs_err": res[f"{stage}_err"]}
+    return kernel_record(
+        "oos_contract", "src/repro_torch/csrc/oos_contract.cu",
+        "src/repro/kernels/oos_stage/oos_stage.py:64", sl["oos_contract"],
+        res["oos_local_walk_err"], ms,
+        time_ms(lambda: ref.oos_local_walk_ref(*pair, **opts), 20),
+        bound_ms(*pair_cost(*pair)),
+        unit="one 4096-query bucket, both terms in one launch; device time",
+        two_launches_ms=ms_two,
+        turns_pair_ms={"one launch": [t[0], t[3]],
+                       "two launches + add": [t[1], t[2]]},
+        call_ms=call, two_launches_add_call_ms=call_two,
+        call_turns_ms={"one launch": [tc[0], tc[3]],
+                       "two launches + add": [tc[1], tc[2]]}, **parts)
+
+
+def phase_timing(fit, res, served, sw, solv) -> list[dict]:
     """Phase 9: kernel, plain and library times beside the bounds."""
     from repro_torch.kernels.build_stage import ops as bops
     from repro_torch.kernels.build_stage import ref as bref
@@ -4235,6 +4503,13 @@ def phase_timing(fit, res, served) -> list[dict]:
     args = fit_launches(f, fit["inv"], fit["b"])
     src, tpu = "src/repro_torch/csrc/", "src/repro/kernels/"
     records = []
+    say(f"[9 timing] card: {card()}")
+    # B4's and B5's launches on every path this script counts
+    paths = {name: {"fit": fl[name], "sweep": sw["launches"][name],
+                    "fit_exact (HCK-preconditioned)":
+                        solv["exact"]["launches"].get(name, 0),
+                    "SLQ surface": solv["slq"]["launches"][name]}
+             for name in ("leaf_solve", "leaf_matvec")}
 
     records += build_timing(args, fl, res)
     dleaf = args["dleaf"]
@@ -4247,20 +4522,15 @@ def phase_timing(fit, res, served) -> list[dict]:
         library_chain_ms=time_ms(lambda: factor_chain(dleaf), 10),
         library_chain="torch.linalg.cholesky + solve_triangular"))
     factor_f64(dleaf, records[-1])
-    a = args["solve"]
-    records.append(kernel_record(
-        "leaf_solve", src + "leaf_solve.cu", tpu + "hck_leaf/hck_leaf.py:123",
-        fl["leaf_solve"], res["leaf_solve"],
-        time_ms(lambda: lops.leaf_solve(*a), 20),
-        time_ms(lambda: lref.hck_leaf_solve_ref(*a), 20),
-        bound_ms(*solve_cost(*a)), unit="one launch"))
+    records.append(solve_timing(args["solve"], fl, res, paths))
     a = args["matvec"]
     records.append(kernel_record(
         "leaf_matvec", src + "leaf_matvec.cu", tpu + "hck_leaf/hck_leaf.py:70",
         fl["leaf_matvec"], res["leaf_matvec"],
         time_ms(lambda: lops.leaf_matvec(*a), 20),
         time_ms(lambda: lref.hck_leaf_matvec_ref(*a), 20),
-        bound_ms(*matvec_cost(*a)), unit="one launch"))
+        bound_ms(*matvec_cost(*a)), unit="one launch",
+        launches_by_path=paths["leaf_matvec"]))
     u, b = f.u, model.plan.w_leaf
     records.append(kernel_record(
         "hck_leaf_project", src + "hck_leaf_project.cu",
@@ -4269,24 +4539,7 @@ def phase_timing(fit, res, served) -> list[dict]:
         time_ms(lambda: lref.hck_leaf_project_ref(u, b), 20),
         bound_ms(*project_cost(u, b)),
         library=time_ms(lambda: torch.bmm(u.mT, b), 20), unit="one launch"))
-    local, walk = bucket_inputs(f, model.plan, fit["xt"][:4096])
-    stages = {}
-    for stage, sargs in (("oos_local", local), ("oos_walk", walk)):
-        stages[stage] = {
-            "ms": time_ms(lambda: oos_contract(*sargs, name="gaussian",
-                                               sigma=SIGMA), 50),
-            "plain_ms": time_ms(lambda: oos_contract_ref(
-                *sargs, name="gaussian", sigma=SIGMA), 20),
-            "bound": bound_ms(*contract_cost(*sargs)),
-            "max_abs_err": res[f"{stage}_err"]}
-    loc = stages["oos_local"]
-    walk_rec = {k: v for k, v in stages["oos_walk"].items() if k != "bound"}
-    walk_rec["bound_ms"] = stages["oos_walk"]["bound"][0]
-    records.append(kernel_record(
-        "oos_contract", src + "oos_contract.cu",
-        tpu + "oos_stage/oos_stage.py:64", sl["oos_contract"],
-        loc["max_abs_err"], loc["ms"], loc["plain_ms"], loc["bound"],
-        unit="one 4096-query bucket (oos_local)", oos_walk=walk_rec))
+    records.append(contract_timing(f, model, fit, sl, res))
     for rec in records:
         extra = ""
         if "library_chain_ms" in rec:
@@ -4294,7 +4547,21 @@ def phase_timing(fit, res, served) -> list[dict]:
                      f"{rec['library_chain_ms']:.4f} ms")
         if "previous_ms" in rec:
             extra += (f", previous design {rec['previous_ms']:.4f} ms (in "
-                      f"turns: {rec['turns_ms']})")
+                      f"turns: {rec.get('turns_ms', 'per term, below')})")
+        if "two_launches_ms" in rec:
+            extra += (f", two launches of the new kernel and their add "
+                      f"{rec['two_launches_ms']:.4f} ms (in turns: "
+                      f"{rec['turns_pair_ms']}); events around calls: one "
+                      f"launch {rec['call_ms']:.4f} ms, two launches + add "
+                      f"{rec['two_launches_add_call_ms']:.4f} ms (in turns: "
+                      f"{rec['call_turns_ms']})")
+        elif "call_ms" in rec:
+            extra += f", events around calls {rec['call_ms']:.4f} ms"
+        if "bound_whole_linv_ms" in rec:
+            extra += (f", bound counting all of Linv "
+                      f"{rec['bound_whole_linv_ms']:.4f} ms")
+        if "launches_by_path" in rec:
+            extra += f", launches by path {rec['launches_by_path']}"
         if "direct_sum_floor_ms" in rec:
             extra += (f", direct-sum issue floor "
                       f"{rec['direct_sum_floor_ms']:.4f} ms")
@@ -4305,7 +4572,7 @@ def phase_timing(fit, res, served) -> list[dict]:
             f"{rec['library_ms']} ms{extra}, bound {rec['bound_ms']:.4f} ms "
             f"({rec['bound_by']}), launches {rec['launches']}")
         for part in ("sigma_levels", "sigma_largest_level", "adiag", "u",
-                     "w_levels", "w_largest_level", "oos_walk"):
+                     "w_levels", "w_largest_level", "oos_local", "oos_walk"):
             if part in rec:
                 p = rec[part]
                 say(f"[9 timing]   {rec['name']} {part}: kernel "
@@ -4402,7 +4669,8 @@ def main() -> int:
     sres = phase_sweep_gates(fit, sw, dev)
     solv = phase_solvers(fit, sw, dev)
     life = phase_lifecycle(fit, sw, dev)
-    kernels = (phase_timing(fit, res, served) + sweep_timing(sw, sres)
+    kernels = (phase_timing(fit, res, served, sw, solv)
+               + sweep_timing(sw, sres)
                + solver_timing(solv["exact"], solv["kres"])
                + lifecycle_timing(fit, life["km"], life["update"],
                                   life["b12"]) + lm_records)

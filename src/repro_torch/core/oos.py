@@ -13,9 +13,10 @@ the n-vector ``k_hck(X, x)``:
 
       z = w_leaf[j]^T k(X_j, x)  +  c_tilde[j]^T k(Xl_parent(j), x)
 
-  -- the ``oos_local`` and ``oos_walk`` stages, both the ``oos_contract``
-  kernel on the card.  Queries are sorted by leaf first, so neighbouring
-  queries read the same blocks.
+  -- the ``oos_local`` and ``oos_walk`` stages, summed in one stage,
+  ``oos_local_walk``: one launch of the ``oos_contract`` kernel on the
+  card.  Queries are sorted by leaf first, so neighbouring queries read the
+  same blocks.
 
 The kernel reads each query's leaf block, leaf weights, parent landmarks
 and ``c_tilde`` block in place through the query's leaf index;
@@ -105,7 +106,8 @@ def apply_segments(
     kernel: BaseKernel, config: SolveConfig | None = None, *,
     leaf: Tensor | None = None,
 ) -> Tensor:
-    """Phase-2 stage launches: the exact-local term plus the walk term.
+    """Phase 2's two terms, the exact-local term plus the walk term, in one
+    stage (``oos_local_walk``: one kernel launch on the card).
 
     Without ``leaf`` the blocks are the reference's per-query gathered
     form: ``xl`` (q, n0, d) / ``wl`` (q, n0, k) each query's leaf points
@@ -121,19 +123,14 @@ def apply_segments(
         xl, wl, lm, ct, qs = (a.to(dt) for a in (xl, wl, lm, ct, qs))
     xl, wl, lm, ct, qs = (a.contiguous() for a in (xl, wl, lm, ct, qs))
     if leaf is None:
-        local_idx = walk_idx = parent_idx = torch.arange(
-            qs.shape[0], device=qs.device)
+        leaf_idx = parent_idx = torch.arange(qs.shape[0], device=qs.device)
     else:
-        local_idx = walk_idx = leaf.contiguous()
-        parent_idx = local_idx >> 1
-    opts = dict(name=kernel.name, sigma=kernel.sigma,
-                leaf_block=config.leaf_block)
-    backend = resolve_backend(config, "oos_local", xl, wl, qs)
-    z = get_impl("oos_local", backend)(xl, wl, qs, local_idx, local_idx,
-                                       **opts)
-    backend = resolve_backend(config, "oos_walk", lm, ct, qs)
-    return z + get_impl("oos_walk", backend)(lm, ct, qs, parent_idx,
-                                             walk_idx, **opts)
+        leaf_idx = leaf.contiguous()
+        parent_idx = leaf_idx >> 1
+    backend = resolve_backend(config, "oos_local_walk", xl, wl, lm, ct, qs)
+    return get_impl("oos_local_walk", backend)(
+        xl, wl, lm, ct, qs, leaf_idx, parent_idx, name=kernel.name,
+        sigma=kernel.sigma, leaf_block=config.leaf_block)
 
 
 def apply_plan(

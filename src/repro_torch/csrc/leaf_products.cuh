@@ -1,6 +1,6 @@
 // Per-leaf products of a row-major matrix in device memory with a small
 // k-column block in shared memory, shared by the leaf_matvec and
-// leaf_solve kernels.  Both read the big matrix with neighbouring threads
+// leaf_update kernels.  Both read the big matrix with neighbouring threads
 // on neighbouring addresses:
 //   rows_times  out = M in:    one warp per row of M, lanes over the row,
 //               KT outputs per lane in registers, reduced with shuffles;

@@ -55,10 +55,61 @@ def factor_smem(n0: int, itemsize: int) -> int:
     return -(-(n0 * (n0 | 1) + n0) * itemsize // 16) * 16 + 32 * itemsize
 
 
-def solve_smem(n0: int, r: int, k: int, itemsize: int) -> int:
-    """Shared memory of one leaf_solve block: b, t and x (n0 rows) and c and
-    Sig c (r rows), each of row stride k | 1."""
-    return (3 * n0 + 2 * r) * (k | 1) * itemsize
+#: right-hand-side columns the leaf_solve kernel takes a group
+SOLVE_GROUP = 8
+
+
+def tri_size(n0: int) -> int:
+    """Elements of Linv's lower triangle as the leaf_solve kernel stages
+    it: quads of 4 rows, row i packed in (i // 4 + 1) chunks of 4
+    elements, quad a starting at a chunk congruent to a mod 8."""
+    a = -(-n0 // 4)                      # the quads; the end of the last
+    return 4 * (2 * a * (a + 1) + 5 * ((a + 1) >> 1) + (a >> 1))
+
+
+def u_stride(r: int) -> int:
+    """Row stride (elements) of U as the leaf_solve kernel stages it: r in
+    whole 4-element chunks, an odd number of them."""
+    chunks = -(-r // 4)
+    return 4 * (chunks | 1)
+
+
+def solve_smem(n0: int, r: int, k: int, itemsize: int, *,
+               stage_l: bool = True, stage_u: bool = True) -> int:
+    """Shared memory of one leaf_solve block: the staged triangle and U
+    (where staged; U's rows rounded up to whole quads) and three buffers of
+    one group of :data:`SOLVE_GROUP` right-hand-side columns (b then Sig c,
+    Linv b, U^T b then half of U Sig c).  ``k`` only names the shape: a
+    group is always 8 columns wide."""
+    del k
+    n4, r4 = -(-n0 // 4) * 4, -(-r // 4) * 4
+    return itemsize * ((tri_size(n0) if stage_l else 0)
+                       + (n4 * u_stride(r) if stage_u else 0)
+                       + 3 * max(n4, r4) * SOLVE_GROUP)
+
+
+def solve_plan(n0: int, r: int, k: int, itemsize: int, lptr: int = 0,
+               uptr: int = 0, sptr: int = 0) -> dict:
+    """How the leaf_solve kernel takes a shape: whether Linv's triangle and
+    U are staged in shared memory (both where they fit, else the triangle
+    alone, else U alone, else neither: read in place), the block's shared
+    memory, and where 16-byte copies and loads of Linv, U and Sig rows are
+    legal (row bytes a multiple of 16, base aligned)."""
+    for stage_l, stage_u in ((True, True), (True, False), (False, True),
+                             (False, False)):
+        smem = solve_smem(n0, r, k, itemsize, stage_l=stage_l,
+                          stage_u=stage_u)
+        if smem <= _build.SMEM_MAX:
+            break
+
+    def wide(cols, ptr):
+        return (cols * itemsize) % 16 == 0 and ptr % 16 == 0
+
+    return {"stage_l": stage_l, "stage_u": stage_u, "smem": smem,
+            "lw": 16 if wide(n0, lptr) else itemsize,
+            "uw": 16 if wide(r, uptr) else itemsize,
+            "sw": 16 if wide(r, sptr) else itemsize,
+            "ldu": u_stride(r), "lsize": tri_size(n0)}
 
 
 def leaf_factor(dleaf: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -116,7 +167,10 @@ def leaf_solve(linv: torch.Tensor, u: torch.Tensor, sig: torch.Tensor,
 
     (P,n0,n0),(P,n0,r),(S,r,r),(P,n0,k) -> (P,n0,k),(P,r,k); ``sig`` has
     one block per leaf (S = P) or one per sibling pair (S = P/2, read in
-    place by both leaves).
+    place by both leaves).  ``linv`` is lower triangular: the kernel never
+    reads above its diagonal (the plain version does, and agrees only
+    where those entries are zero, as every producer in the port writes
+    them).
     """
     if any(t.ndim != 3 for t in (linv, u, sig, b)):
         raise ValueError("leaf_solve needs 3-D linv, u, sig and b")
@@ -133,15 +187,21 @@ def leaf_solve(linv: torch.Tensor, u: torch.Tensor, sig: torch.Tensor,
     dev = _build.cuda_device("leaf_solve", linv, u, sig, b)
     if dev is None:
         return hck_leaf_solve_ref(linv, u, sig, b)
-    _build.check_smem("leaf_solve", solve_smem(n0, r, k, b.element_size()),
-                      f"n0={n0}, r={r}, k={k}")
+    if n0 > 256 or r > 256:
+        raise ValueError(f"leaf_solve: n0={n0}, r={r} above the kernel's "
+                         "256 rows")
+    plan = solve_plan(n0, r, k, b.element_size(), linv.data_ptr(),
+                      u.data_ptr(), sig.data_ptr())
+    _build.check_smem("leaf_solve", plan["smem"], f"n0={n0}, r={r}")
     x = torch.empty_like(b)
     c = torch.empty((p, r, k), dtype=b.dtype, device=dev)
     if x.numel() == 0:
         return x, c.zero_()
     shift = 0 if sig.shape[0] == p else 1
     _build.launch("leaf_solve", f"leaf_solve_{_build.SUFFIX[b.dtype]}", dev,
-                  linv, u, sig, b, x, c, p, n0, r, k, shift)
+                  linv, u, sig, b, x, c, p, n0, r, k, shift,
+                  int(plan["stage_l"]), int(plan["stage_u"]), plan["lw"],
+                  plan["uw"], plan["sw"], plan["ldu"], plan["lsize"])
     leaf_solve.launches += 1
     return x, c
 

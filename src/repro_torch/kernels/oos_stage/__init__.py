@@ -1,1 +1,2 @@
-"""Algorithm-3 contraction ``oos_contract`` (B7) as a CUDA kernel and its plain version."""
+"""Algorithm-3 contraction ``oos_contract`` (B7) as a CUDA kernel, one
+stage or both terms in one launch, and its plain versions."""

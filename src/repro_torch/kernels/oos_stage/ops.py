@@ -1,40 +1,184 @@
-"""Wrapper of the ``oos_contract`` CUDA kernel (``csrc/oos_contract.cu``).
+"""Wrappers of the ``oos_contract`` CUDA kernel (``csrc/oos_contract.cu``).
 
-On CPU tensors the wrapper computes the plain version
-(:func:`repro_torch.kernels.oos_stage.ref.oos_contract_ref`); on CUDA
+``oos_contract`` launches it on one segment (the ``oos_local`` or the
+``oos_walk`` stage alone), ``oos_local_walk`` on both segments of every
+query at once (one launch a bucket).  On CPU tensors each wrapper computes
+its plain version (:mod:`repro_torch.kernels.oos_stage.ref`); on CUDA
 tensors it launches the kernel or raises.  ``oos_contract.launches``
-counts kernel launches.
+counts the kernel's launches by either wrapper,
+``oos_contract.pair_launches`` those with both segments.
+
+:func:`plan` is the launch's shape: how many rows of a block one slot of
+shared memory holds, how many warps a block of threads has, and the slot
+sizes; :func:`copy_width` and :func:`vec_width` the widths the kernel
+copies and reads with.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 
 import torch
 
 from repro_torch.core.kernels_fn import KERNEL_METRIC
 from repro_torch.kernels import _build
-from repro_torch.kernels.oos_stage.ref import oos_contract_ref
+from repro_torch.kernels.oos_stage.ref import (oos_contract_ref,
+                                               oos_local_walk_ref)
 
-#: dynamic shared memory per block, kept under the 48 KB a launch gets
-#: without an opt-in attribute
-SMEM_BUDGET = 48 * 1024
+#: dynamic shared memory a block can have (the kernel opts in above 48 KB)
+SMEM_BUDGET = _build.SMEM_MAX
+#: warps a block of threads has at most (each walks its own run of queries)
+MAX_WARPS = 4
 
 
+def _pad16(nbytes: int) -> int:
+    return -(-nbytes // 16) * 16
+
+
+def slot_elems(rows: int, d: int, k: int, itemsize: int) -> tuple[int, int,
+                                                                  int]:
+    """Elements of one point slot (rows x d), one weight slot (rows x k)
+    and one query slot (d), each rounded up to 16 bytes."""
+    return tuple(_pad16(n * itemsize) // itemsize
+                 for n in (rows * d, rows * k, d))
+
+
+def warp_smem(rows: int, d: int, k: int, itemsize: int) -> int:
+    """Shared memory one warp uses: two slots each of points, weights and
+    query rows."""
+    return 2 * sum(slot_elems(rows, d, k, itemsize)) * itemsize
+
+
+@functools.lru_cache(maxsize=256)
 def stage_rows(m: int, d: int, itemsize: int,
-               leaf_block: int | None = None) -> int:
-    """Rows of a point block the kernel stages in shared memory per step.
-
-    The query (d), the staged rows (rows x odd stride) and the m kernel
-    values share :data:`SMEM_BUDGET`; ``leaf_block`` asks for fewer rows.
-    Raises ``ValueError`` when not even one row fits.
-    """
-    stride = d | 1
-    fit = (SMEM_BUDGET // itemsize - d - m) // stride
-    rows = min(m, fit if leaf_block is None else min(fit, leaf_block))
+               leaf_block: int | None = None, *, k: int = 1) -> int:
+    """Rows of a block one slot holds: all m where one warp's slots fit
+    :data:`SMEM_BUDGET`, else the most that fit (the kernel then takes a
+    block in chunks of that many rows); ``leaf_block`` asks for fewer.
+    Raises ``ValueError`` when not even one row fits."""
+    lo, hi = 0, m
+    while lo < hi:                       # the most rows that fit
+        mid = (lo + hi + 1) // 2
+        if warp_smem(mid, d, k, itemsize) <= SMEM_BUDGET:
+            lo = mid
+        else:
+            hi = mid - 1
+    rows = lo if leaf_block is None else min(lo, leaf_block)
     if rows < 1:
-        raise ValueError(f"oos_contract: m={m}, d={d} leave no room for a "
-                         f"point row in {SMEM_BUDGET} bytes of shared memory")
+        raise ValueError(f"oos_contract: m={m}, d={d}, k={k} leave no room "
+                         f"for a point row in {SMEM_BUDGET} bytes of shared "
+                         "memory")
     return rows
+
+
+@functools.lru_cache(maxsize=256)
+def plan(ms: tuple[int, ...], d: int, k: int, itemsize: int,
+         leaf_block: int | None = None) -> dict:
+    """The launch's shape for segments of middle sizes ``ms``: rows a slot
+    holds, warps a block (as many as fit :data:`SMEM_BUDGET`, at most
+    :data:`MAX_WARPS`), the slots' elements and the block's shared
+    memory."""
+    rows = stage_rows(max(ms), d, itemsize, leaf_block, k=k)
+    per_warp = warp_smem(rows, d, k, itemsize)
+    warps = max(1, min(MAX_WARPS, SMEM_BUDGET // per_warp))
+    pslot, wslot, xslot = slot_elems(rows, d, k, itemsize)
+    return {"rows": rows, "warps": warps, "pslot": pslot, "wslot": wslot,
+            "xslot": xslot, "smem": warps * per_warp}
+
+
+def copy_width(ptr: int, *sizes: int) -> int:
+    """Bytes a cp.async piece moves: the widest of 16, 8, 4 that divides the
+    base address ``ptr`` and every byte size (each block's, each chunk's)."""
+    common = math.gcd(ptr, *sizes)
+    for width in (16, 8, 4):
+        if common % width == 0:
+            return width
+    raise ValueError(f"oos_contract: no copy width for address {ptr} and "
+                     f"sizes {sizes}")
+
+
+def vec_width(d: int, itemsize: int) -> int:
+    """Features the kernel reads at once: the widest of 4, 2, 1 elements
+    within 16 bytes that divides d."""
+    for vw in (4, 2, 1):
+        if vw * itemsize <= 16 and d % vw == 0:
+            return vw
+    return 1
+
+
+def _check(name: str, segments, queries) -> None:
+    if name not in KERNEL_METRIC:
+        raise ValueError(f"unknown base kernel {name!r}; have "
+                         f"{sorted(KERNEL_METRIC)}")
+    q, d = queries.shape if queries.ndim == 2 else (-1, -1)
+    k = segments[0][1].shape[-1] if segments[0][1].ndim == 3 else -1
+    for points, weights, pidx, widx in segments:
+        if (points.ndim != 3 or weights.ndim != 3 or queries.ndim != 2
+                or points.shape[1] != weights.shape[1]
+                or points.shape[2] != d or weights.shape[2] != k
+                or pidx.shape != (q,) or widx.shape != (q,)):
+            raise ValueError(
+                "oos_contract needs points (Bp, m, d), weights (Bw, m, k), "
+                "queries (q, d) and two (q,) indices per segment, one d and "
+                f"k for all; got {tuple(points.shape)}, "
+                f"{tuple(weights.shape)}, {tuple(queries.shape)}, "
+                f"{tuple(pidx.shape)}, {tuple(widx.shape)}")
+
+
+def _segment_args(points, weights, pidx, widx, rows: int) -> list:
+    bp, m, d = points.shape
+    bw, k = weights.shape[0], weights.shape[2]
+    s = points.element_size()
+    return [points, weights, pidx, widx, ctypes.c_longlong(bp),
+            ctypes.c_longlong(bw), m,
+            copy_width(points.data_ptr(), m * d * s, min(rows, m) * d * s),
+            copy_width(weights.data_ptr(), m * k * s, min(rows, m) * k * s)]
+
+
+def _device(segments, queries) -> torch.device | None:
+    """The CUDA device of a launch over ``segments`` ((points, weights, pidx,
+    widx) each), or None when every tensor lies on the CPU (the plain
+    version runs); raises on mixed devices, non-int64 indices or
+    non-contiguous tensors."""
+    tensors = [t for seg in segments for t in seg] + [queries]
+    floats = [t for seg in segments for t in seg[:2]] + [queries]
+    dev = _build.cuda_device("oos_contract", *floats)
+    if dev is None and all(t.device.type == "cpu" for t in tensors):
+        return None
+    if any(t.device != dev for t in tensors):
+        raise ValueError("oos_contract needs all tensors on one CUDA device; "
+                         f"got {[str(t.device) for t in tensors]}")
+    if any(t.dtype != torch.int64 for seg in segments for t in seg[2:]):
+        raise TypeError("oos_contract kernel takes int64 indices")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("oos_contract kernel needs contiguous tensors")
+    return dev
+
+
+def _launch(dev, segments, queries, name: str, sigma: float,
+            leaf_block: int | None) -> tuple[torch.Tensor, bool]:
+    """One launch over ``segments`` on ``dev``; (the output, whether the
+    kernel was launched: not for an empty output)."""
+    q, d = queries.shape
+    k = segments[0][1].shape[2]
+    s = queries.element_size()
+    p = plan(tuple(seg[0].shape[1] for seg in segments), d, k, s, leaf_block)
+    out = torch.empty((q, k), dtype=queries.dtype, device=dev)
+    if q == 0 or k == 0:
+        return out, False
+    args = _segment_args(*segments[0], p["rows"])
+    args += (_segment_args(*segments[1], p["rows"]) if len(segments) == 2
+             else [None, None, None, None, ctypes.c_longlong(0),
+                   ctypes.c_longlong(0), 0, 0, 0])
+    _build.launch("oos_contract",
+                  f"oos_contract_{_build.SUFFIX[queries.dtype]}", dev, *args,
+                  len(segments), queries, out, q, d, k, p["rows"], p["warps"],
+                  copy_width(queries.data_ptr(), d * s), vec_width(d, s),
+                  p["pslot"], p["wslot"], p["xslot"],
+                  _build.EPILOGUE_KIND[name], float(sigma))
+    oos_contract.launches += 1
+    return out, True
 
 
 def oos_contract(
@@ -46,46 +190,39 @@ def oos_contract(
 
     (Bp, m, d), (Bw, m, k), (q, d), (q,) int64, (q,) int64 -> (q, k).
     """
-    if name not in KERNEL_METRIC:
-        raise ValueError(f"unknown base kernel {name!r}; have "
-                         f"{sorted(KERNEL_METRIC)}")
-    if (points.ndim != 3 or weights.ndim != 3 or queries.ndim != 2
-            or points.shape[1] != weights.shape[1]
-            or points.shape[2] != queries.shape[1]
-            or point_index.shape != (queries.shape[0],)
-            or weight_index.shape != (queries.shape[0],)):
-        raise ValueError(
-            "oos_contract needs points (Bp, m, d), weights (Bw, m, k), "
-            "queries (q, d) and two (q,) indices; got "
-            f"{tuple(points.shape)}, {tuple(weights.shape)}, "
-            f"{tuple(queries.shape)}, {tuple(point_index.shape)}, "
-            f"{tuple(weight_index.shape)}")
-    tensors = (points, weights, queries, point_index, weight_index)
-    if all(t.device.type == "cpu" for t in tensors):
+    seg = (points, weights, point_index, weight_index)
+    _check(name, [seg], queries)
+    dev = _device([seg], queries)
+    if dev is None:
         return oos_contract_ref(points, weights, queries, point_index,
                                 weight_index, name=name, sigma=sigma)
-    dev = _build.cuda_device("oos_contract", points, weights, queries)
-    if any(t.device != dev for t in (point_index, weight_index)):
-        raise ValueError("oos_contract needs all tensors on one CUDA device; "
-                         f"got {[str(t.device) for t in tensors]}")
-    if point_index.dtype != torch.int64 or weight_index.dtype != torch.int64:
-        raise TypeError("oos_contract kernel takes int64 indices")
-    if not (point_index.is_contiguous() and weight_index.is_contiguous()):
-        raise ValueError("oos_contract kernel needs contiguous tensors")
-    bp, m, d = points.shape
-    bw, k = weights.shape[0], weights.shape[2]
-    q = queries.shape[0]
-    rows = stage_rows(m, d, points.element_size(), leaf_block)
-    out = torch.empty((q, k), dtype=points.dtype, device=dev)
-    if q == 0 or k == 0:
-        return out
-    _build.launch("oos_contract",
-                  f"oos_contract_{_build.SUFFIX[points.dtype]}", dev, points,
-                  weights, queries, point_index, weight_index, out,
-                  ctypes.c_longlong(bp), ctypes.c_longlong(bw), q, m, d, k,
-                  rows, _build.EPILOGUE_KIND[name], float(sigma))
-    oos_contract.launches += 1
+    return _launch(dev, [seg], queries, name, sigma, leaf_block)[0]
+
+
+def oos_local_walk(
+    xl: torch.Tensor, wl: torch.Tensor, lm: torch.Tensor, ct: torch.Tensor,
+    queries: torch.Tensor, leaf_index: torch.Tensor,
+    parent_index: torch.Tensor, *, name: str = "gaussian",
+    sigma: float = 1.0, leaf_block: int | None = None,
+) -> torch.Tensor:
+    """Both Algorithm-3 terms of every query in one launch:
+    z_i = wl[j]^T k(xl[j], x_i) + ct[j]^T k(lm[p], x_i), j = leaf_index[i],
+    p = parent_index[i].
+
+    xl (Bl, n0, d), wl (Bl, n0, k), lm (Bp, r, d), ct (Bl, r, k), queries
+    (q, d), two (q,) int64 indices -> (q, k).
+    """
+    segs = [(xl, wl, leaf_index, leaf_index),
+            (lm, ct, parent_index, leaf_index)]
+    _check(name, segs, queries)
+    dev = _device(segs, queries)
+    if dev is None:
+        return oos_local_walk_ref(xl, wl, lm, ct, queries, leaf_index,
+                                  parent_index, name=name, sigma=sigma)
+    out, launched = _launch(dev, segs, queries, name, sigma, leaf_block)
+    oos_contract.pair_launches += launched
     return out
 
 
 oos_contract.launches = 0
+oos_contract.pair_launches = 0

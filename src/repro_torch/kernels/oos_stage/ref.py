@@ -37,4 +37,21 @@ def oos_contract_ref(
     return torch.einsum("qm,qmk->qk", kv, weights[weight_index])
 
 
+def oos_local_walk_ref(
+    xl: torch.Tensor, wl: torch.Tensor, lm: torch.Tensor, ct: torch.Tensor,
+    queries: torch.Tensor, leaf_index: torch.Tensor,
+    parent_index: torch.Tensor, *, name: str = "gaussian",
+    sigma: float = 1.0,
+) -> torch.Tensor:
+    """Both Algorithm-3 terms summed, the plain form of the one-launch
+    kernel: the ``oos_local`` contraction at the query's leaf plus the
+    ``oos_walk`` contraction at its parent's landmarks (weights at the
+    leaf).  (Bl, n0, d), (Bl, n0, k), (Bp, r, d), (Bl, r, k), (q, d), (q,),
+    (q,) -> (q, k)."""
+    z = oos_contract_ref(xl, wl, queries, leaf_index, leaf_index, name=name,
+                         sigma=sigma)
+    return z + oos_contract_ref(lm, ct, queries, parent_index, leaf_index,
+                                name=name, sigma=sigma)
+
+
 oos_contract_ref.calls = 0

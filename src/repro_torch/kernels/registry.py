@@ -47,12 +47,14 @@ STAGES = (
 #: stages of the port alone: the grouped forms of ``build_gram`` and
 #: ``build_cross`` (the build engine) and of ``build_gram_dist`` and
 #: ``build_cross_dist`` (the sweep engine, one sigma), every tree level in
-#: one launch (the reference launches once per level)
+#: one launch (the reference launches once per level), and ``oos_local``
+#: and ``oos_walk`` of one bucket in one launch (``oos_local_walk``)
 PORT_STAGES = (
     "build_gram_levels",
     "build_cross_levels",
     "build_gram_dist_levels",
     "build_cross_dist_levels",
+    "oos_local_walk",
 )
 
 
@@ -409,6 +411,27 @@ def _oos_contract_cuda(points, weights, queries, point_index, weight_index,
 
     return oos_contract(points, weights, queries, point_index, weight_index,
                         name=name, sigma=sigma, leaf_block=leaf_block)
+
+
+@register("oos_local_walk", "torch")
+def _oos_local_walk_torch(xl, wl, lm, ct, queries, leaf_index, parent_index,
+                          *, name="gaussian", sigma=1.0, leaf_block=None):
+    """oos_local + oos_walk of each query summed, plain version."""
+    del leaf_block
+    from repro_torch.kernels.oos_stage.ref import oos_local_walk_ref
+
+    return oos_local_walk_ref(xl, wl, lm, ct, queries, leaf_index,
+                              parent_index, name=name, sigma=sigma)
+
+
+@register("oos_local_walk", "cuda")
+def _oos_local_walk_cuda(xl, wl, lm, ct, queries, leaf_index, parent_index,
+                         *, name="gaussian", sigma=1.0, leaf_block=None):
+    """oos_local + oos_walk of each query in one CUDA launch."""
+    from repro_torch.kernels.oos_stage.ops import oos_local_walk
+
+    return oos_local_walk(xl, wl, lm, ct, queries, leaf_index, parent_index,
+                          name=name, sigma=sigma, leaf_block=leaf_block)
 
 
 @register("kernel_matvec", "torch")

@@ -168,9 +168,12 @@ def test_wrappers_reject_bad_shapes():
 def test_stage_rows_fit_shared_memory():
     # covtype width: the whole 128-row block fits at once
     assert oos_ops.stage_rows(128, 54, 4) == 128
-    # mnist width (d = 780): rows of stride 781 within 48 KB
+    # mnist width (d = 780): as many rows as one warp's two slots of
+    # points, weights and query rows hold within a block's shared memory
     rows = oos_ops.stage_rows(128, 780, 4)
-    assert rows == (oos_ops.SMEM_BUDGET // 4 - 780 - 128) // 781
+    assert rows == 36
+    assert (oos_ops.warp_smem(rows, 780, 1, 4) <= oos_ops.SMEM_BUDGET
+            < oos_ops.warp_smem(rows + 1, 780, 1, 4))
     assert oos_ops.stage_rows(128, 54, 4, leaf_block=32) == 32
     with pytest.raises(ValueError, match="no room"):
         oos_ops.stage_rows(128, 20000, 4)

@@ -416,12 +416,14 @@ def test_grouped_plain_versions_equal_per_level_bit_for_bit(name, dtype):
 
 
 def test_grouped_stages_are_registered_beside_the_reference_stages():
-    """The grouped stages are the port's own: registered for both
-    backends, outside the reference's stage list."""
+    """The grouped stages (and the one-launch oos_local_walk) are the
+    port's own: registered for both backends, outside the reference's
+    stage list."""
     assert set(registry.PORT_STAGES) == {"build_gram_levels",
                                          "build_cross_levels",
                                          "build_gram_dist_levels",
-                                         "build_cross_dist_levels"}
+                                         "build_cross_dist_levels",
+                                         "oos_local_walk"}
     assert not set(registry.PORT_STAGES) & set(registry.STAGES)
     for stage in registry.PORT_STAGES:
         for backend in registry.BACKENDS:
