@@ -53,6 +53,9 @@ result.  Phases, each of which raises on failure:
               them in place (n0 17, 142, 240, k 1, 7, 16, S = P and P/2);
               B7 at d 90 and 780 and in chunks of rows, and its NaN rows
               for indices out of range;
+              B5 also at k 1 and 12 on the fit's leaves (a Lanczos
+              step's and the sweep's KPCA block's widths), and at small
+              shapes, panels of 16 rows among them;
               B1 and B2 also grouped over ragged levels at d 5 and 90 (f32
               and f64), at the grown leaves n0 142 and 167 through
               leaf_stage_factors, and in an f64 build_hck at d 90 against
@@ -393,11 +396,12 @@ SUB_COUNTS = {"flash_attention_wgmma": ("flash_attention", "wgmma_launches"),
 
 
 def reset_counts() -> None:
-    """Set every kernel's launch count (the SUB_COUNTS too) and plain
-    version's call count to 0."""
+    """Set every kernel's launch count (the SUB_COUNTS and B5's launches by
+    shape too) and plain version's call count to 0."""
     wrappers = kernel_wrappers()
     for fn in wrappers.values():
         fn.launches = 0
+    wrappers["leaf_matvec"].shapes.clear()
     for name, attr in SUB_COUNTS.values():
         setattr(wrappers[name], attr, 0)
     for fn in plain_versions():
@@ -418,6 +422,14 @@ def read_counts() -> tuple[dict, dict]:
     for key, (name, attr) in SUB_COUNTS.items():
         launches[key] = getattr(wrappers[name], attr)
     return launches, {fn.__name__: fn.calls for fn in plain_versions()}
+
+
+def matvec_shapes() -> dict:
+    """B5's launches since the counts were set to 0, by (n0, r, k)."""
+    from repro_torch.kernels.hck_leaf.ops import leaf_matvec
+
+    return {f"n0 {n0}, r {r}, k {k}": v
+            for (n0, r, k), v in sorted(leaf_matvec.shapes.items())}
 
 
 def counted(fn):
@@ -937,9 +949,11 @@ def phase_build() -> None:
     B1's four grouped kernels (f32 and f64, with and without the factor),
     B2's and B9's four grouped tensor-core kernels each (NT 4, 8, 12, 16),
     B8's two grouped kernels, B7's ten (f32 reading 1, 2 or 4 features at
-    a time, f64 1 or 2, each squared-L2 and L1) and B4's eight (f32 and
-    f64, Linv and U each staged or read in place) must all be there and
-    none may spill),
+    a time, f64 1 or 2, each squared-L2 and L1), B4's eight (f32 and
+    f64, Linv and U each staged or read in place), B5's eight (f32 and
+    f64, panels of 16 or 32 rows, a tile of 1 or 8 right-hand sides) and
+    B13's four (f32 and f64, panels of 16 or 32 rows) must all be there
+    and none may spill),
     ptxas's C7519 lines of build_stage and build_dist, and the Hopper
     instructions in the B14, B10, B15, B1/B2 and B8/B9 libraries (HGMMA:
     wgmma, HMMA: mma.sync, UTMALDG: TMA loads, SYNCS: mbarrier
@@ -976,7 +990,8 @@ def phase_build() -> None:
               "leaf_factor_kernel": 2, "policy_dist_tiled_kernel": 2,
               "gram_chol_levels_kernel": 2, "cross_levels_tc_kernel": 4,
               "gram_points_kernel": 4, "cross_points_tc_kernel": 4,
-              "oos_contract_kernel": 10, "leaf_solve_kernel": 8}
+              "oos_contract_kernel": 10, "leaf_solve_kernel": 8,
+              "leaf_matvec_kernel": 8, "leaf_update_kernel": 4}
     spills = {entry: [] for entry in hopper}
     for (name, mangled, lines), label in zip(entries, labels):
         for line in lines:
@@ -1030,6 +1045,7 @@ def phase_fit(dev) -> dict:
     sync()
     t_fit = time.perf_counter() - t0
     launches, plain_calls = read_counts()
+    fit_shapes = matvec_shapes()
     # ---------------------------------------------------------------------
     peak = torch.cuda.max_memory_allocated() / 2**30
 
@@ -1104,7 +1120,7 @@ def phase_fit(dev) -> dict:
         f"at this n: ||K 1|| / ||1|| = {knorm:.4e}, times eps32 "
         f"{knorm * torch.finfo(torch.float32).eps:.3e}) ok")
     return {"model": model, "launches": launches, "xt": xt, "yt": yt,
-            "x": x, "labels": labels,
+            "x": x, "labels": labels, "matvec_shapes": fit_shapes,
             "inv": inv, "b": y_sorted.view(f.num_leaves, LEAF, N_CLASSES),
             "t_fit": t_fit, "stages": stages, "peak": peak, "resid": rres}
 
@@ -1162,6 +1178,16 @@ def phase_kernels(fit, dev) -> dict:
         rel, res[f"leaf_{kind}"] = check_leaf(kind, args[kind], 1e-4)
         say(f"[4 kernels] leaf_{kind} at the fit's shapes: rel {rel:.3e}, "
             f"max|d| {res[f'leaf_{kind}']:.3e} (tolerance 1e-4 relative) ok")
+    # B5 at k = 1, a Lanczos step's shape (its KT = 1 instance), and at k
+    # = 12, the sweep's KPCA block (two tiles of 8; 51 of a sweep's 64
+    # launches)
+    adiag, u, b = args["matvec"]
+    for key, bk in (("leaf_matvec_k1", b[..., :1].contiguous()),
+                    ("leaf_matvec_k12", torch.cat([b, b[..., :5]], 2))):
+        rel, res[key] = check_leaf("matvec", (adiag, u, bk), 1e-4)
+        say(f"[4 kernels] leaf_matvec at k = {bk.shape[2]} "
+            f"{tuple(adiag.shape)}: rel {rel:.3e}, max|d| {res[key]:.3e} "
+            f"(tolerance 1e-4 relative) ok")
     res["hck_leaf_project"] = check_project(f.u, model.plan.w_leaf)
     say(f"[4 kernels] leaf_project {tuple(f.u.shape)}: max|dc| "
         f"{res['hck_leaf_project']:.3e} (tolerance 2*n0*eps*|U|^T|b| per "
@@ -1216,8 +1242,8 @@ def phase_kernels_small(dev) -> None:
         check_leaf("solve", (li, rnd(6, 24, 8), rnd(3, 8, 8), rnd(6, 24, 3)),
                    rtol)
         check_solve_shapes(dtype, rtol, rnd, spd, dev)
-        check_leaf("matvec", (rnd(6, 24, 24), rnd(6, 24, 8), rnd(6, 24, 3)),
-                   rtol)
+        check_matvec_shapes(rtol, rnd)
+        check_update_shapes(dtype, rtol, gen, dev)
         # B6: the scalar path (r 9, a view one element in), the 16-byte
         # path (r 8), rows in two staged chunks with k past one 8-column
         # tile (n0 300, k 9), several leaves per block (n0 2)
@@ -1229,7 +1255,9 @@ def phase_kernels_small(dev) -> None:
             f"oos_contract and oos_local_walk (whole blocks and chunks of 10 "
             f"rows) for gaussian, imq and laplace, leaf_factor "
             f"(backward {back:.3e}, inverse {inv_err:.3e}), leaf_solve, "
-            f"leaf_matvec within {rtol} relative, leaf_project (16-byte and "
+            f"leaf_matvec (k 1, 3, 9, 16, 33; n0 17, 24, 40, 142, 167 in "
+            f"panels of 16 rows; U one element off 16 bytes), leaf_update (n0 17, 40, k 1, 7, 33) within "
+            f"{rtol} relative, leaf_project (16-byte and "
             f"scalar loads, two row chunks, k 9 and 17, several leaves a "
             f"block) within 2*n0*eps*|U|^T|b| ok")
     from repro_torch.kernels.build_stage.ops import build_gram
@@ -1392,6 +1420,42 @@ def check_solve_shapes(dtype, rtol, rnd, spd, dev) -> None:
         check_leaf("solve", args, rtol)
     say(f"[4 kernels] {str(dtype)[6:]} leaf_solve at (P, n0, r, k, S) "
         f"{shapes}: staged (triangle, U) {sorted(seen)} within {rtol} ok")
+
+
+def check_matvec_shapes(rtol, rnd) -> None:
+    """Phase 4, small shapes: B5 at k 1 (its KT = 1 instance), 3 and 9 (one
+    and two tiles of 8), 33 (five), odd n0 (panels off 16 bytes), n0 142
+    (a ragged last panel), n0 167 with r 128 and k 16 (panels of 16 rows)
+    and U a view one element in (copied element by element), against its
+    plain version."""
+    from repro_torch.kernels.hck_leaf.ops import matvec_plan
+
+    for (p, n0, r), k in (((6, 24, 8), 3), ((6, 17, 9), 1), ((5, 40, 12), 9),
+                          ((7, 16, 16), 33), ((9, 142, 128), 7),
+                          ((3, 17, 9), 16), ((5, 167, 128), 16)):
+        args = (rnd(p, n0, n0), rnd(p, n0, r), rnd(p, n0, k))
+        if n0 == 167:
+            require(matvec_plan(n0, r, k, args[0].element_size())["rows"]
+                    == 16, "leaf_matvec at n0 167, r 128, k 16 takes panels "
+                    "of 16 rows")
+        check_leaf("matvec", args, rtol)
+    u = rnd(6 * 24 * 8 + 1)[1:].view(6, 24, 8)
+    check_leaf("matvec", (rnd(6, 24, 24), u, rnd(6, 24, 5)), rtol)
+
+
+def check_update_shapes(dtype, rtol, gen, dev) -> None:
+    """Phase 4, small shapes: B13 on bordered SPD leaves at n0 17 (panels off
+    16 bytes) and 40 (a ragged last panel), k 1, 7 and 33 (the factor of S
+    past one panel of 32), against its plain version (check_update_kernel's
+    gates)."""
+    o = dict(dtype=torch.float64, device=dev)
+    for p, n0, k in ((6, 17, 7), (9, 17, 1), (5, 40, 33)):
+        a = torch.randn((p, n0 + k, n0 + k), generator=gen, **o)
+        full = a @ a.mT / (n0 + k) + torch.eye(n0 + k, **o)
+        lo = torch.linalg.cholesky(full[:, :n0, :n0])
+        linv = torch.linalg.inv(lo).tril()
+        check_update_kernel(*(t.to(dtype).contiguous() for t in (
+            lo, linv, full[:, n0:, :n0], full[:, n0:, n0:])), rtol)
 
 
 def check_contract_widths(dev) -> None:
@@ -1978,6 +2042,7 @@ def phase_sweep(fit, dev) -> dict:
     sync()
     t_path = time.perf_counter() - t0
     launches, plain_calls = read_counts()
+    sweep_shapes = matvec_shapes()
     # ---------------------------------------------------------------------
     peak = torch.cuda.max_memory_allocated() / 2**30
 
@@ -2027,6 +2092,7 @@ def phase_sweep(fit, dev) -> dict:
         f"{[round(float(v), 4) for v in km.evals]}")
     return {"plan": plan, "xp": xp, "yp": yp, "target": target, "nll": nll,
             "f1": f1, "path": path, "launches": launches,
+            "matvec_shapes": sweep_shapes,
             "grid_launches": grid_launches, "stages": stages,
             "t_path": t_path, "peak": peak}
 
@@ -2823,6 +2889,7 @@ def phase_slq(sw, dev) -> dict:
         warnings.simplefilter("always")
         surf, launches, plain_calls = counted(
             lambda: gp.mle_grid(xp, y_t, slq_probe_vectors=probes, **kw))
+    slq_shapes = matvec_shapes()
     # -----------------------------------------------------------------------
     t_slq = time.perf_counter() - t
     # per sigma: sweep_factors (B8 grouped over the levels and the leaves,
@@ -2891,6 +2958,7 @@ def phase_slq(sw, dev) -> dict:
 
     slq64 = slq_f64_gate(dev)
     return {"t_slq": t_slq, "t_exact": t_exact, "launches": launches,
+            "matvec_shapes": slq_shapes,
             "gap": float(gap.max()), "same_argmin": same_argmin, **slq64}
 
 
@@ -3628,6 +3696,14 @@ def lifecycle_update(fit, km, dev) -> dict:
     # rebuilt from scratch, a fresh inverse, solve and plan
     f2, ys2, _ = replay_insert(m1, x2, y2)
     require(torch.equal(f2.u, m2.factors.u), "round 2 replayed")
+    # B13 at round 2's launch (the grown leaves of round 1 bordered again)
+    bb, cc = hmatrix.extension_blocks(f2, n0_base=m1.factors.leaf_size,
+                                      ridge=LAM)
+    res["b13_args2"] = tuple(t.contiguous() for t in (
+        m1.leaf_lo, m1.inverse.linv, bb, cc))
+    rel_l2, rel_i2, res["leaf_update_err2"] = check_update_kernel(
+        *res["b13_args2"], 1e-4)
+    del bb, cc
     f_ref = update.refit_frozen(f2, km.kernel, jitter_rows=LEAF)
     inv_ref, _ = hmatrix.invert_with_leaf(f_ref, LAM)
     alpha_ref = hmatrix.solve_with_inverse(f_ref, inv_ref, ys2, ridge=LAM)
@@ -3682,8 +3758,10 @@ def lifecycle_update(fit, km, dev) -> dict:
     say(f"[8c lifecycle] downdate(insert(f)) == f bit for bit ok; "
         f"leaf_update at round 1 {tuple(b13_args[0].shape)} + k "
         f"{b13_args[2].shape[1]}: old quadrants bit for bit, new rows rel "
-        f"L {rel_l:.3e}, L^-1 {rel_i:.3e} (tolerance 1e-4); f64 n={EXACT_N}"
-        f": {res['b13_f64']}")
+        f"L {rel_l:.3e}, L^-1 {rel_i:.3e}; at round 2 "
+        f"{tuple(res['b13_args2'][0].shape)} + k "
+        f"{res['b13_args2'][2].shape[1]}: rel L {rel_l2:.3e}, L^-1 "
+        f"{rel_i2:.3e} (tolerance 1e-4); f64 n={EXACT_N}: {res['b13_f64']}")
     say(f"[8c lifecycle] round 2 vs refit_frozen + invert_with_leaf + solve "
         f"+ prepare, all {N_TEST} test queries: rel {gap:.3e} <= f32 floor "
         f"{floor:.3e} ok; serving the updated model {t_serve:.3f} s "
@@ -3739,11 +3817,9 @@ def b13_f64(dev) -> str:
 def lifecycle_timing(fit, km, up, b12) -> list[dict]:
     """Phase 9, lifecycle: B12 at the k-means fit's twelve launch shapes
     (one Lloyd round) and the leverage pilot's, its register-tiled kernel
-    against the pair_tile kernel in turns, B13 at round 1's launch, beside
-    their bounds, plain and library times."""
-    from repro_torch.kernels.update_stage.ops import leaf_update
-    from repro_torch.kernels.update_stage.ref import leaf_update_ref
-
+    against the pair_tile kernel in turns, B13 at both update rounds'
+    launches (update_timing), beside their bounds, plain and library
+    times."""
     src, tpu = "src/repro_torch/csrc/", "src/repro/kernels/"
     f = km["model"].factors
     rows = []
@@ -3774,43 +3850,43 @@ def lifecycle_timing(fit, km, up, b12) -> list[dict]:
         launches_leverage_fit=km["lev_launches"], **parts)
     require(all(r["bound_by"] == "bytes" for r in rows),
             "policy_dist's bound is its bytes at every level")
-    lo, linv, b, c = up["b13_args"]
-    eye = torch.eye(b.shape[1], device=b.device)
-
-    def chain():
-        l21 = torch.bmm(b, linv.mT)
-        l22 = torch.linalg.cholesky(c - torch.bmm(l21, l21.mT))
-        x = torch.linalg.solve_triangular(l22, eye.expand_as(l22),
-                                          upper=False)
-        return l22, torch.bmm(x, torch.bmm(l21, linv))
-
+    rounds = [update_timing(args) for args in (up["b13_args"],
+                                               up["b13_args2"])]
+    lo, _, b, _ = up["b13_args"]
+    r1 = rounds[0]
     rec13 = kernel_record(
         "leaf_update", src + "leaf_update.cu",
         tpu + "update_stage/update_stage.py:62", sum(
             ln["leaf_update"] for ln in up["launches"]),
-        up["leaf_update_err"], time_ms(lambda: leaf_update(*up["b13_args"]),
-                                       10),
-        time_ms(lambda: leaf_update_ref(*up["b13_args"]), 5),
-        bound_ms(*leaf_update_cost(*up["b13_args"])),
+        max(up["leaf_update_err"], up["leaf_update_err2"]), r1["ms"],
+        r1["plain_ms"], (r1["bound_ms"], r1["bound_by"]),
         unit=f"one launch: P={lo.shape[0]}, n0={lo.shape[1]}, "
-             f"k={b.shape[1]}, f32 (update round 1)",
-        library_chain_ms=time_ms(chain, 5),
+             f"k={b.shape[1]}, f32 (update round 1; device time)",
+        library_chain_ms=r1["chain_ms"],
         library_chain="torch.bmm + torch.linalg.cholesky + solve_triangular "
                       "+ torch.bmm (the border only, no copy of the old "
-                      "quadrants)")
+                      "quadrants)",
+        round1=r1, round2=rounds[1])
     for rec in (rec12, rec13):
         extra = ""
         if "library_chain_ms" in rec:
             extra = (f", chain {rec['library_chain']} "
                      f"{rec['library_chain_ms']:.4f} ms")
         if "previous_ms" in rec:
-            extra += (f", previous design {rec['previous_ms']:.4f} ms, "
-                      f"direct-sum issue floor "
+            extra += f", previous design {rec['previous_ms']:.4f} ms"
+        if "direct_sum_floor_ms" in rec:
+            extra += (f", direct-sum issue floor "
                       f"{rec['direct_sum_floor_ms']:.4f} ms")
         say(f"[9 timing] {rec['name']} ({rec['unit']}): kernel "
             f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, library "
             f"{rec['library_ms']} ms{extra}, bound {rec['bound_ms']:.4f} ms "
             f"({rec['bound_by']}), launches {rec['launches']}")
+    for key in ("round1", "round2"):
+        p = rec13[key]
+        say(f"[9 timing]   leaf_update {key} ({p['shape']}): kernel "
+            f"{p['ms']:.4f} ms, plain {p['plain_ms']:.4f} ms, "
+            f"chain {p['chain_ms']:.4f} ms, bound {p['bound_ms']:.4f} ms "
+            f"({p['bound_by']})")
     for key in parts:
         p = rec12[key]
         say(f"[9 timing]   policy_dist {key}: kernel {p['ms']:.4f} ms, "
@@ -3819,6 +3895,34 @@ def lifecycle_timing(fit, km, up, b12) -> list[dict]:
             f"{p['library_ms']:.4f} ms, bound {p['bound_ms']:.4f} ms, "
             f"direct-sum issue floor {p['direct_sum_floor_ms']:.4f} ms")
     return [rec12, rec13]
+
+
+def update_timing(args) -> dict:
+    """B13 at one launch's shape: the kernel (device time), the plain
+    version, the chain of library calls for the border alone, the bound
+    (bytes).  The design it replaced was timed in turns with it before it
+    was removed (PERF.md section 6)."""
+    from repro_torch.kernels.update_stage.ops import leaf_update
+    from repro_torch.kernels.update_stage.ref import leaf_update_ref
+
+    lo, linv, b, c = args
+    p, n0, _ = lo.shape
+    k = b.shape[1]
+    eye = torch.eye(k, device=b.device)
+
+    def chain():
+        l21 = torch.bmm(b, linv.mT)
+        l22 = torch.linalg.cholesky(c - torch.bmm(l21, l21.mT))
+        x = torch.linalg.solve_triangular(l22, eye.expand_as(l22),
+                                          upper=False)
+        return l22, torch.bmm(x, torch.bmm(l21, linv))
+
+    bound = bound_ms(*leaf_update_cost(*args))
+    return {"shape": f"P {p}, n0 {n0}, k {k}",
+            "ms": device_ms(lambda: leaf_update(*args), 10),
+            "plain_ms": time_ms(lambda: leaf_update_ref(*args), 5),
+            "chain_ms": time_ms(chain, 5), "bound_ms": bound[0],
+            "bound_by": bound[1]}
 
 
 def dist_timing(blocks, centers, metric, reps) -> dict:
@@ -4444,6 +4548,51 @@ def solve_timing(a, fl, res, paths) -> dict:
         launches_by_path=paths["leaf_solve"])
 
 
+def matvec_parts(a, b) -> dict:
+    """B5 at one launch's shape: the kernel (device time, and events around
+    calls), the plain version, the two library calls torch.bmm(adiag, b) +
+    torch.bmm(u.mT, b), the bound.  The design it replaced was timed in
+    turns with it before it was removed (PERF.md section 6)."""
+    from repro_torch.kernels.hck_leaf import ops as lops
+    from repro_torch.kernels.hck_leaf import ref as lref
+
+    adiag, u = a
+    p, n0, k = b.shape
+    r = u.shape[2]
+    bound = bound_ms(*matvec_cost(adiag, u, b))
+    return {"shape": f"P {p}, n0 {n0}, r {r}, k {k}",
+            "ms": device_ms(lambda: lops.leaf_matvec(adiag, u, b), 20),
+            "call_ms": time_ms(lambda: lops.leaf_matvec(adiag, u, b), 20),
+            "plain_ms": time_ms(lambda: lref.hck_leaf_matvec_ref(adiag, u, b),
+                                20),
+            "library_ms": device_ms(lambda: (torch.bmm(adiag, b),
+                                             torch.bmm(u.mT, b)), 20),
+            "bound_ms": bound[0], "bound_by": bound[1]}
+
+
+def matvec_timing(a, fl, res, paths, shapes) -> dict:
+    """Phase 9, B5 at the fit's k (the record's numbers), at k = 1 (a
+    Lanczos step's shape) and at k = 12 (the sweep's KPCA block, two tiles
+    of 8) by device time, with its launches on every counted
+    path, in all and by (n0, r, k)."""
+    adiag, u, b = a
+    fit_k = matvec_parts((adiag, u), b)
+    k1 = matvec_parts((adiag, u), b[..., :1].contiguous())
+    k12 = matvec_parts((adiag, u), torch.cat([b, b[..., :5]], dim=2))
+    return kernel_record(
+        "leaf_matvec", "src/repro_torch/csrc/leaf_matvec.cu",
+        "src/repro/kernels/hck_leaf/hck_leaf.py:70", fl["leaf_matvec"],
+        max(res["leaf_matvec"], res["leaf_matvec_k1"],
+            res["leaf_matvec_k12"]), fit_k["ms"],
+        fit_k["plain_ms"], (fit_k["bound_ms"], fit_k["bound_by"]),
+        library=fit_k["library_ms"],
+        unit=f"one launch at the fit's k ({fit_k['shape']}, f32; device "
+             f"time)", library_call="torch.bmm(adiag, b) + torch.bmm(u.mT, b)",
+        call_ms=fit_k["call_ms"], fit_k=fit_k, k1=k1, k12=k12,
+        launches_by_path=paths["leaf_matvec"],
+        launches_by_shape=shapes)
+
+
 def contract_timing(f, model, fit, sl, res) -> dict:
     """Phase 9, B7 on one 4096-query bucket: the one-launch form (both
     terms) in turns with two launches of the kernel and the add they need,
@@ -4523,14 +4672,9 @@ def phase_timing(fit, res, served, sw, solv) -> list[dict]:
         library_chain="torch.linalg.cholesky + solve_triangular"))
     factor_f64(dleaf, records[-1])
     records.append(solve_timing(args["solve"], fl, res, paths))
-    a = args["matvec"]
-    records.append(kernel_record(
-        "leaf_matvec", src + "leaf_matvec.cu", tpu + "hck_leaf/hck_leaf.py:70",
-        fl["leaf_matvec"], res["leaf_matvec"],
-        time_ms(lambda: lops.leaf_matvec(*a), 20),
-        time_ms(lambda: lref.hck_leaf_matvec_ref(*a), 20),
-        bound_ms(*matvec_cost(*a)), unit="one launch",
-        launches_by_path=paths["leaf_matvec"]))
+    records.append(matvec_timing(args["matvec"], fl, res, paths, {
+        "fit": fit["matvec_shapes"], "sweep": sw["matvec_shapes"],
+        "SLQ surface": solv["slq"]["matvec_shapes"]}))
     u, b = f.u, model.plan.w_leaf
     records.append(kernel_record(
         "hck_leaf_project", src + "hck_leaf_project.cu",
@@ -4562,6 +4706,8 @@ def phase_timing(fit, res, served, sw, solv) -> list[dict]:
                       f"{rec['bound_whole_linv_ms']:.4f} ms")
         if "launches_by_path" in rec:
             extra += f", launches by path {rec['launches_by_path']}"
+        if "launches_by_shape" in rec:
+            extra += f", launches by (n0, r, k) {rec['launches_by_shape']}"
         if "direct_sum_floor_ms" in rec:
             extra += (f", direct-sum issue floor "
                       f"{rec['direct_sum_floor_ms']:.4f} ms")
@@ -4571,6 +4717,14 @@ def phase_timing(fit, res, served, sw, solv) -> list[dict]:
             f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, library "
             f"{rec['library_ms']} ms{extra}, bound {rec['bound_ms']:.4f} ms "
             f"({rec['bound_by']}), launches {rec['launches']}")
+        for part in ("fit_k", "k1", "k12"):
+            if part in rec:
+                p = rec[part]
+                say(f"[9 timing]   {rec['name']} {part} ({p['shape']}): "
+                    f"kernel {p['ms']:.4f} ms, "
+                    f"events around calls {p['call_ms']:.4f} ms, plain "
+                    f"{p['plain_ms']:.4f} ms, library {p['library_ms']:.4f} "
+                    f"ms, bound {p['bound_ms']:.4f} ms ({p['bound_by']})")
         for part in ("sigma_levels", "sigma_largest_level", "adiag", "u",
                      "w_levels", "w_largest_level", "oos_local", "oos_walk"):
             if part in rec:

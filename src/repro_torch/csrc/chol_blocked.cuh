@@ -1,7 +1,9 @@
 // The blocked Cholesky factorization of one SPD tile held in shared
-// memory by a block of 128 threads, in panels of NB = 32 columns (the last
+// memory by 128 threads of a block, in panels of NB = 32 columns (the last
 // one ragged): the factor of the leaf_factor kernel (leaf_factor.cu, B3),
-// shared with the grouped gram_chol_dist kernel (build_levels.cu, B8).
+// shared with the grouped gram_chol kernels (build_stage.cu, B1;
+// build_dist.cu, B8) and with leaf_update.cu (B13), whose blocks of 256
+// threads run it on their first 128.
 //   1. warp 0 factors the 32 x 32 diagonal block in registers, lane i
 //      holding row i: each pivot's square root and reciprocal (stored),
 //      the column scaled by it and passed to every lane through a small
@@ -24,7 +26,8 @@
 
 #include <cuda_runtime.h>
 
-#include "chol_smem.cuh"        // chol_sqrt
+__device__ __forceinline__ float chol_sqrt(float v) { return sqrtf(v); }
+__device__ __forceinline__ double chol_sqrt(double v) { return sqrt(v); }
 
 namespace chol_blocked {
 
@@ -238,24 +241,28 @@ __host__ __device__ constexpr size_t col_offset(int n0, int lda,
 
 // Steps 1-3 over every panel of the (n0, lda) tile ``a``: on return its
 // lower triangle holds L and rdiag[i] = 1 / L_ii.  Every thread of the
-// block calls it, after a barrier that follows the tile's staging; it
-// synchronises after each panel, so on return every thread sees L.
+// block calls it, after a barrier that follows the tile's staging (threads
+// past the first kThreads only meet the barriers); it synchronises after
+// each panel, so on return every thread sees L.
 template <typename T>
 __device__ __forceinline__ void factor_panels(T* a, int lda, T* rdiag,
                                               T* col, int n0) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool mine = threadIdx.x < kThreads;
   for (int kb = 0; kb < n0; kb += NB) {
     const int w = min(NB, n0 - kb);
     if (warp == 0) factor_diag(a, lda, rdiag, col, kb, w, lane);
     __syncthreads();                  // L11 and its pivots are final
     const int below = kb + w;
     if (below >= n0) break;
-    for (int p0 = below; p0 < n0; p0 += kPassRows)
-      LEAF_PASS(forward_pass, p0, n0, a, lda, rdiag, kb, w, p0, n0);
+    if (mine)
+      for (int p0 = below; p0 < n0; p0 += kPassRows)
+        LEAF_PASS(forward_pass, p0, n0, a, lda, rdiag, kb, w, p0, n0);
     __syncthreads();                  // L21 is final
-    for (int cb = below; cb < n0; cb += NB)
-      for (int p0 = cb; p0 < n0; p0 += kPassRows)
-        LEAF_PASS(update_pass, p0, n0, a, lda, kb, w, cb, p0, n0);
+    if (mine)
+      for (int cb = below; cb < n0; cb += NB)
+        for (int p0 = cb; p0 < n0; p0 += kPassRows)
+          LEAF_PASS(update_pass, p0, n0, a, lda, kb, w, cb, p0, n0);
     __syncthreads();                  // A22 is updated
   }
 }

@@ -27,10 +27,9 @@ KERNELS = ("hck_leaf_project", "oos_contract", "build_stage", "build_dist",
            "leaf_factor", "leaf_matvec", "leaf_solve", "kernel_matvec",
            "kernel_tile", "policy_dist", "leaf_update", "flash_attention",
            "ssd_chunk")
-_HEADERS = ("kernel_epilogue.cuh", "chol_smem.cuh", "cross_products.cuh",
-            "leaf_products.cuh", "pair_tile.cuh", "hopper.cuh", "tf32x3.cuh",
-            "async_copy.cuh", "chol_blocked.cuh", "cross_tc.cuh",
-            "level_groups.cuh")
+_HEADERS = ("kernel_epilogue.cuh", "cross_products.cuh", "pair_tile.cuh",
+            "hopper.cuh", "tf32x3.cuh", "async_copy.cuh", "chol_blocked.cuh",
+            "cross_tc.cuh", "level_groups.cuh", "leaf_stream.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

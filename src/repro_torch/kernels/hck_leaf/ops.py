@@ -9,9 +9,11 @@ ref`); on CUDA tensors it launches the kernel or raises.  Each wrapper's
 """
 from __future__ import annotations
 
+from collections import Counter
+
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, leaf_stream
 from repro_torch.kernels.hck_leaf.ref import (hck_leaf_factor_ref,
                                               hck_leaf_matvec_ref,
                                               hck_leaf_project_ref,
@@ -133,10 +135,40 @@ def leaf_factor(dleaf: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return lo, linv
 
 
+def matvec_plan(n0: int, r: int, k: int, itemsize: int, aptr: int = 0,
+                uptr: int = 0) -> dict:
+    """How the leaf_matvec kernel takes a shape (:func:`repro_torch.kernels.
+    leaf_stream.stream_plan`): the rows of its panels of A and of U, the
+    blocks an SM it is sized for, its shared memory (two ring slots, two b
+    buffers, two row groups of the c sums), its register tile (KT = 1 for
+    k = 1, a Lanczos step; else 8, in tiles for any k), staged b's row
+    stride and the copy widths of A and U."""
+    kt = 1 if k == 1 else 8
+    ldb = leaf_stream.rhs_stride(k, kt)
+    plan = leaf_stream.stream_plan(
+        itemsize, lambda rows: (leaf_stream.panel_bytes(rows, n0, itemsize)
+                                + leaf_stream.panel_bytes(rows, r, itemsize)),
+        2 * leaf_stream.pad16(n0 * ldb * itemsize)
+        + leaf_stream.pad16(2 * k * r * itemsize))
+    plan.update(kt=kt, ldb=ldb, va=leaf_stream.copy_width(aptr, itemsize),
+                vu=leaf_stream.copy_width(uptr, itemsize))
+    return plan
+
+
+def matvec_max_rhs(n0: int, r: int, itemsize: int) -> int:
+    """The most right-hand-side columns (a multiple of 8) one leaf_matvec
+    launch takes at (n0, r); wider b goes in chunks of it, a launch each."""
+    k = 8
+    while matvec_plan(n0, r, k + 8, itemsize)["smem"] <= _build.SMEM_MAX:
+        k += 8
+    return k
+
+
 def leaf_matvec(adiag: torch.Tensor, u: torch.Tensor,
                 b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """y = A b, c = U^T b per leaf: (P,n0,n0),(P,n0,r),(P,n0,k) ->
-    (P,n0,k),(P,r,k)."""
+    (P,n0,k),(P,r,k).  ``leaf_matvec.shapes`` counts the launches by (n0,
+    r, k)."""
     if (adiag.ndim != 3 or u.ndim != 3 or b.ndim != 3
             or adiag.shape != (b.shape[0], b.shape[1], b.shape[1])
             or u.shape[:2] != b.shape[:2]):
@@ -149,15 +181,26 @@ def leaf_matvec(adiag: torch.Tensor, u: torch.Tensor,
         return hck_leaf_matvec_ref(adiag, u, b)
     p, n0, k = b.shape
     r = u.shape[2]
-    _build.check_smem("leaf_matvec", n0 * (k | 1) * b.element_size(),
-                      f"a ({n0}, {k}) right-hand side")
+    plan = matvec_plan(n0, r, k, b.element_size(), adiag.data_ptr(),
+                       u.data_ptr())
+    if k > 8 and plan["smem"] > _build.SMEM_MAX:
+        w = matvec_max_rhs(n0, r, b.element_size())
+        parts = [leaf_matvec(adiag, u, b[:, :, q:q + w].contiguous())
+                 for q in range(0, k, w)]
+        return (torch.cat([y for y, _ in parts], dim=2),
+                torch.cat([c for _, c in parts], dim=2))
+    _build.check_smem("leaf_matvec", plan["smem"],
+                      f"an ({n0}, {n0}) leaf with r={r}, k={k}")
     y = torch.empty_like(b)
     c = torch.empty((p, r, k), dtype=b.dtype, device=dev)
     if y.numel() == 0:
         return y, c.zero_()
     _build.launch("leaf_matvec", f"leaf_matvec_{_build.SUFFIX[b.dtype]}", dev,
-                  adiag, u, b, y, c, p, n0, r, k)
+                  adiag, u, b, y, c, p, n0, r, k, plan["rows"], plan["kt"],
+                  plan["ldb"], plan["va"], plan["vu"], plan["per_sm"],
+                  plan["smem"])
     leaf_matvec.launches += 1
+    leaf_matvec.shapes[(n0, r, k)] += 1
     return y, c
 
 
@@ -209,4 +252,5 @@ def leaf_solve(linv: torch.Tensor, u: torch.Tensor, sig: torch.Tensor,
 leaf_project.launches = 0
 leaf_factor.launches = 0
 leaf_matvec.launches = 0
+leaf_matvec.shapes = Counter()
 leaf_solve.launches = 0

@@ -9,14 +9,29 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, leaf_stream
 from repro_torch.kernels.update_stage.ref import leaf_update_ref
 
 
-def update_smem(n0: int, k: int, itemsize: int) -> int:
-    """Shared memory of one leaf_update block: B^T, L21^T and (L21 Linv)^T
-    (n0 rows of stride k | 1), S and L22^-1 (k rows of stride k + 1)."""
-    return (3 * n0 * (k | 1) + 2 * k * (k + 1)) * itemsize
+def update_plan(n0: int, k: int, itemsize: int, lptr: int = 0,
+                iptr: int = 0) -> dict:
+    """How the leaf_update kernel takes a shape (csrc/leaf_update.cu, by
+    :func:`repro_torch.kernels.leaf_stream.stream_plan`): the rows of its
+    panels of L and Linv, the blocks an SM it is sized for, its shared
+    memory (two ring slots, two B^T buffers, L21^T, the sums of T = L21
+    Linv, S / L22 and X at row stride k | 1, the reciprocal pivots and the
+    factor's column buffer of 32), the staged B^T's row stride (k rounded
+    up to 8, as 4 x an odd number) and the copy widths of lo and linv."""
+    s = itemsize
+    ldk = leaf_stream.rhs_stride(k, 8)
+    fixed = (3 * leaf_stream.pad16(n0 * ldk * s) + leaf_stream.pad16(k * n0 * s)
+             + 2 * leaf_stream.pad16(k * (k | 1) * s)
+             + leaf_stream.pad16(k * s) + 32 * s)
+    plan = leaf_stream.stream_plan(
+        s, lambda rows: 2 * leaf_stream.panel_bytes(rows, n0, s), fixed)
+    plan.update(ldk=ldk, vl=leaf_stream.copy_width(lptr, s),
+                vi=leaf_stream.copy_width(iptr, s))
+    return plan
 
 
 def leaf_update(lo: torch.Tensor, linv: torch.Tensor, b: torch.Tensor,
@@ -36,15 +51,18 @@ def leaf_update(lo: torch.Tensor, linv: torch.Tensor, b: torch.Tensor,
     dev = _build.cuda_device("leaf_update", lo, linv, b, c)
     if dev is None:
         return leaf_update_ref(lo, linv, b, c)
-    _build.check_smem("leaf_update", update_smem(n0, k, lo.element_size()),
-                      f"n0={n0}, k={k}")
+    plan = update_plan(n0, k, lo.element_size(), lo.data_ptr(),
+                       linv.data_ptr())
+    _build.check_smem("leaf_update", plan["smem"], f"n0={n0}, k={k}")
     ne = n0 + k
     lo_ext = torch.empty((p, ne, ne), dtype=lo.dtype, device=dev)
     linv_ext = torch.empty_like(lo_ext)
-    if p == 0:
+    if p == 0 or ne == 0:
         return lo_ext, linv_ext
     _build.launch("leaf_update", f"leaf_update_{_build.SUFFIX[lo.dtype]}",
-                  dev, lo, linv, b, c, lo_ext, linv_ext, p, n0, k)
+                  dev, lo, linv, b, c, lo_ext, linv_ext, p, n0, k,
+                  plan["rows"], plan["ldk"], plan["vl"], plan["vi"],
+                  plan["per_sm"], plan["smem"])
     leaf_update.launches += 1
     return lo_ext, linv_ext
 

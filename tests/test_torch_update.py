@@ -149,8 +149,8 @@ def test_leaf_update_wrapper_rejects_bad_shapes():
         update_ops.leaf_update(torch.zeros(2, 4, 4), torch.zeros(2, 4, 4),
                                torch.zeros(2, 3, 5), torch.zeros(2, 3, 3))
     # covtype leaves grown to 192 + 16 rows fit one block, in f32 and f64
-    assert update_ops.update_smem(192, 16, 8) <= _build.SMEM_MAX
-    assert update_ops.update_smem(192, 400, 4) > _build.SMEM_MAX
+    assert update_ops.update_plan(192, 16, 8)["smem"] <= _build.SMEM_MAX
+    assert update_ops.update_plan(192, 400, 4)["smem"] > _build.SMEM_MAX
     for backend in ("torch", "cuda"):
         assert registry.get_impl("leaf_update", backend) is not None
 
