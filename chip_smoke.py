@@ -73,6 +73,31 @@ result.  Phases, each of which raises on failure:
               test queries), the launch counts read around exactly this
               run (one B7 launch a bucket, both terms, and nothing else),
               and its test accuracy;
+ 6b. registry  health probes, recovery ladders, fault injection and the
+              versioned serving registry on phase 3's full-width model:
+              ``krr.fit`` with ``SolveConfig(checks=True)`` against checks
+              off (the same launches, the same weights bit for bit; its
+              wall-time overhead in 12 adjacent pairs with their spread,
+              and its extra device ops); ``_invert_tail`` with ``solve``
+              against ``solve_ex`` in 12 pairs (bits equal);
+              ``launch.serve.main(["--task", "krr", ...])`` in-process at
+              covtype width (116,203 queries in micro-batches of 4,096,
+              16,384 arrivals published mid-stream, a rollback to v1: no
+              failure, retry, degraded batch or deadline miss, versions in
+              order [1, 2, 1], v1 bitwise after the rollback; p50/p99 of
+              whole ``loop.serve`` calls) beside phase 6's raw engine, and
+              the loop against the raw engine in 12 pairs; then faults at
+              full width, the launch counts read around each call: a NaN in
+              U (``probe_factors``' stage and statistic, ``repair_factors``
+              within 1e-4 of the clean model's predictions), an indefinite
+              leaf (``invert_guarded`` recovers), a poisoned model behind a
+              canary of 1,024 held-back queries aimed at the poisoned leaf
+              (rejected, registry unchanged) and behind an unaimed one
+              (rejected exactly when one of its queries routes there), a
+              ``FlakyEngine`` in the live entry (retries, then one degraded
+              batch from v1) and ``update_and_publish(guarded=True)`` over a
+              poisoned cached inverse (recovered; the audit of that publish
+              printed);
   7. sweep    the sigma x lambda sweep engine at covtype width:
               ``build_sweep_plan`` once, ``gp.mle_grid`` over the 4 x 4
               grid, ``krr.fit_path`` over the 4 lambdas scored on the test
@@ -171,6 +196,7 @@ import contextlib
 import itertools
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -1713,6 +1739,348 @@ def phase_serve(fit) -> dict:
         f"queries: rel {rel:.3e} <= 1e-4 ok")
     return {"launches": launches, "engine": eng, "qps_full": N_TEST / t_full,
             "p50_ms": p50, "p99_ms": p99}
+
+
+def device_ops(fn) -> tuple[float, float]:
+    """One call of ``fn`` under torch.profiler: (device ms, device ops),
+    or (nan, nan) when the profiler recorded no device time."""
+    rows = device_rows(fn, 1)
+    if not rows:
+        return float("nan"), float("nan")
+    return sum(r[1] for r in rows) / 1e3, sum(r[2] for r in rows)
+
+
+PAIRS_ROUNDS = 6     # (a, b, b, a) x 6: 12 adjacent pairs
+
+
+def paired_turns(a, b, rounds: int = PAIRS_ROUNDS) -> dict:
+    """Wall ms of ``a`` and ``b`` in turns (a, b, b, a) x ``rounds`` (host
+    clock, synchronised before and after each call): both medians, and the
+    quartiles, least and largest of the adjacent pairs' relative
+    differences (b - a) / a."""
+    ta, tb = [], []
+    a(), b()
+    for _ in range(rounds):
+        for fn, out in ((a, ta), (b, tb), (b, tb), (a, ta)):
+            sync()
+            t = time.perf_counter()
+            fn()
+            sync()
+            out.append((time.perf_counter() - t) * 1e3)
+    d = sorted((y - x) / x for x, y in zip(ta, tb))
+    q1, _, q3 = statistics.quantiles(d, n=4)
+    return {"a_ms": statistics.median(ta), "b_ms": statistics.median(tb),
+            "pairs": len(d), "min": d[0], "q1": q1,
+            "median": statistics.median(d), "q3": q3, "max": d[-1]}
+
+
+def pairs_text(r: dict, limit: float | None = None) -> str:
+    """One line of :func:`paired_turns`' result; with ``limit``, the
+    verdict on "b is at most ``limit`` slower": met when the upper
+    quartile is within it, not met when the lower one is past it, else
+    unresolved."""
+    text = (f"{r['a_ms']:.3f} / {r['b_ms']:.3f} ms (medians of "
+            f"{r['pairs']}); pairs (b - a) / a: median "
+            f"{r['median'] * 100:+.2f}%, quartiles {r['q1'] * 100:+.2f}% .. "
+            f"{r['q3'] * 100:+.2f}%, range {r['min'] * 100:+.2f}% .. "
+            f"{r['max'] * 100:+.2f}%")
+    if limit is not None:
+        verdict = ("met" if r["q3"] <= limit else
+                   "not met" if r["q1"] > limit else "unresolved")
+        text += f"; at most {limit * 100:+.0f}%: {verdict}"
+    return text
+
+
+def registry_probes(fit, dev) -> dict:
+    """Phase 6b, part 1: the fit with checks on against checks off."""
+    from repro_torch.core import krr
+    from repro_torch.kernels.registry import SolveConfig
+
+    ker = fit["model"].kernel
+    x, labels = fit["x"], fit["labels"]
+
+    def fit_with(checks):
+        return krr.fit(x, labels, kernel=ker, lam=LAM, rank=RANK,
+                       leaf_size=LEAF, classification=True,
+                       solve_config=SolveConfig(checks=checks),
+                       generator=torch.Generator(device=dev).manual_seed(
+                           SEED + 1))
+
+    runs = {}
+    for checks in (False, True):
+        m, launches, plain = counted(lambda: fit_with(checks))
+        require(launches == fit["launches"] and not any(plain.values()),
+                f"checks={checks}: the fit's launches {launches} are phase "
+                f"3's {fit['launches']}")
+        runs[checks] = m
+    require(torch.equal(runs[True].alpha, runs[False].alpha)
+            and torch.equal(runs[False].alpha, fit["model"].alpha),
+            "checks on and off give phase 3's weights bit for bit")
+    cost = paired_turns(lambda: fit_with(False), lambda: fit_with(True))
+    ops = {c: device_ops(lambda c=c: fit_with(c)) for c in (False, True)}
+    # _invert_tail's solve_ex (no error check, no host sync) against
+    # solve (an error check, so a host sync a level), bits compared
+    from repro_torch.core import hmatrix
+
+    f, solve_ex = runs[False].factors, torch.linalg.solve_ex
+
+    def with_solve():
+        torch.linalg.solve_ex = lambda a, b: (torch.linalg.solve(a, b), None)
+        try:
+            return hmatrix.invert_with_leaf(f, LAM)
+        finally:
+            torch.linalg.solve_ex = solve_ex
+
+    def invert():
+        return hmatrix.invert_with_leaf(f, LAM)
+
+    same = torch.equal(with_solve()[0].sigma[0], invert()[0].sigma[0])
+    tail = paired_turns(with_solve, invert)
+    # each probe of the fit alone, warm, on the fitted model (host clock
+    # around the call, synchronised before it)
+    from repro_torch.runtime import health
+
+    m, on_cfg = runs[True], SolveConfig(checks=True)
+    probes = {"probe_factors": lambda: health.probe_factors(m.factors,
+                                                            on_cfg),
+              "probe_leaf_factor": lambda: health.probe_leaf_factor(
+                  m.leaf_lo, on_cfg),
+              "check_finite(alpha)": lambda: health.check_finite(
+                  "solve", m.alpha, config=on_cfg)}
+    each = {}
+    for name, fn in probes.items():
+        ts = []
+        for _ in range(7):
+            sync()
+            t = time.perf_counter()
+            require(fn() is True, f"{name} ran and passed")
+            ts.append(time.perf_counter() - t)
+        each[name] = sorted(ts)[3] * 1e3
+    say(f"[6b registry] {card()}: krr.fit at full width, launches with "
+        f"checks on = off = phase 3's {fit['launches']}; weights bit for "
+        f"bit equal")
+    say(f"[6b registry] probe cost, fits in turns (off, on, on, off) x "
+        f"{PAIRS_ROUNDS}, off / on: {pairs_text(cost, 0.03)} (the README "
+        f"claims <= 3%); device ms / device ops in one profiled fit: off "
+        f"{ops[False][0]:.3f} / {ops[False][1]:.0f}, on {ops[True][0]:.3f} / "
+        f"{ops[True][1]:.0f} -> {ops[True][1] - ops[False][1]:.0f} extra "
+        f"device ops; each probe alone (median of 7, ms): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in each.items()))
+    say(f"[6b registry] invert_with_leaf in turns, _invert_tail with "
+        f"solve / with solve_ex: {pairs_text(tail, 0.0)}; bits equal: "
+        f"{same}")
+    require(same, "solve_ex and solve give the same Sigma bit for bit")
+    return {"fit": cost, "ops": ops, "each_ms": each, "solve_ex": tail}
+
+
+def registry_launcher(fit, served) -> dict:
+    """Phase 6b, part 2: the launcher's --task krr at covtype width, and
+    phase 3's model served through the loop against its raw engine."""
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.serving.predict_service import ModelRegistry
+    from repro_torch.serving.serve_loop import KRRServeLoop
+
+    argv = ["--task", "krr", "--n", str(N_TRAIN), "--d", str(D), "--rank",
+            str(RANK), "--sigma", repr(math.sqrt(D / 2)), "--queries",
+            str(N_TEST), "--micro-batch", "4096", "--update-batch",
+            str(UPDATE_Q), "--rollback", "--seed", str(SEED)]
+    out, launches, plain = counted(lambda: launch_serve.main(argv))
+    loop = out["loop"]
+    require((loop["failures"], loop["retries"], loop["degraded_batches"],
+             loop["deadline_misses"]) == (0, 0, 0, 0),
+            f"the clean stream has no failure, retry, degraded batch or "
+            f"deadline miss: {loop}")
+    require(out["versions_in_order"] == [1, 2, 1],
+            f"versions served in order {out['versions_in_order']} == [1, 2, 1]")
+    require(out["rollback_bitwise"] is True,
+            "after the rollback v1 serves bitwise what it served before")
+    require(not any(plain.values()), f"no plain version ran: {plain}")
+    for name in ("gram_chol_levels", "cross_solve_levels", "leaf_factor",
+                 "leaf_solve", "leaf_matvec", "hck_leaf_project",
+                 "oos_contract", "leaf_update"):
+        require(launches[name] > 0, f"the launcher launched {name}")
+    say(f"[6b registry] {card()}: launch.serve --task krr {' '.join(argv[2:])}"
+        f": fit {out['fit_s']:.3f} s, publish+warmup "
+        f"{out['publish_warmup_s']:.3f} s, update of {UPDATE_Q} + publish "
+        f"(warmup) mid-stream {out['swap_s']:.3f} s (k {out['update']['k']}"
+        f"/leaf, residual {out['update']['residual']:.3e}), rollback "
+        f"{out['rollback_s'] * 1e3:.3f} ms")
+    say(f"[6b registry] loop: {N_TEST} queries in batches of 4096: "
+        f"{out['qps']:.0f} queries/s over the stream (update included), "
+        f"{out['qps_serving']:.0f} queries/s of serving time, p50 "
+        f"{out['p50_ms']:.3f} ms, p99 {out['p99_ms']:.3f} ms (of "
+        f"{loop['batches']}, each whole loop.serve call; the engine up to "
+        f"its sync, without the probe: p50 {out['engine_p50_ms']:.3f} ms); "
+        f"phase 6's raw engine: {served['qps_full']:.0f} queries/s on one "
+        f"request of {N_TEST}, p50 {served['p50_ms']:.3f} ms, p99 "
+        f"{served['p99_ms']:.3f} ms over 16 requests of 1-4096")
+    say(f"[6b registry] loop stats {loop}; registry stats "
+        f"{out['registry_stats']}; launches {launches}")
+
+    # phase 3's model: 8 batches of 4,096 through the raw engine (no sync
+    # between batches) against the loop (a sync and a probe a batch)
+    reg = ModelRegistry(fit["model"], warmup=True)
+    lp, eng = KRRServeLoop(reg), reg.live.engine
+    batches = [fit["xt"][i * 4096:(i + 1) * 4096] for i in range(8)]
+    turns = paired_turns(lambda: [eng(q) for q in batches],
+                         lambda: [lp.serve(q) for q in batches])
+    require(lp.stats()["failures"] == 0, f"the loop's turns: {lp.stats()}")
+    say(f"[6b registry] {card()}: 8 batches of 4,096 in turns, raw engine "
+        f"/ loop: {pairs_text(turns)}; a batch {turns['a_ms'] / 8:.3f} / "
+        f"{turns['b_ms'] / 8:.3f} ms")
+    out["turns"] = turns
+    return out
+
+
+def registry_faults(fit, dev) -> dict:
+    """Phase 6b, part 3: the injected faults at full width."""
+    from repro_torch.core import oos
+    from repro_torch.core.partition import route
+    from repro_torch.kernels.registry import SolveConfig
+    from repro_torch.runtime import health, recover
+    from repro_torch.serving.predict_service import (ModelRegistry,
+                                                     PredictEngine)
+    from repro_torch.serving.serve_loop import KRRServeLoop
+    from repro_torch.testing import faultinject as fi
+
+    model, xt = fit["model"], fit["xt"]
+    f, ker, cfg = model.factors, model.kernel, SolveConfig(checks=True)
+    q = xt[:4096]
+    out = {}
+
+    def note(what, launches):
+        used = {k: v for k, v in launches.items() if v}
+        say(f"[6b registry] {what}; launches {used}")
+
+    # a NaN in U: detected with the reference's stage and statistic, and
+    # repaired on the frozen hierarchy
+    bad = fi.poison_factor(f, "u", leaf=1)
+    try:
+        health.probe_factors(bad, cfg)
+        err = None
+    except health.NumericalFailure as e:
+        err = e
+    require(err is not None and (err.stage, err.statistic, err.leaf) == (
+        "build_cross", "nonfinite_count", 1), f"probe_factors on U: {err}")
+    (rep, audit), launches, _ = counted(
+        lambda: recover.repair_factors(bad, ker, cfg))
+    require(audit.recovered and audit.rungs == ["probe", "refit_frozen"],
+            f"repair_factors: {audit.rungs}")
+    z_rep = PredictEngine(rep, oos.prepare(rep, model.alpha), ker)(q)
+    z = model.predict(q)
+    rel = rel_max(z_rep, z)
+    require(rel <= 1e-4, f"repaired predictions rel {rel:.3e} <= 1e-4")
+    bitwise = torch.equal(rep.u, f.u) and torch.equal(rep.adiag, f.adiag)
+    note(f"NaN in U: {err.stage}/{err.statistic} leaf {err.leaf}; "
+         f"repair_factors rungs {audit.rungs}, predictions rel {rel:.3e} "
+         f"(<= 1e-4), factors bitwise the clean ones: {bitwise}", launches)
+    out["repair_rel"], out["repair_bitwise"] = rel, bitwise
+
+    # an indefinite leaf: ridge escalation
+    bad = fi.indefinite_leaf(f, leaf=2, shift=5 * LAM)
+    g, launches, _ = counted(
+        lambda: recover.invert_guarded(bad, LAM, cfg, kernel=ker))
+    require(g.audit.recovered and not g.audit.attempts[0].ok
+            and g.audit.attempts[0].failure["stage"] == "leaf_factor",
+            f"invert_guarded: {g.audit.to_dict()}")
+    note(f"indefinite leaf 2: invert_guarded rungs {g.audit.rungs}, "
+         f"first failure {g.audit.attempts[0].failure['statistic']}, ridge "
+         f"{g.ridge:g}", launches)
+
+    # a poisoned model (plan entry of leaf 0) behind a canary of 1,024
+    # held-back queries, those of them that route to leaf 0 first
+    leaf = route(f.tree, xt)
+    hit = xt[leaf == 0][:32]
+    canary = torch.cat([hit, xt[-(1024 - hit.shape[0]):]])
+    reg = ModelRegistry(model, tag="fit", canary=canary)
+    before = (reg.live_version, reg.versions())
+    try:
+        counted(lambda: reg.publish(fi.poisoned_model(model), tag="bad"))
+        err = None
+    except health.NumericalFailure as e:
+        err = e
+    launches, _ = read_counts()
+    st = reg.stats
+    require(err is not None and err.stage == "serving.canary"
+            and (reg.live_version, reg.versions()) == before
+            and st["canary_rejects"] == 1
+            and st["last_reject"]["stage"] == "serving.canary",
+            f"the canary rejects the poisoned model: {err}, {st}")
+    note(f"poisoned model ({hit.shape[0]} of the 1,024 canary queries "
+         f"route to its poisoned leaf): publish raised "
+         f"{err.stage}/{err.statistic}; "
+         f"registry stats {st}", launches)
+    # the same gate as users would set it up: 1,024 held-back queries,
+    # none chosen for the poisoned leaf (a leaf escapes such a canary
+    # with chance (1 - 1/leaves)^1024 under uniform routing)
+    unaimed = xt[-1024:]
+    n_hit = int((leaf[-1024:] == 0).sum())
+    reg_u = ModelRegistry(model, tag="fit", canary=unaimed)
+    try:
+        _, launches, _ = counted(
+            lambda: reg_u.publish(fi.poisoned_model(model), tag="bad"))
+        caught = False
+    except health.NumericalFailure:
+        launches, _ = read_counts()
+        caught = True
+    require(caught == (n_hit > 0),
+            f"an unaimed canary rejects exactly when a query routes to the "
+            f"poisoned leaf: {n_hit} route there, rejected {caught}")
+    out["unaimed_canary"] = {"hits": n_hit, "rejected": caught}
+    note(f"an unaimed canary (the last 1,024 test queries): {n_hit} route "
+         f"to the poisoned leaf, so it "
+         f"{'rejected' if caught else 'would have published'} the poisoned "
+         f"model (escape chance at {f.num_leaves} leaves: "
+         f"{(1 - 1 / f.num_leaves) ** 1024:.3f})", launches)
+
+    # an engine that goes bad after its canary: retries, then degraded
+    loop = KRRServeLoop(reg, max_retries=2)
+    loop.serve(q)                                    # v1 is the last good
+    v2 = reg.publish(model, tag="v2")
+    fi.hijack_live_engine(reg, lambda e: fi.FlakyEngine(e, fail_first=3))
+    (first, second), launches, _ = counted(
+        lambda: (loop.serve(q), loop.serve(q)))
+    st = loop.stats()
+    require(first.degraded and first.version == 1 and first.retries == 2
+            and not second.degraded and second.version == v2
+            and (st["failures"], st["retries"], st["degraded_batches"])
+            == (3, 2, 1) and torch.equal(first.z, z),
+            f"flaky engine: {first}, {second}, {st}")
+    note(f"FlakyEngine (NaN for 3 calls) in v{v2}: batch 1 served degraded "
+         f"by v{first.version} after {first.retries} retries, batch 2 by "
+         f"v{second.version}; loop stats {st}", launches)
+
+    # a guarded online update over a poisoned cached inverse
+    reg = ModelRegistry(fi.poison_cached_inverse(model), tag="fit")
+    x_new, y_new = fresh_points(UPDATE_Q, SEED + 40, dev)
+    sync()
+    t = time.perf_counter()
+    (v, info), launches, _ = counted(lambda: reg.update_and_publish(
+        x_new, y_new, guarded=True, tag="update"))
+    t_up = time.perf_counter() - t
+    require(v == 2 and reg.live_version == 2 and info.converged
+            and bool(torch.isfinite(reg.predict(q)[0]).all()),
+            f"guarded update_and_publish: {info}")
+    audit = reg.last_audit
+    require(audit is not None and audit.recovered and audit.rungs[-1].startswith("re-precondition"),
+            f"update_guarded: {audit.rungs}")
+    note(f"update_and_publish(guarded=True) of {UPDATE_Q} arrivals over a "
+         f"poisoned cached inverse: {t_up * 1e3:.1f} ms (first failure "
+         f"{audit.attempts[0].failure['stage']}/"
+         f"{audit.attempts[0].failure['statistic']}), rungs {audit.rungs}",
+         launches)
+    out["guarded_update_ms"] = t_up * 1e3
+    return out
+
+
+def phase_registry(fit, served, dev) -> dict:
+    """Phase 6b: probes, the launcher's --task krr and faults at full
+    width."""
+    res = {"probes": registry_probes(fit, dev),
+           "launcher": registry_launcher(fit, served),
+           "faults": registry_faults(fit, dev)}
+    torch.cuda.empty_cache()
+    return res
 
 
 def after_padding(fit, dev) -> torch.Generator:
@@ -4735,13 +5103,29 @@ def phase_timing(fit, res, served, sw, solv) -> list[dict]:
     return records
 
 
+def device_rows(fn, repeats: int) -> list:
+    """``repeats`` calls of ``fn`` under torch.profiler: per device op
+    (name, device us a call, launches a call); empty when the profiler
+    recorded no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(repeats):
+            fn()
+        sync()
+    # device-side events only: an aten op's row repeats its kernels' time
+    return [(e.key, e.self_device_time_total / repeats, e.count / repeats)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+
+
 def profile_device(what: str, fn, repeats: int, top: int) -> dict | None:
     """Run ``fn`` ``repeats`` times unprofiled (host clock), then under
     torch.profiler: device time per run by device op, and the busy share.
     Returns {"wall_ms", "device_ms"} per run, or None when the profiler
     recorded no device time."""
-    from torch.profiler import ProfilerActivity, profile
-
     fn()
     sync()
     t = time.perf_counter()
@@ -4749,16 +5133,7 @@ def profile_device(what: str, fn, repeats: int, top: int) -> dict | None:
         fn()
     sync()
     wall_ms = (time.perf_counter() - t) * 1e3 / repeats
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(repeats):
-            fn()
-        sync()
-    # device-side events only: an aten op's row repeats its kernels' time
-    rows = [(e.key, e.self_device_time_total / repeats, e.count / repeats)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
+    rows = device_rows(fn, repeats)
     if not rows:
         say(f"[10 profile] {what}: the profiler recorded no device time: not "
             "measured")
@@ -4819,6 +5194,7 @@ def main() -> int:
     res = phase_kernels(fit, dev)
     phase_exact(dev)
     served = phase_serve(fit)
+    phase_registry(fit, served, dev)
     sw = phase_sweep(fit, dev)
     sres = phase_sweep_gates(fit, sw, dev)
     solv = phase_solvers(fit, sw, dev)

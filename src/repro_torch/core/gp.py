@@ -30,10 +30,10 @@ from repro_torch.core.hck import (HCKFactors, SweepPlan, build_hck,
                                   build_sweep_plan, landmark_indices,
                                   sweep_factors)
 from repro_torch.core.kernels_fn import KERNEL_METRIC, BaseKernel
-from repro_torch.core.krr import _health_probe
 from repro_torch.core.partition import rp_directions
 from repro_torch.kernels.registry import SolveConfig
 from repro_torch.precision import entry_point
+from repro_torch.runtime import health
 
 Tensor = torch.Tensor
 
@@ -103,8 +103,9 @@ def fit_gp(
     None is the CUDA card (raises without one), "cpu" the plain path.
     ``generator`` (default seeded 0 on ``device``), or ``directions`` and
     ``landmark_index``, give the tree and landmark draws (see
-    :func:`repro_torch.core.hck.build_hck`).  The reference's health
-    probes are hooks that do nothing until ROADMAP item A12.
+    :func:`repro_torch.core.hck.build_hck`).  With ``solve_config.checks``
+    (or ``REPRO_STRICT_FINITE``) the factors, the inverse Cholesky and the
+    coefficients are probed (:mod:`repro_torch.runtime.health`).
     """
     dev = _device.resolve(device)
     x = torch.as_tensor(x).to(dev)
@@ -114,12 +115,15 @@ def fit_gp(
     factors = build_hck(x, levels=levels, rank=rank, kernel=kernel,
                         config=solve_config, directions=directions,
                         landmark_index=landmark_index, generator=generator)
-    _health_probe("build", factors, solve_config)
+    health.probe_factors(factors, solve_config, op="build")
     y_sorted = y.to(x.dtype)[factors.tree.perm][:, None]
     inv = hmatrix.invert(factors, ridge=noise, config=solve_config)
-    _health_probe("leaf_factor", inv.linv, solve_config)
+    if inv.linv is not None:
+        health.check_finite("leaf_factor", inv.linv, config=solve_config,
+                            leaf_axis=0, detail="inverse Cholesky (gp)")
     alpha = hmatrix.apply_inverse(inv, y_sorted, solve_config)
-    _health_probe("solve", alpha, solve_config)
+    health.check_finite("solve", alpha, config=solve_config,
+                        detail="dual coefficients (gp)")
     plan = oos.prepare(factors, alpha, solve_config)
     return HCKGaussianProcess(kernel, factors, inv, alpha, plan, noise,
                               solve_config)

@@ -310,6 +310,24 @@ def _cross_factors(paired: Tensor, landmarks: tuple, sigma_li: list,
                   for lvl in range(1, levels)))
 
 
+def _transfer_ops(landmarks: tuple, sigma_li: list, kernel: BaseKernel,
+                  config: SolveConfig) -> tuple:
+    """The W factors of levels 1..L-1 alone (paired sibling landmark
+    blocks), in one grouped ``build_cross_levels`` launch: the middle
+    rebuild of :func:`repro_torch.runtime.recover.repair_factors`, which
+    keeps the leaves' U."""
+    if len(landmarks) < 2:
+        return ()
+    rank, d = landmarks[0].shape[1], landmarks[0].shape[2]
+    levels = range(1, len(landmarks))
+    out = _stage_build_cross_levels(
+        [landmarks[lvl].reshape(1 << (lvl - 1), 2 * rank, d)
+         for lvl in levels], list(landmarks[:-1]), sigma_li[:-1], kernel,
+        config)
+    return tuple(o.reshape(1 << lvl, rank, rank)
+                 for o, lvl in zip(out, levels))
+
+
 def _check_build_options(config: SolveConfig) -> None:
     """Raise ``NotImplementedError`` for the reference's build option that a
     later slice of the port brings (a mixed-precision build)."""

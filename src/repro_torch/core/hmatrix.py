@@ -172,7 +172,7 @@ def _invert_level0(f: HCKFactors, ridge: float) -> InverseFactors:
     eye = torch.eye(f.leaf_size, dtype=f.adiag.dtype, device=f.adiag.device)
     adiag = f.adiag + ridge * eye
     _, ld = torch.linalg.slogdet(adiag[0])
-    return InverseFactors(torch.linalg.inv(adiag), f.u, (), (), ld)
+    return InverseFactors(torch.linalg.inv_ex(adiag)[0], f.u, (), (), ld)
 
 
 def _leaf_schur(f: HCKFactors) -> Tensor:
@@ -219,7 +219,10 @@ def _invert_tail(f: HCKFactors, lo: Tensor, linv: Tensor) -> InverseFactors:
         m = eye_r + torch.einsum("pab,pbc->pac", lam, xi[lvl])
         _, ld = torch.linalg.slogdet(m)
         logdet_acc = logdet_acc + torch.sum(ld)
-        sigma_t[lvl] = -torch.linalg.solve(m, lam)
+        # solve_ex, like jnp.linalg.solve, does not raise on a singular
+        # or NaN m (cuSOLVER reports a NaN factor singular): the failure
+        # reaches the health probes as NaN, as in the reference
+        sigma_t[lvl] = -torch.linalg.solve_ex(m, lam)[0]
         if child < levels:
             e_t[child] = torch.einsum(
                 "pab,pbc,pdc->pad", w_t[child], _rep2(sigma_t[lvl]),
@@ -235,7 +238,7 @@ def _invert_tail(f: HCKFactors, lo: Tensor, linv: Tensor) -> InverseFactors:
         "pnr,prs,pms->pnm", u_t, _rep2(sigma_t[levels - 1]), u_t)
 
     # contiguous once here, so the leaf stages never copy them per apply
-    # (torch.linalg.solve returns column-major batches)
+    # (torch.linalg.solve_ex returns column-major batches)
     return InverseFactors(
         adiag=adiag_t.contiguous(), u=u_t.contiguous(),
         sigma=tuple(sigma_t[lvl].contiguous() for lvl in range(levels)),

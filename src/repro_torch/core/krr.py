@@ -37,6 +37,7 @@ from repro_torch.core.partition import (auto_levels, auto_levels_ceil,
                                         pad_points)
 from repro_torch.kernels.registry import SolveConfig
 from repro_torch.precision import entry_point
+from repro_torch.runtime import health
 
 Tensor = torch.Tensor
 
@@ -125,13 +126,6 @@ def _encode_targets(y: Tensor, classification: bool, dtype: torch.dtype):
     return (y if y.ndim > 1 else y[:, None]).to(dtype), None, y.ndim == 1
 
 
-def _health_probe(stage: str, value, config: SolveConfig | None) -> None:
-    """Hook of the reference's runtime health probes (``repro.runtime.
-    health``, on only under ``REPRO_STRICT_FINITE`` or ``config.checks``);
-    they are not ported yet (ROADMAP item A12), so it does nothing."""
-    del stage, value, config
-
-
 @entry_point
 def fit(
     x, y, *, kernel: BaseKernel, lam: float, rank: int,
@@ -156,6 +150,9 @@ def fit(
                 by :func:`repro_torch.core.partition.pad_points`.
     solve_config: stage backends of the build and of the solve, and
                 ``refine_steps``; "auto" runs the CUDA kernels on the card.
+                ``checks`` (or ``REPRO_STRICT_FINITE``) probes the
+                factors, the leaf factor and alpha
+                (:mod:`repro_torch.runtime.health`).
     device:     where the fit runs; None means the CUDA card (raises
                 without one), "cpu" runs the plain versions.
     generator:  source of the padding, partition and landmark draws
@@ -194,13 +191,14 @@ def fit(
         policy=landmarks, rank_budget=rank_budget, directions=directions,
         landmark_index=landmark_index, policy_draws=policy_draws,
         generator=generator)
-    _health_probe("build", factors, solve_config)
+    health.probe_factors(factors, solve_config, op="build")
     y_sorted = targets[factors.tree.perm]
     inv, lo = hmatrix.invert_with_leaf(factors, lam, solve_config)
-    _health_probe("leaf_factor", lo, solve_config)
+    health.probe_leaf_factor(lo, solve_config)
     alpha = hmatrix.solve_with_inverse(factors, inv, y_sorted, ridge=lam,
                                        config=solve_config)
-    _health_probe("solve", alpha, solve_config)
+    health.check_finite("solve", alpha, config=solve_config,
+                        detail="dual coefficients (fit)")
     plan = oos.prepare(factors, alpha, solve_config)
     return HCKRegressor(kernel, factors, plan, alpha, classes,
                         squeeze=squeeze, solve_config=solve_config, lam=lam,
@@ -258,7 +256,7 @@ def _stale_preconditioner(f_new: HCKFactors, inv_base, n0_old: int,
     p_leaves, n0_new = f_new.num_leaves, f_new.leaf_size
     bb, cc = hmatrix.extension_blocks(f_new, n0_base=n0_old, ridge=lam)
     l21 = bb @ inv_base.linv.mT
-    s_inv = torch.linalg.inv(cc - l21 @ l21.mT)
+    s_inv = torch.linalg.inv_ex(cc - l21 @ l21.mT)[0]
 
     def split(v):
         vb = v.reshape(p_leaves, n0_new, -1)
@@ -349,7 +347,7 @@ def fit_incremental(
         pad_index=pad_index, pad_noise=pad_noise, generator=generator)
     if rec.k == 0:                      # an empty batch: exact no-op
         return model, UpdateInfo(rec, refresh, 0, 0.0, True)
-    _health_probe("update.insert", f_new, cfg)
+    health.probe_factors(f_new, cfg, op="update.insert")
 
     n0_old = f.leaf_size
     inv_base, lo_base = model.inverse, model.leaf_lo
@@ -362,12 +360,12 @@ def fit_incremental(
         inv_new, lo_new = hmatrix.invert_extend(
             f_new, lo_base, inv_base.linv, n0_base=n0_old, ridge=lam,
             config=cfg)
-        _health_probe("leaf_update", lo_new, cfg)
+        health.probe_leaf_factor(lo_new, cfg, stage="leaf_update")
         alpha_new = hmatrix.solve_with_inverse(
             f_new, inv_new, y_sorted_new, ridge=lam, config=cfg)
     elif refresh == "exact":
         inv_new, lo_new = hmatrix.invert_with_leaf(f_new, lam, cfg)
-        _health_probe("leaf_factor", lo_new, cfg)
+        health.probe_leaf_factor(lo_new, cfg)
         alpha_new = hmatrix.solve_with_inverse(
             f_new, inv_new, y_sorted_new, ridge=lam, config=cfg)
     else:
@@ -382,7 +380,7 @@ def fit_incremental(
 
         res = pcg(amv, y_sorted_new, ridge=lam, precond=precond,
                   x0=x0.reshape(-1, kcols), tol=tol, maxiter=maxiter)
-        _health_probe("cg", res, cfg)
+        health.probe_cg(res, tol=tol, config=cfg, context="refresh=stale")
         alpha_new, iters = res.x, int(res.iterations)
         if measure_cold:
             # no carried state at all: neither the stale inverse nor alpha
@@ -390,7 +388,8 @@ def fit_incremental(
                                  maxiter=maxiter).iterations)
         inv_new, lo_new = inv_base, lo_base   # kept stale for the next lift
 
-    _health_probe("solve", alpha_new, cfg)
+    health.check_finite("solve", alpha_new, config=cfg,
+                        detail=f"dual coefficients (refresh={refresh})")
     resid = y_sorted_new - (hmatrix.matvec(f_new, alpha_new, cfg)
                             + lam * alpha_new)
     rel = float(torch.linalg.vector_norm(resid)

@@ -75,12 +75,20 @@ class SolveConfig:
     precision   prediction precision policy: None computes in the stored
                 dtype; "f32" / "f64" cast the kernel-evaluation data and
                 the weights to that dtype before the stage launches.
+    checks      runtime health probes (:mod:`repro_torch.runtime.health`):
+                finiteness and definiteness of the factors, CG residual
+                traces and served predictions at stage boundaries.
+                True / False force them on / off; None defers to the
+                ``REPRO_STRICT_FINITE`` environment variable at probe
+                time.  Off, a probe launches nothing and reads nothing
+                back from the card.
     """
 
     backend: str = "auto"
     refine_steps: int = 2
     leaf_block: int | None = None
     precision: str | None = None
+    checks: bool | None = None
 
     def __post_init__(self):
         if self.backend not in ("auto",) + BACKENDS:
@@ -94,6 +102,8 @@ class SolveConfig:
         if self.refine_steps < 0:
             raise ValueError(
                 f"refine_steps must be >= 0, got {self.refine_steps}")
+        if self.checks is not None:
+            object.__setattr__(self, "checks", bool(self.checks))
 
 
 DEFAULT_CONFIG = SolveConfig()

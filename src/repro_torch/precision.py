@@ -9,13 +9,23 @@ the solves and the SSD scan (ROADMAP, constraint (c)).  Every entry point
 of the port therefore runs under :func:`full_f32`, which turns single-pass
 TF32 off for cuBLAS and cuDNN and gives the caller's setting back when the
 call returns or raises.  The hand-written kernels do not read these flags.
+
+The flags are process-wide while entry points may run in several threads
+at once (a serving thread beside a publishing one), so the first thread in
+turns TF32 off and the last one out restores the caller's setting: one
+thread leaving never turns TF32 back on under another still inside.
 """
 from __future__ import annotations
 
 import contextlib
 import functools
+import threading
 
 import torch
+
+_LOCK = threading.Lock()
+_depth = 0                  # entry-point calls in flight, every thread
+_undo: list = []            # what the first of them turned off
 
 
 def _matmul_off():
@@ -60,13 +70,23 @@ def _cudnn_off():
 @contextlib.contextmanager
 def full_f32():
     """Single-pass TF32 off for cuBLAS and cuDNN inside the block; the
-    caller's setting is restored on exit, also on an exception."""
-    undo = [u for u in (_matmul_off(), _cudnn_off()) if u is not None]
+    caller's setting is restored when the last block in flight (in any
+    thread) exits, also on an exception."""
+    global _depth, _undo
+    with _LOCK:
+        if _depth == 0:
+            _undo = [u for u in (_matmul_off(), _cudnn_off())
+                     if u is not None]
+        _depth += 1
     try:
         yield
     finally:
-        for u in reversed(undo):
-            u()
+        with _LOCK:
+            _depth -= 1
+            if _depth == 0:
+                for u in reversed(_undo):
+                    u()
+                _undo = []
 
 
 def entry_point(fn):

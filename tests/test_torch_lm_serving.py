@@ -202,7 +202,7 @@ def test_init_params_and_input_specs_on_cpu():
     assert dec["pos"] == 32 and dec["tokens"].shape == (2, 1)
 
 
-def test_unported_parts_raise():
+def test_unported_parts_raise(monkeypatch):
     cfg = get_arch("zamba2-7b").reduced()
     params = tf.init_params(cfg, torch.Generator().manual_seed(0))
     toks = torch.zeros((1, 16), dtype=torch.int64)
@@ -214,7 +214,10 @@ def test_unported_parts_raise():
         tf.moe_block(None, {}, cfg)
     with pytest.raises(KeyError, match="granite-3-2b"):
         get_arch("granite-3-2b")
-    with pytest.raises(NotImplementedError, match="A12"):
+    # --task krr is ported (A12); without a card and without --device it
+    # raises rather than fall back to the CPU
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
         launch_serve.main(["--task", "krr"])
 
 

@@ -125,6 +125,42 @@ def test_full_f32_leaves_full_precision_untouched():
         torch.backends.cudnn.allow_tf32 = before[1]
 
 
+def test_full_f32_across_threads_keeps_full_precision(tf32_on):
+    """Two threads whose calls overlap (A enters, B enters, A exits, B
+    exits): TF32 stays off inside B after A left, and the caller's setting
+    comes back only when the last call is out."""
+    import threading
+
+    a_in, b_in, a_out = (threading.Event() for _ in range(3))
+    seen = {}
+
+    def thread_a():
+        with precision.full_f32():
+            seen["a"] = _flags()
+            a_in.set()
+            b_in.wait(30)
+        a_out.set()
+
+    def thread_b():
+        a_in.wait(30)
+        with precision.full_f32():
+            seen["b_enter"] = _flags()
+            b_in.set()
+            a_out.wait(30)
+            seen["b_after_a_left"] = _flags()
+
+    threads = [threading.Thread(target=f) for f in (thread_a, thread_b)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+    assert not any(t.is_alive() for t in threads)
+    assert seen == dict.fromkeys(("a", "b_enter", "b_after_a_left"),
+                                 ("highest", False))
+    assert _flags() == ("high", True)
+    assert precision._depth == 0 and precision._undo == []
+
+
 MIXED_FLAGS = r'''
 import warnings
 import torch
