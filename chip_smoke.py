@@ -43,6 +43,32 @@ result.  Phases, each of which raises on failure:
               data at that width): the kernels' launch counts read around
               exactly this call; then the same fit stage by stage, timed,
               with its solve residual through the port's own matvec;
+ 3s. stream   streamed ingestion: (a) phase 3's data behind an
+              ``ArraySource`` through ``krr.fit_streaming`` (phase 3's
+              generator seed, 64 leaves a launch, chunks of 65,536 rows;
+              launch counts read around exactly this call), its tree, pad
+              rows and landmarks equal to phase 3's model, Sigma and Adiag
+              within B1's gate, U and W within B2's componentwise gate
+              (the share bit for bit printed), alpha and the predictions
+              on all test queries within the f32 bound; (b) the ``susy``
+              row of the paper's Table 1 at full size (4,000,000 points of
+              ``regression_dataset``, 15 levels), the example's in-memory
+              ``krr.fit`` and then ``krr.fit_streaming`` on the same
+              generator seed (the first freed before the second), each on
+              its first call and warm with its stages, peak memory, launch
+              counts, test accuracy and f32 residual beside its floor eps32
+              ||K 1|| / ||1|| (printed, not met at this size: ROADMAP C15),
+              the two held to each other as in (a); what gates the fit:
+              B1's Adiag and B2's U of 128 leaf pairs against their plain
+              versions, alpha refined in float64 (PCG on the float64
+              matvec, the fit's f32 inverse as preconditioner) converged
+              within 100 iterations to a residual within that f32 floor,
+              and the f32 alpha within 1e-2 of it;
+              (c) ``launch.train.main`` in process in four modes
+              (``--stream`` and ``--update 16384`` at covtype's padded size
+              and width, ``--solver exact-cg`` and bench_sweep.py's 4 x 4
+              ``--grid`` at n 65,536), each printed line and launch count
+              checked;
   4. kernels  each kernel against its plain PyTorch version on the card, at
               the shapes the fit and serving paths give it (f32; B1 and B2
               as the fit's two grouped launches, every level gated; B7 one
@@ -307,8 +333,9 @@ def require(cond: bool, what: str) -> None:
 
 
 def sync() -> None:
-    """Wait for the card."""
-    torch.cuda.synchronize()
+    """Wait for the card (nothing to wait for without one)."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
 
 
 # ---------------------------------------------------------------------------
@@ -759,7 +786,7 @@ def check_build(points, want_chol, rtol, name="gaussian", sigma=SIGMA,
     return max(errs), float((got[0] - want[0]).abs().max())
 
 
-def check_cross(args, rtol, name="gaussian", got=None):
+def check_cross(args, rtol, name="gaussian", got=None, sigma=SIGMA):
     """B2 (``got``, one level of a grouped launch, else a one-group launch
     of build_cross) against its plain version.  U = K Linv^T Linv is
     amplified by kappa(Sigma), large where padding rows put near-duplicate
@@ -774,12 +801,12 @@ def check_cross(args, rtol, name="gaussian", got=None):
     from repro_torch.kernels.build_stage.ref import build_cross_ref
 
     pts, lm, linv = args
-    got = build_cross(*args, name=name, sigma=SIGMA) if got is None else got
-    want = build_cross_ref(*args, name=name, sigma=SIGMA)
+    got = build_cross(*args, name=name, sigma=sigma) if got is None else got
+    want = build_cross_ref(*args, name=name, sigma=sigma)
     sync()
     require(bool(torch.isfinite(got).all()), f"cross_solve[{name}] finite")
     r, d = lm.shape[1], lm.shape[2]
-    kabs = get_kernel(name)(pts, lm, sigma=SIGMA).abs()
+    kabs = get_kernel(name)(pts, lm, sigma=sigma).abs()
     bound = (kabs @ linv.abs().mT) @ linv.abs()
     eps = torch.finfo(pts.dtype).eps
     err = (got - want).abs()
@@ -1149,6 +1176,571 @@ def phase_fit(dev) -> dict:
             "x": x, "labels": labels, "matvec_shapes": fit_shapes,
             "inv": inv, "b": y_sorted.view(f.num_leaves, LEAF, N_CLASSES),
             "t_fit": t_fit, "stages": stages, "peak": peak, "resid": rres}
+
+
+# ---------------------------------------------------------------------------
+# Phase 3s: streamed ingestion -- covtype width, the susy row, the launcher
+# ---------------------------------------------------------------------------
+
+# The streamed fit's staging: leaves a launch, rows a partition chunk.
+STREAM_LEAF_BATCH, STREAM_CHUNK = 64, 65_536
+# The susy fit's f32 alpha against alpha refined in float64 (flexible PCG
+# on the float64 matvec, the fit's f32 inverse as preconditioner, to
+# REFINE_TOL within REFINE_ITERS iterations): ||alpha32 - alpha_ref|| /
+# ||alpha_ref|| at most SUSY_FWD (alpha = 0 gives 1).
+SUSY_FWD, REFINE_TOL, REFINE_ITERS = 1e-2, 1e-8, 100
+# The launcher's four modes: the streamed and the in-memory fit (with an
+# online update of UPDATE_Q arrivals) at covtype's padded size and width,
+# exact-kernel CG and bench_sweep.py's 4 x 4 grid at its n 65,536 (d 8;
+# rank 128, the largest the build kernels take, not its 256).
+LAUNCH_N, LAUNCH_SMALL_N = LEAF << LEVELS, 65_536
+# One krr.fit: B1's grouped Sigma launch and its Adiag launch, B2's grouped
+# launch, B3 once, B4 and B5 three times each (the solve and two
+# refinement rounds), B6 once.
+FIT_LAUNCHES = {"gram_chol": 1, "gram_chol_levels": 1,
+                "cross_solve_levels": 1, "leaf_factor": 1, "leaf_solve": 3,
+                "leaf_matvec": 3, "hck_leaf_project": 1}
+
+
+def stream_launches(n_leaves: int) -> dict:
+    """The launches of one krr.fit_streaming: FIT_LAUNCHES with one B1
+    build_gram and one B2 build_cross launch a group of STREAM_LEAF_BATCH
+    leaves (the Adiag in the groups) and no grouped B2 for U."""
+    groups = -(-n_leaves // STREAM_LEAF_BATCH)
+    return dict(FIT_LAUNCHES, gram_chol=groups, cross_solve=groups)
+
+
+def cross_gate(pts, lm, linv, got, want, chunk=2048):
+    """B2's componentwise gate between two U (or W) stacks of the same
+    nodes: |got - want| <= 4 (2r + d) eps |K| |Linv|^T |Linv| entry by
+    entry (as ``check_cross``), nodes (B, m, d) against their parents'
+    landmarks (B, r, d) and Linv (B, r, r), in chunks of nodes.  Returns
+    (gate held, max |got - want|, share of nodes equal bit for bit)."""
+    from repro_torch.core.kernels_fn import get_kernel
+
+    r, d = lm.shape[1], lm.shape[2]
+    eps = torch.finfo(pts.dtype).eps
+    held, worst, same = True, 0.0, 0
+    for s in range(0, pts.shape[0], chunk):
+        e = slice(s, s + chunk)
+        kabs = get_kernel("gaussian")(pts[e], lm[e], sigma=SIGMA).abs()
+        bound = (kabs @ linv[e].abs().mT) @ linv[e].abs()
+        err = (got[e] - want[e]).abs()
+        held &= bool((err <= 4 * (2 * r + d) * eps * bound).all())
+        worst = max(worst, float(err.max()))
+        same += int((err.flatten(1) == 0).all(dim=1).sum())
+    return held, worst, same / pts.shape[0]
+
+
+def snapshot(model, queries) -> dict:
+    """What phase 3s compares of a fitted model: its factors, alpha and its
+    predictions on ``queries``, with its kernel and classes (the model
+    itself may then be freed)."""
+    return {"factors": model.factors, "alpha": model.alpha,
+            "pred": model.predict(queries), "kernel": model.kernel,
+            "classes": model.classes}
+
+
+def stream_gaps(want: dict, model, queries, what: str) -> dict:
+    """The streamed ``model`` against the in-memory fit's ``snapshot``:
+    the tree (directions, thresholds, permutation), the points in tree
+    order (pad rows among them) and the landmarks exactly; Sigma and its
+    Cholesky factor and Adiag within B1's gate (1e-4 relative), U and
+    every level's W within B2's componentwise gate; alpha and the
+    predictions on ``queries`` within the f32 bound (1e-4 relative).
+    Returns the gaps and the shares equal bit for bit."""
+    from repro_torch.core.hck import sigma_linv
+
+    fa, fb = want["factors"], model.factors
+    require(torch.equal(fa.tree.perm, fb.tree.perm)
+            and all(torch.equal(a, b) for a, b in zip(
+                fa.tree.directions + fa.tree.thresholds,
+                fb.tree.directions + fb.tree.thresholds)),
+            f"{what}: the tree equals the in-memory fit's")
+    require(torch.equal(fa.x_sorted, fb.x_sorted),
+            f"{what}: the points in tree order, pad rows among them, equal")
+    require(all(torch.equal(a, b) for a, b in zip(fa.landmarks,
+                                                 fb.landmarks)),
+            f"{what}: the landmarks equal")
+    out = {"sigma_same": all(torch.equal(a, b) for a, b in zip(
+        fa.sigma + fa.sigma_cho, fb.sigma + fb.sigma_cho))}
+    out["sigma_rel"] = max(rel_max(b, a) for a, b in zip(
+        fa.sigma + fa.sigma_cho, fb.sigma + fb.sigma_cho))
+    out["adiag_rel"] = rel_max(fb.adiag, fa.adiag)
+    out["adiag_same"] = float((fb.adiag == fa.adiag).flatten(1).all(dim=1)
+                              .double().mean())
+    require(out["sigma_rel"] <= 1e-4 and out["adiag_rel"] <= 1e-4,
+            f"{what}: Sigma, its factor and Adiag within B1's 1e-4: {out}")
+    linv = [sigma_linv(c) for c in fa.sigma_cho]
+    rep = lambda t: torch.repeat_interleave(t, 2, dim=0)  # noqa: E731
+    n_leaves, n0, d = fa.num_leaves, fa.leaf_size, fa.x_sorted.shape[1]
+    held, out["u_err"], out["u_same"] = cross_gate(
+        fa.x_sorted.view(n_leaves, n0, d), rep(fa.landmarks[-1]),
+        rep(linv[-1]), fb.u, fa.u)
+    require(held, f"{what}: U within B2's componentwise gate "
+            f"(max |dU| {out['u_err']:.3e})")
+    w_err, w_same = [], []
+    for lvl in range(1, fa.levels):
+        held, err, same = cross_gate(
+            fa.landmarks[lvl], rep(fa.landmarks[lvl - 1]),
+            rep(linv[lvl - 1]), fb.w[lvl - 1], fa.w[lvl - 1])
+        require(held, f"{what}: W level {lvl} within B2's gate ({err:.3e})")
+        w_err.append(err)
+        w_same.append(same)
+    out["w_err"] = max(w_err, default=0.0)
+    out["w_same"] = min(w_same, default=1.0)
+    out["alpha_rel"] = rel_max(model.alpha, want["alpha"])
+    out["alpha_same"] = torch.equal(model.alpha, want["alpha"])
+    out["pred_rel"] = rel_max(model.predict(queries), want["pred"])
+    require(out["alpha_rel"] <= 1e-4 and out["pred_rel"] <= 1e-4,
+            f"{what}: alpha and the predictions within the f32 bound 1e-4: "
+            f"{out['alpha_rel']:.3e}, {out['pred_rel']:.3e}")
+    return out
+
+
+def gaps_text(g: dict) -> str:
+    """One line of stream_gaps' readings."""
+    return (f"tree, pad rows and landmarks equal; Sigma and its factor "
+            f"rel {g['sigma_rel']:.3e} (bit for bit: {g['sigma_same']}), "
+            f"Adiag rel {g['adiag_rel']:.3e} ({g['adiag_same']:.4f} of the "
+            f"leaves bit for bit) <= 1e-4; U max |d| {g['u_err']:.3e} "
+            f"({g['u_same']:.4f} of the leaves bit for bit), W max |d| "
+            f"{g['w_err']:.3e} ({g['w_same']:.4f} of the nodes of its "
+            f"worst level) within B2's componentwise gate; alpha rel "
+            f"{g['alpha_rel']:.3e} (bit for bit: {g['alpha_same']}), "
+            f"predictions rel {g['pred_rel']:.3e} <= 1e-4")
+
+
+def fit_floor(model, targets) -> dict:
+    """The f32 residual ||(K + lam I) alpha - y|| / ||y|| through the
+    port's matvec of a fitted model whose targets in input order are
+    ``targets``, beside two floors: eps32 ||K 1|| / ||1|| (``floor``, the
+    f32 noise of one product K alpha when ||alpha|| ~ ||y||, as at covtype
+    width) and that times ||alpha|| / ||y|| (``bwd``: the residual a
+    backward-stable f32 solve may leave, eps ||K|| ||alpha||, with ||K 1|| /
+    ||1|| <= ||K||)."""
+    from repro_torch.core import hmatrix
+
+    f = model.factors
+    y = targets[f.tree.perm]
+    out = {"res": rel_norm(y - hmatrix.matvec(f, model.alpha)
+                           - model.lam * model.alpha, y),
+           "floor": res_floor(model, y.device),
+           "alpha_y": rel_norm(model.alpha, y)}
+    out["bwd"] = out["floor"] * max(1.0, out["alpha_y"])
+    return out
+
+
+def rel_norm(a, b) -> float:
+    """||a|| / ||b||."""
+    return float(torch.linalg.vector_norm(a) / torch.linalg.vector_norm(b))
+
+
+def f64_witness(model, pred, targets, xt, yt, direct: bool = False,
+                sample: int = 128) -> dict:
+    """What holds a full-size f32 fit to account where its f32 residual
+    cannot (ROADMAP C15), on the live ``model`` whose predictions on
+    ``xt`` are ``pred`` and whose targets in input order are ``targets``:
+    B1's Adiag and B2's U of ``sample`` evenly spaced leaf pairs against
+    their plain versions (phase 4's gates); then alpha refined in float64:
+    flexible PCG on a float64 copy of the factors (the float64 matvec)
+    from the f32 alpha, preconditioned by the fit's own f32 inverse, to
+    REFINE_TOL within REFINE_ITERS iterations.  A wrong f32 inverse does
+    not precondition a system of this condition that fast.  Readings: both
+    alphas' residuals through the float64 matvec beside eps32 ||K 1|| /
+    ||1||, the f32 alpha's forward error against the refined one, the
+    share of test predictions of the same sign and the refined alpha's
+    test accuracy.  With ``direct`` also the float64 solve of the same
+    factors (``invert_with_leaf`` and ``solve_with_inverse`` through the
+    float64 kernels; it needs about 2.5x the f32 fit's memory, so the card
+    holds it up to 2,000,000 points) against the refined alpha.  Returns
+    the readings; the caller gates them."""
+    from repro_torch import device as _device
+    from repro_torch.core import hmatrix, krr, oos
+    from repro_torch.core.hck import sigma_linv
+    from repro_torch.solvers.cg import pcg
+
+    f, kernel, lam = model.factors, model.kernel, model.lam
+    require(kernel.sigma == SIGMA and kernel.jitter == JITTER,
+            "the plain versions' gates take phase 3's sigma and jitter")
+    n0, d, half = f.leaf_size, f.x_sorted.shape[1], f.num_leaves // 2
+    idx = torch.linspace(0, half - 1, sample, device=f.u.device).long()
+    pairs = f.x_sorted.view(half, 2 * n0, d)[idx].contiguous()
+    check_build(pairs.view(2 * sample, n0, d), False, 1e-4,
+                got=(f.adiag.view(half, 2, n0, n0)[idx]
+                     .reshape(2 * sample, n0, n0),))
+    check_cross((pairs, f.landmarks[-1][idx].contiguous(),
+                 sigma_linv(f.sigma_cho[-1][idx]).contiguous()), 1e-4,
+                got=f.u.view(half, 2 * n0, -1)[idx])
+    f64 = to_f64(f)
+    y = targets.double()[f.tree.perm]
+    a32 = model.alpha.double()
+    ones = torch.ones((f.n, 1), dtype=torch.float64, device=y.device)
+    knorm = float(torch.linalg.vector_norm(hmatrix.matvec(f64, ones))
+                  / math.sqrt(f.n))
+    resid = lambda a: rel_norm(  # noqa: E731
+        y - hmatrix.matvec(f64, a) - lam * a, y)
+    out = {"res32": resid(a32),
+           "floor32": torch.finfo(torch.float32).eps * knorm}
+    _device.synchronize(y.device)
+    t0 = time.perf_counter()
+    cg = pcg(lambda v: hmatrix.matvec(f64, v), y, ridge=lam,
+             precond=lambda r: hmatrix.apply_inverse(
+                 model.inverse, r.float()).double(),
+             tol=REFINE_TOL, maxiter=REFINE_ITERS, x0=a32)
+    _device.synchronize(y.device)
+    out["t_refine"] = time.perf_counter() - t0
+    a_ref = cg.x
+    out.update(iters=cg.iterations, converged=bool(cg.converged),
+               res_ref=resid(a_ref), fwd=rel_norm(a32 - a_ref, a_ref))
+    ref = krr.HCKRegressor(kernel, f64, oos.prepare(f64, a_ref), a_ref,
+                           model.classes, lam=lam)
+    pred_ref = ref.predict(xt.double())
+    out["acc_ref"] = float(krr.accuracy(ref.predict_class(xt.double()), yt))
+    out["agree"] = float(((pred_ref > 0) == (pred > 0)).double().mean())
+    del ref, pred_ref
+    if direct:
+        card = y.device.type == "cuda"  # tools/susy_scaling.py also on CPU
+        if card:
+            torch.cuda.empty_cache()
+            out["held"] = torch.cuda.memory_allocated() / 2**30
+            torch.cuda.reset_peak_memory_stats()
+        _device.synchronize(y.device)
+        t0 = time.perf_counter()
+        inv, _ = hmatrix.invert_with_leaf(f64, lam)
+        a64 = hmatrix.solve_with_inverse(f64, inv, y, ridge=lam)
+        _device.synchronize(y.device)
+        out["t_direct"] = time.perf_counter() - t0
+        del inv
+        out["peak"] = (torch.cuda.max_memory_allocated() / 2**30 if card
+                       else math.nan)
+        out.setdefault("held", math.nan)
+        out["res64"] = resid(a64)
+        out["ref_vs_64"] = rel_norm(a_ref - a64, a64)
+    del f64
+    if y.device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def witness_text(w: dict) -> str:
+    """One line of f64_witness' readings."""
+    text = (f"alpha refined in float64 (flexible PCG, float64 matvec, the "
+            f"fit's f32 inverse as preconditioner, from the f32 alpha): "
+            f"{w['iters']} iterations in {w['t_refine']:.3f} s (converged "
+            f"to {REFINE_TOL}: {w['converged']}), residual {w['res_ref']:.3e}"
+            f" against the f32 floor eps32 ||K 1|| / ||1|| = "
+            f"{w['floor32']:.3e}; the f32 alpha: residual {w['res32']:.3e} "
+            f"(float64 matvec), ||alpha32 - alpha_ref|| / ||alpha_ref|| "
+            f"{w['fwd']:.3e}; test predictions of the same sign "
+            f"{w['agree']:.4f}; test accuracy {w['acc_ref']:.4f} (refined "
+            f"alpha); B1's Adiag and B2's U of 128 leaf pairs within phase "
+            f"4's gates of their plain versions")
+    if "res64" in w:
+        text += (f"; the float64 solve of the same factors: "
+                 f"{w['t_direct']:.3f} s, peak device memory "
+                 f"{w['peak']:.2f} GiB ({w['held']:.2f} GiB held before), "
+                 f"residual {w['res64']:.3e}, ||alpha_ref - alpha64|| / "
+                 f"||alpha64|| {w['ref_vs_64']:.3e}")
+    return text
+
+
+def witness_gates(w: dict, what: str) -> None:
+    """The gates of a full-size f32 fit (ROADMAP C15): the refined alpha
+    converged and meets the f32 floor, and the f32 alpha lies within
+    SUSY_FWD of it."""
+    require(w["converged"] and w["res_ref"] <= w["floor32"],
+            f"{what}: alpha refined in float64 converged to {REFINE_TOL} "
+            f"within {REFINE_ITERS} iterations ({w['iters']}) and its "
+            f"residual {w['res_ref']:.3e} <= the f32 floor "
+            f"{w['floor32']:.3e}")
+    require(w["fwd"] <= SUSY_FWD,
+            f"{what}: ||alpha32 - alpha_ref|| / ||alpha_ref|| "
+            f"{w['fwd']:.3e} <= {SUSY_FWD}")
+
+
+def stream_covtype(fit, dev) -> dict:
+    """Phase 3s (a): phase 3's training data behind an ArraySource through
+    krr.fit_streaming with phase 3's generator seed, held to phase 3's
+    model."""
+    from repro_torch.core import krr
+    from repro_torch.core.kernels_fn import BaseKernel
+    from repro_torch.data.pipeline import ArraySource
+
+    src = ArraySource(fit["x"])
+    ker = BaseKernel("gaussian", SIGMA, JITTER)
+    sync()
+    t0 = time.perf_counter()
+    # ---- the streamed fit: counts set to 0 just before, read just after --
+    model, launches, plain_calls = counted(lambda: krr.fit_streaming(
+        src, fit["labels"], kernel=ker, lam=LAM, rank=RANK, leaf_size=LEAF,
+        classification=True, leaf_batch=STREAM_LEAF_BATCH,
+        chunk_rows=STREAM_CHUNK,
+        generator=torch.Generator(device=dev).manual_seed(SEED + 1)))
+    # ---------------------------------------------------------------------
+    t_fit = time.perf_counter() - t0
+    expected = stream_launches(1 << LEVELS)
+    require_launches("krr.fit_streaming at covtype width", launches,
+                     plain_calls, expected)
+    base = fit["model"]
+    gaps = stream_gaps(snapshot(base, fit["xt"]), model, fit["xt"],
+                       "covtype streamed fit")
+    acc = float(krr.accuracy(model.predict_class(fit["xt"]), fit["yt"]))
+    used = {k: v for k, v in launches.items() if v}
+    say(f"[3s stream] (a) krr.fit_streaming(ArraySource(phase 3's x), "
+        f"leaf_batch={STREAM_LEAF_BATCH}, chunk_rows={STREAM_CHUNK}) "
+        f"n={N_TRAIN} -> {model.factors.n} d={D} levels="
+        f"{model.factors.levels}: {t_fit:.3f} s (first call; phase 3's "
+        f"krr.fit {fit['t_fit']:.3f} s); launches {used} (exact); no plain "
+        f"version called; test accuracy {acc:.4f}")
+    say(f"[3s stream] (a) against phase 3's model: {gaps_text(gaps)}")
+    return {"t_fit": t_fit, "gaps": gaps, "launches": launches}
+
+
+def susy_fit(x, y, xt, yt, targets, *, stream: bool, want=None) -> dict:
+    """Phase 3s (b): one fit of the susy row (first call, counted, then
+    warm with stage times), its f32 residual beside the floors (printed:
+    at this size it does not reach eps32 ||K 1|| / ||1||, ROADMAP C15;
+    ``f64_witness`` gates the fit instead) and its test accuracy; with
+    ``want`` (the in-memory fit's snapshot) held to it.
+    Frees its models; returns the readings (and with ``want`` None the
+    snapshot)."""
+    from repro_torch.configs.hck_krr import DATASETS
+    from repro_torch.core import krr
+    from repro_torch.core.partition import auto_levels_ceil
+    from repro_torch.examples import large_scale_krr
+
+    cfg = DATASETS["susy"]
+    what = "krr.fit_streaming" if stream else "krr.fit"
+    opts = dict(rank=cfg.rank, lam=cfg.lam, sigma=cfg.sigma, seed=SEED + 1,
+                stream=stream, leaf_batch=STREAM_LEAF_BATCH,
+                chunk_rows=STREAM_CHUNK)
+    held = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    # ---- the fit: counts set to 0 just before, read just after ----------
+    model, launches, plain_calls = counted(
+        lambda: large_scale_krr.fit(x, y, **opts))
+    # ---------------------------------------------------------------------
+    t_first = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    levels = model.factors.levels
+    require(levels == auto_levels_ceil(cfg.n_train, cfg.leaf_size)
+            and model.factors.n == cfg.leaf_size << levels,
+            f"{what}: the susy row pads to {cfg.leaf_size} x 2**{levels}")
+    expected = (stream_launches(1 << levels) if stream else FIT_LAUNCHES)
+    require_launches(f"{what} at the susy row", launches, plain_calls,
+                     expected)
+    require(bool(torch.isfinite(model.alpha).all()), f"{what}: alpha finite")
+    res = fit_floor(model, targets)
+    acc = float(krr.accuracy(model.predict_class(xt), yt))
+    out = {"t_first": t_first, "peak": peak, "held": held, "res": res,
+           "acc": acc, "levels": levels,
+           "launches": {k: v for k, v in launches.items() if v}}
+    if want is None:
+        out["snapshot"] = snapshot(model, xt)
+        out["witness"] = f64_witness(model, out["snapshot"]["pred"],
+                                     targets, xt, yt)
+        witness_gates(out["witness"], what)
+    else:
+        out["gaps"] = stream_gaps(want, model, xt, f"susy {what}")
+    del model
+    torch.cuda.empty_cache()
+    stages = {}
+    sync()
+    t0 = time.perf_counter()
+    model = large_scale_krr.fit(x, y, timings=stages, **opts)
+    sync()
+    out["t_warm"] = time.perf_counter() - t0
+    out["stages"] = stages
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def susy_text(r: dict) -> str:
+    """One line of a susy fit's readings."""
+    levels = [v for k, v in r["stages"].items()
+              if k.startswith("partition level")]
+    parts = [f"{k} {v * 1e3:.1f}" for k, v in r["stages"].items()
+             if not k.startswith("partition level")]
+    if levels:
+        parts.insert(0, f"streamed partition {sum(levels) * 1e3:.1f} (per "
+                     f"level 0..{len(levels) - 1}: "
+                     f"{', '.join(f'{v * 1e3:.1f}' for v in levels)})")
+    return (f"levels {r['levels']}: {r['t_first']:.3f} s first call, "
+            f"{r['t_warm']:.3f} s warm; warm stages (ms, synchronised): "
+            f"{'; '.join(parts)}; peak device memory {r['peak']:.2f} GiB "
+            f"({r['held']:.2f} GiB held before the call); "
+            f"{residual_text(r['res'])}; launches {r['launches']}; test "
+            f"accuracy {r['acc']:.4f}")
+
+
+def residual_text(r: dict) -> str:
+    """fit_floor's readings, each limit met or not."""
+    met = lambda ok: "met" if ok else "NOT met"  # noqa: E731
+    return (f"f32 residual {r['res']:.3e}: against eps32 ||K 1|| / ||1|| "
+            f"= {r['floor']:.3e} {met(r['res'] <= r['floor'])}, against "
+            f"phase 3's fixed 1e-2 {met(r['res'] <= 1e-2)}; eps32 ||K 1|| / "
+            f"||1|| ||alpha|| / ||y|| (||alpha|| / ||y|| = "
+            f"{r['alpha_y']:.3f}), what a backward-stable f32 solve may "
+            f"leave, {r['bwd']:.3e} (not a gate)")
+
+
+def stream_susy(dev, smi) -> dict:
+    """Phase 3s (b): the susy row at full size, in memory (the example's
+    krr.fit) and streamed (krr.fit_streaming, the same generator seed),
+    one after the other, the first freed before the second."""
+    from repro_torch.configs.hck_krr import DATASETS
+    from repro_torch.examples import large_scale_krr
+
+    cfg = DATASETS["susy"]
+    sync()
+    t0 = time.perf_counter()
+    (x, y), (xt, yt) = large_scale_krr.dataset(cfg, device=dev, seed=SEED)
+    sync()
+    t_data = time.perf_counter() - t0
+    require(x.shape == (cfg.n_train, cfg.d) and xt.shape == (cfg.n_test,
+                                                             cfg.d),
+            "susy data shapes")
+    # the fit's targets in input order, pad rows included (the generator's
+    # first draws, as krr.fit and fit_streaming pad)
+    from repro_torch.core.partition import auto_levels_ceil, pad_points
+
+    levels = auto_levels_ceil(cfg.n_train, cfg.leaf_size)
+    _, yp, _ = pad_points(x, y, cfg.leaf_size, levels,
+                          generator=torch.Generator(device=dev)
+                          .manual_seed(SEED + 1))
+    one = torch.ones((), device=dev)
+    targets = torch.where(yp == 1, one, -one)[:, None]
+    mem = susy_fit(x, y, xt, yt, targets, stream=False)
+    want = mem.pop("snapshot")
+    st = susy_fit(x, y, xt, yt, targets, stream=True, want=want)
+    del want
+    torch.cuda.empty_cache()
+    say(f"[3s stream] (b) {smi}: the susy row (n {cfg.n_train:,} -> "
+        f"{cfg.leaf_size << levels:,}, {cfg.n_test:,} test points, d "
+        f"{cfg.d}, binary; rank {cfg.rank}, leaf {cfg.leaf_size}, sigma "
+        f"{cfg.sigma}, lam {cfg.lam}): regression_dataset {t_data:.3f} s")
+    say(f"[3s stream] (b) in memory, the example's krr.fit: {susy_text(mem)}")
+    say(f"[3s stream] (b) streamed, krr.fit_streaming(leaf_batch="
+        f"{STREAM_LEAF_BATCH}, chunk_rows={STREAM_CHUNK}): {susy_text(st)}")
+    say(f"[3s stream] (b) streamed against in memory: "
+        f"{gaps_text(st['gaps'])}")
+    say(f"[3s stream] (b) in memory, what gates the fit (the streamed "
+        f"alpha is the same bits): {witness_text(mem['witness'])}")
+    return {"mem": mem, "stream": st, "t_data": t_data}
+
+
+def launcher_mode(argv, expected, pattern, extra=None) -> dict:
+    """One in-process run of ``launch.train.main(argv)`` on the card: its
+    printed lines must match ``pattern`` (a regex per line) and its
+    launches equal ``expected`` (a dict, or a function of the returned
+    record giving it)."""
+    import io
+    import re
+
+    from repro_torch.launch import train
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out, launches, plain_calls = counted(lambda: train.main(argv))
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines:
+        say(f"[3s stream] (c) {line}")
+    require(len(lines) == len(pattern) and all(
+        re.fullmatch(p, line) for p, line in zip(pattern, lines)),
+        f"launch.train {' '.join(argv)} printed its lines: {lines}")
+    want = expected(out) if callable(expected) else expected
+    require_launches(f"launch.train {' '.join(argv)}", launches, plain_calls,
+                     want)
+    used = {k: v for k, v in launches.items() if v}
+    say(f"[3s stream] (c) launches {used} (exact); no plain version called")
+    return out
+
+
+def stream_launcher(dev) -> dict:
+    """Phase 3s (c): launch.train --task krr in four modes, in process."""
+    from repro_torch.launch import train  # noqa: F401  (imports on the card)
+
+    num = r"[0-9.]+"
+    big = ["--task", "krr", "--n", str(LAUNCH_N), "--d", str(D), "--rank",
+           str(RANK)]
+    fit_line = (rf"krr n={LAUNCH_N} d={D} rank={RANK} backend=auto "
+                rf"\({{}}\): fit {num} s \([0-9,]+ points/s\), train rel-err "
+                rf"{num}")
+    one_bucket = {"oos_contract": 1, "oos_contract_pair": 1}
+    t0 = time.perf_counter()
+    runs = {}
+    runs["stream"] = launcher_mode(
+        big + ["--stream"], dict(stream_launches(1 << LEVELS), **one_bucket),
+        [fit_line.format("streaming")])
+    update_round = {"cross_solve": 1, "leaf_update": 1, "leaf_solve": 3,
+                    "leaf_matvec": 5, "hck_leaf_project": 1}
+    runs["update"] = launcher_mode(
+        big + ["--update", str(UPDATE_Q)],
+        {k: FIT_LAUNCHES.get(k, 0) + update_round.get(k, 0) + (
+            2 if k in one_bucket else 0)
+         for k in {*FIT_LAUNCHES, *update_round, *one_bucket}},
+        [fit_line.format("in-memory"),
+         rf"krr-update \+{UPDATE_Q} points: {num} s \([0-9,]+ inserts/s vs "
+         rf"full fit [0-9,]+ points/s\), k=\d+/leaf, resid \S+, "
+         rf"rebuild=(True|False), train rel-err {num}"])
+
+    def exact_launches(out):
+        # the preconditioner's build and B3 once, B10 an iteration plus the
+        # initial residual, B4 an iteration plus the initial apply, and
+        # B10's launches of the 2,048-query prediction
+        it = out["iterations"]
+        x = torch.randn((LAUNCH_SMALL_N, 8), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+        _, pl, _ = counted(lambda: out["model"].predict(x[:2048]))
+        b10 = it + 1 + pl["kernel_matvec"]
+        return dict(FIT_LAUNCHES, leaf_solve=it + 1, leaf_matvec=0,
+                    hck_leaf_project=0, kernel_matvec=b10,
+                    kernel_matvec_tc=b10)
+
+    runs["exact"] = launcher_mode(
+        ["--task", "krr", "--n", str(LAUNCH_SMALL_N), "--rank", str(RANK),
+         "--solver", "exact-cg"], exact_launches,
+        [rf"krr-exact n={LAUNCH_SMALL_N} d=8 rank={RANK} solver=exact-cg "
+         rf"backend=auto: fit {num} s in \d+ iterations \(rel resid \S+\), "
+         rf"train rel-err {num}"])
+    require(math.isfinite(runs["exact"]["residual"]),
+            f"exact-cg residual finite: {runs['exact']['residual']}")
+    sig, lam = "0.5,1,2,4", "1e-3,1e-2,1e-1,1"
+    g = len(sig.split(","))
+    runs["grid"] = launcher_mode(
+        ["--task", "krr", "--grid", "--n", str(LAUNCH_SMALL_N), "--rank",
+         str(RANK), "--sigmas", sig, "--lams", lam],
+        # per sigma: B8's grouped Sigma launch and its Adiag launch, B9's
+        # grouped launch, B3 once for the stacked lambdas, B4 and B5 three
+        # times a lambda, B6 and B7 once (the scores); then best(): B6, B7
+        {"gram_chol_dist": g, "gram_chol_dist_levels": g,
+         "cross_solve_dist_levels": g, "leaf_factor": g,
+         "leaf_solve": 3 * g * 4, "leaf_matvec": 3 * g * 4,
+         "hck_leaf_project": g + 1, "oos_contract": g + 1,
+         "oos_contract_pair": g + 1},
+        [rf"sweep n={LAUNCH_SMALL_N} rank={RANK} grid=4x4 backend=auto: "
+         rf"plan {num} s \+ grid {num} s \({num} grid points/s\)"]
+        + [rf"  sigma=\S+ +val-relerr per lam: {num}  {num}  {num}  {num}"]
+        * g + [rf"best: sigma=\S+ lam=\S+ val-relerr {num}"])
+    runs["t"] = time.perf_counter() - t0
+    return runs
+
+
+def phase_stream(fit, dev, smi) -> dict:
+    """Phase 3s: streamed ingestion and the KRR training launcher."""
+    t0 = time.perf_counter()
+    cov = stream_covtype(fit, dev)
+    t_a = time.perf_counter() - t0
+    susy = stream_susy(dev, smi)
+    t_b = time.perf_counter() - t0 - t_a
+    runs = stream_launcher(dev)
+    t_all = time.perf_counter() - t0
+    say(f"[3s stream] phase done in {t_all:.1f} s ((a) {t_a:.1f} s, (b) "
+        f"{t_b:.1f} s, (c) {runs['t']:.1f} s)")
+    return {"covtype": cov, "susy": susy, "launcher": runs}
 
 
 def phase_kernels(fit, dev) -> dict:
@@ -3735,17 +4327,13 @@ def policy_fit(fit, dev, name):
 def fit_residual(model, fit, dev) -> tuple[float, float]:
     """(f32 residual ||(K + lam I) alpha - y|| / ||y|| through the port's
     matvec, the f32 floor eps32 ||K 1|| / ||1||) of a full-width fit."""
-    from repro_torch.core import hmatrix
     from repro_torch.core.partition import pad_points
 
-    f = model.factors
     _, yp, _ = pad_points(fit["x"], fit["labels"], LEAF, LEVELS,
                           generator=torch.Generator(device=dev)
                           .manual_seed(SEED + 1))
-    y = one_vs_all(yp, torch.float32)[f.tree.perm]
-    r = y - hmatrix.matvec(f, model.alpha) - LAM * model.alpha
-    return (float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(y)),
-            res_floor(model, dev))
+    r = fit_floor(model, one_vs_all(yp, torch.float32))
+    return r["res"], r["floor"]
 
 
 def policy_parity_f64(dev) -> dict:
@@ -5187,10 +5775,11 @@ def main() -> int:
     torch.set_float32_matmul_precision("highest")
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    kind, _ = phase_device()
+    kind, smi = phase_device()
     phase_build()
     lm_records = phase_lm(dev)
     fit = phase_fit(dev)
+    phase_stream(fit, dev, smi)
     res = phase_kernels(fit, dev)
     phase_exact(dev)
     served = phase_serve(fit)

@@ -21,7 +21,9 @@ the landmarks and caches every bandwidth-independent distance tile once
 at one bandwidth from them
 through the ``build_gram_dist`` stage (the leaves) and the grouped
 ``build_gram_dist_levels`` and ``build_cross_dist_levels`` stages (every
-level in one launch each).
+level in one launch each).  :func:`build_hck_streaming` builds the same factors
+from host-resident data, the points staged through the device in chunks
+(the partition) and in groups of leaves.
 :func:`build_hck_reference` is the per-node transcription of Algorithm 2
 and :func:`to_dense` the dense reconstruction, both oracles for tests.
 
@@ -39,12 +41,15 @@ from __future__ import annotations
 import collections
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch import device as _device
 from repro_torch.core.kernels_fn import KERNEL_METRIC, BaseKernel
 from repro_torch.core.partition import (PartitionTree, build_partition,
                                         rp_directions)
+from repro_torch.data.pipeline import (draw_device, rows_to,
+                                       stream_partition)
 from repro_torch.kernels.registry import (DEFAULT_CONFIG, SolveConfig,
                                           get_impl, resolve_backend)
 from repro_torch.landmarks import budget as _budget
@@ -410,6 +415,141 @@ def build_hck(
         w = _mask_transfer_ops(w, rank_mask)
     return HCKFactors(x_sorted, tree, landmarks, sigma, sigma_cho, w, u,
                       adiag, rank_mask)
+
+
+def _streamed_landmarks(source, perm, lvl: int, rank: int,
+                        dev: torch.device, generator, index=None) -> Tensor:
+    """Level ``lvl``'s landmarks (2**lvl, r, d), gathered from the host
+    ``source`` by index: :func:`landmark_indices` positions (or ``index``)
+    inside each node's block of the host permutation ``perm``."""
+    bsz, m = 1 << lvl, perm.shape[0] >> lvl
+    if index is None:
+        index = landmark_indices(bsz, m, rank, device=dev,
+                                 generator=generator)
+    index = torch.as_tensor(index)
+    if index.shape != (bsz, rank):
+        raise ValueError(f"level {lvl} landmark indices shape "
+                         f"{tuple(index.shape)} != {(bsz, rank)}")
+    pos = index.cpu().numpy() + np.arange(bsz)[:, None] * m
+    return rows_to(source, perm[pos.reshape(-1)], dev).reshape(
+        bsz, rank, source.dim)
+
+
+def _streamed_leaves(source, perm, lm_last: Tensor, linv_last: Tensor,
+                     n0: int, kernel: BaseKernel, config: SolveConfig,
+                     leaf_batch: int, dev: torch.device):
+    """The leaves' points in tree order, Adiag and U, ``leaf_batch``
+    leaves at a time through :func:`leaf_stage_factors` (the last level's
+    landmarks and Linv repeated to leaf granularity, since a group need
+    not hold whole sibling pairs)."""
+    n, d = perm.shape[0], source.dim
+    n_leaves, dtype = n // n0, lm_last.dtype
+    lm_parent = torch.repeat_interleave(lm_last, 2, dim=0)
+    linv_parent = torch.repeat_interleave(linv_last, 2, dim=0)
+    x_sorted = torch.empty((n, d), dtype=dtype, device=dev)
+    adiag = torch.empty((n_leaves, n0, n0), dtype=dtype, device=dev)
+    u = torch.empty((n_leaves, n0, lm_last.shape[1]), dtype=dtype,
+                    device=dev)
+    for start in range(0, n_leaves, leaf_batch):
+        stop = min(start + leaf_batch, n_leaves)
+        blk = rows_to(source, perm[start * n0:stop * n0], dev)
+        x_sorted[start * n0:stop * n0] = blk
+        adiag[start:stop], u[start:stop] = leaf_stage_factors(
+            blk.reshape(stop - start, n0, d), lm_parent[start:stop],
+            linv_parent[start:stop], kernel, config)
+    return x_sorted, adiag, u
+
+
+def build_hck_streaming(
+    source, *, levels: int, rank: int, kernel: BaseKernel,
+    method: str = "rp", shared_landmarks: bool = False,
+    config: SolveConfig | None = None, leaf_batch: int = 64,
+    chunk_rows: int = 1 << 16, policy=None, rank_budget: int | None = None,
+    directions=None, landmark_index=None,
+    generator: torch.Generator | None = None, device=None,
+    timings: dict | None = None,
+) -> HCKFactors:
+    """Build HCK factors from a host-resident
+    :class:`repro_torch.data.pipeline.ChunkSource`.
+
+    The raw (n, d) data is never on the device in one piece: the
+    partition streams chunks of ``chunk_rows`` rows
+    (:func:`repro_torch.data.pipeline.stream_partition`), the landmark
+    rows are gathered from the source by index, and the leaves pass
+    through :func:`leaf_stage_factors` ``leaf_batch`` at a time (one
+    ``build_gram`` and one ``build_cross`` launch a group, the parents'
+    landmarks and Linv repeated per leaf).  Sigma of every level is one
+    grouped ``build_gram_levels`` launch and W one grouped
+    ``build_cross_levels`` launch, as in :func:`build_hck`.  The factors
+    are the usual O(n (n0 + r)) device arrays.
+
+    The draws are :func:`build_hck`'s, in its order, from ``generator``
+    (on its device, else on ``device``, None = the card: the device the
+    factors live on): the directions level by level, then one landmark
+    draw a level; ``directions`` and ``landmark_index`` replace them.  A
+    source that wraps an in-memory array therefore gives
+    :func:`build_hck`'s tree and landmarks exactly, and its factors up to
+    the stages' launch shapes.  ``timings``, a dict, receives the wall
+    seconds of each partition level, the landmarks, the middle factors,
+    the leaf groups and W (the device synchronised).
+
+    Only the uniform landmark policy streams (the node blocks are never on
+    the device for a clustered or leverage selection to scan), and there
+    is no rank budget: both raise ``ValueError``, as does ``levels < 1``
+    (a 0-level build is one dense block), as in the reference.
+    ``config.precision`` raises ``NotImplementedError``.
+    """
+    from repro_torch.landmarks.policy import UniformPolicy
+
+    config = config if config is not None else DEFAULT_CONFIG
+    _check_build_options(config)
+    if levels < 1:
+        raise ValueError("build_hck_streaming needs levels >= 1 "
+                         "(a 0-level build is one dense block)")
+    if not isinstance(get_policy(policy), UniformPolicy):
+        raise ValueError(
+            "build_hck_streaming supports the uniform landmark policy "
+            "only: node blocks are never device-resident, so clustered/"
+            "leverage selection has nothing to scan -- build in memory "
+            "instead")
+    if rank_budget is not None:
+        raise ValueError(
+            "build_hck_streaming does not support rank_budget; use "
+            "build_hck for budgeted adaptive rank")
+    if leaf_batch < 1:
+        raise ValueError(f"leaf_batch must be >= 1, got {leaf_batch}")
+    n, n_leaves = source.n, 1 << levels
+    if n % n_leaves != 0:
+        raise ValueError(f"n={n} not divisible by 2**levels={n_leaves}")
+    n0 = n // n_leaves
+    if rank > n0:
+        raise ValueError(f"rank {rank} exceeds leaf size {n0} (paper 4.4)")
+    if landmark_index is not None and len(landmark_index) != levels:
+        raise ValueError(f"{len(landmark_index)} landmark index sets for "
+                         f"{levels} levels")
+    dev = draw_device(generator, device)
+    perm, tree = stream_partition(
+        source, levels, generator=generator, device=dev,
+        directions=directions, method=method, chunk_rows=chunk_rows,
+        timings=timings)
+    landmarks = _device.timed(timings, "landmarks", dev, lambda: tuple(
+        _streamed_landmarks(source, perm, lvl, rank, dev, generator,
+                            None if landmark_index is None
+                            else landmark_index[lvl])
+        for lvl in range(levels)))
+    if shared_landmarks:
+        landmarks = _broadcast_shared_landmarks(landmarks)
+    sigma, sigma_cho, sigma_li = _device.timed(
+        timings, "middle factors", dev,
+        lambda: _middle_factors(landmarks, kernel, config))
+    x_sorted, adiag, u = _device.timed(
+        timings, "leaf groups", dev, lambda: _streamed_leaves(
+            source, perm, landmarks[-1], sigma_li[-1], n0, kernel, config,
+            leaf_batch, dev))
+    w = _device.timed(timings, "transfer W", dev, lambda: _transfer_ops(
+        landmarks, sigma_li, kernel, config))
+    return HCKFactors(x_sorted, tree, landmarks, sigma, sigma_cho, w, u,
+                      adiag)
 
 
 # ---------------------------------------------------------------------------

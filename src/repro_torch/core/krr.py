@@ -2,6 +2,8 @@
 (counterpart of ``repro.core.krr``).
 
 fit:      alpha = (K_hck + lambda I)^-1 y        -- Algorithm 2, O(n r^2)
+fit_streaming: the same model from a host-resident ChunkSource, the
+          points staged through the device in chunks and leaf groups
 predict:  f(x)  = alpha^T k_hck(X, x)            -- Algorithm 3
 fit_path: alpha_g for a whole grid of lambda_g from one build, scored on
           held-out data in one Algorithm-3 pass  -- the sweep's lambda axis
@@ -31,10 +33,11 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.core import hmatrix, oos
-from repro_torch.core.hck import HCKFactors, build_hck
+from repro_torch.core.hck import HCKFactors, build_hck, build_hck_streaming
 from repro_torch.core.kernels_fn import BaseKernel
 from repro_torch.core.partition import (auto_levels, auto_levels_ceil,
                                         pad_points)
+from repro_torch.data.pipeline import pad_source, torch_dtype
 from repro_torch.kernels.registry import SolveConfig
 from repro_torch.precision import entry_point
 from repro_torch.runtime import health
@@ -135,6 +138,7 @@ def fit(
     landmarks=None, rank_budget: int | None = None, device=None,
     generator: torch.Generator | None = None, pad_index=None,
     pad_noise=None, directions=None, landmark_index=None, policy_draws=None,
+    timings: dict | None = None,
 ) -> HCKRegressor:
     """Fit KRR with the paper's sizing rule (Eq. 22) unless ``levels`` given.
 
@@ -171,6 +175,8 @@ def fit(
     A ``solve_config.precision`` (ROADMAP item A15) raises
     ``NotImplementedError``.  The model caches the Algorithm-2 inverse and
     its leaf Cholesky factors, which :meth:`HCKRegressor.update` extends.
+    ``timings``, a dict, receives the wall seconds of ``build_hck`` and
+    of the stages after it (the device synchronised).
     """
     dev = _device.resolve(device)
     x = torch.as_tensor(x).to(dev)
@@ -185,25 +191,98 @@ def fit(
                          index=pad_index, noise=pad_noise)
     targets, classes, squeeze = _encode_targets(y, classification, x.dtype)
 
-    factors = build_hck(
+    factors = _device.timed(timings, "build_hck", dev, lambda: build_hck(
         x, levels=levels, rank=rank, kernel=kernel, method=method,
         shared_landmarks=shared_landmarks, config=solve_config,
         policy=landmarks, rank_budget=rank_budget, directions=directions,
         landmark_index=landmark_index, policy_draws=policy_draws,
-        generator=generator)
+        generator=generator))
+    return _solve_built(factors, targets, classes, squeeze, kernel, lam,
+                        solve_config, timings)
+
+
+def _solve_built(factors: HCKFactors, targets: Tensor, classes, squeeze,
+                 kernel: BaseKernel, lam: float,
+                 solve_config: SolveConfig | None,
+                 timings: dict | None = None) -> HCKRegressor:
+    """The fit after the build: probe the factors, invert with the leaf
+    factor kept, solve, probe alpha and prepare the Algorithm-3 plan.
+    ``timings``, a dict, receives the wall seconds of the last three
+    stages (the device synchronised)."""
+    def stage(name, fn):
+        return _device.timed(timings, name, targets.device, fn)
+
     health.probe_factors(factors, solve_config, op="build")
     y_sorted = targets[factors.tree.perm]
-    inv, lo = hmatrix.invert_with_leaf(factors, lam, solve_config)
+    inv, lo = stage("invert_with_leaf", lambda: hmatrix.invert_with_leaf(
+        factors, lam, solve_config))
     health.probe_leaf_factor(lo, solve_config)
-    alpha = hmatrix.solve_with_inverse(factors, inv, y_sorted, ridge=lam,
-                                       config=solve_config)
+    alpha = stage("solve_with_inverse", lambda: hmatrix.solve_with_inverse(
+        factors, inv, y_sorted, ridge=lam, config=solve_config))
     health.check_finite("solve", alpha, config=solve_config,
                         detail="dual coefficients (fit)")
-    plan = oos.prepare(factors, alpha, solve_config)
+    plan = stage("prepare", lambda: oos.prepare(factors, alpha,
+                                                solve_config))
     return HCKRegressor(kernel, factors, plan, alpha, classes,
                         squeeze=squeeze, solve_config=solve_config, lam=lam,
                         base_leaf_size=factors.leaf_size, inverse=inv,
                         leaf_lo=lo)
+
+
+@entry_point
+def fit_streaming(
+    source, y, *, kernel: BaseKernel, lam: float, rank: int,
+    leaf_size: int | None = None, levels: int | None = None,
+    classification: bool = False, solve_config: SolveConfig | None = None,
+    leaf_batch: int = 64, chunk_rows: int = 1 << 16, landmarks=None,
+    rank_budget: int | None = None, device=None,
+    generator: torch.Generator | None = None, pad_index=None,
+    pad_noise=None, directions=None, landmark_index=None,
+    timings: dict | None = None,
+) -> HCKRegressor:
+    """Fit KRR from a host-resident :class:`repro_torch.data.pipeline.
+    ChunkSource`.
+
+    The model of :func:`fit`, but the raw points are never on the device
+    in one piece: the partition streams chunks of ``chunk_rows`` rows and
+    the leaf stages take ``leaf_batch`` leaves a launch
+    (:func:`repro_torch.core.hck.build_hck_streaming`).  Inputs that do
+    not fill the tree are padded on the host with :func:`fit`'s
+    duplicate-and-jitter rows (:func:`repro_torch.data.pipeline.
+    pad_source`).  The model caches the Algorithm-2 inverse and its leaf
+    factor, with :func:`fit`'s probes, so :meth:`HCKRegressor.update`
+    works on it.
+
+    ``y`` (n,) or (n, k) goes to the device (targets are O(n k)).
+    ``device`` (None = the card) and ``generator`` (default seeded 0 on
+    ``device``) as in :func:`fit`: with the same generator the pad rows,
+    the tree and the landmarks are :func:`fit`'s on the same points;
+    ``pad_index`` / ``pad_noise``, ``directions`` and ``landmark_index``
+    replace those draws.  ``landmarks`` must be the uniform policy and
+    ``rank_budget`` None (``ValueError`` otherwise).  ``timings``, a
+    dict, receives the wall seconds of the stages (the device
+    synchronised).
+    """
+    dev = _device.resolve(device)
+    y = torch.as_tensor(y).to(dev)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    leaf_size = leaf_size if leaf_size is not None else rank
+    if levels is None:
+        levels = max(1, auto_levels_ceil(source.n, leaf_size))
+    source, y, _ = pad_source(source, y, leaf_size, levels,
+                              generator=generator, index=pad_index,
+                              noise=pad_noise)
+    targets, classes, squeeze = _encode_targets(y, classification,
+                                                torch_dtype(source))
+    factors = build_hck_streaming(
+        source, levels=levels, rank=rank, kernel=kernel, config=solve_config,
+        leaf_batch=leaf_batch, chunk_rows=chunk_rows, policy=landmarks,
+        rank_budget=rank_budget, directions=directions,
+        landmark_index=landmark_index, generator=generator, device=dev,
+        timings=timings)
+    return _solve_built(factors, targets, classes, squeeze, kernel, lam,
+                        solve_config, timings)
 
 
 @dataclasses.dataclass

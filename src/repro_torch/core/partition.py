@@ -43,10 +43,35 @@ class PartitionTree:
         return 1 << self.levels
 
 
+def project_rows(x: Tensor, direction: Tensor) -> Tensor:
+    """Projections ``sum_k x[..., k] * direction[..., k]`` of rows ``x``
+    (..., d) on directions broadcast against them: (...).
+
+    The products, zero-padded to a power of two of features, are summed as
+    a pairwise tree of elementwise adds (the first half plus the second,
+    ceil(log2 d) launches), so a row's projection depends on that row and
+    its direction alone, the same on the CPU and on the card, whether the
+    rows come as a level's node blocks (:func:`build_partition`) or in
+    chunks of any size (:func:`repro_torch.data.pipeline.stream_partition`);
+    a reduction or a product library call sums in an order that can change
+    with the number of rows, and a near-tie at a median then moves a
+    point.
+    """
+    prod = x * direction
+    d = prod.shape[-1]
+    width = 1 << max(d - 1, 0).bit_length()
+    if width != d:
+        prod = torch.nn.functional.pad(prod, (0, width - d))
+    while width > 1:
+        width //= 2
+        prod = prod[..., :width] + prod[..., width:]
+    return prod[..., 0]
+
+
 def _split_level(x: Tensor, perm: Tensor, direction: Tensor):
     """Split every block of ``x`` (B, m, d) at its projected median."""
     bsz, m, d = x.shape
-    proj = torch.einsum("bmd,bd->bm", x, direction)
+    proj = project_rows(x, direction[:, None, :])
     order = torch.argsort(proj, dim=1, stable=True)
     x = torch.gather(x, 1, order[:, :, None].expand(bsz, m, d))
     perm = torch.gather(perm.reshape(bsz, m), 1, order)

@@ -2,9 +2,12 @@
 
 The port runs on the CUDA card by default.  The CPU is used only when the
 caller asks for it (the tests do); a CUDA request on a machine without a
-card raises instead of falling back silently.
+card raises instead of falling back silently.  :func:`timed` records a
+stage's wall time with the card's queue drained on both sides.
 """
 from __future__ import annotations
+
+import time
 
 import torch
 
@@ -25,3 +28,23 @@ def resolve(device: str | torch.device | None = None) -> torch.device:
     if dev.type == "cpu":
         return dev
     raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+
+
+def synchronize(dev: torch.device) -> None:
+    """Wait for the work queued on ``dev`` (nothing to wait for on the
+    CPU)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def timed(timings: dict | None, name: str, dev: torch.device, fn):
+    """``fn()``; with ``timings`` (a dict) also its wall seconds, between
+    two synchronisations of ``dev``, in ``timings[name]``."""
+    if timings is None:
+        return fn()
+    synchronize(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    synchronize(dev)
+    timings[name] = time.perf_counter() - t0
+    return out

@@ -1,0 +1,2 @@
+"""End-to-end examples of the port, run as modules
+(``python -m repro_torch.examples.<name>``)."""

@@ -55,7 +55,8 @@ def _fit():
 
 
 @pytest.mark.parametrize("fn", [
-    krr.fit, krr.fit_incremental, krr.fit_path, krr.fit_exact, gp.mle_grid,
+    krr.fit, krr.fit_streaming, krr.fit_incremental, krr.fit_path,
+    krr.fit_exact, gp.mle_grid,
     gp.fit_gp, kpca.kpca_fit, ServeSession.prefill, ServeSession.decode,
     ssm.ssd_chunked, krr.HCKRegressor.predict, krr.HCKRegressor.predict_class,
     krr.ExactKRR.predict, krr.ExactKRR.predict_class, PredictEngine.apply,
