@@ -10,10 +10,11 @@ result.  Phases, each of which raises on failure:
               entry's registers and spills (all eight instances of B14's
               wgmma kernel, all six of B10's tensor-core kernel, B15's
               wgmma kernel and all four of its mma.sync kernel, both of
-              B3's kernel, both of B12's register-tiled kernel, all four
-              of B1's grouped kernel, all four of B2's and of B9's grouped
-              tensor-core kernels, both of B8's grouped kernel, B7's ten
-              and B4's eight there, none spilling; any ptxas C7519 line of
+              B3's kernel, both of B12's register-tiled kernel, all six
+              of B1's grouped kernel, all eight of B2's and of B9's grouped
+              tensor-core kernels, all three of B8's grouped kernel, B7's
+              sixteen and B4's eight there (the bfloat16-data entries
+              among them), none spilling; any ptxas C7519 line of
               build_stage and build_dist), and the wgmma (HGMMA), mma.sync
               (HMMA),
               TMA-load (UTMALDG) and mbarrier (SYNCS) instructions of the
@@ -91,7 +92,8 @@ result.  Phases, each of which raises on failure:
   5. exact    an n = 4,096 fit at covtype width in f64 against the dense
               oracle, the f32 fit against the f64 one on the same tree and
               landmarks, and the f32 engine against the f64 Algorithm-3
-              oracle; the f32 fit and an ssd_chunked call again under
+              oracle; the f32 fit, the same fit under the bf16 policy
+              and an ssd_chunked call again under
               set_float32_matmul_precision("high"), bit for bit the same
               (the entry points keep TF32 off);
   6. serve    the fitted full-width model served through ``model.engine``
@@ -184,6 +186,31 @@ result.  Phases, each of which raises on failure:
               the grown leaf size (B6 also at the second round's and the
               exact round's), ``downdate(insert(f)) == f``; one "stale"
               and one "exact" round;
+  8d. precision  the mixed-precision policy (SolveConfig.precision): every
+              bfloat16-data entry (B1, B2, B7, B8, B9) against its plain
+              version at d 3, 7, 18 and 54 with data views offset by one
+              element; (a) the reference's precision problem (d 5, sigma
+              2, jitter 1e-4, rank 16, leaf 32) at n 4,096 built under
+              each policy on one tree and landmark set, against the f64
+              build at the reference's gates ("f64" bit for bit; factors
+              2e-2 bf16 / 1e-4 f32, matvec and predictions 5e-2 / 1e-4,
+              the bf16 solve at the ridge floor 1e-1); (b) the covtype
+              fit under bf16 (jitter 1e-4, lambda 1e-1; launch counts read
+              around exactly this call) against an f32 fit of the same
+              settings on the same tree and landmarks, first and warm
+              wall time, peak memory, the ladder's verdict on its
+              inversion, and each bf16 launch of the fit and of a serving
+              bucket against its plain version at the f32 gates; (c) one
+              bf16 sigma of sweep_factors on phase 7's plan (counted; B8
+              and B9 against plain); (d) the bf16 engine on all test
+              queries (counted) against the f32 one: queries/s, p50/p99,
+              the largest gap, device ops a request; (e) a bf16 fit at
+              lambda 1e-4 with probes on through recover.invert_guarded,
+              and the bf16_ridge_floor fault detected and recovered by
+              promotion; (f) launch.train --precision bf16 (covtype's
+              padded size and width) and f64 (n 65,536), lines and counts
+              checked; each bf16 entry timed in turns with its f32 entry
+              beside its bound (bf16 data at 2 bytes);
   9. timing   kernel, plain-version and library times at the fit, serving,
               sweep, exact-solver, lifecycle and LM prefill shapes, beside
               each kernel's bound (B1's and B2's grouped launches with the
@@ -441,11 +468,19 @@ def plain_versions() -> list:
 # The launch counts of one kernel of a library with several, by the key
 # read_counts gives them: (wrapper, attribute).  The wrapper's total is its
 # own key; the other kernels of the library took the difference.
+# The bfloat16-data entries of B1, B2, B7, B8 and B9 (a mixed-precision
+# policy's data) count their launches as "<kernel>_bf16".
+BF16_KERNELS = ("gram_chol", "cross_solve", "gram_chol_levels",
+                "cross_solve_levels", "gram_chol_dist", "cross_solve_dist",
+                "gram_chol_dist_levels", "cross_solve_dist_levels",
+                "oos_contract")
+BF16_ZERO = {f"{k}_bf16": 0 for k in BF16_KERNELS}
 SUB_COUNTS = {"flash_attention_wgmma": ("flash_attention", "wgmma_launches"),
               "kernel_matvec_tc": ("kernel_matvec", "tc_launches"),
               "ssd_intra_chunk_wgmma": ("ssd_intra_chunk", "wgmma_launches"),
               "policy_dist_tiled": ("policy_dist", "tiled_launches"),
-              "oos_contract_pair": ("oos_contract", "pair_launches")}
+              "oos_contract_pair": ("oos_contract", "pair_launches"),
+              **{f"{k}_bf16": (k, "bf16_launches") for k in BF16_KERNELS}}
 
 
 def reset_counts() -> None:
@@ -469,7 +504,8 @@ def read_counts() -> tuple[dict, dict]:
     and its tensor-core kernel's ("kernel_matvec_tc"), "ssd_intra_chunk"
     and its wgmma kernel's ("ssd_intra_chunk_wgmma"), "policy_dist" and its
     register-tiled kernel's ("policy_dist_tiled"); B7's launches with both
-    terms of a bucket ("oos_contract_pair")."""
+    terms of a bucket ("oos_contract_pair"); the bfloat16-data entries'
+    of B1, B2, B7, B8 and B9 ("<kernel>_bf16")."""
     wrappers = kernel_wrappers()
     launches = {name: fn.launches for name, fn in wrappers.items()}
     for key, (name, attr) in SUB_COUNTS.items():
@@ -601,13 +637,20 @@ def kernel_flops(entries, points, d):
     return entries * (2 * d + 4) + points * 2 * d
 
 
+def out_size(data) -> int:
+    """Bytes of an output entry of a kernel fed ``data``: 4 (float32) for
+    bfloat16 data (the bfloat16-data entries), else the data's own."""
+    return 4 if data.dtype == torch.bfloat16 else data.element_size()
+
+
 def gram_cost(points, want_chol):
-    """gram_chol: points read once, the Gram (and factor) written once;
-    the m(m + 1)/2 distinct entries of each symmetric Gram, the jitter on
-    its diagonal and m^3 / 3 for the factor."""
+    """gram_chol: points read once (bfloat16 data at 2 bytes), the Gram
+    (and factor) written once; the m(m + 1)/2 distinct entries of each
+    symmetric Gram, the jitter on its diagonal and m^3 / 3 for the
+    factor."""
     b, m, d = points.shape
-    s = points.element_size()
-    nbytes = s * (b * m * d + b * m * m * (2 if want_chol else 1))
+    nbytes = (points.element_size() * b * m * d
+              + out_size(points) * b * m * m * (2 if want_chol else 1))
     flops = kernel_flops(b * m * (m + 1) // 2, b * m, d) + b * m
     return nbytes, flops + (b * m ** 3 / 3 if want_chol else 0)
 
@@ -618,8 +661,8 @@ def cross_cost(points, landmarks, linv):
     triangular Linv (r^2 flops each)."""
     b, m, d = points.shape
     r = landmarks.shape[1]
-    s = points.element_size()
-    nbytes = s * (b * m * d + b * r * d + b * r * r + b * m * r)
+    nbytes = (points.element_size() * (b * m * d + b * r * d)
+              + linv.element_size() * (b * r * r + b * m * r))
     return nbytes, kernel_flops(b * m * r, b * (m + r), d) + 2 * b * m * r * r
 
 
@@ -629,7 +672,8 @@ def gram_dist_cost(dist, want_chol):
     distinct entries of each symmetric tile, the jitter on its diagonal and
     m^3 / 3 for the factor.  No distance flops: the distances are cached."""
     b, m, _ = dist.shape
-    nbytes = dist.element_size() * b * m * m * (3 if want_chol else 2)
+    nbytes = (dist.element_size() * b * m * m
+              + out_size(dist) * b * m * m * (2 if want_chol else 1))
     flops = b * m * (m + 1) // 2 + b * m
     return nbytes, flops + (b * m ** 3 / 3 if want_chol else 0)
 
@@ -639,7 +683,8 @@ def cross_dist_cost(dist, linv):
     epilogue per entry and, per row, two products with the lower
     triangular Linv of r(r + 1)/2 multiply-adds each.  No distance flops."""
     b, m, r = dist.shape
-    nbytes = dist.element_size() * (2 * b * m * r + b * r * r)
+    nbytes = (dist.element_size() * b * m * r
+              + linv.element_size() * (b * m * r + b * r * r))
     return nbytes, b * m * r + 2 * b * m * r * (r + 1)
 
 
@@ -696,14 +741,15 @@ def project_cost(u, b):
 def contract_cost(points, weights, queries, pidx, widx):
     """Bytes and flops of the indexed contraction for this batch: the
     distinct point and weight blocks it touches, the queries, the indices
-    and the output; the kernel values (kernel_flops: norms of the touched
+    and the output (each at its own element size: bfloat16 data at 2); the kernel values (kernel_flops: norms of the touched
     rows and the queries once) and 2k flops per (query, row) for the
     weighted sums."""
     _, m, d = points.shape
     k = weights.shape[2]
     q = queries.shape[0]
-    nbytes = (4 * (pidx.unique().numel() * m * d
-                   + widx.unique().numel() * m * k + q * d + q * k)
+    nbytes = (points.element_size() * (pidx.unique().numel() * m * d + q * d)
+              + weights.element_size() * (widx.unique().numel() * m * k
+                                          + q * k)
               + 8 * 2 * q)
     rows = pidx.unique().numel() * m + q
     return nbytes, kernel_flops(q * m, rows, d) + q * m * 2 * k
@@ -716,7 +762,8 @@ def pair_cost(xl, wl, lm, ct, queries, leaf, parent):
     k = wl.shape[2]
     b1, f1 = contract_cost(xl, wl, queries, leaf, leaf)
     b2, f2 = contract_cost(lm, ct, queries, parent, leaf)
-    return b1 + b2 - 4 * (q * d + q * k) - 16 * q, f1 + f2 - 2 * q * d
+    once = queries.element_size() * q * d + wl.element_size() * q * k
+    return b1 + b2 - once - 16 * q, f1 + f2 - 2 * q * d
 
 
 # ---------------------------------------------------------------------------
@@ -806,9 +853,11 @@ def check_cross(args, rtol, name="gaussian", got=None, sigma=SIGMA):
     sync()
     require(bool(torch.isfinite(got).all()), f"cross_solve[{name}] finite")
     r, d = lm.shape[1], lm.shape[2]
-    kabs = get_kernel(name)(pts, lm, sigma=sigma).abs()
+    # bfloat16 data: the kernel computes in float32 on the promoted data
+    kabs = get_kernel(name)(pts.to(linv.dtype), lm.to(linv.dtype),
+                            sigma=sigma).abs()
     bound = (kabs @ linv.abs().mT) @ linv.abs()
-    eps = torch.finfo(pts.dtype).eps
+    eps = torch.finfo(linv.dtype).eps
     err = (got - want).abs()
     require(bool((err <= 4 * (2 * r + d) * eps * bound).all()),
             f"cross_solve[{name}] |dU| <= 4 (2r + d) eps |K||Linv^T||Linv|")
@@ -999,10 +1048,11 @@ def phase_build() -> None:
     instances of B14's wgmma kernel, DP 16 to 128, the six of B10's
     tensor-core kernel, gaussian and imq by 8, 16 and 32 columns, B15's
     wgmma kernel and the four of its mma.sync kernel, B3's and B12's two,
-    B1's four grouped kernels (f32 and f64, with and without the factor),
-    B2's and B9's four grouped tensor-core kernels each (NT 4, 8, 12, 16),
-    B8's two grouped kernels, B7's ten (f32 reading 1, 2 or 4 features at
-    a time, f64 1 or 2, each squared-L2 and L1), B4's eight (f32 and
+    B1's six grouped kernels (f32, bf16 data and f64, with and without the
+    factor), B2's and B9's eight grouped tensor-core kernels each (NT 4,
+    8, 12, 16; f32 and bf16 data), B8's three grouped kernels (f32, bf16
+    data, f64), B7's sixteen (f32 and bf16 data reading 1, 2 or 4
+    features at a time, f64 1 or 2, each squared-L2 and L1), B4's eight (f32 and
     f64, Linv and U each staged or read in place), B5's eight (f32 and
     f64, panels of 16 or 32 rows, a tile of 1 or 8 right-hand sides) and
     B13's four (f32 and f64, panels of 16 or 32 rows) must all be there
@@ -1011,7 +1061,7 @@ def phase_build() -> None:
     instructions in the B14, B10, B15, B1/B2 and B8/B9 libraries (HGMMA:
     wgmma, HMMA: mma.sync, UTMALDG: TMA loads, SYNCS: mbarrier
     operations): the first three must hold wgmma and TMA loads, B15's,
-    build_stage and build_dist mma.sync."""
+    build_stage and build_dist (and their bf16-data libraries) mma.sync."""
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
@@ -1019,7 +1069,8 @@ def phase_build() -> None:
     say(f"[2 build] {', '.join(_build.KERNELS)} built in "
         f"{time.perf_counter() - t0:.2f} s")
     entries = []  # (library, mangled entry name, its ptxas lines)
-    for lib in ("build_stage", "build_dist"):
+    for lib in ("build_stage", "build_dist", "build_stage_bf16",
+                "build_dist_bf16"):
         for line in logs.get(lib, "").splitlines():
             if "C7519" in line:  # an injected warpgroup.arrive (none wanted)
                 say(f"[2 build] {lib}: {line.strip()}")
@@ -1041,9 +1092,9 @@ def phase_build() -> None:
     hopper = {"flash_wgmma_kernel": 8, "matvec_tc_kernel": 6,
               "ssd_mma_kernel": 4, "ssd_wgmma_kernel": 1,
               "leaf_factor_kernel": 2, "policy_dist_tiled_kernel": 2,
-              "gram_chol_levels_kernel": 2, "cross_levels_tc_kernel": 4,
-              "gram_points_kernel": 4, "cross_points_tc_kernel": 4,
-              "oos_contract_kernel": 10, "leaf_solve_kernel": 8,
+              "gram_chol_levels_kernel": 3, "cross_levels_tc_kernel": 8,
+              "gram_points_kernel": 6, "cross_points_tc_kernel": 8,
+              "oos_contract_kernel": 16, "leaf_solve_kernel": 8,
               "leaf_matvec_kernel": 8, "leaf_update_kernel": 4}
     spills = {entry: [] for entry in hopper}
     for (name, mangled, lines), label in zip(entries, labels):
@@ -1062,7 +1113,9 @@ def phase_build() -> None:
                         ("kernel_matvec", ("HGMMA", "UTMALDG")),
                         ("ssd_chunk", ("HGMMA", "UTMALDG", "HMMA")),
                         ("build_stage", ("HMMA",)),
-                        ("build_dist", ("HMMA",))):
+                        ("build_dist", ("HMMA",)),
+                        ("build_stage_bf16", ("HMMA",)),
+                        ("build_dist_bf16", ("HMMA",))):
         sass = subprocess.run(
             [str(cuobjdump), "-sass", str(_build.library_path(lib))],
             capture_output=True, text=True, check=True,
@@ -1112,7 +1165,7 @@ def phase_fit(dev) -> dict:
                 "leaf_update": 0, "flash_attention": 0,
                 "flash_attention_wgmma": 0, "ssd_intra_chunk": 0,
                 "kernel_matvec_tc": 0, "ssd_intra_chunk_wgmma": 0,
-                "policy_dist_tiled": 0, "oos_contract_pair": 0}
+                "policy_dist_tiled": 0, "oos_contract_pair": 0, **BF16_ZERO}
     require(launches == expected,
             f"fit launches {launches} == expected {expected}")
     require(all(v == 0 for v in plain_calls.values()),
@@ -1632,7 +1685,8 @@ def stream_susy(dev, smi) -> dict:
     return {"mem": mem, "stream": st, "t_data": t_data}
 
 
-def launcher_mode(argv, expected, pattern, extra=None) -> dict:
+def launcher_mode(argv, expected, pattern, extra=None,
+                  tag="[3s stream] (c)") -> dict:
     """One in-process run of ``launch.train.main(argv)`` on the card: its
     printed lines must match ``pattern`` (a regex per line) and its
     launches equal ``expected`` (a dict, or a function of the returned
@@ -1647,7 +1701,7 @@ def launcher_mode(argv, expected, pattern, extra=None) -> dict:
         out, launches, plain_calls = counted(lambda: train.main(argv))
     lines = buf.getvalue().strip().splitlines()
     for line in lines:
-        say(f"[3s stream] (c) {line}")
+        say(f"{tag} {line}")
     require(len(lines) == len(pattern) and all(
         re.fullmatch(p, line) for p, line in zip(pattern, lines)),
         f"launch.train {' '.join(argv)} printed its lines: {lines}")
@@ -1655,7 +1709,7 @@ def launcher_mode(argv, expected, pattern, extra=None) -> dict:
     require_launches(f"launch.train {' '.join(argv)}", launches, plain_calls,
                      want)
     used = {k: v for k, v in launches.items() if v}
-    say(f"[3s stream] (c) launches {used} (exact); no plain version called")
+    say(f"{tag} launches {used} (exact); no plain version called")
     return out
 
 
@@ -2131,6 +2185,7 @@ def phase_exact(dev) -> None:
     from repro_torch.core import hmatrix, krr, oos
     from repro_torch.core.hck import landmark_indices, to_dense
     from repro_torch.core.kernels_fn import BaseKernel
+    from repro_torch.kernels.registry import SolveConfig
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     x32, labels, xt, _ = make_data(EXACT_N, 64, dev, gen)
@@ -2187,16 +2242,21 @@ def phase_exact(dev) -> None:
     require(rel <= 1e-4, f"engine vs oracle rel {rel:.3e} <= 1e-4")
     say(f"[5 exact] f32 engine vs oos_reference_batch (f64) on 64 queries: "
         f"rel {rel:.3e} <= 1e-4 ok")
-    tf32_guard(lambda: krr.fit(
-        x32, labels, kernel=ker, lam=LAM, rank=RANK, leaf_size=LEAF,
-        classification=True, directions=dirs, landmark_index=idx), m32, q,
-        dev)
+    def refit(**kw):
+        return krr.fit(x32, labels, kernel=ker, lam=LAM, rank=RANK,
+                       leaf_size=LEAF, classification=True, directions=dirs,
+                       landmark_index=idx, **kw)
+
+    tf32_guard(refit, m32, q, dev, lambda: refit(
+        solve_config=SolveConfig(precision="bf16")))
 
 
-def tf32_guard(refit, m32, q, dev) -> None:
+def tf32_guard(refit, m32, q, dev, refit16) -> None:
     """Phase 5, ROADMAP C11: the port's entry points keep single-pass TF32
     off whatever the caller allows.  The f32 fit at n = 4,096 (``refit``,
-    which gave ``m32``) and a small ``ssd_chunked`` call run again under
+    which gave ``m32``), the same fit under the bf16 policy (``refit16``,
+    whose factor products are float32 too) and a small ``ssd_chunked``
+    call run again under
     ``torch.set_float32_matmul_precision("high")`` and must give the same
     outputs, bit for bit, as with the flag off (the fit is first repeated
     with the flag off: it is deterministic); the refitted model's
@@ -2219,6 +2279,8 @@ def tf32_guard(refit, m32, q, dev) -> None:
     exact = u.double() @ v.double()
     y_off = ssd_chunked(x, dt, a, bm, cm)
     again = refit()
+    m16 = refit16()
+    z16 = m16.predict(q)
     off_err = rel_max(u @ v, exact)
     torch.set_float32_matmul_precision("high")
     torch.backends.cudnn.allow_tf32 = True
@@ -2226,6 +2288,8 @@ def tf32_guard(refit, m32, q, dev) -> None:
         hi_err = rel_max(u @ v, exact)
         m_hi = refit()
         z_hi = m_hi.predict(q)
+        m16_hi = refit16()
+        z16_hi = m16_hi.predict(q)
         y_hi = ssd_chunked(x, dt, a, bm, cm)
         after = (torch.get_float32_matmul_precision(),
                   torch.backends.cudnn.allow_tf32)
@@ -2244,12 +2308,16 @@ def tf32_guard(refit, m32, q, dev) -> None:
             and torch.equal(z_hi, m32.predict(q)),
             "krr.fit under set_float32_matmul_precision('high') gives the "
             "same alpha and predictions as without")
+    require(torch.equal(m16_hi.alpha, m16.alpha) and torch.equal(z16_hi, z16),
+            "the bf16 fit under set_float32_matmul_precision('high') gives "
+            "the same alpha and predictions as without")
     require(torch.equal(y_hi, y_off), "ssd_chunked under "
             "set_float32_matmul_precision('high') gives the same output as "
             "without")
     say(f"[5 exact] TF32 guard (ROADMAP C11): under "
         f"set_float32_matmul_precision('high') and cuDNN TF32 on, the f32 "
-        f"fit at n={EXACT_N} (alpha, predictions) and ssd_chunked "
+        f"fit at n={EXACT_N} (alpha, predictions), the same fit under the "
+        f"bf16 policy and ssd_chunked "
         f"{(b, s, h, p)} "
         f"equal their outputs with the flags off, bit for bit; the caller's "
         f"flags are restored; control: a 512^2 f32 product under the flag "
@@ -2913,9 +2981,10 @@ def check_cross_dist(dist, linv, got, rtol, name="gaussian", sigma=SIGMA):
     require(bool(torch.isfinite(got).all()),
             f"cross_solve_dist[{name}] finite")
     r = linv.shape[-1]
-    kabs = kernel_epilogue(name, sigma)(dist).abs()
+    # bfloat16 tiles: the kernel computes in float32 on the promoted tiles
+    kabs = kernel_epilogue(name, sigma)(dist.to(linv.dtype)).abs()
     bound = (kabs @ linv.abs().mT) @ linv.abs()
-    eps = torch.finfo(dist.dtype).eps
+    eps = torch.finfo(linv.dtype).eps
     err = (got - want).abs()
     require(bool((err <= 4 * (2 * r + 1) * eps * bound).all()),
             f"cross_solve_dist[{name}] |dU| <= 4 (2r + 1) eps "
@@ -3017,7 +3086,7 @@ def phase_sweep(fit, dev) -> dict:
                 "policy_dist": 0, "leaf_update": 0, "flash_attention": 0,
                 "flash_attention_wgmma": 0, "ssd_intra_chunk": 0,
                 "kernel_matvec_tc": 0, "ssd_intra_chunk_wgmma": 0,
-                "policy_dist_tiled": 0}
+                "policy_dist_tiled": 0, **BF16_ZERO}
     got = {k: v for k, v in launches.items()
            if k not in ("oos_contract", "oos_contract_pair")}
     require(got == expected, f"sweep launches {got} == expected {expected}")
@@ -4924,6 +4993,779 @@ def phase_lifecycle(fit, sw, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 8d: mixed precision (SolveConfig.precision, ROADMAP A15a)
+# ---------------------------------------------------------------------------
+
+# (a) the reference's precision problem (tests/test_precision.py:28-37:
+# d 5, gaussian sigma 2, jitter 1e-4, rank 16, leaf 32) at n 4,096 (7
+# levels), float64 data; its gates against the f64 build
+# (tests/test_precision.py:20), (Gram-family factors, matvec and
+# predictions), the f32 solve at ridge 1e-2 (5e-3) and the bf16 solve at
+# the ridge floor 1e-1 (1e-1)
+PREC_N, PREC_D, PREC_LEVELS, PREC_RANK = 4096, 5, 7, 16
+PREC_SIGMA, PREC_JITTER = 2.0, 1e-4
+PREC_GATES = {"f32": (1e-4, 1e-4), "bf16": (2e-2, 5e-2)}
+PREC_F32_SOLVE, PREC_F32_SOLVE_GATE = 1e-2, 5e-3
+PREC_FLOOR_RIDGE, PREC_FLOOR_GATE = 1e-1, 1e-1
+# (b)-(d), (f): covtype width under bf16 at the launcher's convention
+# (jitter 1e-4, lambda 1e-1: the reference's bf16 ridge floor)
+BF16_JITTER, BF16_LAM = 1e-4, 1e-1
+# (e): a bf16 fit of (a)'s problem at lambda 1e-4, probes on
+FLOOR_LAM = 1e-4
+# the kernels of the bfloat16-data entries: (record name, count key,
+# source, TPU kernel)
+BF16_RECORDS = (
+    ("gram_chol (bf16 data)", ("gram_chol_bf16", "gram_chol_levels_bf16"),
+     "build_stage.cu", "build_stage/build_stage.py:124"),
+    ("cross_solve (bf16 data)", ("cross_solve_bf16",
+                                 "cross_solve_levels_bf16"),
+     "build_stage.cu", "build_stage/build_stage.py:157"),
+    ("oos_contract (bf16 data)", ("oos_contract_bf16",),
+     "oos_contract.cu", "oos_stage/oos_stage.py:64"),
+    ("gram_chol_dist (bf16 data)", ("gram_chol_dist_bf16",
+                                    "gram_chol_dist_levels_bf16"),
+     "build_dist.cu", "build_stage/build_stage.py:215"),
+    ("cross_solve_dist (bf16 data)", ("cross_solve_dist_bf16",
+                                      "cross_solve_dist_levels_bf16"),
+     "build_dist.cu", "build_stage/build_stage.py:254"))
+
+
+def rel_gap(a, b) -> float:
+    """||a - b|| / ||b|| in float64 (the reference's precision gates)."""
+    a, b = a.double(), b.double()
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b))
+
+
+def gram_family(f) -> list:
+    """Adiag, every Sigma and every Cholesky factor of Sigma."""
+    return [f.adiag, *f.sigma, *f.sigma_cho]
+
+
+def factor_gap(f, ref) -> float:
+    """The largest relative norm gap of the Gram-family factors."""
+    return max(rel_gap(a, b) for a, b in zip(gram_family(f),
+                                              gram_family(ref)))
+
+
+def bf16(t):
+    """``t`` as a mixed-precision policy's data: bfloat16."""
+    return t.to(torch.bfloat16)
+
+
+def precision_bounds(dev) -> dict:
+    """Phase 8d (a): (a)'s problem built under each policy on one tree and
+    one landmark set (drawn in float64 before any cast), against the f64
+    build: "f64" bit for bit, f32 and bf16 within the reference's gates
+    (factors, matvec, predictions of the f64 model under the policy), the
+    f32 solve at ridge 1e-2 and the bf16 solve at the ridge floor."""
+    from repro_torch.core import hck, hmatrix, oos
+    from repro_torch.core.kernels_fn import BaseKernel
+    from repro_torch.kernels.registry import SolveConfig
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    o = dict(generator=gen, device=dev, dtype=torch.float64)
+    x = torch.randn((PREC_N, PREC_D), **o)
+    b = torch.randn((PREC_N, 2), **o)
+    w = torch.randn((PREC_N, 2), **o)
+    q = torch.randn((1024, PREC_D), **o)
+    ker = BaseKernel("gaussian", PREC_SIGMA, PREC_JITTER)
+
+    def build(prec):
+        return hck.build_hck(
+            x, levels=PREC_LEVELS, rank=PREC_RANK, kernel=ker,
+            config=SolveConfig(precision=prec),
+            generator=torch.Generator(device=dev).manual_seed(SEED + 42))
+
+    f = {p: build(p) for p in (None, "f64", "f32", "bf16")}
+    ref = f[None]
+    same = all(torch.equal(a, c) for a, c in zip(
+        gram_family(f["f64"]) + [f["f64"].u, *f["f64"].w],
+        gram_family(ref) + [ref.u, *ref.w]))
+    require(same, "the f64 policy equals the f64 build bit for bit")
+    plan = oos.prepare(ref, w)
+    z64 = oos.apply_plan(ref, plan, q, ker)
+    out = {}
+    for prec in ("f32", "bf16"):
+        ftol, otol = PREC_GATES[prec]
+        fp = f[prec]
+        require(torch.equal(fp.tree.perm, ref.tree.perm) and all(
+            torch.equal(a, c) for a, c in zip(fp.landmarks, ref.landmarks)),
+            f"{prec}: the tree and the landmarks of the f64 build")
+        fe = factor_gap(fp, ref)
+        mv = rel_gap(hmatrix.matvec(fp, b.float()), hmatrix.matvec(ref, b))
+        pe = rel_gap(oos.apply_plan(ref, plan, q, ker,
+                                     SolveConfig(precision=prec)), z64)
+        require(fe <= ftol and mv <= otol and pe <= otol,
+                f"{prec} against the f64 build: factors {fe:.3e} <= {ftol}, "
+                f"matvec {mv:.3e} and predictions {pe:.3e} <= {otol}")
+        out[prec] = (fe, mv, pe)
+        say(f"[8d precision] (a) {prec} policy, n {PREC_N} d {PREC_D} "
+            f"leaf {ref.leaf_size} r {PREC_RANK}, against the f64 build: "
+            f"Gram-family factors {fe:.3e} (gate {ftol:g}), matvec "
+            f"{mv:.3e}, predictions of the f64 model under the policy "
+            f"{pe:.3e} (gate {otol:g}) ok")
+    z32 = hmatrix.solve(f["f32"], b.float(), ridge=PREC_F32_SOLVE)
+    s32 = rel_gap(z32, hmatrix.solve(ref, b, ridge=PREC_F32_SOLVE))
+    zbf = hmatrix.solve(f["bf16"], b.float(), ridge=PREC_FLOOR_RIDGE)
+    sbf = rel_gap(zbf, hmatrix.solve(ref, b, ridge=PREC_FLOOR_RIDGE))
+    require(bool(torch.isfinite(z32).all()) and s32 <= PREC_F32_SOLVE_GATE,
+            f"f32 solve at ridge {PREC_F32_SOLVE:g}: {s32:.3e}")
+    require(bool(torch.isfinite(zbf).all()) and sbf <= PREC_FLOOR_GATE,
+            f"bf16 solve at ridge {PREC_FLOOR_RIDGE:g}: {sbf:.3e}")
+    say(f"[8d precision] (a) f64 policy = f64 build bit for bit; f32 solve "
+        f"at ridge {PREC_F32_SOLVE:g} {s32:.3e} (gate "
+        f"{PREC_F32_SOLVE_GATE:g}), bf16 solve at the ridge floor "
+        f"{PREC_FLOOR_RIDGE:g} finite, {sbf:.3e} (gate {PREC_FLOOR_GATE:g}) "
+        "ok")
+    out["solves"] = (s32, sbf)
+    return out
+
+
+def bf16_fit_args(args):
+    """fit_launches' B1 and B2 arguments with the data (points, landmarks)
+    in bfloat16 and Linv in float32, as the bf16 policy launches them."""
+    return ([(bf16(p), want) for p, want in args["gram"]],
+            [(bf16(p), bf16(z), li) for p, z, li in args["cross"]])
+
+
+def bf16_bucket(local, walk, pair):
+    """bucket_inputs with the data (points, landmarks, queries) in
+    bfloat16 and the weights in float32."""
+    local = (bf16(local[0]), local[1], bf16(local[2]), *local[3:])
+    walk = (bf16(walk[0]), walk[1], bf16(walk[2]), *walk[3:])
+    pair = (bf16(pair[0]), pair[1], bf16(pair[2]), pair[3], bf16(pair[4]),
+            *pair[5:])
+    return local, walk, pair
+
+
+def offset_view(t):
+    """A contiguous copy of ``t`` whose data start one element past an
+    allocation's start (for bfloat16: 2 bytes off every 4-byte boundary)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def bf16_kernel_shapes(dev) -> None:
+    """Phase 8d, small shapes: every bfloat16-data entry (B1 with and
+    without factors, B2, B7 one stage and both terms, B8 with factors and
+    gram_dist, B9) against its plain version at d 3, 7, 18 and 54 (rows of
+    6, 14, 36 and 108 bytes), ragged groups, every data tensor a view
+    offset by one element; B7 also with the laplace kernel (L1) and in
+    chunks of rows.  The f32 gates of phase 4."""
+    from repro_torch.kernels.build_stage.ops import (build_cross_dist_levels,
+                                                     build_cross_levels,
+                                                     build_gram_dist,
+                                                     build_gram_dist_levels,
+                                                     build_gram_levels)
+    from repro_torch.kernels.build_stage.ref import direct_dist
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 45)
+
+    def rnd(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device=dev)
+
+    def linv_of(b, r):
+        a = rnd(b, r, r)
+        chol = torch.linalg.cholesky(a @ a.mT / r + torch.eye(r, device=dev))
+        return torch.linalg.solve_triangular(
+            chol, torch.eye(r, device=dev).expand(b, r, r),
+            upper=False).contiguous()
+
+    worst = {}
+    for d in (3, 7, 18, 54):
+        sc = math.sqrt(2.0 / d)
+        pts = [offset_view(bf16(rnd(2, 37, d, scale=sc))),
+               offset_view(bf16(rnd(4, 16, d, scale=sc)))]
+        grams = build_gram_levels(pts, sigma=SIGMA, jitter=1e-3)
+        e1 = [check_build(p, True, 1e-4, jitter=1e-3, got=g)[0]
+              for p, g in zip(pts, grams)]
+        e1 += [check_build(p, False, 1e-4, jitter=1e-3, got=g)[0]
+               for p, g in zip(pts, build_gram_levels(
+                   pts, sigma=SIGMA, jitter=1e-3, want_chol=False))]
+        cross = [(offset_view(bf16(rnd(3, 50, d, scale=sc))),
+                  offset_view(bf16(rnd(3, 24, d, scale=sc))), linv_of(3, 24)),
+                 (offset_view(bf16(rnd(2, 9, d, scale=sc))),
+                  offset_view(bf16(rnd(2, 24, d, scale=sc))), linv_of(2, 24))]
+        us = build_cross_levels(*zip(*cross), sigma=SIGMA)
+        e2 = [check_cross(a, None, got=u)[0] for a, u in zip(cross, us)]
+        xl = offset_view(bf16(rnd(8, 40, d, scale=sc)))
+        wl, ct = rnd(8, 40, 3), rnd(8, 24, 3)
+        lm = offset_view(bf16(rnd(4, 24, d, scale=sc)))
+        qs = offset_view(bf16(rnd(100, d, scale=sc)))
+        leaf = torch.sort(torch.randint(0, 8, (100,), generator=gen,
+                                        device=dev)).values
+        e7 = []
+        for name, block in (("gaussian", None), ("laplace", None),
+                            ("gaussian", 16)):
+            e7.append(check_contract((xl, wl, lm, ct, qs, leaf, leaf >> 1),
+                                     name=name, rtol=1e-4, pair=True,
+                                     leaf_block=block)[0])
+            e7.append(check_contract((xl, wl, qs, leaf, leaf), name=name,
+                                     rtol=1e-4, leaf_block=block)[0])
+        dp = [rnd(2, 37, d, scale=sc), rnd(3, 21, d, scale=sc)]
+        tiles = [offset_view(bf16(direct_dist(p, p, "l2"))) for p in dp]
+        e8 = [check_gram_dist(t, g, 1e-4, jitter=1e-3)[0] for t, g in zip(
+            tiles, build_gram_dist_levels(tiles, sigma=SIGMA, jitter=1e-3))]
+        e8.append(check_gram_dist(tiles[0], build_gram_dist(
+            tiles[0], sigma=SIGMA, jitter=1e-3, want_chol=False), 1e-4,
+            jitter=1e-3)[0])
+        cd = [(offset_view(bf16(direct_dist(rnd(3, 50, d, scale=sc),
+                                            rnd(3, 24, d, scale=sc), "l2"))),
+               linv_of(3, 24))]
+        e9 = [check_cross_dist(t, li, u, None)[0] for (t, li), u in zip(
+            cd, build_cross_dist_levels(*zip(*cd), sigma=SIGMA))]
+        worst[d] = {"B1": max(e1), "B2": max(e2), "B7": max(e7),
+                    "B8": max(e8), "B9": max(e9)}
+    say("[8d precision] bf16-data entries at small shapes, data views offset "
+        "by one element, against their plain versions (phase 4's f32 "
+        "gates; largest rel per kernel): " + "; ".join(
+            f"d {d}: " + ", ".join(f"{k} {v:.2e}" for k, v in w.items())
+            for d, w in worst.items()) + " ok")
+
+
+def precision_fit(fit, dev) -> dict:
+    """Phase 8d (b): the covtype-width bf16 krr.fit (launch counts read
+    around exactly this call), warm again, and an f32 fit of the same
+    settings on the same tree and landmarks; their gaps; the ladder's
+    verdict on the bf16 fit's inversion; every bf16 launch of the fit
+    (B1, B2) and of a serving bucket (B7) against its plain version on the
+    same bf16 inputs, at the f32 gates."""
+    from repro_torch.core import krr
+    from repro_torch.core.kernels_fn import BaseKernel
+    from repro_torch.kernels.build_stage.ops import (build_cross_levels,
+                                                     build_gram,
+                                                     build_gram_levels)
+    from repro_torch.kernels.registry import SolveConfig
+    from repro_torch.runtime import recover
+
+    x, labels, xt, yt = fit["x"], fit["labels"], fit["xt"], fit["yt"]
+    ker = BaseKernel("gaussian", SIGMA, BF16_JITTER)
+    cfg = SolveConfig(precision="bf16")
+    opts = dict(kernel=ker, lam=BF16_LAM, rank=RANK, leaf_size=LEAF,
+                classification=True)
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(SEED + 1)
+
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the bf16 fit: counts set to 0 just before, read just after ----
+    reset_counts()
+    t0 = time.perf_counter()
+    m16 = krr.fit(x, labels, generator=gen(), solve_config=cfg, **opts)
+    sync()
+    t_first = time.perf_counter() - t0
+    launches, plain_calls = read_counts()
+    # ---------------------------------------------------------------------
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    bf16_fit = {"gram_chol_bf16": 1, "gram_chol_levels_bf16": 1,
+                "cross_solve_levels_bf16": 1}
+    require_launches("the bf16 krr.fit", launches, plain_calls,
+                     dict(FIT_LAUNCHES, **bf16_fit))
+    t0 = time.perf_counter()
+    again = krr.fit(x, labels, generator=gen(), solve_config=cfg, **opts)
+    sync()
+    t_warm = time.perf_counter() - t0
+    same = torch.equal(again.alpha, m16.alpha)
+    del again
+    t0 = time.perf_counter()
+    m32 = krr.fit(x, labels, generator=gen(), **opts)
+    sync()
+    t_f32 = time.perf_counter() - t0
+    f16, f32 = m16.factors, m32.factors
+    require(torch.equal(f16.tree.perm, f32.tree.perm) and all(
+        torch.equal(a, c) for a, c in zip(f16.landmarks, f32.landmarks)),
+        "the bf16 and f32 fits share their tree and landmarks")
+    require(f16.u.dtype == m16.alpha.dtype == torch.float32
+            and bool(torch.isfinite(m16.alpha).all()),
+            "the bf16 fit's factors and alpha are finite float32")
+    z16, z32 = m16.predict(xt), m32.predict(xt)
+    gaps = {"gram-family factors": factor_gap(f16, f32),
+            "U": rel_gap(f16.u, f32.u), "alpha": rel_gap(m16.alpha,
+                                                           m32.alpha),
+            "predictions": rel_gap(z16, z32)}
+    acc16 = float((m16.predict_class(xt) == yt).double().mean())
+    acc32 = float((m32.predict_class(xt) == yt).double().mean())
+    say(f"[8d precision] (b) bf16 krr.fit n={N_TRAIN} -> {f16.n} d={D} "
+        f"r={RANK} leaf={LEAF} sigma={SIGMA} lam={BF16_LAM} "
+        f"jitter={BF16_JITTER}: first call {t_first:.3f} s, warm "
+        f"{t_warm:.3f} s (alpha bit for bit the first's: {same}), peak "
+        f"device memory {peak:.2f} GiB; the f32 fit of the same settings "
+        f"{t_f32:.3f} s (warm)")
+    say(f"[8d precision] (b) launches on the bf16 fit path: "
+        f"{ {k: v for k, v in launches.items() if v} } (exact); no plain "
+        f"version called")
+    say("[8d precision] (b) bf16 against the f32 fit on the same tree and "
+        "landmarks (relative norms, not gated): " + ", ".join(
+            f"{k} {v:.3e}" for k, v in gaps.items())
+        + f"; test accuracy bf16 {acc16:.4f}, f32 {acc32:.4f}")
+    g = recover.invert_guarded(f16, BF16_LAM, cfg, kernel=ker,
+                               jitter_rungs=0)
+    say(f"[8d precision] (b) recover.invert_guarded on the bf16 fit's "
+        f"factors at lambda {BF16_LAM:g} (n0 {LEAF}: n0 eps_bf16 = "
+        f"{LEAF * 2.0 ** -7:.2f}): rungs {g.audit.rungs}, held on "
+        f"'{g.audit.rungs[-1]}'")
+    require(g.audit.ok, "the bf16 fit's inversion holds on a rung")
+
+    # each bf16 launch against its plain version on the same bf16 inputs
+    res = {}
+    args = fit_launches(f16, m16.inverse, m16.alpha.view(
+        f16.num_leaves, LEAF, N_CLASSES))
+    gram16, cross16 = bf16_fit_args(args)
+    pts = [p for p, _ in gram16]
+    grams = build_gram_levels(pts[:-1], sigma=SIGMA, jitter=BF16_JITTER)
+    grams.append(build_gram(pts[-1], sigma=SIGMA, jitter=BF16_JITTER,
+                            want_chol=False))
+    errs = [check_build(p, want, 1e-4, jitter=BF16_JITTER, got=gr)
+            for (p, want), gr in zip(gram16, grams)]
+    res["gram_chol"] = max(e[1] for e in errs)
+    us = build_cross_levels(*zip(*cross16), sigma=SIGMA)
+    errs2 = [check_cross(a, None, got=u) for a, u in zip(cross16, us)]
+    res["cross_solve"] = max(e[1] for e in errs2)
+    local, walk, pair = bf16_bucket(*bucket_inputs(f16, m16.plan,
+                                                   xt[:4096]))
+    cerr = {}
+    for stage, a, both in (("oos_local", local, False),
+                           ("oos_walk", walk, False),
+                           ("oos_local_walk", pair, True)):
+        cerr[stage] = check_contract(a, name="gaussian", rtol=1e-4,
+                                     pair=both)[0]
+    res["oos_contract"] = cerr["oos_local_walk"]
+    say(f"[8d precision] (b) bf16-data entries against their plain versions "
+        f"on the same bf16 inputs (f32 gates): gram_chol_levels_bf16 "
+        f"({LEVELS} Sigma levels and the Adiag) rel "
+        f"{max(e[0] for e in errs):.3e}, max|d| {res['gram_chol']:.3e} "
+        f"(1e-4); cross_solve_levels_bf16 (U and {LEVELS - 1} W levels) rel "
+        f"{max(e[0] for e in errs2):.3e}, max|d| {res['cross_solve']:.3e} "
+        f"(componentwise 4 (2r + d) eps |K||Linv^T||Linv|); "
+        f"oos_contract_bf16 on a 4096-query bucket: oos_local "
+        f"{cerr['oos_local']:.3e}, oos_walk {cerr['oos_walk']:.3e}, both "
+        f"in one launch {cerr['oos_local_walk']:.3e} (max|dz|, 1e-4 of "
+        f"max|z|) ok")
+    return {"m16": m16, "m32": m32, "launches": launches, "res": res,
+            "args32": fit_launches(f32, m32.inverse, m32.alpha.view(
+                f32.num_leaves, LEAF, N_CLASSES)),
+            "args16": (gram16, cross16), "bucket16": pair,
+            "bucket32": bucket_inputs(f32, m32.plan, xt[:4096])[2],
+            "t_first": t_first, "t_warm": t_warm, "peak": peak,
+            "gaps": gaps}
+
+
+def precision_sweep(sw, dev) -> dict:
+    """Phase 8d (c): one sigma of sweep_factors in bf16 on phase 7's
+    covtype-width plan (launch counts read around exactly this call), B8
+    and B9 against their plain versions on the same bf16 tiles, the gaps
+    to the f32 sweep at that sigma (the tiles themselves are rounded to
+    bf16, the reference's semantics: printed, not gated).  At the bf16
+    convention's jitter 1e-4: rounded distances are no Gram of any
+    points, and at phase 7's 1e-5 the pad rows' near-duplicate landmarks
+    leave some Sigma tiles indefinite under that rounding (a build from
+    rounded points keeps every Gram positive semi-definite)."""
+    from repro_torch.core import hck
+    from repro_torch.core.kernels_fn import BaseKernel
+    from repro_torch.kernels.build_stage.ops import (build_cross_dist_levels,
+                                                     build_gram_dist,
+                                                     build_gram_dist_levels)
+    from repro_torch.kernels.registry import SolveConfig
+
+    plan = sw["plan"]
+    ker = BaseKernel("gaussian", SIGMA, BF16_JITTER)
+    cfg = SolveConfig(precision="bf16")
+    f16, launches, plain_calls = counted(lambda: hck.sweep_factors(
+        plan, ker, cfg))
+    require_launches("one bf16 sigma of sweep_factors", launches,
+                     plain_calls, {
+                         "gram_chol_dist_levels": 1, "gram_chol_dist": 1,
+                         "cross_solve_dist_levels": 1,
+                         "gram_chol_dist_levels_bf16": 1,
+                         "gram_chol_dist_bf16": 1,
+                         "cross_solve_dist_levels_bf16": 1})
+    f32 = hck.sweep_factors(plan, ker)
+    gaps = {"gram-family factors": factor_gap(f16, f32),
+            "U": rel_gap(f16.u, f32.u)}
+    args = sweep_launches(plan, f16)
+    sig16 = [bf16(d) for d in args["sigma"]]
+    adiag16 = bf16(args["adiag"])
+    cross16 = [(bf16(d), li) for d, li in args["cross"]]
+    grams = build_gram_dist_levels(sig16, sigma=SIGMA, jitter=BF16_JITTER)
+    errs = [check_gram_dist(d, g, 1e-4, jitter=BF16_JITTER)
+            for d, g in zip(sig16, grams)]
+    errs.append(check_gram_dist(adiag16, build_gram_dist(
+        adiag16, sigma=SIGMA, jitter=BF16_JITTER, want_chol=False), 1e-4,
+        jitter=BF16_JITTER))
+    us = build_cross_dist_levels(*zip(*cross16), sigma=SIGMA)
+    errs9 = [check_cross_dist(d, li, u, None)
+             for (d, li), u in zip(cross16, us)]
+    res = {"gram_chol_dist": max(e[1] for e in errs),
+           "cross_solve_dist": max(e[1] for e in errs9)}
+    say(f"[8d precision] (c) one bf16 sigma ({SIGMA}, jitter {BF16_JITTER:g})"
+        f" of sweep_factors at covtype width: launches "
+        f"{ {k: v for k, v in launches.items() if v} } (exact); no plain "
+        "version called")
+    say(f"[8d precision] (c) gram_chol_dist_levels_bf16 ({LEVELS} Sigma "
+        f"levels) and gram_dist_bf16 (Adiag) against plain: rel "
+        f"{max(e[0] for e in errs):.3e}, max|d| {res['gram_chol_dist']:.3e}"
+        f" (1e-4); cross_solve_dist_levels_bf16 (U and {LEVELS - 1} W "
+        f"levels): rel {max(e[0] for e in errs9):.3e}, max|d| "
+        f"{res['cross_solve_dist']:.3e} (componentwise 4 (2r + 1) eps "
+        "|K||Linv^T||Linv|) ok")
+    say("[8d precision] (c) bf16 sweep against the f32 sweep at this sigma "
+        "(bf16 distance tiles; not gated): " + ", ".join(
+            f"{k} {v:.3e}" for k, v in gaps.items()))
+    return {"launches": launches, "res": res, "gaps": gaps,
+            "args16": (sig16, adiag16, cross16), "args32": args}
+
+
+def serve_requests(eng, xt, sizes) -> list:
+    """Latencies (s) of one request a size, consecutive test queries."""
+    lat, start = [], 0
+    for s in sizes:
+        t = time.perf_counter()
+        eng(xt[start:start + s])
+        sync()
+        lat.append(time.perf_counter() - t)
+        start += s
+    return lat
+
+
+def percentile_ms(lat, pct) -> float:
+    """The pct-th percentile of ``lat`` (seconds) in ms, as phase 6 reads
+    it."""
+    s = sorted(lat)
+    return s[min(len(s) - 1, math.ceil(pct / 100 * len(s)) - 1)] * 1e3
+
+
+def precision_serving(pf, fit) -> dict:
+    """Phase 8d (d): the bf16 model behind its PredictEngine on all 116,203
+    test queries (launch counts read around exactly this request) against
+    the f32 model of the same settings: queries/s, p50/p99 over phase 6's
+    16 requests (engines in turns), the largest prediction gap, and the
+    device ops of one 4096-query request (the stacks are cast once, when
+    the engine is built: a bf16 request casts only its queries)."""
+    xt = fit["xt"]
+    sizes = [1, 3, 7, 16, 33, 64, 100, 128, 257, 512, 700, 1024, 1500, 2048,
+             3000, 4096]
+    e16, e32 = pf["m16"].engine, pf["m32"].engine
+    for eng in (e16, e32):
+        eng.warmup()
+    stacks = e16._stacks
+    require(stacks[0].dtype == stacks[2].dtype == torch.bfloat16
+            and stacks[1].dtype == stacks[3].dtype == torch.float32,
+            "the bf16 engine keeps bf16 points and landmarks, f32 weights")
+    ptrs = [t.data_ptr() for t in stacks]
+    z16, launches, plain_calls = counted(lambda: e16(xt))
+    buckets = -(-N_TEST // 4096)
+    require_launches("the bf16 engine on all test queries", launches,
+                     plain_calls, {"oos_contract": buckets,
+                                   "oos_contract_pair": buckets,
+                                   "oos_contract_bf16": buckets})
+    require([t.data_ptr() for t in e16._stacks] == ptrs,
+            "the bf16 engine served from the stacks it cast once")
+    z32 = e32(xt)
+    gap = rel_max(z16, z32)
+    times = {}
+    for tag, eng in (("bf16", e16), ("f32", e32), ("f32", e32),
+                     ("bf16", e16)):
+        t = time.perf_counter()
+        eng(xt)
+        sync()
+        times.setdefault(tag, []).append(time.perf_counter() - t)
+    lat = {"bf16": [], "f32": []}
+    for tag, eng in (("bf16", e16), ("f32", e32), ("f32", e32),
+                     ("bf16", e16)):
+        lat[tag] += serve_requests(eng, xt, sizes)
+    ops = {tag: device_ops(lambda eng=eng: eng(xt[:4096]))
+           for tag, eng in (("bf16", e16), ("f32", e32))}
+    if not math.isnan(ops["bf16"][1]):
+        require(ops["bf16"][1] <= ops["f32"][1] + 1,
+                f"a bf16 request runs at most one device op more than an "
+                f"f32 one (the cast of its queries): {ops}")
+    qps = {k: N_TEST / statistics.mean(v) for k, v in times.items()}
+    pct = {k: (percentile_ms(v, 50), percentile_ms(v, 99))
+           for k, v in lat.items()}
+    say(f"[8d precision] (d) bf16 engine on all {N_TEST} test queries: "
+        f"launches {launches['oos_contract']} (one a bucket, all "
+        f"oos_contract_bf16, both terms) exact, no plain version called; "
+        f"largest prediction gap to the f32 engine (rel to max|z|) "
+        f"{gap:.3e}")
+    say(f"[8d precision] (d) queries/s over all test queries (mean of two, "
+        f"in turns): bf16 {qps['bf16']:.0f}, f32 {qps['f32']:.0f}; 16 "
+        f"requests of sizes 1..4096 twice each (in turns): bf16 p50 "
+        f"{pct['bf16'][0]:.3f} ms p99 {pct['bf16'][1]:.3f} ms, f32 p50 "
+        f"{pct['f32'][0]:.3f} ms p99 {pct['f32'][1]:.3f} ms (of 32)")
+    say(f"[8d precision] (d) one 4096-query request under torch.profiler: "
+        f"bf16 {ops['bf16'][1]:.0f} device ops {ops['bf16'][0]:.4f} ms, "
+        f"f32 {ops['f32'][1]:.0f} device ops {ops['f32'][0]:.4f} ms (the "
+        "stacks cast once at engine build; a request casts its queries)")
+    return {"launches": launches, "qps": qps, "pct": pct, "gap": gap,
+            "ops": ops}
+
+
+def precision_floor(dev) -> dict:
+    """Phase 8d (e): the ridge floor.  A bf16 fit of (a)'s problem (float32
+    data) at lambda 1e-4 with probes on; its factors through
+    recover.invert_guarded (the audit printed: the port's kernels write
+    float32 factors, whose only bf16 error is the data's rounding).  Then
+    the bf16_ridge_floor injector on the same problem (its factors rounded
+    to bf16 as the reference's xla lane stores them, at the problem's
+    jitter 1e-4: at the injector's default 1e-6 the HCK operator itself
+    leaves lambda 1e-4 no accurate solve): the probe detects the
+    indefinite leaf and the promotion rung recovers at the original ridge,
+    its solve's residual on a float64 copy of the recovered factors within
+    1e-2 (the reference's gate)."""
+    from repro_torch.core import hck, hmatrix, krr
+    from repro_torch.core.kernels_fn import BaseKernel
+    from repro_torch.kernels.registry import SolveConfig
+    from repro_torch.runtime import health, recover
+    from repro_torch.testing import faultinject as fi
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 43)
+    x = torch.randn((PREC_N, PREC_D), generator=gen, device=dev)
+    y = torch.sin(x[:, 0]) + 0.25 * torch.cos(2.0 * x[:, 1])
+    ker = BaseKernel("gaussian", PREC_SIGMA, PREC_JITTER)
+    cfg = SolveConfig(precision="bf16", checks=True)
+    build = dict(levels=PREC_LEVELS, rank=PREC_RANK)
+
+    def draws():
+        return torch.Generator(device=dev).manual_seed(SEED + 44)
+
+    try:
+        m = krr.fit(x, y, kernel=ker, lam=FLOOR_LAM, rank=PREC_RANK,
+                    leaf_size=PREC_N >> PREC_LEVELS, levels=PREC_LEVELS,
+                    solve_config=cfg, generator=draws())
+        fit_note = (f"held (alpha finite: "
+                    f"{bool(torch.isfinite(m.alpha).all())})")
+    except health.NumericalFailure as e:
+        fit_note = f"detected: {e.stage} {e.statistic}"
+    f = hck.build_hck(x, kernel=ker, config=cfg, generator=draws(), **build)
+    g = recover.invert_guarded(f, FLOOR_LAM, cfg, kernel=ker,
+                               jitter_rungs=0)
+    require(g.audit.ok, f"bf16 factors at lambda {FLOOR_LAM:g}: the ladder "
+            f"holds ({g.audit.rungs})")
+    say(f"[8d precision] (e) bf16 krr.fit of (a)'s problem at lambda "
+        f"{FLOOR_LAM:g} (n0 {PREC_N >> PREC_LEVELS}, jitter {PREC_JITTER:g}) "
+        f"with probes on: {fit_note}; recover.invert_guarded on its factors: "
+        f"rungs {g.audit.rungs}")
+    bad, ker16, cfg16 = fi.bf16_ridge_floor_factors(
+        x, kernel=ker, jitter=PREC_JITTER, config=SolveConfig(checks=True),
+        generator=draws(), **build)
+    require(health.probe_factors(bad, cfg16), "the injected bf16 build is "
+            "finite")
+    _, lo = hmatrix.invert_with_leaf(bad, FLOOR_LAM, cfg16)
+    try:
+        health.probe_leaf_factor(lo, cfg16)
+        detected = None
+    except health.NumericalFailure as e:
+        detected = e
+    require(detected is not None and detected.stage == "leaf_factor",
+            "the probe detects the bf16_ridge_floor fault in leaf_factor")
+    g2 = recover.invert_guarded(bad, FLOOR_LAM, cfg16, kernel=ker16,
+                                jitter_rungs=0)
+    require(g2.audit.ok and not g2.audit.attempts[0].ok
+            and g2.audit.rungs[-1] == "promote:f32"
+            and g2.ridge == FLOOR_LAM,
+            f"the promotion rung recovers at the original ridge: "
+            f"{g2.audit.rungs}, ridge {g2.ridge}")
+    yb = y[g2.factors.tree.perm][:, None]
+    alpha = hmatrix.solve_with_inverse(g2.factors, g2.inverse, yb,
+                                       ridge=g2.ridge, config=g2.config)
+    # the residual on a float64 copy of the recovered factors
+    f64 = recover._cast_float(g2.factors, torch.float64)
+    a64 = alpha.double()
+    resid = rel_gap(hmatrix.matvec(f64, a64) + FLOOR_LAM * a64, yb)
+    require(bool(torch.isfinite(alpha).all()) and resid <= 1e-2,
+            f"the recovered solve: finite, residual {resid:.3e} <= 1e-2")
+    say(f"[8d precision] (e) bf16_ridge_floor injected (jitter "
+        f"{ker16.jitter:g}, factors rounded to bf16): the probe detected "
+        f"'{detected.stage}' ({detected.statistic}); invert_guarded rungs "
+        f"{g2.audit.rungs} at ridge {g2.ridge:g}, config precision "
+        f"{g2.config.precision}; recovered solve residual {resid:.3e} "
+        "(1e-2) ok")
+    return {"rungs": g.audit.rungs, "injected": g2.audit.rungs}
+
+
+def precision_launcher(dev) -> dict:
+    """Phase 8d (f): launch.train --task krr --precision bf16 at covtype's
+    padded size and width, and --precision f64 at n 65,536, in process;
+    each printed line and launch count checked."""
+    num = r"[0-9.]+"
+    one_bucket = {"oos_contract": 1, "oos_contract_pair": 1}
+    runs = {}
+    line = (r"krr n={n} d={d} rank={r} backend=auto \(in-memory\): fit "
+            rf"{num} s \([0-9,]+ points/s\), train rel-err {num}")
+    runs["bf16"] = launcher_mode(
+        ["--task", "krr", "--n", str(LAUNCH_N), "--d", str(D), "--rank",
+         str(RANK), "--precision", "bf16"],
+        dict(FIT_LAUNCHES, **one_bucket, gram_chol_bf16=1,
+             gram_chol_levels_bf16=1, cross_solve_levels_bf16=1,
+             oos_contract_bf16=1),
+        [line.format(n=LAUNCH_N, d=D, r=RANK)], tag="[8d precision] (f)")
+    runs["f64"] = launcher_mode(
+        ["--task", "krr", "--n", str(LAUNCH_SMALL_N), "--rank", str(RANK),
+         "--precision", "f64"], dict(FIT_LAUNCHES, **one_bucket),
+        [line.format(n=LAUNCH_SMALL_N, d=8, r=RANK)],
+        tag="[8d precision] (f)")
+    for mode, dt in (("bf16", torch.float32), ("f64", torch.float64)):
+        m = runs[mode]["model"]
+        require(runs[mode]["precision"] == mode
+                and m.solve_config.precision == mode
+                and m.alpha.dtype == dt and m.factors.u.dtype == dt,
+                f"--precision {mode}: the model's policy and factor dtype")
+    require(runs["bf16"]["model"].lam == BF16_LAM
+            and runs["bf16"]["model"].kernel.jitter == BF16_JITTER,
+            "--precision bf16 at lambda 1e-1 and jitter 1e-4")
+    return runs
+
+
+def bf16_timing(pf, ps) -> list[dict]:
+    """Phase 8d, timing: B1, B2 and B7 of the fit and a serving bucket,
+    B8 and B9 of one sweep sigma, each bf16-data entry in turns with its
+    f32 entry on the same shapes (bf16, f32, f32, bf16; events around
+    calls for B1, B2, B8 and B9, device time for B7, as phase 9 times
+    them), beside its plain version and its bound (bfloat16 data counted
+    at 2 bytes)."""
+    from repro_torch.kernels.build_stage import ops as bops
+    from repro_torch.kernels.build_stage import ref as bref
+    from repro_torch.kernels.oos_stage import ops as oops
+    from repro_torch.kernels.oos_stage import ref as oref
+
+    gram16, cross16 = pf["args16"]
+    a32 = pf["args32"]
+    p16 = [p for p, _ in gram16]
+    p32 = [p for p, _ in a32["gram"]]
+    go = dict(sigma=SIGMA, jitter=BF16_JITTER)
+
+    def gram_fn(ps):
+        return lambda: (bops.build_gram_levels(ps[:-1], **go),
+                        bops.build_gram(ps[-1], want_chol=False, **go))
+
+    gc = [gram_cost(p, w) for p, (_, w) in zip(p16, gram16)]
+    cross32 = a32["cross"]
+    cc = sum(cross_cost(*a)[0] for a in cross16)
+    shapes = [a[0].shape[:2] + a[1].shape[1:2] for a in cross16]
+    pair16, pair32 = pf["bucket16"], pf["bucket32"]
+    sig16, adiag16, cross_d16 = ps["args16"]
+    s32 = ps["args32"]
+
+    rows = []
+    turns = {
+        "gram_chol (bf16 data)": in_turns(gram_fn(p16), gram_fn(p32), 5),
+        "cross_solve (bf16 data)": in_turns(
+            lambda: bops.build_cross_levels(*zip(*cross16), sigma=SIGMA),
+            lambda: bops.build_cross_levels(*zip(*cross32), sigma=SIGMA), 5),
+        "oos_contract (bf16 data)": in_turns(
+            lambda: oops.oos_local_walk(*pair16, sigma=SIGMA),
+            lambda: oops.oos_local_walk(*pair32, sigma=SIGMA), 50,
+            device=True),
+        "gram_chol_dist (bf16 data)": in_turns(
+            lambda: (bops.build_gram_dist_levels(sig16, **go),
+                     bops.build_gram_dist(adiag16, want_chol=False, **go)),
+            lambda: (bops.build_gram_dist_levels(s32["sigma"], **go),
+                     bops.build_gram_dist(s32["adiag"], want_chol=False,
+                                          **go)), 5),
+        "cross_solve_dist (bf16 data)": in_turns(
+            lambda: bops.build_cross_dist_levels(*zip(*cross_d16),
+                                                 sigma=SIGMA),
+            lambda: bops.build_cross_dist_levels(*zip(*s32["cross"]),
+                                                 sigma=SIGMA), 5)}
+    plain = {
+        "gram_chol (bf16 data)": time_ms(
+            lambda: (bref.build_gram_levels_ref(p16[:-1], **go),
+                     bref.build_gram_ref(p16[-1], want_chol=False, **go)),
+            3),
+        "cross_solve (bf16 data)": time_ms(
+            lambda: bref.build_cross_levels_ref(*zip(*cross16), sigma=SIGMA),
+            3),
+        "oos_contract (bf16 data)": time_ms(
+            lambda: oref.oos_local_walk_ref(*pair16, sigma=SIGMA), 20),
+        "gram_chol_dist (bf16 data)": time_ms(
+            lambda: (bref.build_gram_dist_levels_ref(sig16, **go),
+                     bref.build_gram_dist_ref(adiag16, want_chol=False,
+                                              **go)), 3),
+        "cross_solve_dist (bf16 data)": time_ms(
+            lambda: bref.build_cross_dist_levels_ref(*zip(*cross_d16),
+                                                     sigma=SIGMA), 3)}
+    gdc = [gram_dist_cost(d, True) for d in sig16] + [
+        gram_dist_cost(adiag16, False)]
+    bounds = {
+        "gram_chol (bf16 data)": bound_ms(sum(c[0] for c in gc),
+                                          sum(c[1] for c in gc)),
+        "cross_solve (bf16 data)": cross_tc_bound(cc, shapes),
+        "oos_contract (bf16 data)": bound_ms(*pair_cost(*pair16)),
+        "gram_chol_dist (bf16 data)": bound_ms(sum(c[0] for c in gdc),
+                                               sum(c[1] for c in gdc)),
+        "cross_solve_dist (bf16 data)": cross_dist_tc_bound(cross_d16)}
+    errs = {"gram_chol (bf16 data)": pf["res"]["gram_chol"],
+            "cross_solve (bf16 data)": pf["res"]["cross_solve"],
+            "oos_contract (bf16 data)": pf["res"]["oos_contract"],
+            "gram_chol_dist (bf16 data)": ps["res"]["gram_chol_dist"],
+            "cross_solve_dist (bf16 data)": ps["res"]["cross_solve_dist"]}
+    units = {
+        "gram_chol (bf16 data)": f"one bf16 fit: one grouped launch ({LEVELS}"
+                                 " Sigma levels with factors) and one for "
+                                 "the leaves' Adiag",
+        "cross_solve (bf16 data)": f"one bf16 fit: one grouped launch (U and "
+                                   f"{LEVELS - 1} W levels)",
+        "oos_contract (bf16 data)": "one 4096-query bucket, both terms in one"
+                                    " launch; device time",
+        "gram_chol_dist (bf16 data)": f"one bf16 sweep sigma: one grouped "
+                                      f"launch ({LEVELS} Sigma levels) and "
+                                      "one gram_dist for the Adiag",
+        "cross_solve_dist (bf16 data)": f"one bf16 sweep sigma: one grouped "
+                                        f"launch (U and {LEVELS - 1} W "
+                                        "levels)"}
+    counts = {**pf["launches"], **{k: v for k, v in ps["launches"].items()
+                                   if "dist" in k}}
+    for name, keys, src, tpu in BF16_RECORDS:
+        ms, f32_ms, t = turns[name]
+        rec = kernel_record(
+            name, "src/repro_torch/csrc/" + src, "src/repro/kernels/" + tpu,
+            sum(counts[k] for k in keys), errs[name], ms, plain[name],
+            bounds[name], unit=units[name], f32_entry_ms=f32_ms,
+            turns_ms={"bf16": [t[0], t[3]], "f32": [t[1], t[2]]})
+        if name.startswith("oos"):
+            rec["launches"] = pf["serve_launches"]["oos_contract_bf16"]
+        rows.append(rec)
+        say(f"[8d precision] timing {name} ({rec['unit']}): bf16 entry "
+            f"{ms:.4f} ms, f32 entry {f32_ms:.4f} ms (in turns: "
+            f"{rec['turns_ms']}), plain {rec['plain_ms']:.4f} ms, bound "
+            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}, bf16 data at 2 "
+            f"bytes), launches {rec['launches']}")
+    return rows
+
+
+def phase_precision(fit, sw, dev) -> list[dict]:
+    """Phase 8d: the mixed-precision policy (SolveConfig.precision) on the
+    card, (a)-(f) above; returns the kernels' records of the bf16-data
+    entries."""
+    t = time.perf_counter()
+    times = {}
+    bf16_kernel_shapes(dev)
+    times["kernels"] = time.perf_counter() - t
+    precision_bounds(dev)
+    times["a"] = time.perf_counter() - t - sum(times.values())
+    pf = precision_fit(fit, dev)
+    times["b"] = time.perf_counter() - t - sum(times.values())
+    ps = precision_sweep(sw, dev)
+    times["c"] = time.perf_counter() - t - sum(times.values())
+    served = precision_serving(pf, fit)
+    pf["serve_launches"] = served["launches"]
+    times["d"] = time.perf_counter() - t - sum(times.values())
+    precision_floor(dev)
+    times["e"] = time.perf_counter() - t - sum(times.values())
+    precision_launcher(dev)
+    times["f"] = time.perf_counter() - t - sum(times.values())
+    rows = bf16_timing(pf, ps)
+    times["timing"] = time.perf_counter() - t - sum(times.values())
+    say(f"[8d precision] phase done in {time.perf_counter() - t:.1f} s ("
+        + ", ".join(f"({k}) {v:.1f} s" for k, v in times.items()) + ")")
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # LM serving: Zamba2-7B through ServeSession, B14 and B15
 # ---------------------------------------------------------------------------
 
@@ -5788,11 +6630,12 @@ def main() -> int:
     sres = phase_sweep_gates(fit, sw, dev)
     solv = phase_solvers(fit, sw, dev)
     life = phase_lifecycle(fit, sw, dev)
+    prec = phase_precision(fit, sw, dev)
     kernels = (phase_timing(fit, res, served, sw, solv)
                + sweep_timing(sw, sres)
                + solver_timing(solv["exact"], solv["kres"])
                + lifecycle_timing(fit, life["km"], life["update"],
-                                  life["b12"]) + lm_records)
+                                  life["b12"]) + prec + lm_records)
     phase_profile(fit, served["engine"], sw)
     say(f"[end] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -35,6 +35,14 @@ of the r slots.  Random draws do not cross frameworks, so the partition
 directions, the per-level landmark row indices and a policy's own draws
 can be passed in; the port's own draws come from an explicit
 ``torch.Generator``.
+
+Under a mixed-precision policy (``SolveConfig.precision``, see
+:func:`repro_torch.kernels.registry.precision_policy`) every stage
+dispatcher casts its kernel-evaluation data (points, landmarks, cached
+distance tiles) to the policy's GEMM dtype and Linv to its factor dtype,
+and stores its outputs in the factor dtype; the partition, the landmark
+draws and the distance tiles of a sweep plan stay in the input dtype, so a
+bf16, f32 or f64 build of one ``x`` has one tree and one landmark set.
 """
 from __future__ import annotations
 
@@ -51,7 +59,8 @@ from repro_torch.core.partition import (PartitionTree, build_partition,
 from repro_torch.data.pipeline import (draw_device, rows_to,
                                        stream_partition)
 from repro_torch.kernels.registry import (DEFAULT_CONFIG, SolveConfig,
-                                          get_impl, resolve_backend)
+                                          get_impl, precision_policy,
+                                          resolve_backend)
 from repro_torch.landmarks import budget as _budget
 from repro_torch.landmarks.policy import (LeveragePolicy, gather_block_rows,
                                           get_policy)
@@ -205,26 +214,51 @@ def _mask_transfer_ops(w: tuple, rank_mask: tuple) -> tuple:
         for lvl in range(1, len(rank_mask)))
 
 
+def _policy(config: SolveConfig | None) -> tuple:
+    """(GEMM dtype, factor dtype) of the config's precision policy, or
+    (None, None) without one."""
+    pol = precision_policy(config)
+    return (None, None) if pol is None else pol
+
+
+def _cast(ts, dtype) -> list:
+    """The tensors ``ts`` in ``dtype`` (kept without a policy), contiguous."""
+    return [(t if dtype is None else t.to(dtype)).contiguous() for t in ts]
+
+
+def _stored(pair, dtype):
+    """A (gram, factor or None) pair in ``dtype``."""
+    gram, chol = pair
+    return gram.to(dtype), None if chol is None else chol.to(dtype)
+
+
 def _stage_build_gram(blocks: Tensor, kernel: BaseKernel,
                       config: SolveConfig, *, want_chol: bool = True):
     """One level's node blocks (B, m, d) through the ``build_gram`` stage:
-    (gram (B, m, m), lower Cholesky or None)."""
-    blocks = blocks.contiguous()
+    (gram (B, m, m), lower Cholesky or None).  Under a policy the blocks
+    are cast to its GEMM dtype and the outputs stored in its factor
+    dtype."""
+    gemm, fac = _policy(config)
+    out_dt = fac or blocks.dtype
+    (blocks,) = _cast([blocks], gemm)
     backend = resolve_backend(config, "build_gram", blocks)
-    return get_impl("build_gram", backend)(
+    return _stored(get_impl("build_gram", backend)(
         blocks, name=kernel.name, sigma=kernel.sigma, jitter=kernel.jitter,
-        want_chol=want_chol)
+        want_chol=want_chol), out_dt)
 
 
 def _stage_build_gram_levels(blocks, kernel: BaseKernel,
                              config: SolveConfig) -> list:
     """Every level's node blocks (B, m, d) through the grouped
     ``build_gram_levels`` stage, one launch: per level (gram, lower
-    Cholesky)."""
-    blocks = [b.contiguous() for b in blocks]
+    Cholesky), under a policy as :func:`_stage_build_gram`."""
+    gemm, fac = _policy(config)
+    out_dt = fac or blocks[0].dtype
+    blocks = _cast(blocks, gemm)
     backend = resolve_backend(config, "build_gram_levels", *blocks)
-    return get_impl("build_gram_levels", backend)(
-        blocks, name=kernel.name, sigma=kernel.sigma, jitter=kernel.jitter)
+    return [_stored(pair, out_dt) for pair in get_impl(
+        "build_gram_levels", backend)(
+        blocks, name=kernel.name, sigma=kernel.sigma, jitter=kernel.jitter)]
 
 
 def sigma_linv(chol: Tensor) -> Tensor:
@@ -244,28 +278,35 @@ def sigma_linv(chol: Tensor) -> Tensor:
 def _stage_build_cross(blocks: Tensor, lm_parent: Tensor, linv_parent: Tensor,
                        kernel: BaseKernel, config: SolveConfig) -> Tensor:
     """One level's cross blocks through the ``build_cross`` stage:
-    (B, m, d), (B, r, d), (B, r, r) -> K(P, Z) Linv^T Linv (B, m, r)."""
-    blocks, lm_parent, linv_parent = (
-        t.contiguous() for t in (blocks, lm_parent, linv_parent))
+    (B, m, d), (B, r, d), (B, r, r) -> K(P, Z) Linv^T Linv (B, m, r).
+    Under a policy the points and landmarks are cast to its GEMM dtype,
+    Linv (a factor) to its factor dtype, and U is stored in the factor
+    dtype."""
+    gemm, fac = _policy(config)
+    out_dt = fac or blocks.dtype
+    blocks, lm_parent = _cast([blocks, lm_parent], gemm)
+    (linv_parent,) = _cast([linv_parent], fac)
     backend = resolve_backend(config, "build_cross", blocks, lm_parent,
                               linv_parent)
     return get_impl("build_cross", backend)(
-        blocks, lm_parent, linv_parent, name=kernel.name, sigma=kernel.sigma)
+        blocks, lm_parent, linv_parent, name=kernel.name,
+        sigma=kernel.sigma).to(out_dt)
 
 
 def _stage_build_cross_levels(blocks, lm_parents, linv_parents,
                               kernel: BaseKernel, config: SolveConfig) -> list:
     """Every level's cross blocks through the grouped ``build_cross_levels``
     stage, one launch: per level (B, m, d), (B, r, d), (B, r, r) -> K(P, Z)
-    Linv^T Linv (B, m, r)."""
-    blocks, lm_parents, linv_parents = (
-        [t.contiguous() for t in ts]
-        for ts in (blocks, lm_parents, linv_parents))
+    Linv^T Linv (B, m, r), under a policy as :func:`_stage_build_cross`."""
+    gemm, fac = _policy(config)
+    out_dt = fac or blocks[0].dtype
+    blocks, lm_parents = _cast(blocks, gemm), _cast(lm_parents, gemm)
+    linv_parents = _cast(linv_parents, fac)
     backend = resolve_backend(config, "build_cross_levels", *blocks,
                               *lm_parents, *linv_parents)
-    return get_impl("build_cross_levels", backend)(
+    return [u.to(out_dt) for u in get_impl("build_cross_levels", backend)(
         blocks, lm_parents, linv_parents, name=kernel.name,
-        sigma=kernel.sigma)
+        sigma=kernel.sigma)]
 
 
 def leaf_stage_factors(blocks: Tensor, lm_parent: Tensor, linv_parent: Tensor,
@@ -333,15 +374,6 @@ def _transfer_ops(landmarks: tuple, sigma_li: list, kernel: BaseKernel,
                  for o, lvl in zip(out, levels))
 
 
-def _check_build_options(config: SolveConfig) -> None:
-    """Raise ``NotImplementedError`` for the reference's build option that a
-    later slice of the port brings (a mixed-precision build)."""
-    if config.precision is not None:
-        raise NotImplementedError(
-            "a mixed-precision build (SolveConfig.precision) comes with "
-            "ROADMAP item A15; the build runs in the dtype of x")
-
-
 def build_hck(
     x: Tensor, *, levels: int, rank: int, kernel: BaseKernel,
     method: str = "rp", shared_landmarks: bool = False,
@@ -372,10 +404,10 @@ def build_hck(
     the uniform draw and k-means' start) and ``policy_draws`` (a policy's
     dict per level) replace the random draws, which otherwise come from
     ``generator``.  ``levels == 0`` gives one dense leaf block.
-    ``config.precision`` raises ``NotImplementedError``.
+    ``config.precision`` sets the mixed-precision policy of every stage
+    (the tree and the landmarks are drawn in the dtype of ``x`` first).
     """
     config = config if config is not None else DEFAULT_CONFIG
-    _check_build_options(config)
     policy = get_policy(policy)
     n, d = x.shape
     n_leaves = 1 << levels
@@ -407,7 +439,7 @@ def build_hck(
     adiag, _ = _stage_build_gram(leaves, kernel, config, want_chol=False)
     if levels == 0:
         return HCKFactors(x_sorted, tree, (), (), (), (),
-                          x.new_zeros((1, n0, 0)), adiag)
+                          adiag.new_zeros((1, n0, 0)), adiag)
     u, w = _cross_factors(leaves.reshape(n_leaves // 2, 2 * n0, d),
                           landmarks, sigma_li, kernel, config)
     if rank_mask is not None:
@@ -443,10 +475,10 @@ def _streamed_leaves(source, perm, lm_last: Tensor, linv_last: Tensor,
     landmarks and Linv repeated to leaf granularity, since a group need
     not hold whole sibling pairs)."""
     n, d = perm.shape[0], source.dim
-    n_leaves, dtype = n // n0, lm_last.dtype
+    n_leaves, dtype = n // n0, linv_last.dtype
     lm_parent = torch.repeat_interleave(lm_last, 2, dim=0)
     linv_parent = torch.repeat_interleave(linv_last, 2, dim=0)
-    x_sorted = torch.empty((n, d), dtype=dtype, device=dev)
+    x_sorted = torch.empty((n, d), dtype=lm_last.dtype, device=dev)
     adiag = torch.empty((n_leaves, n0, n0), dtype=dtype, device=dev)
     u = torch.empty((n_leaves, n0, lm_last.shape[1]), dtype=dtype,
                     device=dev)
@@ -497,12 +529,11 @@ def build_hck_streaming(
     the device for a clustered or leverage selection to scan), and there
     is no rank budget: both raise ``ValueError``, as does ``levels < 1``
     (a 0-level build is one dense block), as in the reference.
-    ``config.precision`` raises ``NotImplementedError``.
+    ``config.precision`` is :func:`build_hck`'s policy.
     """
     from repro_torch.landmarks.policy import UniformPolicy
 
     config = config if config is not None else DEFAULT_CONFIG
-    _check_build_options(config)
     if levels < 1:
         raise ValueError("build_hck_streaming needs levels >= 1 "
                          "(a 0-level build is one dense block)")
@@ -649,11 +680,10 @@ def build_sweep_plan(
     partitioning again; ``config`` steers only the policy's
     ``policy_dist`` stage.  ``x`` (n, d), n divisible by 2**levels,
     levels >= 1.  ``device``: None is the CUDA card (raises without one),
-    "cpu" the plain path.  ``config.precision`` raises
-    ``NotImplementedError``.
+    "cpu" the plain path.  The plan is in the dtype of ``x`` whatever
+    ``config.precision`` says: :func:`sweep_factors` applies a policy.
     """
     config = config if config is not None else DEFAULT_CONFIG
-    _check_build_options(config)
     if name not in KERNEL_METRIC:
         raise ValueError(
             f"kernel {name!r} has no registered bandwidth-independent "
@@ -719,36 +749,47 @@ def replan_policy(
 
 def _stage_gram_dist(dist: Tensor, kernel: BaseKernel, config: SolveConfig):
     """Cached (B, m, m) tiles through the ``build_gram_dist`` stage
-    without a factor: gram (B, m, m) (the leaf Adiag blocks)."""
-    dist = dist.contiguous()
+    without a factor: gram (B, m, m) (the leaf Adiag blocks).  Under a
+    policy the tiles (the kernel-evaluation data) are cast to its GEMM
+    dtype and the Gram stored in its factor dtype."""
+    gemm, fac = _policy(config)
+    out_dt = fac or dist.dtype
+    (dist,) = _cast([dist], gemm)
     backend = resolve_backend(config, "build_gram_dist", dist)
     return get_impl("build_gram_dist", backend)(
         dist, name=kernel.name, sigma=kernel.sigma, jitter=kernel.jitter,
-        want_chol=False)[0]
+        want_chol=False)[0].to(out_dt)
 
 
 def _stage_gram_dist_levels(dists, kernel: BaseKernel,
                             config: SolveConfig) -> list:
     """Every level's cached (B, m, m) tiles through the grouped
     ``build_gram_dist_levels`` stage, one launch: per level (gram, lower
-    Cholesky)."""
-    dists = [d.contiguous() for d in dists]
+    Cholesky), under a policy as :func:`_stage_gram_dist`."""
+    gemm, fac = _policy(config)
+    out_dt = fac or dists[0].dtype
+    dists = _cast(dists, gemm)
     backend = resolve_backend(config, "build_gram_dist_levels", *dists)
-    return get_impl("build_gram_dist_levels", backend)(
-        dists, name=kernel.name, sigma=kernel.sigma, jitter=kernel.jitter)
+    return [_stored(pair, out_dt) for pair in get_impl(
+        "build_gram_dist_levels", backend)(
+        dists, name=kernel.name, sigma=kernel.sigma, jitter=kernel.jitter)]
 
 
 def _stage_cross_dist_levels(dists, linvs, kernel: BaseKernel,
                              config: SolveConfig) -> list:
     """Cached (B, m, r) tiles of every level with their parents' Linv
     through the grouped ``build_cross_dist_levels`` stage, one launch: per
-    level kappa(D) Linv^T Linv (B, m, r)."""
-    dists = [d.contiguous() for d in dists]
-    linvs = [li.contiguous() for li in linvs]
+    level kappa(D) Linv^T Linv (B, m, r).  Under a policy the tiles are
+    cast to its GEMM dtype, Linv to its factor dtype, and U is stored in
+    the factor dtype."""
+    gemm, fac = _policy(config)
+    out_dt = fac or dists[0].dtype
+    dists, linvs = _cast(dists, gemm), _cast(linvs, fac)
     backend = resolve_backend(config, "build_cross_dist_levels", *dists,
                               *linvs)
-    return get_impl("build_cross_dist_levels", backend)(
-        dists, linvs, name=kernel.name, sigma=kernel.sigma)
+    return [u.to(out_dt) for u in get_impl(
+        "build_cross_dist_levels", backend)(
+        dists, linvs, name=kernel.name, sigma=kernel.sigma)]
 
 
 def sweep_factors(plan: SweepPlan, kernel: BaseKernel,
@@ -767,13 +808,9 @@ def sweep_factors(plan: SweepPlan, kernel: BaseKernel,
     ``kernel`` of the plan's metric.  ``rank_budget`` is
     :func:`build_hck`'s, its masks recomputed at every sigma (the landmark
     Gram, hence the spectral mass, depends on it).  ``config.precision``
-    (ROADMAP item A15) raises ``NotImplementedError``.
+    is :func:`build_hck`'s policy: the cached tiles are the GEMM data.
     """
     config = config if config is not None else DEFAULT_CONFIG
-    if config.precision is not None:
-        raise NotImplementedError(
-            "a mixed-precision build (SolveConfig.precision) comes with "
-            "ROADMAP item A15; the sweep runs in the dtype of the plan")
     if KERNEL_METRIC.get(kernel.name) != plan.metric:
         raise ValueError(
             f"kernel {kernel.name!r} (metric "

@@ -172,8 +172,12 @@ def fit(
     method:     partition rule, "rp" or "pca"; ``shared_landmarks`` puts
                 the root's landmarks at every node.
 
-    A ``solve_config.precision`` (ROADMAP item A15) raises
-    ``NotImplementedError``.  The model caches the Algorithm-2 inverse and
+    ``solve_config.precision`` is the mixed-precision policy of the build
+    and of the predictions (:func:`repro_torch.kernels.registry.
+    precision_policy`): the factors, the solve and alpha are in its factor
+    dtype, the tree and the landmarks in the dtype of x.  The model keeps
+    its ``solve_config``, so its predictions and updates follow the
+    policy.  The model caches the Algorithm-2 inverse and
     its leaf Cholesky factors, which :meth:`HCKRegressor.update` extends.
     ``timings``, a dict, receives the wall seconds of ``build_hck`` and
     of the stages after it (the device synchronised).
@@ -208,12 +212,13 @@ def _solve_built(factors: HCKFactors, targets: Tensor, classes, squeeze,
     """The fit after the build: probe the factors, invert with the leaf
     factor kept, solve, probe alpha and prepare the Algorithm-3 plan.
     ``timings``, a dict, receives the wall seconds of the last three
-    stages (the device synchronised)."""
+    stages (the device synchronised).  The targets are solved in the
+    factors' dtype (a mixed-precision policy's factor dtype)."""
     def stage(name, fn):
         return _device.timed(timings, name, targets.device, fn)
 
     health.probe_factors(factors, solve_config, op="build")
-    y_sorted = targets[factors.tree.perm]
+    y_sorted = targets[factors.tree.perm].to(factors.adiag.dtype)
     inv, lo = stage("invert_with_leaf", lambda: hmatrix.invert_with_leaf(
         factors, lam, solve_config))
     health.probe_leaf_factor(lo, solve_config)
@@ -416,7 +421,8 @@ def fit_incremental(
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(f.n)
     x_new = torch.as_tensor(x_new).to(device=dev, dtype=dt)
-    targets_new = _encode_arrivals(model, torch.as_tensor(y_new).to(dev), dt)
+    targets_new = _encode_arrivals(model, torch.as_tensor(y_new).to(dev),
+                                   f.adiag.dtype)
 
     # the fit-time targets, reconstructed: y_sorted = (K_hck + lam) alpha
     y_sorted = hmatrix.matvec(f, model.alpha, cfg) + lam * model.alpha
@@ -603,7 +609,8 @@ def fit_path(
             f"prebuilt factors cover n={factors.n} points but x has "
             f"{x.shape[0]} and y has {y.shape[0]} rows; pad x and y to the "
             "factor tree first")
-    targets, classes, squeeze = _encode_targets(y, classification, x.dtype)
+    targets, classes, squeeze = _encode_targets(y, classification,
+                                                factors.adiag.dtype)
     y_sorted = targets[factors.tree.perm]
     lam_list = [float(lam) for lam in lams]
     invs = hmatrix.invert_multi(factors, lam_list, solve_config)

@@ -21,6 +21,13 @@ the n-vector ``k_hck(X, x)``:
 The kernel reads each query's leaf block, leaf weights, parent landmarks
 and ``c_tilde`` block in place through the query's leaf index;
 :func:`apply_segments` also takes the reference's per-query gathered form.
+
+Under a mixed-precision policy (``SolveConfig.precision``) phase 2 reads
+its data (leaf points, landmarks, queries) in the policy's GEMM dtype and
+its weights (``w_leaf``, ``c_tilde``) in its factor dtype.
+:func:`policy_stacks` casts a model's stacks once; a caller that serves
+many batches (the ``PredictEngine``) keeps them and hands them to
+:func:`apply_plan`, so that only the queries are cast per batch.
 """
 from __future__ import annotations
 
@@ -32,7 +39,7 @@ from repro_torch.core.hck import HCKFactors
 from repro_torch.core.kernels_fn import BaseKernel
 from repro_torch.core.partition import group_by_leaf, route
 from repro_torch.kernels.registry import (DEFAULT_CONFIG, SolveConfig,
-                                          get_impl, precision_dtype,
+                                          get_impl, precision_policy,
                                           resolve_backend)
 
 Tensor = torch.Tensor
@@ -118,9 +125,12 @@ def apply_segments(
     query's leaf (and its parent, ``leaf >> 1``).  Returns (q, k).
     """
     config = config if config is not None else DEFAULT_CONFIG
-    dt = precision_dtype(config)
-    if dt is not None:
-        xl, wl, lm, ct, qs = (a.to(dt) for a in (xl, wl, lm, ct, qs))
+    pol = precision_policy(config)
+    if pol is not None:
+        # data in the GEMM dtype, weights and coefficients (factors) in
+        # the factor dtype; a cast to the dtype a tensor has is no copy
+        xl, lm, qs = (a.to(pol[0]) for a in (xl, lm, qs))
+        wl, ct = wl.to(pol[1]), ct.to(pol[1])
     xl, wl, lm, ct, qs = (a.contiguous() for a in (xl, wl, lm, ct, qs))
     if leaf is None:
         leaf_idx = parent_idx = torch.arange(qs.shape[0], device=qs.device)
@@ -133,24 +143,43 @@ def apply_segments(
         sigma=kernel.sigma, leaf_block=config.leaf_block)
 
 
+def policy_stacks(f: HCKFactors, plan: OOSPlan,
+                  config: SolveConfig | None = None) -> tuple:
+    """The stacks phase 2 reads in place -- leaf points (2**L, n0, d),
+    leaf weights, the last level's landmarks and ``c_tilde`` -- in the
+    dtypes of ``config``'s policy (data in its GEMM dtype, weights in its
+    factor dtype), contiguous; the stored tensors themselves where they
+    have those dtypes already."""
+    pol = precision_policy(config)
+    gemm, fac = (None, None) if pol is None else pol
+    xl = f.x_sorted.reshape(f.num_leaves, f.leaf_size, -1)
+    stacks = []
+    for t, dt in ((xl, gemm), (plan.w_leaf, fac),
+                  (f.landmarks[f.levels - 1], gemm), (plan.c_tilde, fac)):
+        stacks.append((t if dt is None else t.to(dt)).contiguous())
+    return tuple(stacks)
+
+
 def apply_plan(
     f: HCKFactors, plan: OOSPlan, queries: Tensor, kernel: BaseKernel,
-    config: SolveConfig | None = None,
+    config: SolveConfig | None = None, *, stacks: tuple | None = None,
 ) -> Tensor:
     """Phase 2: (q, d) -> (q, k) values of w^T k_hck(X, .).
 
     Route -> stable sort by leaf -> the two fused contractions -> unsort.
+    ``stacks`` is :func:`policy_stacks` of the same model and config,
+    computed once by the caller; without it the stacks are cast here.
     """
-    levels, n0 = f.levels, f.leaf_size
+    levels = f.levels
     if levels == 0:
         kv = kernel.cross(f.x_sorted, queries)              # (n, q)
         return torch.einsum("nk,nq->qk", plan.w_leaf[0], kv)
+    if stacks is None:
+        stacks = policy_stacks(f, plan, config)
     leaf = route(f.tree, queries)
     order, _, _ = group_by_leaf(leaf, f.num_leaves)
-    z = apply_segments(
-        f.x_sorted.reshape(f.num_leaves, n0, -1), plan.w_leaf,
-        f.landmarks[levels - 1], plan.c_tilde, queries[order], kernel,
-        config, leaf=leaf[order])
+    z = apply_segments(*stacks, queries[order], kernel, config,
+                       leaf=leaf[order])
     out = torch.empty_like(z)
     out[order] = z                                        # unsort
     return out

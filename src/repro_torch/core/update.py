@@ -116,7 +116,8 @@ def insert(
     kernel:      the fit's kernel; its jitter is read at ``jitter_rows``
                  rows (default: the current leaf size, right for the first
                  insert after a fit; later ones pass the fit's leaf size).
-    config:      backends of the appended rows' ``build_cross`` launch.
+    config:      backends and precision policy of the appended rows'
+                 ``build_cross`` launch.
     y_new:       (q,) or (q, k) encoded targets of the arrivals; needs
                  ``y_sorted``, the (n,) or (n, k) current targets in tree
                  order (padding rows copy their source's targets).
@@ -178,9 +179,11 @@ def insert(
 
     # Adiag: cross block and appended block, the frozen lambda' diagonal
     # (jitter * jitter_rows) on the appended rows only
-    kcross = kernel.cross(x_app, x_leaves)                     # (P, k, n0)
-    kdiag = kernel.cross(x_app, x_app) + (kernel.jitter * jitter_rows) * \
-        torch.eye(k, dtype=dt, device=dev)
+    # (in the factors' dtype: a mixed-precision policy's factor dtype)
+    fdt = factors.adiag.dtype
+    kcross = kernel.cross(x_app, x_leaves).to(fdt)             # (P, k, n0)
+    kdiag = (kernel.cross(x_app, x_app) + (kernel.jitter * jitter_rows)
+             * torch.eye(k, dtype=dt, device=dev)).to(fdt)
     adiag_new = torch.cat([
         torch.cat([factors.adiag, kcross.mT], dim=2),
         torch.cat([kcross, kdiag], dim=2)], dim=1)

@@ -46,6 +46,16 @@
 //       raises).
 // A block finds its group from the prefix of block counts.
 //
+// bfloat16-data entries (gram_dist_bf16, gram_chol_dist_levels_bf16,
+// cross_solve_dist_levels_bf16; a mixed-precision policy's sweep): the
+// cached distance tiles are bfloat16, Linv and every output float32.
+// They are the float32 kernels with another load type for the tiles
+// (data_load.cuh): each distance is converted to float32 as it is read
+// (B8 stores it converted into its shared tile, a plain store where the
+// float32 entry copies with cp.async), so from there they compute exactly
+// what the float32 entries compute; shared memory and the limits on m and
+// r are those of float32.
+//
 // Bounds on the H100 at the covtype shapes (f32, n0 = r = 128, L = 12):
 //   gram_dist (4,096 Adiag blocks) is bound by bytes: 268 MB read and
 //   268 MB written, ~0.16 ms.  gram_chol_dist over the 12 Sigma levels
@@ -66,6 +76,7 @@
 #include "chol_blocked.cuh"
 #include "cross_products.cuh"
 #include "cross_tc.cuh"
+#include "data_load.cuh"
 #include "kernel_epilogue.cuh"
 #include "level_groups.cuh"
 
@@ -77,11 +88,11 @@ using cross_tile::NR;
 using cross_tile::TX;
 using cross_tile::TY;
 
-// rows = B * m rows of m values; row i of a block gets diag_add at column
-// i % m.  One warp per row, lanes over columns.
-template <typename T>
+// rows = B * m rows of m values (dist of type S); row i of a block gets
+// diag_add at column i % m.  One warp per row, lanes over columns.
+template <typename T, typename S>
 __global__ void __launch_bounds__(kThreads)
-gram_dist_kernel(const T* __restrict__ dist, T* __restrict__ gram,
+gram_dist_kernel(const S* __restrict__ dist, T* __restrict__ gram,
                  long long rows, int m, int kind, T sigma, T diag_add) {
   const int lane = threadIdx.x & 31;
   const long long step = static_cast<long long>(gridDim.x) * kRowWarps;
@@ -89,11 +100,11 @@ gram_dist_kernel(const T* __restrict__ dist, T* __restrict__ gram,
                        + (threadIdx.x >> 5);
        row < rows; row += step) {
     const int diag = static_cast<int>(row % m);
-    const T* d = dist + row * m;
+    const S* d = dist + row * m;
     T* g = gram + row * m;
 #pragma unroll 4
     for (int c = lane; c < m; c += 32) {
-      T v = kernel_epilogue<T>(kind, d[c], sigma);
+      T v = kernel_epilogue<T>(kind, dload::load<T>(d + c), sigma);
       if (c == diag) v += diag_add;
       g[c] = v;
     }
@@ -127,7 +138,7 @@ __device__ __forceinline__ void cross_tile_rows(const T* __restrict__ D,
   cross_tile::store<T, MR>(out, rows, r, acc);
 }
 
-template <typename T>
+template <typename T, typename S>
 int launch_gram(const void* dist, void* gram, int b, int m, int kind,
                 double sigma, double diag_add, void* stream) {
   if (b == 0 || m == 0) return 0;
@@ -135,9 +146,9 @@ int launch_gram(const void* dist, void* gram, int b, int m, int kind,
   // enough blocks to fill every SM (8 blocks of 256 threads each) twice
   const long long want = (rows + kRowWarps - 1) / kRowWarps;
   const int grid = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
-  gram_dist_kernel<T><<<grid, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(dist), static_cast<T*>(gram), rows, m, kind,
+  gram_dist_kernel<T, S><<<grid, kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const S*>(dist), static_cast<T*>(gram), rows, m, kind,
       static_cast<T>(sigma), static_cast<T>(diag_add));
   return static_cast<int>(cudaGetLastError());
 }
@@ -150,11 +161,12 @@ using levels::find_group;
 using levels::Table;
 
 // B8, grouped: one block of 128 threads per Sigma tile of every level.
-// The tile is staged with cp.async at an odd row stride, the epilogue (and
-// jitter * m on the diagonal) applied in place and the Gram written; the
-// tile is then factored by chol_blocked.cuh, B3's blocked routine, and the
-// lower triangle written with zeros above it.  No pivot clamp.
-template <typename T>
+// The tile (of type S) is staged with cp.async (converted by its threads
+// where S is bfloat16) at an odd row stride, the epilogue (and jitter * m
+// on the diagonal) applied in place and the Gram written; the tile is
+// then factored by chol_blocked.cuh, B3's blocked routine, and the lower
+// triangle written with zeros above it.  No pivot clamp.
+template <typename T, typename S>
 __global__ void __launch_bounds__(chol_blocked::kThreads,
                                   sizeof(T) == 4 ? 3 : 1)
 gram_chol_levels_kernel(const __grid_constant__ Table<T> tab, int kind,
@@ -169,14 +181,14 @@ gram_chol_levels_kernel(const __grid_constant__ Table<T> tab, int kind,
   T* col = reinterpret_cast<T*>(
       smem_raw + chol_blocked::col_offset(m, lda, sizeof(T)));
   const size_t off = static_cast<size_t>(node) * m * m;
-  const T* D = tab.g[gi].ptr[0] + off;
+  const S* D = reinterpret_cast<const S*>(tab.g[gi].ptr[0]) + off;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   constexpr int kWarps = chol_blocked::kWarps;
 
   for (int r = warp; r < m; r += kWarps)
     for (int c = lane; c < m; c += 32)
-      acopy::element(a + r * lda + c, D + static_cast<size_t>(r) * m + c,
-                     true);
+      dload::stage(a + r * lda + c, D + static_cast<size_t>(r) * m + c,
+                   true);
   acopy::commit();
   acopy::wait<0>();                    // each thread reads its own copies
   T* G = tab.g[gi].ptr[1] + off;
@@ -228,13 +240,14 @@ using tc::kChunk;
 using tc::kThreads;
 using tc::kWarps;
 
-// The raw distances of k-steps kChunk c .. kChunk c + kChunk - 1 of this
-// lane's rows row0 and row0 + 8, in A-fragment order: d[u] = (row0, col),
-// (row0 + 8, col), (row0, col + 4), (row0 + 8, col + 4) with col = 8 kk +
-// t.  Past m or r the distance is +inf, whose kernel value is 0 for
-// every base kernel.
+// The raw distances (of type S, read as float32) of k-steps kChunk c ..
+// kChunk c + kChunk - 1 of this lane's rows row0 and row0 + 8, in
+// A-fragment order: d[u] = (row0, col), (row0 + 8, col), (row0, col + 4),
+// (row0 + 8, col + 4) with col = 8 kk + t.  Past m or r the distance is
+// +inf, whose kernel value is 0 for every base kernel.
+template <typename S>
 __device__ __forceinline__ void load_chunk(float (&d)[kChunk][4],
-                                           const float* __restrict__ D,
+                                           const S* __restrict__ D,
                                            int row0, int m, int r, int c,
                                            int t) {
   const size_t r0 = static_cast<size_t>(row0) * r;
@@ -243,10 +256,10 @@ __device__ __forceinline__ void load_chunk(float (&d)[kChunk][4],
 #pragma unroll
   for (int u = 0; u < kChunk; ++u) {
     const int c0 = 8 * (kChunk * c + u) + t, c1 = c0 + 4;
-    d[u][0] = (v0 && c0 < r) ? __ldg(D + r0 + c0) : INFINITY;
-    d[u][1] = (v1 && c0 < r) ? __ldg(D + r1 + c0) : INFINITY;
-    d[u][2] = (v0 && c1 < r) ? __ldg(D + r0 + c1) : INFINITY;
-    d[u][3] = (v1 && c1 < r) ? __ldg(D + r1 + c1) : INFINITY;
+    d[u][0] = (v0 && c0 < r) ? dload::ldg<float>(D + r0 + c0) : INFINITY;
+    d[u][1] = (v1 && c0 < r) ? dload::ldg<float>(D + r1 + c0) : INFINITY;
+    d[u][2] = (v0 && c1 < r) ? dload::ldg<float>(D + r0 + c1) : INFINITY;
+    d[u][3] = (v1 && c1 < r) ? dload::ldg<float>(D + r1 + c1) : INFINITY;
   }
 }
 
@@ -258,7 +271,7 @@ __device__ __forceinline__ void load_chunk(float (&d)[kChunk][4],
 // (cross_tc.cuh).  The node's Linv stays in shared memory across its
 // strips; the next strip's first loads of K are in flight while U is
 // computed.
-template <int NT>
+template <int NT, typename S>
 __global__ void __launch_bounds__(kThreads, tc::kMinBlocks)
 cross_levels_tc_kernel(const __grid_constant__ Table<float> tab, int r,
                        int kind, float sigma) {
@@ -269,7 +282,8 @@ cross_levels_tc_kernel(const __grid_constant__ Table<float> tab, int r,
   int node = blockIdx.x;
   const int gi = find_group(tab, node);
   const int m = tab.g[gi].m;
-  const float* D = tab.g[gi].ptr[0] + static_cast<size_t>(node) * m * r;
+  const S* D = reinterpret_cast<const S*>(tab.g[gi].ptr[0]) +
+               static_cast<size_t>(node) * m * r;
   const float* lsrc = tab.g[gi].ptr[1] + static_cast<size_t>(node) * r * r;
   float* U = tab.g[gi].ptr[2] + static_cast<size_t>(node) * m * r;
   const int tid = threadIdx.x;
@@ -321,7 +335,7 @@ cross_levels_tc_kernel(const __grid_constant__ Table<float> tab, int r,
 
 }  // namespace b9
 
-template <typename T>
+template <typename T, typename S>
 int launch_gram_levels(const void* table, int groups, int kind, double sigma,
                        double jitter, void* stream) {
   Table<T> tab;
@@ -330,7 +344,7 @@ int launch_gram_levels(const void* table, int groups, int kind, double sigma,
   int err = levels::read_table(table, groups, 3, tab, nodes, mmax);
   if (err || nodes == 0) return err;
   if (nodes > 2147483647LL) return cudaErrorInvalidConfiguration;
-  const auto kernel = gram_chol_levels_kernel<T>;
+  const auto kernel = gram_chol_levels_kernel<T, S>;
   const size_t smem = chol_blocked::col_offset(mmax, mmax | 1, sizeof(T)) +
                       chol_blocked::NB * sizeof(T);
   err = launch_with_smem(kernel, smem);
@@ -360,10 +374,10 @@ int launch_cross_levels_tile(const Table<T>& tab, int groups, int r,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int NT>
+template <int NT, typename S>
 int launch_cross_tc(const Table<float>& tab, long long nodes, int r, int kind,
                     double sigma, cudaStream_t stream) {
-  const auto kernel = b9::cross_levels_tc_kernel<NT>;
+  const auto kernel = b9::cross_levels_tc_kernel<NT, S>;
   const size_t smem = tc::linv_bytes(r);
   const int err = launch_with_smem(kernel, smem);
   if (err) return err;
@@ -372,39 +386,9 @@ int launch_cross_tc(const Table<float>& tab, long long nodes, int r, int kind,
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-extern "C" int gram_dist_f32(const void* dist, void* gram, int b, int m,
-                             int kind, double sigma, double diag_add,
-                             void* stream) {
-  return launch_gram<float>(dist, gram, b, m, kind, sigma, diag_add, stream);
-}
-
-extern "C" int gram_dist_f64(const void* dist, void* gram, int b, int m,
-                             int kind, double sigma, double diag_add,
-                             void* stream) {
-  return launch_gram<double>(dist, gram, b, m, kind, sigma, diag_add, stream);
-}
-
-// Grouped launches (one per sigma on the sweep path): ``table`` is a host
-// array of ``groups`` rows of kTableCols int64 values.
-extern "C" int gram_chol_dist_levels_f32(const void* table, int groups,
-                                         int kind, double sigma,
-                                         double jitter, void* stream) {
-  return launch_gram_levels<float>(table, groups, kind, sigma, jitter,
-                                   stream);
-}
-
-extern "C" int gram_chol_dist_levels_f64(const void* table, int groups,
-                                         int kind, double sigma,
-                                         double jitter, void* stream) {
-  return launch_gram_levels<double>(table, groups, kind, sigma, jitter,
-                                    stream);
-}
-
-extern "C" int cross_solve_dist_levels_f32(const void* table, int groups,
-                                           int r, int kind, double sigma,
-                                           void* stream) {
+template <typename S>
+int cross_dist_levels_tc(const void* table, int groups, int r, int kind,
+                         double sigma, void* stream) {
   if (r <= 0) return 0;
   if (r > 8 * tc::kMaxTiles) return static_cast<int>(cudaErrorInvalidValue);
   Table<float> tab;
@@ -416,14 +400,80 @@ extern "C" int cross_solve_dist_levels_f32(const void* table, int groups,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (tc::tiles(r)) {
     case 4:
-      return launch_cross_tc<4>(tab, nodes, r, kind, sigma, st);
+      return launch_cross_tc<4, S>(tab, nodes, r, kind, sigma, st);
     case 8:
-      return launch_cross_tc<8>(tab, nodes, r, kind, sigma, st);
+      return launch_cross_tc<8, S>(tab, nodes, r, kind, sigma, st);
     case 12:
-      return launch_cross_tc<12>(tab, nodes, r, kind, sigma, st);
+      return launch_cross_tc<12, S>(tab, nodes, r, kind, sigma, st);
     default:
-      return launch_cross_tc<16>(tab, nodes, r, kind, sigma, st);
+      return launch_cross_tc<16, S>(tab, nodes, r, kind, sigma, st);
   }
+}
+
+}  // namespace
+
+// The _bf16 entries take bfloat16 distance tiles, float32 Linv and
+// outputs.  They are compiled apart, in build_dist_bf16.cu
+// (REPRO_BF16_ENTRIES), so that the float32 and float64 entries compile
+// as they do alone.  The grouped launches (one per sigma on the sweep
+// path) take ``table``, a host array of ``groups`` rows of int64 values.
+#ifdef REPRO_BF16_ENTRIES
+
+extern "C" int gram_dist_bf16(const void* dist, void* gram, int b, int m,
+                              int kind, double sigma, double diag_add,
+                              void* stream) {
+  return launch_gram<float, __nv_bfloat16>(dist, gram, b, m, kind, sigma,
+                                           diag_add, stream);
+}
+
+extern "C" int gram_chol_dist_levels_bf16(const void* table, int groups,
+                                          int kind, double sigma,
+                                          double jitter, void* stream) {
+  return launch_gram_levels<float, __nv_bfloat16>(table, groups, kind, sigma,
+                                                  jitter, stream);
+}
+
+extern "C" int cross_solve_dist_levels_bf16(const void* table, int groups,
+                                            int r, int kind, double sigma,
+                                            void* stream) {
+  return cross_dist_levels_tc<__nv_bfloat16>(table, groups, r, kind, sigma,
+                                             stream);
+}
+
+#else
+
+extern "C" int gram_dist_f32(const void* dist, void* gram, int b, int m,
+                             int kind, double sigma, double diag_add,
+                             void* stream) {
+  return launch_gram<float, float>(dist, gram, b, m, kind, sigma, diag_add,
+                                   stream);
+}
+
+extern "C" int gram_dist_f64(const void* dist, void* gram, int b, int m,
+                             int kind, double sigma, double diag_add,
+                             void* stream) {
+  return launch_gram<double, double>(dist, gram, b, m, kind, sigma, diag_add,
+                                     stream);
+}
+
+extern "C" int gram_chol_dist_levels_f32(const void* table, int groups,
+                                         int kind, double sigma,
+                                         double jitter, void* stream) {
+  return launch_gram_levels<float, float>(table, groups, kind, sigma, jitter,
+                                          stream);
+}
+
+extern "C" int gram_chol_dist_levels_f64(const void* table, int groups,
+                                         int kind, double sigma,
+                                         double jitter, void* stream) {
+  return launch_gram_levels<double, double>(table, groups, kind, sigma,
+                                            jitter, stream);
+}
+
+extern "C" int cross_solve_dist_levels_f32(const void* table, int groups,
+                                           int r, int kind, double sigma,
+                                           void* stream) {
+  return cross_dist_levels_tc<float>(table, groups, r, kind, sigma, stream);
 }
 
 extern "C" int cross_solve_dist_levels_f64(const void* table, int groups,
@@ -454,3 +504,5 @@ extern "C" int cross_solve_dist_levels_f64(const void* table, int groups,
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+
+#endif  // REPRO_BF16_ENTRIES

@@ -74,6 +74,14 @@
 // TF32 mma.sync products on its 16-row strip, Y = K Linv^T and U = Y Linv
 // with Linv's zero triangle skipped by 8-column k-step, and stores U.
 // r <= 128; 114 KB of shared memory, two blocks an SM.
+// bfloat16-data entries (gram_chol_levels_bf16, cross_solve_levels_bf16;
+// a mixed-precision policy's build): the points and landmarks are
+// bfloat16, Linv and every output float32.  They are the float32 kernels
+// with another load type for the data (data_load.cuh): a staging thread
+// loads each bfloat16 datum, converts it to float32 and stores it into the
+// same float32 staging buffer (2-byte data are below cp.async's 4-byte
+// copy), so from there they compute exactly what the float32 entries
+// compute.  Shared memory and the limits on m and r are those of float32.
 // cross_solve_levels, float64: grid (group, node, tile of bm = 16, 32, 64
 // or 128 rows); the node's Linv is staged in shared memory; each thread
 // owns an MR x NR register tile of the (bm, r) output and walks three
@@ -89,6 +97,7 @@
 #include "chol_blocked.cuh"
 #include "cross_products.cuh"
 #include "cross_tc.cuh"
+#include "data_load.cuh"
 #include "kernel_epilogue.cuh"
 #include "level_groups.cuh"
 
@@ -168,17 +177,17 @@ __device__ __forceinline__ void super_tile(int q, int& I, int& J) {
 
 // Stage features f0 .. f0 + dc of the super tile's row points (64 from
 // I ST) and, off the diagonal, its column points (from J ST) feature-major
-// into buf; points past m are zero.
-template <typename T>
-__device__ __forceinline__ void stage(T* buf, const T* __restrict__ P, int m,
+// into buf (in T; S is the points' type); points past m are zero.
+template <typename T, typename S>
+__device__ __forceinline__ void stage(T* buf, const S* __restrict__ P, int m,
                                       int d, int I, int J, int f0, int dc) {
   const int k = threadIdx.x;                  // one point a thread
   if (k >= ST && I == J) return;
   const int p = k < ST ? I * ST + k : J * ST + (k - ST);
   const bool valid = p < m;
-  const T* src = valid ? P + static_cast<size_t>(p) * d + f0 : P;
+  const S* src = valid ? P + static_cast<size_t>(p) * d + f0 : P;
   for (int f = 0; f < dc; ++f)
-    acopy::element(buf + f * LDP + k, valid ? src + f : P, valid);
+    dload::stage(buf + f * LDP + k, valid ? src + f : P, valid);
 }
 
 template <bool L1, typename T>
@@ -263,12 +272,12 @@ __device__ __forceinline__ void finish(T (&acc)[TM][TN], int I, int J, int m,
   }
 }
 
-// One block per node of every group: the Gram of its points (ptr[0]) into
-// ptr[1] and, with kFactor, the lower Cholesky factor into ptr[2].  Every
-// step of the loop stages the next chunk (of this super tile or of the
-// next), sums the current one, and after a super tile's last chunk writes
-// it out.
-template <typename T, bool kFactor>
+// One block per node of every group: the Gram of its points (ptr[0], of
+// type S) into ptr[1] and, with kFactor, the lower Cholesky factor into
+// ptr[2].  Every step of the loop stages the next chunk (of this super
+// tile or of the next), sums the current one, and after a super tile's
+// last chunk writes it out.
+template <typename T, typename S, bool kFactor>
 __global__ void __launch_bounds__(kThreads, kFactor ? (sizeof(T) == 4 ? 3 : 1)
                                                     : (sizeof(T) == 4 ? 4 : 2))
 gram_points_kernel(const __grid_constant__ Table<T> tab, int d,
@@ -278,7 +287,8 @@ gram_points_kernel(const __grid_constant__ Table<T> tab, int d,
   const int gi = find_group(tab, node);
   const int m = tab.g[gi].m, lda = m | 1;
   const size_t off = static_cast<size_t>(node) * m * m;
-  const T* P = tab.g[gi].ptr[0] + static_cast<size_t>(node) * m * d;
+  const S* P = reinterpret_cast<const S*>(tab.g[gi].ptr[0]) +
+               static_cast<size_t>(node) * m * d;
   T* G = tab.g[gi].ptr[1] + off;
   // The launch passes every group's factor with kFactor.  The tests below
   // read L, not kFactor: written with kFactor, nvcc 12.8 compiles this
@@ -341,7 +351,7 @@ gram_points_kernel(const __grid_constant__ Table<T> tab, int d,
       L[static_cast<size_t>(r) * m + cc] = cc <= r ? a[r * lda + cc] : T(0);
 }
 
-template <typename T>
+template <typename T, typename S>
 int launch(const void* table, int groups, int d, int kind, double sigma,
            double jitter, int want_chol, void* stream) {
   Table<T> tab;
@@ -354,8 +364,8 @@ int launch(const void* table, int groups, int d, int kind, double sigma,
   if (want_chol)                                 // every group's factor
     for (int i = 0; i < groups; ++i)
       if (tab.g[i].ptr[2] == nullptr) return cudaErrorInvalidValue;
-  const auto kernel = want_chol ? gram_points_kernel<T, true>
-                                : gram_points_kernel<T, false>;
+  const auto kernel = want_chol ? gram_points_kernel<T, S, true>
+                                : gram_points_kernel<T, S, false>;
   const size_t smem =
       (want_chol ? factor_bytes<T>(mmax) : 0) + stage_bytes<T>();
   err = launch_with_smem(kernel, smem);
@@ -385,19 +395,21 @@ __host__ __device__ constexpr size_t smem_bytes(int r) {
 }
 
 // Stage features f0 .. f0 + dc of the tile's points (rows row0.. of P,
-// zero past m) and of the r landmarks (zero past r) feature-major.
-__device__ __forceinline__ void stage(float* buf, const float* __restrict__ P,
-                                      const float* __restrict__ Z, int m,
+// zero past m) and of the r landmarks (zero past r) feature-major, in
+// float32 (S is the data's type).
+template <typename S>
+__device__ __forceinline__ void stage(float* buf, const S* __restrict__ P,
+                                      const S* __restrict__ Z, int m,
                                       int r, int d, int row0, int f0,
                                       int dc) {
   for (int k = threadIdx.x; k < BM + BN; k += tc::kThreads) {
     const bool point = k < BM;
     const int p = point ? row0 + k : k - BM;
     const bool valid = p < (point ? m : r);
-    const float* src =
+    const S* src =
         valid ? (point ? P : Z) + static_cast<size_t>(p) * d + f0 : P;
     for (int f = 0; f < dc; ++f)
-      acopy::element(buf + f * LDS + k, valid ? src + f : P, valid);
+      dload::stage(buf + f * LDS + k, valid ? src + f : P, valid);
   }
 }
 
@@ -422,12 +434,12 @@ __device__ __forceinline__ void accumulate(float (&acc)[8][8],
   }
 }
 
-// One block per node of every group (points ptr[0], landmarks ptr[1],
-// Linv ptr[2], U ptr[3]).  Per row tile, every step of the chunk loop
-// stages the next chunk (of this tile or of the next) and sums the
-// current one; then the tile's distances become K and the warps run the
-// products.
-template <int NT>
+// One block per node of every group (points ptr[0] and landmarks ptr[1],
+// of type S; Linv ptr[2], U ptr[3]).  Per row tile, every step of the
+// chunk loop stages the next chunk (of this tile or of the next) and sums
+// the current one; then the tile's distances become K and the warps run
+// the products.
+template <int NT, typename S>
 __global__ void __launch_bounds__(tc::kThreads, tc::kMinBlocks)
 cross_points_tc_kernel(const __grid_constant__ Table<float> tab, int r,
                              int d, int kind, float sigma) {
@@ -440,8 +452,10 @@ cross_points_tc_kernel(const __grid_constant__ Table<float> tab, int r,
   int node = blockIdx.x;
   const int gi = find_group(tab, node);
   const int m = tab.g[gi].m;
-  const float* P = tab.g[gi].ptr[0] + static_cast<size_t>(node) * m * d;
-  const float* Z = tab.g[gi].ptr[1] + static_cast<size_t>(node) * r * d;
+  const S* P = reinterpret_cast<const S*>(tab.g[gi].ptr[0]) +
+               static_cast<size_t>(node) * m * d;
+  const S* Z = reinterpret_cast<const S*>(tab.g[gi].ptr[1]) +
+               static_cast<size_t>(node) * r * d;
   const float* lsrc = tab.g[gi].ptr[2] + static_cast<size_t>(node) * r * r;
   float* U = tab.g[gi].ptr[3] + static_cast<size_t>(node) * m * r;
   const bool l1 = kind_is_l1(kind);
@@ -529,10 +543,10 @@ cross_points_tc_kernel(const __grid_constant__ Table<float> tab, int r,
   }
 }
 
-template <int NT>
+template <int NT, typename S>
 int launch_tc(const Table<float>& tab, long long nodes, int r, int d,
               int kind, double sigma, cudaStream_t stream) {
-  const auto kernel = cross_points_tc_kernel<NT>;
+  const auto kernel = cross_points_tc_kernel<NT, S>;
   const size_t smem = smem_bytes(r);
   const int err = launch_with_smem(kernel, smem);
   if (err) return err;
@@ -668,24 +682,16 @@ int launch_tile(const Table<T>& tab, int groups, int r, int d, int kind,
 // Grouped launches: ``table`` is a host array of ``groups`` int64 rows,
 // (points, gram, chol, nodes, m) for gram_chol_levels (chol 0 in a launch
 // without factors, ``want_chol`` 0) and (points, landmarks, linv, out,
-// nodes, m) for cross_solve_levels.
-extern "C" int gram_chol_levels_f32(const void* table, int groups, int d,
-                                    int kind, double sigma, double jitter,
-                                    int want_chol, void* stream) {
-  return gram::launch<float>(table, groups, d, kind, sigma, jitter,
-                             want_chol, stream);
-}
+// nodes, m) for cross_solve_levels.  The _bf16 entries take bfloat16
+// points and landmarks, float32 Linv and outputs.  They are compiled
+// apart, in build_stage_bf16.cu (REPRO_BF16_ENTRIES): instantiated in this
+// translation unit they change how nvcc compiles the float32 and float64
+// entries (B2's float32 NT 16 entry then spills).
+namespace {
 
-extern "C" int gram_chol_levels_f64(const void* table, int groups, int d,
-                                    int kind, double sigma, double jitter,
-                                    int want_chol, void* stream) {
-  return gram::launch<double>(table, groups, d, kind, sigma, jitter,
-                              want_chol, stream);
-}
-
-extern "C" int cross_solve_levels_f32(const void* table, int groups, int r,
-                                      int d, int kind, double sigma,
-                                      void* stream) {
+template <typename S>
+int cross_levels_tc(const void* table, int groups, int r, int d, int kind,
+                    double sigma, void* stream) {
   if (r <= 0) return 0;
   if (r > 8 * tc::kMaxTiles || d <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -698,14 +704,54 @@ extern "C" int cross_solve_levels_f32(const void* table, int groups, int r,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (tc::tiles(r)) {
     case 4:
-      return cross::launch_tc<4>(tab, nodes, r, d, kind, sigma, st);
+      return cross::launch_tc<4, S>(tab, nodes, r, d, kind, sigma, st);
     case 8:
-      return cross::launch_tc<8>(tab, nodes, r, d, kind, sigma, st);
+      return cross::launch_tc<8, S>(tab, nodes, r, d, kind, sigma, st);
     case 12:
-      return cross::launch_tc<12>(tab, nodes, r, d, kind, sigma, st);
+      return cross::launch_tc<12, S>(tab, nodes, r, d, kind, sigma, st);
     default:
-      return cross::launch_tc<16>(tab, nodes, r, d, kind, sigma, st);
+      return cross::launch_tc<16, S>(tab, nodes, r, d, kind, sigma, st);
   }
+}
+
+}  // namespace
+
+#ifdef REPRO_BF16_ENTRIES
+
+extern "C" int gram_chol_levels_bf16(const void* table, int groups, int d,
+                                     int kind, double sigma, double jitter,
+                                     int want_chol, void* stream) {
+  return gram::launch<float, __nv_bfloat16>(table, groups, d, kind, sigma,
+                                            jitter, want_chol, stream);
+}
+
+extern "C" int cross_solve_levels_bf16(const void* table, int groups, int r,
+                                       int d, int kind, double sigma,
+                                       void* stream) {
+  return cross_levels_tc<__nv_bfloat16>(table, groups, r, d, kind, sigma,
+                                        stream);
+}
+
+#else
+
+extern "C" int gram_chol_levels_f32(const void* table, int groups, int d,
+                                    int kind, double sigma, double jitter,
+                                    int want_chol, void* stream) {
+  return gram::launch<float, float>(table, groups, d, kind, sigma, jitter,
+                                    want_chol, stream);
+}
+
+extern "C" int gram_chol_levels_f64(const void* table, int groups, int d,
+                                    int kind, double sigma, double jitter,
+                                    int want_chol, void* stream) {
+  return gram::launch<double, double>(table, groups, d, kind, sigma, jitter,
+                                      want_chol, stream);
+}
+
+extern "C" int cross_solve_levels_f32(const void* table, int groups, int r,
+                                      int d, int kind, double sigma,
+                                      void* stream) {
+  return cross_levels_tc<float>(table, groups, r, d, kind, sigma, stream);
 }
 
 extern "C" int cross_solve_levels_f64(const void* table, int groups, int r,
@@ -738,3 +784,5 @@ extern "C" int cross_solve_levels_f64(const void* table, int groups, int r,
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+
+#endif  // REPRO_BF16_ENTRIES

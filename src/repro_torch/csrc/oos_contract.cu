@@ -48,6 +48,16 @@
 // block indices of 32 queries at once and hands them out with shuffles.
 // Each warp keeps at most one block copy in flight beside the item it
 // computes, and that, not the arithmetic, bounds the kernel.
+//
+// The bfloat16-data entry (oos_contract_bf16; a mixed-precision policy's
+// prediction): points and queries (S) are bfloat16, weights and the
+// output (T) float32.  The blocks are staged in shared memory as they lie
+// in device memory, so a bfloat16 point slot holds half the bytes (pieces
+// of 2 bytes, plain loads and stores, where a block's base or size is not
+// a multiple of 4: data_copy); each feature is converted to float32 as
+// the distance reads it, and from there the entry computes what the
+// float32 entry computes.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <math_constants.h>
@@ -83,6 +93,15 @@ template <>
 struct Vec<double, 1> { using type = double; };
 template <>
 struct Vec<double, 2> { using type = double2; };
+struct __align__(8) bf16x4 {
+  __nv_bfloat162 lo, hi;
+};
+template <>
+struct Vec<__nv_bfloat16, 1> { using type = __nv_bfloat16; };
+template <>
+struct Vec<__nv_bfloat16, 2> { using type = __nv_bfloat162; };
+template <>
+struct Vec<__nv_bfloat16, 4> { using type = bf16x4; };
 
 // acc + (p - x)^2 or acc + |p - x|, element by element
 template <typename T, bool L1>
@@ -108,10 +127,23 @@ template <typename T, bool L1>
 __device__ __forceinline__ T dist(T acc, double2 p, double2 x) {
   return term<T, L1>(term<T, L1>(acc, p.x, x.x), p.y, x.y);
 }
+template <typename T, bool L1>
+__device__ __forceinline__ T dist(T acc, __nv_bfloat16 p, __nv_bfloat16 x) {
+  return term<T, L1>(acc, __bfloat162float(p), __bfloat162float(x));
+}
+template <typename T, bool L1>
+__device__ __forceinline__ T dist(T acc, __nv_bfloat162 p, __nv_bfloat162 x) {
+  acc = term<T, L1>(acc, __low2float(p), __low2float(x));
+  return term<T, L1>(acc, __high2float(p), __high2float(x));
+}
+template <typename T, bool L1>
+__device__ __forceinline__ T dist(T acc, bf16x4 p, bf16x4 x) {
+  return dist<T, L1>(dist<T, L1>(acc, p.lo, x.lo), p.hi, x.hi);
+}
 
 struct Segment {
-  const void* points;     // (bp, m, d)
-  const void* weights;    // (bw, m, k)
+  const void* points;     // (bp, m, d), of the data type S
+  const void* weights;    // (bw, m, k), of the weights' type T
   const long long* pidx;  // (q,)
   const long long* widx;  // (q,)
   long long bp, bw;
@@ -127,7 +159,8 @@ struct Args {
   int rows;   // rows a slot holds
   int warps;  // warps a block
   int xw;     // copy width (bytes) of a query row
-  int pslot, wslot, xslot;  // elements of one slot (16-byte multiples)
+  int pslot, wslot, xslot;  // elements of one slot (16-byte multiples;
+                            // of S for points and queries, of T for weights)
   int kind;
   double sigma;
 };
@@ -214,15 +247,34 @@ __device__ __forceinline__ bool advance(const Args& a, Item& it,
   return it.qi < q1;
 }
 
+// A flat block copy of data of type S by the 32 lanes of a warp
+// (acopy::warp_copy), or, for a bfloat16 block whose base or size is not a
+// multiple of 4 bytes (``width`` 2, below cp.async's smallest copy), 2
+// bytes a piece by plain loads and stores.
+template <typename S>
+__device__ __forceinline__ void data_copy(void* dst, const void* src,
+                                          int nbytes, int width, int lane) {
+  if constexpr (sizeof(S) == 2) {
+    if (width == 2) {
+      for (int o = 2 * lane; o < nbytes; o += 64)
+        *reinterpret_cast<uint16_t*>(static_cast<char*>(dst) + o) =
+            *reinterpret_cast<const uint16_t*>(
+                static_cast<const char*>(src) + o);
+      return;
+    }
+  }
+  acopy::warp_copy(dst, src, nbytes, width, lane);
+}
+
 // A tag naming (segment, block, chunk).
 __device__ __forceinline__ long long tag_of(long long idx, int s, int c) {
   return ((idx * 2 + s) << 20) | c;
 }
 
-template <typename T, int VW, bool L1>
+template <typename S, typename T, int VW, bool L1>
 __global__ void __launch_bounds__(kMaxWarps * 32, 1)
 oos_contract_kernel(const __grid_constant__ Args a) {
-  using V = typename Vec<T, VW>::type;
+  using V = typename Vec<S, VW>::type;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -232,15 +284,17 @@ oos_contract_kernel(const __grid_constant__ Args a) {
   const long long q1 = (gw + 1) * a.q / nw;
   if (q0 >= q1) return;
 
-  T* ps = reinterpret_cast<T*>(smem_raw) +
-          static_cast<size_t>(warp) * 2 * (a.pslot + a.wslot + a.xslot);
-  T* ws = ps + 2 * a.pslot;
-  T* xs = ws + 2 * a.wslot;
+  const size_t ssz = sizeof(S), tsz = sizeof(T);
+  unsigned char* wbase =
+      smem_raw + static_cast<size_t>(warp) * 2 *
+                     ((a.pslot + a.xslot) * ssz + a.wslot * tsz);
+  S* ps = reinterpret_cast<S*>(wbase);
+  T* ws = reinterpret_cast<T*>(wbase + 2 * a.pslot * ssz);
+  S* xs = reinterpret_cast<S*>(wbase + 2 * (a.pslot * ssz + a.wslot * tsz));
   const int d = a.d, k = a.k;
   const int nv = d / VW;
   const int rot = (nv % 2 == 0) ? lane % nv : 0;
-  const size_t isz = sizeof(T);
-  const T* Q = static_cast<const T*>(a.queries);
+  const S* Q = static_cast<const S*>(a.queries);
   T* out = static_cast<T*>(a.out);
   const T sigma = static_cast<T>(a.sigma);
 
@@ -254,26 +308,26 @@ oos_contract_kernel(const __grid_constant__ Args a) {
     bool load;
     nx = xslots.pick(sx, it.qi, load);
     if (load)
-      acopy::warp_copy(xs + nx * a.xslot, Q + it.qi * d,
-                       static_cast<int>(d * isz), a.xw, lane);
+      data_copy<S>(xs + nx * a.xslot, Q + it.qi * d,
+                   static_cast<int>(d * ssz), a.xw, lane);
     np = sp;
     nwt = sw;
     if (!f.valid) return;
     const Segment& g = a.seg[it.s];
     np = pslots.pick(sp, tag_of(f.pi, it.s, it.c), load);
     if (load)
-      acopy::warp_copy(
+      data_copy<S>(
           ps + np * a.pslot,
-          static_cast<const T*>(g.points) +
+          static_cast<const S*>(g.points) +
               (static_cast<size_t>(f.pi) * g.m + f.r0) * d,
-          static_cast<int>(f.nr * d * isz), g.pw, lane);
+          static_cast<int>(f.nr * d * ssz), g.pw, lane);
     nwt = wslots.pick(sw, tag_of(f.wi, it.s, it.c), load);
     if (load)
       acopy::warp_copy(
           ws + nwt * a.wslot,
           static_cast<const T*>(g.weights) +
               (static_cast<size_t>(f.wi) * g.m + f.r0) * k,
-          static_cast<int>(f.nr * k * isz), g.ww, lane);
+          static_cast<int>(f.nr * k * tsz), g.ww, lane);
   };
 
   IndexCache cache;
@@ -313,7 +367,7 @@ oos_contract_kernel(const __grid_constant__ Args a) {
         for (int c = lane; c < k; c += 32) o[c] = quiet_nan<T>();
       }
     } else {
-      const T* P = ps + sp * a.pslot;
+      const S* P = ps + sp * a.pslot;
       const T* W = ws + sw * a.wslot;
       const V* X = reinterpret_cast<const V*>(xs + sx * a.xslot);
       for (int b0 = 0; b0 < fc.nr; b0 += 32 * RB) {
@@ -416,11 +470,11 @@ int sm_count(int& sms) {
   return 0;
 }
 
-template <typename T, int VW, bool L1>
+template <typename S, typename T, int VW, bool L1>
 int launch_kernel(const Args& a, cudaStream_t stream) {
-  const auto kernel = oos_contract_kernel<T, VW, L1>;
+  const auto kernel = oos_contract_kernel<S, T, VW, L1>;
   const size_t smem = static_cast<size_t>(a.warps) * 2 *
-                      (a.pslot + a.wslot + a.xslot) * sizeof(T);
+                      ((a.pslot + a.xslot) * sizeof(S) + a.wslot * sizeof(T));
   const int threads = a.warps * 32;
   int err = launch_with_smem(kernel, smem);
   int sms = 0, per_sm = 0;
@@ -435,7 +489,7 @@ int launch_kernel(const Args& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename S, typename T>
 int launch(const void* p0, const void* w0, const void* pi0, const void* wi0,
            long long bp0, long long bw0, int m0, int pw0, int ww0,
            const void* p1, const void* w1, const void* pi1, const void* wi1,
@@ -471,22 +525,22 @@ int launch(const void* p0, const void* w0, const void* pi0, const void* wi0,
   a.sigma = sigma;
   const auto st = static_cast<cudaStream_t>(stream);
   const bool l1 = kind == KIND_LAPLACE;
-  if constexpr (sizeof(T) == 4) {
+  if constexpr (sizeof(S) <= 4) {
     if (vw == 4)
-      return l1 ? launch_kernel<T, 4, true>(a, st)
-                : launch_kernel<T, 4, false>(a, st);
+      return l1 ? launch_kernel<S, T, 4, true>(a, st)
+                : launch_kernel<S, T, 4, false>(a, st);
   }
   if (vw == 2)
-    return l1 ? launch_kernel<T, 2, true>(a, st)
-              : launch_kernel<T, 2, false>(a, st);
+    return l1 ? launch_kernel<S, T, 2, true>(a, st)
+              : launch_kernel<S, T, 2, false>(a, st);
   if (vw != 1) return static_cast<int>(cudaErrorInvalidValue);
-  return l1 ? launch_kernel<T, 1, true>(a, st)
-            : launch_kernel<T, 1, false>(a, st);
+  return l1 ? launch_kernel<S, T, 1, true>(a, st)
+            : launch_kernel<S, T, 1, false>(a, st);
 }
 
 }  // namespace
 
-#define OOS_CONTRACT_ENTRY(NAME, T)                                           \
+#define OOS_CONTRACT_ENTRY(NAME, S, T)                                        \
   extern "C" int NAME(                                                        \
       const void* p0, const void* w0, const void* pi0, const void* wi0,       \
       long long bp0, long long bw0, int m0, int pw0, int ww0, const void* p1, \
@@ -495,11 +549,18 @@ int launch(const void* p0, const void* w0, const void* pi0, const void* wi0,
       void* out, int q, int d, int k, int rows, int warps, int xw, int vw,    \
       int pslot, int wslot, int xslot, int kind, double sigma,                \
       void* stream) {                                                         \
-    return launch<T>(p0, w0, pi0, wi0, bp0, bw0, m0, pw0, ww0, p1, w1, pi1,   \
-                     wi1, bp1, bw1, m1, pw1, ww1, nseg, queries, out, q, d,   \
-                     k, rows, warps, xw, vw, pslot, wslot, xslot, kind,       \
-                     sigma, stream);                                          \
+    return launch<S, T>(p0, w0, pi0, wi0, bp0, bw0, m0, pw0, ww0, p1, w1,     \
+                        pi1, wi1, bp1, bw1, m1, pw1, ww1, nseg, queries, out, \
+                        q, d, k, rows, warps, xw, vw, pslot, wslot, xslot,    \
+                        kind, sigma, stream);                                 \
   }
 
-OOS_CONTRACT_ENTRY(oos_contract_f32, float)
-OOS_CONTRACT_ENTRY(oos_contract_f64, double)
+// The _bf16 entry is compiled apart, in oos_contract_bf16.cu
+// (REPRO_BF16_ENTRIES), so that the float32 and float64 entries compile as
+// they do alone.
+#ifdef REPRO_BF16_ENTRIES
+OOS_CONTRACT_ENTRY(oos_contract_bf16, __nv_bfloat16, float)
+#else
+OOS_CONTRACT_ENTRY(oos_contract_f32, float, float)
+OOS_CONTRACT_ENTRY(oos_contract_f64, double, double)
+#endif  // REPRO_BF16_ENTRIES

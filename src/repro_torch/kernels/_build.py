@@ -26,10 +26,17 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("hck_leaf_project", "oos_contract", "build_stage", "build_dist",
            "leaf_factor", "leaf_matvec", "leaf_solve", "kernel_matvec",
            "kernel_tile", "policy_dist", "leaf_update", "flash_attention",
-           "ssd_chunk")
+           "ssd_chunk", "build_stage_bf16", "build_dist_bf16",
+           "oos_contract_bf16")
+#: the libraries of bfloat16-data entries, each ``<base>_bf16.cu`` the base
+#: library's source compiled for those entries alone
+BF16_BASE = {"build_stage_bf16": "build_stage.cu",
+             "build_dist_bf16": "build_dist.cu",
+             "oos_contract_bf16": "oos_contract.cu"}
 _HEADERS = ("kernel_epilogue.cuh", "cross_products.cuh", "pair_tile.cuh",
             "hopper.cuh", "tf32x3.cuh", "async_copy.cuh", "chol_blocked.cuh",
-            "cross_tc.cuh", "level_groups.cuh", "leaf_stream.cuh")
+            "cross_tc.cuh", "level_groups.cuh", "leaf_stream.cuh",
+            "data_load.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -39,8 +46,10 @@ SMEM_MAX = 227 * 1024
 EPILOGUE_KIND = {"gaussian": 0, "imq": 1, "laplace": 2}
 #: symbol suffix of each dtype a kernel library exports
 SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
-#: the dtypes a kernel takes unless its wrapper names others (only
-#: ``flash_attention`` exports a bfloat16 symbol)
+#: the dtypes a kernel takes unless its wrapper names others
+#: (``flash_attention`` takes bfloat16 throughout; the bfloat16-data entries
+#: of B1, B2, B7, B8 and B9 take it in their data group, see
+#: :func:`cuda_device`)
 FLOAT_DTYPES = (torch.float32, torch.float64)
 
 _LOADED: dict[str, ctypes.CDLL] = {}
@@ -63,7 +72,8 @@ def library_path(name: str) -> Path:
     if name not in KERNELS:
         raise KeyError(f"unknown kernel {name!r}; have {KERNELS}")
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in (f"{name}.cu",) + _HEADERS:
+    base = (BF16_BASE[name],) if name in BF16_BASE else ()
+    for src in (f"{name}.cu",) + base + _HEADERS:
         h.update((CSRC / src).read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
@@ -115,6 +125,12 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def library(base: str, data: torch.Tensor) -> str:
+    """The library of kernel library ``base`` for ``data``: its
+    ``<base>_bf16`` library for bfloat16 data, else ``base``."""
+    return f"{base}_bf16" if data.dtype == torch.bfloat16 else base
+
+
 def check_launch(lib: ctypes.CDLL, name: str, code: int) -> None:
     """Raise if a launch returned a CUDA error (``cudaGetLastError() != 0``)."""
     if code != 0:
@@ -124,33 +140,51 @@ def check_launch(lib: ctypes.CDLL, name: str, code: int) -> None:
 
 
 def cuda_device(stage: str, *tensors: torch.Tensor,
-                dtypes: tuple = FLOAT_DTYPES) -> torch.device | None:
+                dtypes: tuple = FLOAT_DTYPES,
+                data: tuple = ()) -> torch.device | None:
     """The CUDA device a kernel of ``stage`` launches on, or None when every
     tensor lies on the CPU (the wrapper then runs the plain version).
 
     Raises unless the tensors share one CUDA device, one dtype of
     ``dtypes`` (float32 or float64 unless the kernel names others) and are
-    contiguous.  The kernels have no backward pass, so
-    a tensor that needs a gradient (with grad mode on) raises too, rather
-    than give a gradient that leaves the kernel out.
+    contiguous.  ``data`` is the kernel's data group where it has a
+    bfloat16-data entry (points, landmarks, queries or cached distance
+    tiles; ``tensors`` are then its factors): the data share one dtype,
+    the factors' one or, beside float32 factors or alone, bfloat16 (the
+    data of a mixed-precision policy).  The kernels have no backward
+    pass, so a tensor that needs a gradient (with grad mode on) raises
+    too, rather than give a gradient that leaves the kernel out.
     """
-    if all(t.device.type == "cpu" for t in tensors):
+    every = tensors + tuple(data)
+    if all(t.device.type == "cpu" for t in every):
         return None
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in every):
         raise RuntimeError(
             f"{stage}: the CUDA kernel has no backward pass; its inputs must "
             "not require grad (differentiate through the plain versions on "
             "CPU tensors)")
-    dev = tensors[0].device
-    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+    dev = every[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in every):
         raise ValueError(f"{stage} needs all tensors on one CUDA device; got "
-                         f"{[str(t.device) for t in tensors]}")
-    if tensors[0].dtype not in dtypes or any(
-            t.dtype != tensors[0].dtype for t in tensors):
-        names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+                         f"{[str(t.device) for t in every]}")
+    names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+    if tensors and (tensors[0].dtype not in dtypes or any(
+            t.dtype != tensors[0].dtype for t in tensors)):
         raise TypeError(f"{stage} kernel takes {names} of one dtype; got "
                         f"{[t.dtype for t in tensors]}")
-    if not all(t.is_contiguous() for t in tensors):
+    if data:
+        fac = tensors[0].dtype if tensors else None
+        allowed = ({fac} if fac is not None else set(dtypes))
+        if fac in (None, torch.float32):
+            allowed.add(torch.bfloat16)
+        if data[0].dtype not in allowed or any(
+                t.dtype != data[0].dtype for t in data):
+            raise TypeError(
+                f"{stage} kernel takes data of one dtype, that of its "
+                f"factors or bfloat16 beside float32 factors; got data "
+                f"{[t.dtype for t in data]}, factors "
+                f"{[t.dtype for t in tensors]}")
+    if not all(t.is_contiguous() for t in every):
         raise ValueError(f"{stage} kernel needs contiguous tensors")
     return dev
 

@@ -17,6 +17,15 @@ wrapper computes its plain version
 (:mod:`repro_torch.kernels.build_stage.ref`); on CUDA tensors it launches
 the kernel or raises.  Each wrapper's ``launches`` counts its own
 launches.
+
+Each kernel has a bfloat16-data entry (a mixed-precision policy's build
+and sweep, ``SolveConfig.precision="bf16"``): bfloat16 points, landmarks
+or cached distance tiles beside float32 Linv, every output float32
+(:func:`factor_dtype`); a wrapper takes the data group's dtype from its
+data and the symbol from it (``..._bf16``, in the libraries
+``build_stage_bf16`` and ``build_dist_bf16``).  Each wrapper's
+``bf16_launches`` counts the launches of its bfloat16-data entry (within
+``launches``).
 """
 from __future__ import annotations
 
@@ -42,6 +51,18 @@ MAX_GROUPS = 32
 #: values of gram_chol_levels' staging: two chunks of 8 features of 64 row
 #: and 64 column points, 132 values a feature (build_stage.cu gram::)
 _GRAM_STAGE = 2 * 8 * 132
+
+
+def factor_dtype(data: torch.Tensor) -> torch.dtype:
+    """The dtype a kernel computes and writes in for ``data`` of this
+    dtype: float32 for bfloat16 data (the bfloat16-data entries), else the
+    data's own."""
+    return torch.float32 if data.dtype == torch.bfloat16 else data.dtype
+
+
+def _bf16(data: torch.Tensor) -> int:
+    """1 for the data of a bfloat16-data entry, else 0."""
+    return int(data.dtype == torch.bfloat16)
 
 
 def gram_smem(m: int, itemsize: int) -> int:
@@ -125,20 +146,21 @@ def _gram_levels(stage, dev, points, want_chol, name, sigma, jitter):
     if len({p.shape[2] for p in points}) > 1:
         raise ValueError(f"{stage} needs one d for all levels; got "
                          f"{[tuple(p.shape) for p in points]}")
+    fdt = factor_dtype(points[0])
     if want_chol:
         for p in points:
             m = p.shape[1]
-            _build.check_smem(stage, gram_smem(m, p.element_size()),
+            _build.check_smem(stage, gram_smem(m, fdt.itemsize),
                               f"an ({m}, {m}) tile")
-    out = [(p.new_empty((p.shape[0], p.shape[1], p.shape[1])),
-            p.new_empty((p.shape[0], p.shape[1], p.shape[1])) if want_chol
-            else None) for p in points]
+    out = [(p.new_empty((p.shape[0], p.shape[1], p.shape[1]), dtype=fdt),
+            p.new_empty((p.shape[0], p.shape[1], p.shape[1]), dtype=fdt)
+            if want_chol else None) for p in points]
     rows = [(p, g, c, p.shape[0], p.shape[1])
             for p, (g, c) in zip(points, out) if g.numel()]
     table = level_table(stage, rows)
     if not rows:
         return out, False
-    _build.launch("build_stage",
+    _build.launch(_build.library("build_stage", points[0]),
                   f"gram_chol_levels_{_build.SUFFIX[points[0].dtype]}", dev,
                   table, len(rows), points[0].shape[2],
                   _build.EPILOGUE_KIND[name], float(sigma), float(jitter),
@@ -156,13 +178,14 @@ def build_gram(
     if points.ndim != 3:
         raise ValueError(f"build_gram needs points (B, m, d); got "
                          f"{tuple(points.shape)}")
-    dev = _build.cuda_device("build_gram", points)
+    dev = _build.cuda_device("build_gram", data=(points,))
     if dev is None:
         return build_gram_ref(points, name=name, sigma=sigma, jitter=jitter,
                               want_chol=want_chol)
     (out,), launched = _gram_levels("build_gram", dev, [points], want_chol,
                                     name, sigma, jitter)
     build_gram.launches += launched
+    build_gram.bf16_launches += launched and _bf16(points)
     return out
 
 
@@ -180,13 +203,14 @@ def build_gram_levels(
                          f"level; got {[tuple(p.shape) for p in points]}")
     if not points:
         return []
-    dev = _build.cuda_device("build_gram_levels", *points)
+    dev = _build.cuda_device("build_gram_levels", data=tuple(points))
     if dev is None:
         return build_gram_levels_ref(points, name=name, sigma=sigma,
                                      jitter=jitter, want_chol=want_chol)
     out, launched = _gram_levels("build_gram_levels", dev, points, want_chol,
                                  name, sigma, jitter)
     build_gram_levels.launches += launched
+    build_gram_levels.bf16_launches += launched and _bf16(points[0])
     return out
 
 
@@ -216,16 +240,18 @@ def _cross_levels(stage, dev, points, landmarks, linvs, name, sigma):
                          points[0].element_size(), stage=stage),)
     else:
         bm = ()
-    out = [p.new_empty((p.shape[0], p.shape[1], r)) for p in points]
+    out = [p.new_empty((p.shape[0], p.shape[1], r), dtype=linvs[0].dtype)
+           for p in points]
     rows = [(p, z, li, u, p.shape[0], p.shape[1])
             for p, z, li, u in zip(points, landmarks, linvs, out)
             if u.numel()]
     table = level_table(stage, rows)
     if not rows:
         return out, False
-    _build.launch("build_stage", f"cross_solve_levels_{_build.SUFFIX[dtype]}",
-                  dev, table, len(rows), r, d, *bm,
-                  _build.EPILOGUE_KIND[name], float(sigma))
+    _build.launch(_build.library("build_stage", points[0]),
+                  f"cross_solve_levels_{_build.SUFFIX[dtype]}", dev, table,
+                  len(rows), r, d, *bm, _build.EPILOGUE_KIND[name],
+                  float(sigma))
     return out, True
 
 
@@ -238,13 +264,15 @@ def build_cross(
     (see :func:`build_cross_levels`)."""
     _check_name(name)
     _check_cross("build_cross", [points], [landmarks], [linv])
-    dev = _build.cuda_device("build_cross", points, landmarks, linv)
+    dev = _build.cuda_device("build_cross", linv,
+                             data=(points, landmarks))
     if dev is None:
         return build_cross_ref(points, landmarks, linv, name=name,
                                sigma=sigma)
     (out,), launched = _cross_levels("build_cross", dev, [points],
                                      [landmarks], [linv], name, sigma)
     build_cross.launches += launched
+    build_cross.bf16_launches += launched and _bf16(points)
     return out
 
 
@@ -266,14 +294,15 @@ def build_cross_levels(
     _check_cross("build_cross_levels", points, landmarks, linvs)
     if not points:
         return []
-    dev = _build.cuda_device("build_cross_levels", *points, *landmarks,
-                             *linvs)
+    dev = _build.cuda_device("build_cross_levels", *linvs,
+                             data=(*points, *landmarks))
     if dev is None:
         return build_cross_levels_ref(points, landmarks, linvs, name=name,
                                       sigma=sigma)
     out, launched = _cross_levels("build_cross_levels", dev, points,
                                   landmarks, linvs, name, sigma)
     build_cross_levels.launches += launched
+    build_cross_levels.bf16_launches += launched and _bf16(points[0])
     return out
 
 
@@ -284,17 +313,19 @@ def build_cross_levels(
 def _gram_dist_levels(stage, dev, dists, name, sigma, jitter):
     """Allocate and launch one gram_chol_dist_levels: ([(gram, chol)],
     launched)."""
+    fdt = factor_dtype(dists[0])
     for d in dists:
         m = d.shape[1]
-        _build.check_smem(stage, gram_dist_smem(m, d.element_size()),
+        _build.check_smem(stage, gram_dist_smem(m, fdt.itemsize),
                           f"an ({m}, {m}) tile")
-    out = [(torch.empty_like(d), torch.empty_like(d)) for d in dists]
+    out = [(torch.empty_like(d, dtype=fdt), torch.empty_like(d, dtype=fdt))
+           for d in dists]
     rows = [(d, g, c, d.shape[0], d.shape[1])
             for d, (g, c) in zip(dists, out) if d.numel()]
     table = level_table(stage, rows)
     if not rows:
         return out, False
-    _build.launch("build_dist",
+    _build.launch(_build.library("build_dist", dists[0]),
                   f"gram_chol_dist_levels_{_build.SUFFIX[dists[0].dtype]}",
                   dev, table, len(rows), _build.EPILOGUE_KIND[name],
                   float(sigma), float(jitter))
@@ -312,7 +343,7 @@ def build_gram_dist(
     if dist.ndim != 3 or dist.shape[1] != dist.shape[2]:
         raise ValueError(f"build_gram_dist needs dist (B, m, m); got "
                          f"{tuple(dist.shape)}")
-    dev = _build.cuda_device("build_gram_dist", dist)
+    dev = _build.cuda_device("build_gram_dist", data=(dist,))
     if dev is None:
         return build_gram_dist_ref(dist, name=name, sigma=sigma,
                                    jitter=jitter, want_chol=want_chol)
@@ -320,14 +351,17 @@ def build_gram_dist(
         (out,), launched = _gram_dist_levels("build_gram_dist", dev, [dist],
                                              name, sigma, jitter)
         build_gram_dist.launches += launched
+        build_gram_dist.bf16_launches += launched and _bf16(dist)
         return out
     bsz, m, _ = dist.shape
-    gram = torch.empty_like(dist)
+    gram = torch.empty_like(dist, dtype=factor_dtype(dist))
     if gram.numel():
-        _build.launch("build_dist", f"gram_dist_{_build.SUFFIX[dist.dtype]}",
-                      dev, dist, gram, bsz, m, _build.EPILOGUE_KIND[name],
-                      float(sigma), float(jitter * m))
+        _build.launch(_build.library("build_dist", dist),
+                      f"gram_dist_{_build.SUFFIX[dist.dtype]}", dev, dist,
+                      gram, bsz, m, _build.EPILOGUE_KIND[name], float(sigma),
+                      float(jitter * m))
         build_gram_dist.launches += 1
+        build_gram_dist.bf16_launches += _bf16(dist)
     return gram, None
 
 
@@ -345,13 +379,14 @@ def build_gram_dist_levels(
                          f"level; got {[tuple(d.shape) for d in dists]}")
     if not dists:
         return []
-    dev = _build.cuda_device("build_gram_dist_levels", *dists)
+    dev = _build.cuda_device("build_gram_dist_levels", data=tuple(dists))
     if dev is None:
         return build_gram_dist_levels_ref(dists, name=name, sigma=sigma,
                                           jitter=jitter)
     out, launched = _gram_dist_levels("build_gram_dist_levels", dev, dists,
                                       name, sigma, jitter)
     build_gram_dist_levels.launches += launched
+    build_gram_dist_levels.bf16_launches += launched and _bf16(dists[0])
     return out
 
 
@@ -365,13 +400,13 @@ def _cross_dist_levels(stage, dev, dists, linvs, name, sigma):
                          smem=cross_dist_smem, stage=stage),)
     else:
         bm = ()
-    out = [torch.empty_like(d) for d in dists]
+    out = [torch.empty_like(d, dtype=linvs[0].dtype) for d in dists]
     rows = [(d, li, u, d.shape[0], d.shape[1])
             for d, li, u in zip(dists, linvs, out) if d.numel()]
     table = level_table(stage, rows)
     if not rows:
         return out, False
-    _build.launch("build_dist",
+    _build.launch(_build.library("build_dist", dists[0]),
                   f"cross_solve_dist_levels_{_build.SUFFIX[dtype]}", dev,
                   table, len(rows), r, *bm, _build.EPILOGUE_KIND[name],
                   float(sigma))
@@ -391,12 +426,13 @@ def build_cross_dist(
         raise ValueError(
             "build_cross_dist needs dist (B, m, r) and linv (B, r, r); got "
             f"{tuple(dist.shape)}, {tuple(linv.shape)}")
-    dev = _build.cuda_device("build_cross_dist", dist, linv)
+    dev = _build.cuda_device("build_cross_dist", linv, data=(dist,))
     if dev is None:
         return build_cross_dist_ref(dist, linv, name=name, sigma=sigma)
     (out,), launched = _cross_dist_levels("build_cross_dist", dev, [dist],
                                           [linv], name, sigma)
     build_cross_dist.launches += launched
+    build_cross_dist.bf16_launches += launched and _bf16(dist)
     return out
 
 
@@ -424,13 +460,15 @@ def build_cross_dist_levels(
             f"{[tuple(li.shape) for li in linvs]}")
     if not dists:
         return []
-    dev = _build.cuda_device("build_cross_dist_levels", *dists, *linvs)
+    dev = _build.cuda_device("build_cross_dist_levels", *linvs,
+                             data=tuple(dists))
     if dev is None:
         return build_cross_dist_levels_ref(dists, linvs, name=name,
                                            sigma=sigma)
     out, launched = _cross_dist_levels("build_cross_dist_levels", dev, dists,
                                        linvs, name, sigma)
     build_cross_dist_levels.launches += launched
+    build_cross_dist_levels.bf16_launches += launched and _bf16(dists[0])
     return out
 
 
@@ -442,3 +480,8 @@ build_gram_dist.launches = 0
 build_cross_dist.launches = 0
 build_gram_dist_levels.launches = 0
 build_cross_dist_levels.launches = 0
+
+for _fn in (build_gram, build_cross, build_gram_levels, build_cross_levels,
+            build_gram_dist, build_cross_dist, build_gram_dist_levels,
+            build_cross_dist_levels):
+    _fn.bf16_launches = 0

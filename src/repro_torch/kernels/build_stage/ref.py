@@ -17,7 +17,9 @@ the card), ``build_gram_levels`` (a factor where asked) and
 The base kernel is evaluated through :mod:`repro_torch.core.kernels_fn`,
 so in float64 both agree with the reference's ``xla`` path to round-off.
 A block that is not positive definite gets a factor whose lower triangle
-is NaN, the reference's failure mode, instead of an exception.
+is NaN, the reference's failure mode, instead of an exception.  Each plain
+version promotes bfloat16 inputs (the data of a mixed-precision policy)
+to float32 before it computes and keeps float64, as the reference's do.
 
 The sweep engine (:class:`repro_torch.core.hck.SweepPlan`) adds the
 distance-cached variants: :func:`pairwise_dist_ref` computes the
@@ -40,6 +42,12 @@ import torch
 from repro_torch.core.kernels_fn import _sqdist, get_kernel, kernel_epilogue
 
 
+def promote(a: torch.Tensor) -> torch.Tensor:
+    """``a`` in at least float32: bfloat16 (or float16) promoted, float32
+    and float64 kept (the reference's ``_f``)."""
+    return a if a.dtype in (torch.float32, torch.float64) else a.float()
+
+
 def nan_failed_factors(chol: torch.Tensor, info: torch.Tensor) -> torch.Tensor:
     """NaN the lower triangle of the (B, m, m) factors whose
     ``torch.linalg.cholesky_ex`` info is nonzero (the block was not
@@ -54,6 +62,7 @@ def build_gram_ref(
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """(B, m, d) -> gram (B, m, m) [+ lower Cholesky (B, m, m) or None]."""
     build_gram_ref.calls += 1
+    points = promote(points)
     m = points.shape[1]
     gram = get_kernel(name)(points, points, sigma=sigma)
     gram = gram + (jitter * m) * torch.eye(m, dtype=gram.dtype,
@@ -70,6 +79,7 @@ def build_cross_ref(
 ) -> torch.Tensor:
     """(B, m, d), (B, r, d), (B, r, r) -> U (B, m, r) = K(P, Z) Linv^T Linv."""
     build_cross_ref.calls += 1
+    points, landmarks, linv = map(promote, (points, landmarks, linv))
     kxu = get_kernel(name)(points, landmarks, sigma=sigma)       # (B, m, r)
     return (kxu @ linv.mT) @ linv
 
@@ -139,6 +149,7 @@ def build_gram_dist_ref(
     """(B, m, m) cached distances -> gram (B, m, m) = kappa_sigma(D) +
     jitter*m I [+ lower Cholesky (B, m, m) or None]."""
     build_gram_dist_ref.calls += 1
+    dist = promote(dist)
     m = dist.shape[1]
     gram = kernel_epilogue(name, sigma)(dist)
     gram = gram + (jitter * m) * torch.eye(m, dtype=gram.dtype,
@@ -157,6 +168,7 @@ def build_cross_dist_ref(
     kappa_sigma(D) Linv^T Linv, with Linv the parent's inverse Cholesky
     factor at this sigma."""
     build_cross_dist_ref.calls += 1
+    dist, linv = promote(dist), promote(linv)
     return (kernel_epilogue(name, sigma)(dist) @ linv.mT) @ linv
 
 

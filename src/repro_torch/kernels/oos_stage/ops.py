@@ -6,12 +6,20 @@ query at once (one launch a bucket).  On CPU tensors each wrapper computes
 its plain version (:mod:`repro_torch.kernels.oos_stage.ref`); on CUDA
 tensors it launches the kernel or raises.  ``oos_contract.launches``
 counts the kernel's launches by either wrapper,
-``oos_contract.pair_launches`` those with both segments.
+``oos_contract.pair_launches`` those with both segments and
+``oos_contract.bf16_launches`` those of its bfloat16-data entry.
 
 :func:`plan` is the launch's shape: how many rows of a block one slot of
 shared memory holds, how many warps a block of threads has, and the slot
 sizes; :func:`copy_width` and :func:`vec_width` the widths the kernel
 copies and reads with.
+
+The kernel has a bfloat16-data entry (``oos_contract_bf16``, in the
+library ``oos_contract_bf16``; a mixed-precision policy's prediction):
+bfloat16 points, landmarks and queries beside float32 weights,
+coefficients and output.  Its slots hold the data in bfloat16
+(``data_itemsize`` 2 in :func:`plan`), and a block whose base or size is
+not a multiple of 4 bytes is copied 2 bytes a piece.
 """
 from __future__ import annotations
 
@@ -36,23 +44,30 @@ def _pad16(nbytes: int) -> int:
     return -(-nbytes // 16) * 16
 
 
-def slot_elems(rows: int, d: int, k: int, itemsize: int) -> tuple[int, int,
-                                                                  int]:
+def slot_elems(rows: int, d: int, k: int, itemsize: int,
+               data_itemsize: int | None = None) -> tuple[int, int, int]:
     """Elements of one point slot (rows x d), one weight slot (rows x k)
-    and one query slot (d), each rounded up to 16 bytes."""
-    return tuple(_pad16(n * itemsize) // itemsize
-                 for n in (rows * d, rows * k, d))
+    and one query slot (d), each rounded up to 16 bytes; the point and
+    query slots hold ``data_itemsize``-byte elements (default
+    ``itemsize``, the weights')."""
+    ds = itemsize if data_itemsize is None else data_itemsize
+    return tuple(_pad16(n * s) // s
+                 for n, s in ((rows * d, ds), (rows * k, itemsize), (d, ds)))
 
 
-def warp_smem(rows: int, d: int, k: int, itemsize: int) -> int:
+def warp_smem(rows: int, d: int, k: int, itemsize: int,
+              data_itemsize: int | None = None) -> int:
     """Shared memory one warp uses: two slots each of points, weights and
     query rows."""
-    return 2 * sum(slot_elems(rows, d, k, itemsize)) * itemsize
+    ds = itemsize if data_itemsize is None else data_itemsize
+    pslot, wslot, xslot = slot_elems(rows, d, k, itemsize, ds)
+    return 2 * ((pslot + xslot) * ds + wslot * itemsize)
 
 
 @functools.lru_cache(maxsize=256)
 def stage_rows(m: int, d: int, itemsize: int,
-               leaf_block: int | None = None, *, k: int = 1) -> int:
+               leaf_block: int | None = None, *, k: int = 1,
+               data_itemsize: int | None = None) -> int:
     """Rows of a block one slot holds: all m where one warp's slots fit
     :data:`SMEM_BUDGET`, else the most that fit (the kernel then takes a
     block in chunks of that many rows); ``leaf_block`` asks for fewer.
@@ -60,7 +75,7 @@ def stage_rows(m: int, d: int, itemsize: int,
     lo, hi = 0, m
     while lo < hi:                       # the most rows that fit
         mid = (lo + hi + 1) // 2
-        if warp_smem(mid, d, k, itemsize) <= SMEM_BUDGET:
+        if warp_smem(mid, d, k, itemsize, data_itemsize) <= SMEM_BUDGET:
             lo = mid
         else:
             hi = mid - 1
@@ -74,24 +89,29 @@ def stage_rows(m: int, d: int, itemsize: int,
 
 @functools.lru_cache(maxsize=256)
 def plan(ms: tuple[int, ...], d: int, k: int, itemsize: int,
-         leaf_block: int | None = None) -> dict:
+         leaf_block: int | None = None,
+         data_itemsize: int | None = None) -> dict:
     """The launch's shape for segments of middle sizes ``ms``: rows a slot
     holds, warps a block (as many as fit :data:`SMEM_BUDGET`, at most
     :data:`MAX_WARPS`), the slots' elements and the block's shared
-    memory."""
-    rows = stage_rows(max(ms), d, itemsize, leaf_block, k=k)
-    per_warp = warp_smem(rows, d, k, itemsize)
+    memory.  ``itemsize`` is the weights', ``data_itemsize`` the points'
+    and queries' (default ``itemsize``)."""
+    rows = stage_rows(max(ms), d, itemsize, leaf_block, k=k,
+                      data_itemsize=data_itemsize)
+    per_warp = warp_smem(rows, d, k, itemsize, data_itemsize)
     warps = max(1, min(MAX_WARPS, SMEM_BUDGET // per_warp))
-    pslot, wslot, xslot = slot_elems(rows, d, k, itemsize)
+    pslot, wslot, xslot = slot_elems(rows, d, k, itemsize, data_itemsize)
     return {"rows": rows, "warps": warps, "pslot": pslot, "wslot": wslot,
             "xslot": xslot, "smem": warps * per_warp}
 
 
 def copy_width(ptr: int, *sizes: int) -> int:
-    """Bytes a cp.async piece moves: the widest of 16, 8, 4 that divides the
-    base address ``ptr`` and every byte size (each block's, each chunk's)."""
+    """Bytes a piece of a block copy moves: the widest of 16, 8, 4 (a
+    cp.async copy) or 2 (a plain load and store: bfloat16 data only) that
+    divides the base address ``ptr`` and every byte size (each block's,
+    each chunk's)."""
     common = math.gcd(ptr, *sizes)
-    for width in (16, 8, 4):
+    for width in (16, 8, 4, 2):
         if common % width == 0:
             return width
     raise ValueError(f"oos_contract: no copy width for address {ptr} and "
@@ -129,21 +149,25 @@ def _check(name: str, segments, queries) -> None:
 def _segment_args(points, weights, pidx, widx, rows: int) -> list:
     bp, m, d = points.shape
     bw, k = weights.shape[0], weights.shape[2]
-    s = points.element_size()
+    s, ws = points.element_size(), weights.element_size()
     return [points, weights, pidx, widx, ctypes.c_longlong(bp),
             ctypes.c_longlong(bw), m,
             copy_width(points.data_ptr(), m * d * s, min(rows, m) * d * s),
-            copy_width(weights.data_ptr(), m * k * s, min(rows, m) * k * s)]
+            copy_width(weights.data_ptr(), m * k * ws,
+                       min(rows, m) * k * ws)]
 
 
 def _device(segments, queries) -> torch.device | None:
     """The CUDA device of a launch over ``segments`` ((points, weights, pidx,
     widx) each), or None when every tensor lies on the CPU (the plain
     version runs); raises on mixed devices, non-int64 indices or
-    non-contiguous tensors."""
+    non-contiguous tensors, and unless the weights share a dtype and the
+    points and queries share it too, or are bfloat16 beside float32
+    weights."""
     tensors = [t for seg in segments for t in seg] + [queries]
-    floats = [t for seg in segments for t in seg[:2]] + [queries]
-    dev = _build.cuda_device("oos_contract", *floats)
+    dev = _build.cuda_device(
+        "oos_contract", *(seg[1] for seg in segments),
+        data=tuple(seg[0] for seg in segments) + (queries,))
     if dev is None and all(t.device.type == "cpu" for t in tensors):
         return None
     if any(t.device != dev for t in tensors):
@@ -161,23 +185,27 @@ def _launch(dev, segments, queries, name: str, sigma: float,
     """One launch over ``segments`` on ``dev``; (the output, whether the
     kernel was launched: not for an empty output)."""
     q, d = queries.shape
-    k = segments[0][1].shape[2]
+    weights = segments[0][1]
+    k = weights.shape[2]
     s = queries.element_size()
-    p = plan(tuple(seg[0].shape[1] for seg in segments), d, k, s, leaf_block)
-    out = torch.empty((q, k), dtype=queries.dtype, device=dev)
+    p = plan(tuple(seg[0].shape[1] for seg in segments), d, k,
+             weights.element_size(), leaf_block,
+             None if s == weights.element_size() else s)
+    out = torch.empty((q, k), dtype=weights.dtype, device=dev)
     if q == 0 or k == 0:
         return out, False
     args = _segment_args(*segments[0], p["rows"])
     args += (_segment_args(*segments[1], p["rows"]) if len(segments) == 2
              else [None, None, None, None, ctypes.c_longlong(0),
                    ctypes.c_longlong(0), 0, 0, 0])
-    _build.launch("oos_contract",
+    _build.launch(_build.library("oos_contract", queries),
                   f"oos_contract_{_build.SUFFIX[queries.dtype]}", dev, *args,
                   len(segments), queries, out, q, d, k, p["rows"], p["warps"],
                   copy_width(queries.data_ptr(), d * s), vec_width(d, s),
                   p["pslot"], p["wslot"], p["xslot"],
                   _build.EPILOGUE_KIND[name], float(sigma))
     oos_contract.launches += 1
+    oos_contract.bf16_launches += int(queries.dtype == torch.bfloat16)
     return out, True
 
 
@@ -226,3 +254,4 @@ def oos_local_walk(
 
 oos_contract.launches = 0
 oos_contract.pair_launches = 0
+oos_contract.bf16_launches = 0

@@ -9,13 +9,16 @@ block ``W[widx_i]`` (m, k) and computes
 The plain version gathers the blocks and evaluates the distances as
 :mod:`repro_torch.core.kernels_fn` does (the clamped norm identity for the
 L2 kernels), so on gathered blocks (``pidx = widx = arange(q)``) it agrees
-with the reference's ``oos_contract_ref`` to round-off.
+with the reference's ``oos_contract_ref`` to round-off.  bfloat16 inputs
+(the data of a mixed-precision policy) are promoted to float32 first, as
+the reference promotes them.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.kernels_fn import KERNEL_METRIC, kernel_epilogue
+from repro_torch.kernels.build_stage.ref import promote
 
 
 def oos_contract_ref(
@@ -25,6 +28,7 @@ def oos_contract_ref(
 ) -> torch.Tensor:
     """(Bp, m, d), (Bw, m, k), (q, d), (q,), (q,) -> z (q, k)."""
     oos_contract_ref.calls += 1
+    points, weights, queries = map(promote, (points, weights, queries))
     pts = points[point_index]                                  # (q, m, d)
     if KERNEL_METRIC[name] == "l2":
         pn = torch.sum(pts * pts, dim=-1)                      # (q, m)

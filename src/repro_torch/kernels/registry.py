@@ -21,8 +21,9 @@ import torch
 
 BACKENDS = ("torch", "cuda")
 
-#: mixed-precision policies of prediction (see SolveConfig.precision)
-PRECISIONS = ("f32", "f64")
+#: mixed-precision policies of the build and the prediction (see
+#: SolveConfig.precision)
+PRECISIONS = ("bf16", "f32", "f64")
 
 #: stages of the reference's registry, same names
 STAGES = (
@@ -72,9 +73,35 @@ class SolveConfig:
     leaf_block  rows of a point block that the ``oos_contract`` kernel
                 stages in shared memory per step (None = the largest that
                 fits its shared-memory budget).
-    precision   prediction precision policy: None computes in the stored
-                dtype; "f32" / "f64" cast the kernel-evaluation data and
-                the weights to that dtype before the stage launches.
+    precision   mixed-precision policy of the build and the prediction
+                (:func:`precision_policy`).  None computes in the dtype
+                of the input.  "bf16": the kernel-evaluation *data*
+                (points, landmarks, queries, cached distance tiles) is
+                cast to bfloat16 before each stage (every backend
+                promotes it to float32 before it computes) and every
+                factor (Gram, Cholesky, Linv, U, W, the weights) is
+                stored and solved in float32.  "f32": data and factors
+                in float32.  "f64": both in float64 (the oracle policy).
+                The tree and the landmarks are drawn in the input dtype
+                before any cast, so a mixed-precision build has the tree
+                of the f64 oracle and its gates measure arithmetic error
+                alone.  Bounds against the f64 oracle (gaussian kernel,
+                jitter 1e-4; the reference's tests/test_precision.py):
+                Gram-family factors (adiag, sigma, sigma_cho) relative
+                error <= 2e-2 in bf16, <= 1e-4 in f32; the bases U and W
+                are amplified by kappa(Sigma) and gated through the
+                operator: matvec and predictions <= 5e-2 in bf16, <= 1e-4
+                in f32.  The reference documents that inverting
+                bf16-built factors needs a ridge of at least about n0 *
+                eps_bf16 (~1e-1 at n0 = 32, ~1 at n0 = 128), below which
+                the leaf Schur complement goes indefinite (a NaN Cholesky
+                factor); a bf16 solve at that floor is within 1e-1.  The
+                floor comes from factors rounded to bfloat16 (the
+                reference's xla lane stores its stage outputs so); the
+                port's stages, like the reference's Pallas lane, write
+                float32 factors, whose only bf16 error is the data's
+                rounding (ROADMAP C17).  f32 builds invert at any ridge
+                the f64 oracle takes.
     checks      runtime health probes (:mod:`repro_torch.runtime.health`):
                 finiteness and definiteness of the factors, CG residual
                 traces and served predictions at stage boundaries.
@@ -109,11 +136,20 @@ class SolveConfig:
 DEFAULT_CONFIG = SolveConfig()
 
 
-def precision_dtype(config: SolveConfig | None) -> torch.dtype | None:
-    """dtype of ``config.precision``, or None for dtype-preserving."""
+def precision_policy(config: SolveConfig | None):
+    """(GEMM data dtype, factor dtype) of ``config.precision``, or None
+    without a policy (every stage keeps the dtype of its inputs).
+
+    The GEMM dtype is what the kernel-evaluation inputs of a stage are
+    cast to before it runs; the factor dtype is what its outputs (Gram
+    blocks, Cholesky factors, bases) are stored and solved in.
+    """
     if config is None or config.precision is None:
         return None
-    return {"f32": torch.float32, "f64": torch.float64}[config.precision]
+    gemm = {"bf16": torch.bfloat16, "f32": torch.float32,
+            "f64": torch.float64}[config.precision]
+    factor = torch.float64 if config.precision == "f64" else torch.float32
+    return gemm, factor
 
 
 _REGISTRY: dict[tuple[str, str], Callable] = {}

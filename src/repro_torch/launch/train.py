@@ -25,12 +25,18 @@ instantiation (``sweep_factors``) and the whole lambda axis through
   PYTHONPATH=src python -m repro_torch.launch.train --task krr --grid \\
       --n 16384 --rank 64 --sigmas 0.5,1,2,4 --lams 1e-4,1e-3,1e-2,1e-1
 
+``--precision bf16|f32|f64`` sets the mixed-precision policy of the
+build, the solve and the predictions (``SolveConfig.precision``); bf16
+runs at the reference's convention of jitter 1e-4 and lambda 1e-1 (the
+ridge floor of bf16-built factors), the others at jitter 1e-5 and lambda
+1e-2.
+
 Runs on the card unless ``--device cpu``; without a card the default
 raises.  The data are random, drawn from ``--seed``.  Not yet ported, each
 raising ``NotImplementedError``: ``--task lm`` (ROADMAP item A16b, which
-also brings the LM flags: ``--arch``, ``--steps`` and the rest),
-``--mesh`` (A14) and ``--precision`` other than "none" (A15).  A rank
-above 128 raises the build kernels' own error on the card.
+also brings the LM flags: ``--arch``, ``--steps`` and the rest) and
+``--mesh`` (A14).  A rank above 128 raises the build kernels' own error on
+the card.
 """
 from __future__ import annotations
 
@@ -43,14 +49,12 @@ from repro_torch import device as _device
 
 
 def _solve_config(args):
-    """SolveConfig from --solve-backend; --precision must be "none"."""
+    """SolveConfig from --solve-backend and --precision."""
     from repro_torch.kernels.registry import SolveConfig
 
-    if args.precision != "none":
-        raise NotImplementedError(
-            f"--precision {args.precision}: mixed-precision builds come with "
-            "ROADMAP item A15 (tuning and launch surface)")
-    return SolveConfig(backend=args.solve_backend)
+    return SolveConfig(backend=args.solve_backend,
+                       precision=None if args.precision == "none"
+                       else args.precision)
 
 
 def _target(x: torch.Tensor) -> torch.Tensor:
@@ -73,8 +77,13 @@ def run_krr(args) -> dict:
     x = torch.randn((args.n, args.d), device=dev,
                     generator=_generator(dev, args.seed))
     y = _target(x)
-    ker = BaseKernel("gaussian", sigma=2.0, jitter=1e-5)
-    lam = 1e-2
+    # bf16 rounds a 1e-5 jitter off the unit Gram diagonal (eps_bf16 ~
+    # 8e-3), so the leaf Cholesky needs the larger lambda' split, and the
+    # inversion of bf16-built factors a ridge near n0 * eps_bf16
+    # (SolveConfig.precision)
+    bf16 = args.precision == "bf16"
+    ker = BaseKernel("gaussian", sigma=2.0, jitter=1e-4 if bf16 else 1e-5)
+    lam = 1e-1 if bf16 else 1e-2
     m = min(args.n, 2048)
 
     if args.solver in ("exact-cg", "eigenpro"):
@@ -122,7 +131,7 @@ def run_krr(args) -> dict:
           f"backend={args.solve_backend} ({mode}): fit {t_fit:.2f} s "
           f"({args.n / t_fit:,.0f} points/s), train rel-err {err:.4f}")
     out = {"mode": mode, "fit_s": t_fit, "train_rel_err": err,
-           "model": model}
+           "precision": args.precision, "model": model}
 
     if args.update:
         # online growth: absorb --update new points into the fitted
@@ -233,9 +242,9 @@ def main(argv=None):
                     "versions on the CPU)")
     ap.add_argument("--precision", choices=["none", "bf16", "f32", "f64"],
                     default="none",
-                    help="mixed-precision policy of the build (only 'none', "
-                    "the input dtype, is ported; the others come with "
-                    "ROADMAP item A15)")
+                    help="mixed-precision policy of the build, the solve "
+                    "and the predictions (SolveConfig.precision; 'none' "
+                    "keeps the input dtype)")
     ap.add_argument("--solver", choices=["hck", "exact-cg", "eigenpro"],
                     default="hck",
                     help="'hck' = structured Algorithm-2 solve on the "

@@ -25,9 +25,9 @@ more and more expensive repairs, recording every attempt in a
     then ``refresh="exact"``.
 
 A ladder that runs dry raises :class:`RecoveryExhausted` with the whole
-audit.  Precision promotion needs a mixed-precision build (ROADMAP item
-A15): with ``config.precision`` None the chain is empty, as in the
-reference, and a rung that would need one raises ``NotImplementedError``.
+audit.  Precision promotion climbs the chain bf16 -> f32 -> f64 from
+``config.precision`` (``SolveConfig.precision``); with no policy the
+chain is empty, as in the reference.
 """
 from __future__ import annotations
 
@@ -106,14 +106,60 @@ def _promotions(config) -> tuple:
     return _PROMOTIONS.get(getattr(config, "precision", None), ())
 
 
+def _cast_float(factors, dtype):
+    """Copy of HCK ``factors`` with every floating tensor in ``dtype``
+    (the tree's permutation and the rank masks' shape untouched)."""
+    from repro_torch.core.hck import HCKFactors
+    from repro_torch.core.partition import PartitionTree
+
+    def cast(ts):
+        return tuple(t.to(dtype) for t in ts)
+
+    f, tr = factors, factors.tree
+    return HCKFactors(
+        f.x_sorted.to(dtype),
+        PartitionTree(tr.perm, cast(tr.directions), cast(tr.thresholds)),
+        cast(f.landmarks), cast(f.sigma), cast(f.sigma_cho), cast(f.w),
+        f.u.to(dtype), f.adiag.to(dtype),
+        None if f.rank_mask is None else cast(f.rank_mask))
+
+
+def _rebuilt_middle(f, kernel, config):
+    """``f`` with Sigma, its Cholesky factor and W rebuilt from its stored
+    landmarks under ``config`` (a budgeted model's frozen rank masks
+    applied again)."""
+    from repro_torch.core.hck import (_apply_rank_masks, _mask_transfer_ops,
+                                      _middle_factors, _transfer_ops)
+
+    sigma, sigma_cho, sigma_li = _middle_factors(f.landmarks, kernel, config)
+    if f.rank_mask is not None:
+        sigma, sigma_cho, sigma_li = _apply_rank_masks(
+            f.rank_mask, sigma, sigma_cho, sigma_li)
+    w = _transfer_ops(f.landmarks, sigma_li, kernel, config)
+    if f.rank_mask is not None:
+        w = _mask_transfer_ops(w, f.rank_mask)
+    return dataclasses.replace(f, sigma=sigma, sigma_cho=sigma_cho, w=w)
+
+
 def _rebuild_frozen(factors, kernel, config, base: int):
     """Every factor recomputed at ``config.precision`` on the frozen
-    hierarchy: a mixed-precision build, which comes with ROADMAP A15."""
-    del factors, kernel, base
-    raise NotImplementedError(
-        f"precision promotion to {config.precision!r} rebuilds the factors "
-        "at that precision, a mixed-precision build that comes with ROADMAP "
-        "item A15")
+    hierarchy: the middle Sigma, its Cholesky factor and W from the stored
+    landmarks, then the leaf stages through ``refit_frozen``.
+
+    A refit of the leaves alone is not enough for a promotion: the Schur
+    complement subtracts U U^T built against the low-precision Cholesky
+    factor of Sigma, whose rounding can over-subtract past Adiag however
+    accurately the leaves are recomputed, so the middle factors are
+    promoted with them.  A promotion to "f64" casts the whole factor set
+    (points and landmarks too) to float64 first.
+    """
+    from repro_torch.core.update import refit_frozen
+
+    f = factors
+    if config.precision == "f64":
+        f = _cast_float(f, torch.float64)
+    return refit_frozen(_rebuilt_middle(f, kernel, config), kernel, config,
+                        jitter_rows=base)
 
 
 def _default(config):
@@ -187,9 +233,6 @@ def repair_factors(factors, kernel, config=None, *,
     data the poison cannot reach (points and landmarks).  Returns
     ``(factors, audit)``.
     """
-    from repro_torch.core.hck import (HCKFactors, _apply_rank_masks,
-                                      _mask_transfer_ops, _middle_factors,
-                                      _transfer_ops)
     from repro_torch.core.update import refit_frozen
 
     config = _default(config)
@@ -200,23 +243,11 @@ def repair_factors(factors, kernel, config=None, *,
         return refit_frozen(f, kernel, config, jitter_rows=base)
 
     def _rebuild_middle():
-        sigma, sigma_cho, sigma_li = _middle_factors(
-            factors.landmarks, kernel, config)
-        if factors.rank_mask is not None:  # the frozen masks apply again
-            sigma, sigma_cho, sigma_li = _apply_rank_masks(
-                factors.rank_mask, sigma, sigma_cho, sigma_li)
-        w = _transfer_ops(factors.landmarks, sigma_li, kernel, config)
-        if factors.rank_mask is not None:
-            w = _mask_transfer_ops(w, factors.rank_mask)
-        cast = tuple(
-            tuple(a.to(o.dtype) for a, o in zip(new, old))
-            for new, old in ((sigma, factors.sigma),
-                             (sigma_cho, factors.sigma_cho),
-                             (w, factors.w)))
-        mid = HCKFactors(factors.x_sorted, factors.tree, factors.landmarks,
-                         cast[0], cast[1], cast[2], factors.u, factors.adiag,
-                         factors.rank_mask)
-        return _refit(mid)
+        mid = _rebuilt_middle(factors, kernel, config)
+        return _refit(dataclasses.replace(mid, **{
+            name: tuple(a.to(o.dtype) for a, o in zip(
+                getattr(mid, name), getattr(factors, name)))
+            for name in ("sigma", "sigma_cho", "w")}))
 
     plans = [("probe", lambda: factors),
              ("refit_frozen", lambda: _refit(factors)),
@@ -260,8 +291,9 @@ def invert_guarded(factors, ridge, config=None, *, kernel=None,
 
     Rungs: the inversion as asked; ``jitter_rungs`` rounds of x10 ridge;
     with ``kernel``, precision-promoted factors at the original ridge
-    (ROADMAP A15) and a dtype-preserving ``refit_frozen`` at the original
-    ridge.  Each candidate is validated by
+    (every factor rebuilt on the frozen hierarchy at each precision of
+    the chain above ``config.precision``) and a dtype-preserving
+    ``refit_frozen`` at the original ridge.  Each candidate is validated by
     :func:`~repro_torch.runtime.health.probe_leaf_factor` and a finiteness
     sweep over ``inv.linv``.  ``base_leaf_size`` pins the frozen jitter
     convention of the refit rungs (default the current leaf size).

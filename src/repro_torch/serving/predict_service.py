@@ -77,7 +77,10 @@ class PredictEngine:
 
     ``apply`` maps (q, d) batches to (q, k), padding q up to a power-of-two
     bucket in [min_bucket, max_bucket] and micro-batching beyond it.
-    ``config`` selects the ``oos_local`` / ``oos_walk`` backends.
+    ``config`` selects the ``oos_local`` / ``oos_walk`` backends and the
+    precision policy: the model's stacks are cast to the policy's dtypes
+    once, when the engine is built (:func:`repro_torch.core.oos.
+    policy_stacks`), so a batch casts only its queries.
     """
 
     factors: HCKFactors
@@ -91,6 +94,9 @@ class PredictEngine:
         if self.min_bucket < 1 or self.max_bucket < self.min_bucket:
             raise ValueError(
                 f"bad bucket range [{self.min_bucket}, {self.max_bucket}]")
+        self._stacks = (oos.policy_stacks(self.factors, self.plan,
+                                          self.config)
+                        if self.factors.levels > 0 else None)
         self._bucket_hits: dict[int, int] = {}
         self._calls = 0
         self._queries = 0
@@ -140,7 +146,7 @@ class PredictEngine:
         b = bucket_size(q, self.min_bucket, self.max_bucket)
         padded = torch.cat([queries, queries[-1:].expand(b - q, -1)], dim=0)
         z = oos.apply_plan(self.factors, self.plan, padded, self.kernel,
-                           self.config)[:q]
+                           self.config, stacks=self._stacks)[:q]
         health.probe_predictions(z, self.config)
         self._calls += 1
         self._queries += q

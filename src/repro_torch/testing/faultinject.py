@@ -12,9 +12,8 @@ touch their input (factors, plans and models come back as new objects
 over copied tensors), so faults compose.
 
 :data:`FAULT_CLASSES` is the fault inventory, the reference's twelve
-names.  Two of them target parts that come with ROADMAP item A15 (the
-mixed-precision build and the autotune tile database); their injectors,
-:func:`bf16_ridge_floor_factors` and :func:`corrupt_tile_db`, raise
+names.  One of them targets a part that comes with ROADMAP item A15b (the
+autotune tile database): its injector, :func:`corrupt_tile_db`, raises
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -58,8 +57,8 @@ FAULT_CLASSES = {
         "serving", "live engine returns NaN / stalls for N calls"),
 }
 
-#: the fault classes whose targets come with ROADMAP item A15.
-A15_FAULTS = ("bf16_ridge_floor", "tile_db_corruption")
+#: the fault classes whose targets come with ROADMAP item A15b.
+A15_FAULTS = ("tile_db_corruption",)
 
 
 def _poked(t: Tensor, index, value: float) -> Tensor:
@@ -98,13 +97,40 @@ def indefinite_leaf(factors, *, leaf: int = 0, shift: float = 1.0):
     return dataclasses.replace(factors, adiag=adiag)
 
 
-def bf16_ridge_floor_factors(*args, **kwargs):
-    """bf16-built factors for an inversion under the ridge floor: a
-    mixed-precision build, which comes with ROADMAP item A15."""
-    del args, kwargs
-    raise NotImplementedError(
-        "the bf16_ridge_floor fault needs a bf16 build (SolveConfig."
-        "precision), which comes with ROADMAP item A15")
+def bf16_ridge_floor_factors(x: Tensor, *, levels: int, rank: int, kernel,
+                             config=None, jitter: float = 1e-6,
+                             **build_kwargs):
+    """bf16-built factors that an inversion below the n0 * eps_bf16 ridge
+    floor breaks, as the reference's recipe builds them
+    (tests/test_robustness.py): ``x`` built under
+    ``SolveConfig(precision="bf16")`` (``config``'s other fields kept)
+    with the kernel's jitter set to ``jitter``, far below the bf16 factor
+    error, and every factor (adiag, U, W, Sigma and its Cholesky factor)
+    rounded to bfloat16 and stored in float32, as the reference's xla
+    lane stores its bf16 stage outputs.  The port's kernels, like the
+    reference's Pallas ones, write float32, and their factors carry only
+    the data's rounding, which the leaf Schur complement survives; the
+    rounded factors carry an O(eps_bf16) error, so the Schur complement
+    goes indefinite at any moderate ridge.  ``build_kwargs`` pass through
+    to ``build_hck``.  Returns ``(factors, kernel, config)``: the build's
+    kernel and config, which the recovery ladder takes."""
+    from repro_torch.core.hck import build_hck
+    from repro_torch.kernels.registry import DEFAULT_CONFIG
+
+    cfg = dataclasses.replace(config if config is not None else
+                              DEFAULT_CONFIG, precision="bf16")
+    ker = dataclasses.replace(kernel, jitter=jitter)
+    f = build_hck(x, levels=levels, rank=rank, kernel=ker, config=cfg,
+                  **build_kwargs)
+
+    def rounded(t: Tensor) -> Tensor:
+        return t.to(torch.bfloat16).to(t.dtype)
+
+    f = dataclasses.replace(
+        f, adiag=rounded(f.adiag), u=rounded(f.u),
+        w=tuple(map(rounded, f.w)), sigma=tuple(map(rounded, f.sigma)),
+        sigma_cho=tuple(map(rounded, f.sigma_cho)))
+    return f, ker, cfg
 
 
 # ---------------------------------------------------------------------------
@@ -159,11 +185,11 @@ def poisoned_dot(dot=None, *, after: int = 2):
 
 def corrupt_tile_db(path: str | None = None) -> str:
     """Garbage in the autotune tile database: the database comes with
-    ROADMAP item A15."""
+    ROADMAP item A15b."""
     del path
     raise NotImplementedError(
         "the tile_db_corruption fault targets the autotune tile database "
-        "(kernels/autotune.py), which comes with ROADMAP item A15")
+        "(kernels/autotune.py), which comes with ROADMAP item A15b")
 
 
 # ---------------------------------------------------------------------------

@@ -213,14 +213,27 @@ def test_own_landmark_draws_are_distinct_rows_of_each_node(data):
 
 
 def test_unported_build_options_raise():
-    """Only a mixed-precision build (ROADMAP A15) still raises; the
-    landmark-policy options, ported with A10, build (their parity with the
-    reference is in tests/test_torch_landmarks.py)."""
-    x, ker = torch.zeros(64, D), BaseKernel()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        hck.build_hck(x, levels=2, rank=4, kernel=ker,
-                      config=registry.SolveConfig(precision="f32"))
+    """No build option raises any more: a mixed-precision build (ROADMAP
+    A15a) runs on the tree and landmarks of the dtype-preserving build,
+    its factors in the policy's factor dtype (its bounds against the
+    reference are in tests/test_torch_mixed_precision.py), and the
+    landmark-policy options, ported with A10, build (their parity with
+    the reference is in tests/test_torch_landmarks.py)."""
+    ker = BaseKernel()
     x = torch.from_numpy(np.random.default_rng(5).standard_normal((64, D)))
+    plain = hck.build_hck(x, levels=2, rank=4, kernel=ker,
+                          generator=torch.Generator().manual_seed(3))
+    for prec, dt in (("bf16", torch.float32), ("f32", torch.float32),
+                     ("f64", torch.float64)):
+        f = hck.build_hck(x, levels=2, rank=4, kernel=ker,
+                          config=registry.SolveConfig(precision=prec),
+                          generator=torch.Generator().manual_seed(3))
+        assert torch.equal(f.tree.perm, plain.tree.perm)
+        assert all(torch.equal(a, b)
+                   for a, b in zip(f.landmarks, plain.landmarks))
+        assert f.x_sorted.dtype == torch.float64
+        assert f.u.dtype == f.adiag.dtype == f.sigma[0].dtype == dt
+        assert torch.isfinite(f.u).all()
     for kw in (dict(method="pca"), dict(shared_landmarks=True),
                dict(policy="kmeans"), dict(rank_budget=40)):
         f = hck.build_hck(x, levels=2, rank=4, kernel=ker, **kw)

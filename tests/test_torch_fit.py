@@ -177,14 +177,22 @@ def test_fit_from_the_generator_alone(f64):
 
 
 def test_unported_fit_options_raise():
-    """Only ``solve_config.precision`` (ROADMAP A15) still raises; the A10
-    options fit (held against the reference in test_torch_landmarks.py)."""
+    """No fit option raises any more: ``solve_config.precision`` (ROADMAP
+    A15a) fits, its factors, alpha and predictions in the policy's factor
+    dtype and the model keeping its config (the bounds against the
+    reference are in test_torch_mixed_precision.py); the A10 options fit
+    (held against the reference in test_torch_landmarks.py)."""
     x, y, _ = _data("regression")
     from repro_torch.kernels.registry import SolveConfig
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        krr.fit(x, y, kernel=BaseKernel(), lam=LAM, rank=RANK,
-                leaf_size=LEAF, device="cpu",
-                solve_config=SolveConfig(precision="f32"))
+    for prec, dt in (("bf16", torch.float32), ("f32", torch.float32),
+                     ("f64", torch.float64)):
+        cfg = SolveConfig(precision=prec)
+        m = krr.fit(x, y, kernel=BaseKernel(), lam=LAM, rank=RANK,
+                    leaf_size=LEAF, device="cpu", solve_config=cfg)
+        assert m.solve_config is cfg and m.alpha.dtype == dt
+        assert m.factors.x_sorted.dtype == torch.float64
+        z = m.predict(torch.as_tensor(x[:20]))
+        assert z.dtype == dt and torch.isfinite(z).all()
     for kw in (dict(landmarks="kmeans"), dict(rank_budget=50),
                dict(shared_landmarks=True), dict(method="pca")):
         m = krr.fit(x, y, kernel=BaseKernel(), lam=LAM, rank=RANK,

@@ -112,13 +112,21 @@ def _on_card(shape, dtype):
 
 
 def test_bf16_is_taken_by_b14_only():
-    """B14 takes bfloat16 on the card; every other kernel refuses it with
-    the error it gave before."""
+    """B14 takes bfloat16 throughout on the card; every other kernel
+    refuses it among its factors with the error it gave before, and the
+    bfloat16-data entries (B1, B2, B7, B8, B9) take it in their data group
+    alone, beside float32 factors."""
     q = _on_card((1, 2, 8, 16), torch.bfloat16)
     assert _build.cuda_device("attention", q, q, q,
                               dtypes=fa_ops.DTYPES) == q.device
     with pytest.raises(TypeError, match="float32 or float64"):
         _build.cuda_device("build_gram", q)
+    f32, f64 = (_on_card((1, 8, 8), dt) for dt in (torch.float32,
+                                                   torch.float64))
+    assert _build.cuda_device("build_gram", data=(q,)) == q.device
+    assert _build.cuda_device("build_cross", f32, data=(q, q)) == q.device
+    with pytest.raises(TypeError, match="bfloat16 beside float32"):
+        _build.cuda_device("build_cross", f64, data=(q, q))
     with pytest.raises(TypeError, match="float32 of one dtype"):
         ssd_ops.ssd_intra_chunk(*(_on_card(s, torch.bfloat16) for s in (
             (2, 1, 8, 4), (2, 1, 8, 4), (2, 1, 8, 4), (2, 1, 8))))

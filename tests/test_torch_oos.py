@@ -274,7 +274,8 @@ def test_registry_stages_and_backends():
     with pytest.raises(ValueError, match="backend"):
         registry.SolveConfig(backend="xla")
     with pytest.raises(ValueError, match="precision"):
-        registry.SolveConfig(precision="bf16")
+        registry.SolveConfig(precision="fp16")
+    assert registry.PRECISIONS == ("bf16", "f32", "f64")
     for stage in registry.STAGES:                  # every stage is ported
         for backend in registry.BACKENDS:
             assert callable(registry.get_impl(stage, backend))

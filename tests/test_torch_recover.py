@@ -179,13 +179,25 @@ def test_invert_guarded_matches_reference(prob, shift, kernel):
 
 
 def test_precision_promotion_rung_names_a15(prob):
-    """A promotion rung needs a mixed-precision build (A15): it raises,
-    and is never skipped."""
+    """A promotion rung (ROADMAP A15a) rebuilds every factor on the frozen
+    hierarchy at the promoted precision, as the reference's does: under
+    an f32 policy a deeply indefinite leaf climbs to "promote:f64", whose
+    factors and inverse equal the reference's."""
     bad = fi.indefinite_leaf(prob.m.factors, leaf=2, shift=5e3 * LAM)
-    with pytest.raises(NotImplementedError, match="A15"):
-        recover.invert_guarded(bad, LAM, SolveConfig(precision="f32"),
+    jbad = jfi.indefinite_leaf(prob.jm.factors, leaf=2, shift=5e3 * LAM)
+    g = recover.invert_guarded(bad, LAM, SolveConfig(precision="f32"),
                                kernel=prob.kernel, jitter_rungs=0)
+    jg = jrecover.invert_guarded(
+        jbad, LAM, JSolveConfig(backend="xla", precision="f32"),
+        kernel=prob.jker, jitter_rungs=0)
+    same_audit(g.audit, jg.audit)
+    assert g.audit.rungs == ["initial", "promote:f64"]
+    assert g.config.precision == "f64" and g.ridge == LAM
+    _factors_close(g.factors, jg.factors, 1e-9)
+    _close(g.inverse.linv, jg.inverse.linv, 1e-9)
     assert recover._promotions(CFG) == jrecover._promotions(JCFG) == ()
+    assert recover._promotions(SolveConfig(precision="bf16")) == (
+        "f32", "f64")
 
 
 # ---------------------------------------------------------------------------

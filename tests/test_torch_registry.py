@@ -304,6 +304,20 @@ def _fault_case(name, prob, arrivals):
                 bad, LAM, cfg)[1], cfg)
         return ei.value.stage, recover.invert_guarded(
             bad, LAM, cfg, kernel=ker).audit
+    if name == "bf16_ridge_floor":
+        # bf16-built factors (jitter 1e-6) inverted at a ridge far below
+        # n0 * eps_bf16: the leaf Schur Cholesky fails; promotion to f32
+        # at the original ridge repairs it, as in the reference
+        bf, ker16, cfg16 = fi.bf16_ridge_floor_factors(
+            _t(prob.x), kernel=ker, config=cfg, **prob.build)
+        assert bf.u.dtype == torch.float32
+        with pytest.raises(health.NumericalFailure) as ei:
+            health.probe_leaf_factor(hmatrix.invert_with_leaf(
+                bf, 1e-3, cfg16)[1], cfg16, force=True)
+        g = recover.invert_guarded(bf, 1e-3, cfg16, kernel=ker16,
+                                   jitter_rungs=0)
+        assert g.audit.rungs[-1] == "promote:f32" and g.ridge == 1e-3
+        return ei.value.stage, g.audit
     if name.startswith("cg_") or name == "collective_nan":
         a, b = _spd(32, 11)
         mv = lambda v: a @ v                                 # noqa: E731
@@ -352,10 +366,8 @@ def _fault_case(name, prob, arrivals):
 def test_zz_fault_matrix_covers_every_class(prob, arrivals, name):
     assert fi.FAULT_CLASSES == jfi.FAULT_CLASSES
     if name in fi.A15_FAULTS:
-        inject = (fi.bf16_ridge_floor_factors if name == "bf16_ridge_floor"
-                  else fi.corrupt_tile_db)
         with pytest.raises(NotImplementedError, match="A15"):
-            inject()
+            fi.corrupt_tile_db()
         return
     stage, audit = _fault_case(name, prob, arrivals)
     assert stage, name

@@ -370,12 +370,13 @@ def test_streaming_input_errors():
         pipeline.stream_partition(pipeline.ArraySource(_src(64)), 3,
                                   device="cpu",
                                   directions=[torch.ones(1, 3)] * 2)
-    with pytest.raises(NotImplementedError, match="A15"):
-        from repro_torch.kernels.registry import SolveConfig
+    from repro_torch.kernels.registry import SolveConfig
 
-        hck.build_hck_streaming(pipeline.ArraySource(_src(64)), levels=2,
+    f = hck.build_hck_streaming(pipeline.ArraySource(_src(64)), levels=2,
                                 rank=4, kernel=BaseKernel(), device="cpu",
                                 config=SolveConfig(precision="f32"))
+    assert f.u.dtype == f.adiag.dtype == torch.float32
+    assert f.x_sorted.dtype == f.landmarks[0].dtype == torch.float64
 
 
 # ---------------------------------------------------------------------------

@@ -257,17 +257,24 @@ def test_sweep_rejects_mismatched_and_unsweepable_kernels(plans):
 
 
 def test_unported_sweep_options_raise(plans):
-    """Only ``config.precision`` (ROADMAP A15) still raises; the policy
-    axis and the rank budget, ported with A10, run (their parity with the
-    reference is in tests/test_torch_landmarks.py)."""
+    """No sweep option raises any more: ``config.precision`` (ROADMAP
+    A15a) leaves the plan in the dtype of x and instantiates the factors
+    under the policy, equal to ``build_hck`` under it (bf16 in
+    test_torch_mixed_precision.py); the policy axis and the rank budget,
+    ported with A10, run (their parity with the reference is in
+    tests/test_torch_landmarks.py)."""
     _, p, _ = plans["l2"]
     x = torch.zeros(64, D)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        hck.build_sweep_plan(x, levels=2, rank=4, device="cpu",
-                             config=registry.SolveConfig(precision="f32"))
-    with pytest.raises(NotImplementedError, match="ROADMAP item A1"):
-        hck.sweep_factors(p, BaseKernel(),
-                          config=registry.SolveConfig(precision="f64"))
+    cfg = registry.SolveConfig(precision="f32")
+    assert hck.build_sweep_plan(x, levels=2, rank=4, device="cpu",
+                                config=cfg).x_sorted.dtype == x.dtype
+    f64 = hck.sweep_factors(p, BaseKernel(),
+                            config=registry.SolveConfig(precision="f64"))
+    ref = hck.sweep_factors(p, BaseKernel())
+    assert f64.u.dtype == torch.float64 and torch.equal(f64.u, ref.u)
+    f32 = hck.sweep_factors(p, BaseKernel(), config=cfg)
+    assert f32.u.dtype == f32.adiag.dtype == torch.float32
+    assert torch.allclose(f32.adiag.double(), ref.adiag, atol=1e-6)
     x = torch.from_numpy(np.random.default_rng(6).standard_normal((64, D)))
     for kw in (dict(policy="kmeans"), dict(shared_landmarks=True),
                dict(method="pca")):
