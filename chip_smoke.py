@@ -153,7 +153,12 @@ result.  Phases, each of which raises on failure:
               gaussian and imq with d <= 64, the CUDA-core kernel for
               laplace, f64 and d 90; the CUDA-core kernel also on the
               covtype-width f32 gaussian and imq inputs; k 1, 16 and 160
-              for the tensor-core kernel's N of 8, 16 and 32); at
+              for the tensor-core kernel's N of 8, 16 and 32; each B11
+              check one launch on its route, named by the launch counts:
+              16,384^2 at d 54, the ragged 4,097 x 3,001 at d 55 through
+              the threads' store and 4,097 x 3,000 through the TMA store,
+              y is x with the diagonal within 1e-5 of 1, d 90 on the
+              CUDA cores); at
               ``bench_cg.py``'s
               shape in f64 ``krr.fit_exact`` and EigenPro against the dense
               solve and the preconditioned and plain iteration counts;
@@ -211,6 +216,21 @@ result.  Phases, each of which raises on failure:
               padded size and width) and f64 (n 65,536), lines and counts
               checked; each bf16 entry timed in turns with its f32 entry
               beside its bound (bf16 data at 2 bytes);
+ 8e. tuning   the tuning and launch surface, on the run's own tile
+              database (``REPRO_TILE_DB``, a temporary file set before
+              phase 1): (a) ``autotune_all`` at the reference's default
+              shape and at the covtype fit's shapes, counted: every
+              "cuda" candidate runs (the stages that factor a whole tile
+              record their panel-form error at n0 256), B11 launches
+              through the ``pairwise_kernel`` stage, a second call is a
+              cache hit that launches nothing; each record's rates and
+              roofline against the nominal and the calibrated H100 model;
+              (c) a measured ``leaf_block`` steers B7 on phase 3's model
+              (its plan's rows change, predictions within 1e-4 of the
+              cold run); (b) ``corrupt_tile_db``: detected, the serving
+              bucket's plan is the cold one, predictions bit for bit the
+              cold run's, the next save repairs the file; (d) the
+              quickstart on the card; then the database is removed;
   9. timing   kernel, plain-version and library times at the fit, serving,
               sweep, exact-solver, lifecycle and LM prefill shapes, beside
               each kernel's bound (B1's and B2's grouped launches with the
@@ -220,8 +240,12 @@ result.  Phases, each of which raises on failure:
               f64; B8's and B9's grouped launches per sigma, at the largest
               level and the top levels; B12's register-tiled kernel in turns
               with the design it replaced, per Lloyd round and at level 0;
-              B10 and B15 beside the bound of the tensor-core route they
-              take and that of f32 CUDA cores; B10's
+              B10, B11 and B15 beside the bound of the tensor-core route
+              they take and that of f32 CUDA cores; B11's tensor-core and
+              CUDA-core kernels in turns by device time (and laplace's
+              CUDA-core kernel in turns with the first design), beside the
+              chain
+              torch.cdist -> square -> scale -> exp; B10's
               tensor-core and CUDA-core kernels in turns, with the exact-KRR
               fit's wall time, iterations and seconds per apply; B4 and B7
               by device time (calls queued behind a spin kernel) and by
@@ -249,9 +273,12 @@ import contextlib
 import itertools
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -477,6 +504,7 @@ BF16_KERNELS = ("gram_chol", "cross_solve", "gram_chol_levels",
 BF16_ZERO = {f"{k}_bf16": 0 for k in BF16_KERNELS}
 SUB_COUNTS = {"flash_attention_wgmma": ("flash_attention", "wgmma_launches"),
               "kernel_matvec_tc": ("kernel_matvec", "tc_launches"),
+              "kernel_tile_tc": ("kernel_tile", "tc_launches"),
               "ssd_intra_chunk_wgmma": ("ssd_intra_chunk", "wgmma_launches"),
               "policy_dist_tiled": ("policy_dist", "tiled_launches"),
               "oos_contract_pair": ("oos_contract", "pair_launches"),
@@ -500,12 +528,13 @@ def read_counts() -> tuple[dict, dict]:
     """(launches by kernel, calls by plain version).  B14's launches are
     its total ("flash_attention") and those of its wgmma kernel
     ("flash_attention_wgmma"); the mma.sync and CUDA-core kernels took the
-    difference.  B10's, B15's, B3's and B12's likewise: "kernel_matvec"
-    and its tensor-core kernel's ("kernel_matvec_tc"), "ssd_intra_chunk"
-    and its wgmma kernel's ("ssd_intra_chunk_wgmma"), "policy_dist" and its
-    register-tiled kernel's ("policy_dist_tiled"); B7's launches with both
-    terms of a bucket ("oos_contract_pair"); the bfloat16-data entries'
-    of B1, B2, B7, B8 and B9 ("<kernel>_bf16")."""
+    difference.  B10's, B11's, B15's, B3's and B12's likewise:
+    "kernel_matvec" and its tensor-core kernel's ("kernel_matvec_tc"),
+    "kernel_tile" and its tensor-core kernel's ("kernel_tile_tc"),
+    "ssd_intra_chunk" and its wgmma kernel's ("ssd_intra_chunk_wgmma"),
+    "policy_dist" and its register-tiled kernel's ("policy_dist_tiled");
+    B7's launches with both terms of a bucket ("oos_contract_pair"); the
+    bfloat16-data entries' of B1, B2, B7, B8 and B9 ("<kernel>_bf16")."""
     wrappers = kernel_wrappers()
     launches = {name: fn.launches for name, fn in wrappers.items()}
     for key, (name, attr) in SUB_COUNTS.items():
@@ -1047,7 +1076,10 @@ def phase_build() -> None:
     registers and spills of each kernel entry, named by cu++filt (the eight
     instances of B14's wgmma kernel, DP 16 to 128, the six of B10's
     tensor-core kernel, gaussian and imq by 8, 16 and 32 columns, B15's
-    wgmma kernel and the four of its mma.sync kernel, B3's and B12's two,
+    wgmma kernel and the four of its mma.sync kernel, B3's two, the three
+    of dist_tiled.cuh's register-tiled kernel (B12's two, B11's laplace
+    one), B11's sixteen tensor-core kernels (gaussian and imq by 1 to 8
+    k-steps),
     B1's six grouped kernels (f32, bf16 data and f64, with and without the
     factor), B2's and B9's eight grouped tensor-core kernels each (NT 4,
     8, 12, 16; f32 and bf16 data), B8's three grouped kernels (f32, bf16
@@ -1057,11 +1089,13 @@ def phase_build() -> None:
     f64, panels of 16 or 32 rows, a tile of 1 or 8 right-hand sides) and
     B13's four (f32 and f64, panels of 16 or 32 rows) must all be there
     and none may spill),
-    ptxas's C7519 lines of build_stage and build_dist, and the Hopper
-    instructions in the B14, B10, B15, B1/B2 and B8/B9 libraries (HGMMA:
-    wgmma, HMMA: mma.sync, UTMALDG: TMA loads, SYNCS: mbarrier
-    operations): the first three must hold wgmma and TMA loads, B15's,
-    build_stage and build_dist (and their bf16-data libraries) mma.sync."""
+    ptxas's C7519 lines of build_stage and build_dist, their count for
+    B10's and B11's libraries (none allowed in B11's), and the Hopper
+    instructions in the B14, B10, B11, B15, B1/B2 and B8/B9 libraries
+    (HGMMA: wgmma, HMMA: mma.sync, UTMALDG: TMA loads, UTMASTG: TMA stores,
+    SYNCS: mbarrier operations): B14's, B10's, B11's and B15's must hold
+    wgmma and TMA loads, B11's TMA stores too, B15's, build_stage and
+    build_dist (and their bf16-data libraries) mma.sync."""
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
@@ -1074,6 +1108,14 @@ def phase_build() -> None:
         for line in logs.get(lib, "").splitlines():
             if "C7519" in line:  # an injected warpgroup.arrive (none wanted)
                 say(f"[2 build] {lib}: {line.strip()}")
+    # B10's runtime k-step loop has its injected arrives; B11's unrolled
+    # chains must have none
+    for lib in ("kernel_matvec", "kernel_tile"):
+        c7519 = sum("C7519" in line for line in logs.get(lib, "").splitlines())
+        say(f"[2 build] {lib}: {c7519} C7519 lines (injected "
+            "warpgroup.arrive)")
+        require(lib != "kernel_tile" or c7519 == 0,
+                f"kernel_tile has no C7519 line: {c7519}")
     for name, log in logs.items():
         head, *chunks = log.split("Compiling entry function")
         for line in head.splitlines():
@@ -1091,7 +1133,8 @@ def phase_build() -> None:
     # the Hopper entries of each redesigned kernel: (how many instances)
     hopper = {"flash_wgmma_kernel": 8, "matvec_tc_kernel": 6,
               "ssd_mma_kernel": 4, "ssd_wgmma_kernel": 1,
-              "leaf_factor_kernel": 2, "policy_dist_tiled_kernel": 2,
+              "leaf_factor_kernel": 2, "dist_tiled_kernel": 3,
+              "kernel_tile_tc_kernel": 16,
               "gram_chol_levels_kernel": 3, "cross_levels_tc_kernel": 8,
               "gram_points_kernel": 6, "cross_points_tc_kernel": 8,
               "oos_contract_kernel": 16, "leaf_solve_kernel": 8,
@@ -1111,6 +1154,7 @@ def phase_build() -> None:
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
     for lib, needed in (("flash_attention", ("HGMMA", "UTMALDG")),
                         ("kernel_matvec", ("HGMMA", "UTMALDG")),
+                        ("kernel_tile", ("HGMMA", "UTMALDG", "UTMASTG")),
                         ("ssd_chunk", ("HGMMA", "UTMALDG", "HMMA")),
                         ("build_stage", ("HMMA",)),
                         ("build_dist", ("HMMA",)),
@@ -1121,7 +1165,7 @@ def phase_build() -> None:
             capture_output=True, text=True, check=True,
             timeout=300).stdout.splitlines()
         ops = {op: sum(op in line for line in sass)
-               for op in ("HGMMA", "HMMA", "UTMALDG", "SYNCS")}
+               for op in ("HGMMA", "HMMA", "UTMALDG", "UTMASTG", "SYNCS")}
         say(f"[2 build] {lib} SASS instructions: {ops}")
         require(all(ops[op] > 0 for op in needed),
                 f"{lib}'s library holds {' and '.join(needed)}")
@@ -1164,7 +1208,8 @@ def phase_fit(dev) -> dict:
                 "kernel_matvec": 0, "kernel_tile": 0, "policy_dist": 0,
                 "leaf_update": 0, "flash_attention": 0,
                 "flash_attention_wgmma": 0, "ssd_intra_chunk": 0,
-                "kernel_matvec_tc": 0, "ssd_intra_chunk_wgmma": 0,
+                "kernel_matvec_tc": 0, "kernel_tile_tc": 0,
+                "ssd_intra_chunk_wgmma": 0,
                 "policy_dist_tiled": 0, "oos_contract_pair": 0, **BF16_ZERO}
     require(launches == expected,
             f"fit launches {launches} == expected {expected}")
@@ -3085,7 +3130,8 @@ def phase_sweep(fit, dev) -> dict:
                 "hck_leaf_project": 3, "kernel_matvec": 0, "kernel_tile": 0,
                 "policy_dist": 0, "leaf_update": 0, "flash_attention": 0,
                 "flash_attention_wgmma": 0, "ssd_intra_chunk": 0,
-                "kernel_matvec_tc": 0, "ssd_intra_chunk_wgmma": 0,
+                "kernel_matvec_tc": 0, "kernel_tile_tc": 0,
+                "ssd_intra_chunk_wgmma": 0,
                 "policy_dist_tiled": 0, **BF16_ZERO}
     got = {k: v for k, v in launches.items()
            if k not in ("oos_contract", "oos_contract_pair")}
@@ -3527,6 +3573,18 @@ def tile_cost(n, m, d):
     return 4 * (n * d + m * d + n * m), kernel_flops(n * m, n + m, d)
 
 
+def kernel_tile_tc_bound(n, m, d):
+    """The least time of pairwise_kernel's tensor-core route: the larger of
+    its bytes (tile_cost's), three TF32 passes over 2d flops a pair at
+    PEAK_TF32 (the function's d, not the kernel's padding), and one exp2
+    (or rsqrt) a pair at PEAK_SFU."""
+    times = {"bytes": tile_cost(n, m, d)[0] / PEAK_BYTES,
+             "operations": max(3 * 2 * d * n * m / PEAK_TF32,
+                               n * m / PEAK_SFU)}
+    by = max(times, key=times.get)
+    return times[by] * 1e3, by
+
+
 def plain_kernel_matvec(xc, y, v, name, sigma, chunk=2048):
     """The plain version over row chunks of xc (its (chunk, m) kernel tile
     bounds the memory, as ExactKernelOp's plain path does)."""
@@ -3581,23 +3639,63 @@ def check_tile(x, y, name, atol, sigma=SIGMA, chunk=4096):
     """B11 through the registry stage against its plain version: the
     values lie in (0, 1], so the gate is absolute, atol (1e-5 in float32,
     where the plain version's norm identity loses ~eps32 (|x|^2 + |y|^2)
-    per squared distance).  Laplace's plain version broadcasts (chunk, m,
-    d), so it goes by 256 rows."""
+    per squared distance).  The launch must be one, on the route that
+    ``ops.route`` names (the tensor-core kernel for f32 gaussian and imq
+    with d <= 64, its one launch a ``tc_launches`` one; the CUDA-core
+    kernels for laplace and wider rows, none).  Where y is x the diagonal
+    must lie within atol of 1.  Laplace's plain version broadcasts (chunk,
+    m, d), so it goes by 256 rows.  Returns (max|d|, the route that ran)."""
+    from repro_torch.kernels.kernel_tile import ops
     from repro_torch.kernels.kernel_tile.ref import pairwise_kernel_ref
     from repro_torch.kernels.registry import get_impl
 
+    before = ops.pairwise_kernel.launches, ops.pairwise_kernel.tc_launches
     got = get_impl("pairwise_kernel", "cuda")(x, y, name=name, sigma=sigma)
+    total = ops.pairwise_kernel.launches - before[0]
+    tc = ops.pairwise_kernel.tc_launches - before[1]
+    ran = "tc" if tc else "cuda_core"
+    want = ops.route(torch.float32, name, x.shape[1])
+    require(ran == want and total == 1,
+            f"pairwise_kernel[{name}] d {x.shape[1]}: one launch of the "
+            f"{want} kernel ({total} launches, {tc} on the tensor cores)")
     step = 256 if name == "laplace" else chunk
     err = 0.0
     for i in range(0, x.shape[0], step):
-        want = pairwise_kernel_ref(x[i:i + step], y, name=name, sigma=sigma)
-        err = max(err, float((got[i:i + step] - want).abs().max()))
+        want_k = pairwise_kernel_ref(x[i:i + step], y, name=name,
+                                     sigma=sigma)
+        err = max(err, float((got[i:i + step] - want_k).abs().max()))
+    diag = float((got.diagonal() - 1).abs().max()) if y is x else 0.0
     sync()
     require(got.dtype == torch.float32 and bool(torch.isfinite(got).all()),
             f"pairwise_kernel[{name}] float32 and finite")
-    require(err <= atol, f"pairwise_kernel[{name}] {tuple(x.shape)} x "
-            f"{tuple(y.shape)}: max|d| {err:.3e} <= {atol}")
-    return err
+    require(err <= atol, f"pairwise_kernel[{name}] [{ran}] "
+            f"{tuple(x.shape)} x {tuple(y.shape)}: max|d| {err:.3e} <= "
+            f"{atol}")
+    require(diag <= atol, f"pairwise_kernel[{name}] y is x: the diagonal "
+            f"within {atol} of 1 ({diag:.3e})")
+    return err, ran
+
+
+def tile_path_cases(gen, dev) -> list[tuple]:
+    """B11's tensor-core shapes past phase 8b's covtype width: the two
+    shapes the autotune sweep's pairwise_kernel stage gives it in phase 8e
+    ((256, 4) x (16, 4): one k-step, Y shorter than one tile, the TMA
+    store clipped; (128, 64) x (128, 64): eight k-steps, two full boxes),
+    and every other k-step count (d 7 to 48, one instance each of the
+    kernel's eight), m alternately a multiple of 4 (TMA store) and not
+    (the threads' store).  Points of make_data's scale, sqrt(2/d) N(0, 1).
+    (what, x, y) triples."""
+    def pts(n, d):
+        return math.sqrt(2.0 / d) * torch.randn((n, d), generator=gen,
+                                                device=dev)
+
+    out = [("autotune default (256, 4) x (16, 4)", pts(256, 4), pts(16, 4)),
+           ("autotune covtype (128, 64) x (128, 64)", pts(128, 64),
+            pts(128, 64))]
+    for j, d in enumerate((7, 16, 23, 32, 39, 48)):
+        m = 1000 + j % 2
+        out.append((f"1024 x {m}, d {d}", pts(1024, d), pts(m, d)))
+    return out
 
 
 def phase_solver_kernels(fit, dev) -> dict:
@@ -3690,17 +3788,51 @@ def phase_solver_kernels(fit, dev) -> dict:
         f"[{', '.join(sorted({r[3] for r in f64}))}]: max rel "
         f"{max(r[0] for r in f64):.3e} (tolerance 1e-10) ok")
 
-    tiles = []
+    from repro_torch.kernels.kernel_tile import ops as tile_ops
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tiles, lines, ksteps = [], [], {}
+    a90, b90 = (math.sqrt(2.0 / 90) * torch.randn((2048, 90), generator=gen,
+                                                  device=dev)
+                for _ in range(2))
+    xs = x[:4096]
     for name in ("gaussian", "imq", "laplace"):
-        tiles.append(check_tile(x[:16384], xt[:16384], name, 1e-5))
         a, b_ = (math.sqrt(2.0 / 55) * torch.randn(s, generator=gen,
                                                    device=dev)
                  for s in ((4097, 55), (3001, 55)))
-        tiles.append(check_tile(a, b_, name, 1e-5))
+        cases = [("16384 x 16384, d 54", x[:16384], xt[:16384]),
+                 ("ragged 4097 x 3001, d 55", a, b_),
+                 ("ragged 4097 x 3000, d 55", a, b_[:3000]),
+                 ("y is x, 4096, d 54", xs, xs),
+                 ("2048 x 2048, d 90", a90, b90)]
+        if name != "laplace":
+            cases += tile_path_cases(gen, dev)
+        for what, u, w in cases:
+            err, ran = check_tile(u, w, name, 1e-5)
+            tiles.append(err)
+            store = ""
+            if ran == "tc":   # which store the tile took
+                plan = tile_ops.tc_plan(u.shape[0], w.shape[0], u.shape[1],
+                                        sms)
+                ksteps.setdefault(name, set()).add(plan["dp"] // 8)
+                tma = plan["tma_out"]
+                require(bool(tma) == (w.shape[0] % 4 == 0),
+                        f"pairwise_kernel {what}: TMA store iff m % 4 == 0")
+                store = ", TMA store" if tma else ", threads' store"
+            elif name != "laplace" or u.shape[1] > 64:
+                require(tile_ops.core_kernel(u.shape[1]) == "pair_tile",
+                        f"pairwise_kernel {what}: pair_tile past d 64")
+            lines.append(f"{name} {what} [{ran}{store}] {err:.2e}")
     res["kernel_tile"] = max(tiles)
-    say(f"[8b solvers] pairwise_kernel (registry stage) 16384 x 16384, d 54 "
-        f"and ragged 4097 x 3001, d 55, f32, three kernels: max|d| "
-        f"{res['kernel_tile']:.3e} (tolerance 1e-5 absolute) ok")
+    require(all(ksteps.get(k) == set(range(1, 9)) for k in ("gaussian",
+                                                            "imq")),
+            f"pairwise_kernel: all 16 tensor-core instances checked: "
+            f"{ksteps}")
+    say(f"[8b solvers] pairwise_kernel (registry stage), f32, each check "
+        f"one launch on the route its dtype, base kernel and d name: "
+        f"{'; '.join(lines)}; max|d| {res['kernel_tile']:.3e} (tolerance "
+        f"1e-5 absolute; y is x: the diagonal within 1e-5 of 1); the tc "
+        f"instances checked, by k-steps: {ksteps} ok")
     return res
 
 
@@ -4111,16 +4243,15 @@ def slq_f64_gate(dev) -> dict:
     return {"quad": q_hi, "quad_ctrl": c_hi, "draw_std": p_hi}
 
 
-def solver_timing(ex, kres) -> list[dict]:
+def solver_timing(ex, kres, tune) -> list[dict]:
     """Phase 9, exact solvers: B10 at the exact-KRR path's shape (its
     tensor-core kernel, which the path takes, and the CUDA-core kernel,
     which laplace and f64 keep, on the same inputs in turns) and B11 at
-    16,384 x 16,384, beside their bounds and plain times.  B10's bound is
-    its route's (kernel_matvec_tc_bound), beside the f32 CUDA-core bound of
-    its first design; its record carries the plain-CG exact-KRR fit's wall
-    time, iterations and seconds per operator apply."""
-    from repro_torch.kernels.kernel_tile.ops import pairwise_kernel
-    from repro_torch.kernels.kernel_tile.ref import pairwise_kernel_ref
+    16,384 x 16,384 (:func:`tile_timing`), beside their bounds and plain
+    times.  B10's bound is its route's (kernel_matvec_tc_bound), beside the
+    f32 CUDA-core bound of its first design; its record carries the
+    plain-CG exact-KRR fit's wall time, iterations and seconds per
+    operator apply."""
     from repro_torch.kernels.matvec_stage.ops import (kernel_matvec,
                                                       launch_kernel)
 
@@ -4165,22 +4296,84 @@ def solver_timing(ex, kres) -> list[dict]:
         f"fit_exact {ex['plain_wall_s']:.3f} s, "
         f"{ex['iterations']['plain']} iterations, "
         f"{ex['plain_s_per_apply']:.3f} s an apply")
-    xs, ys = x[:16384], ex["xt"][:16384]
-    records.append(kernel_record(
-        "kernel_tile", src + "kernel_tile.cu",
-        tpu + "kernel_tile/kernel_tile.py:93", 0, kres["kernel_tile"],
-        time_ms(lambda: pairwise_kernel(xs, ys, sigma=SIGMA), 10),
-        time_ms(lambda: pairwise_kernel_ref(xs, ys, sigma=SIGMA), 10),
-        bound_ms(*tile_cost(xs.shape[0], ys.shape[0], D)),
-        unit="one launch: K (16384 x 16384, d 54)",
-        path="none: only the pairwise_kernel registry stage reaches it "
-             "(autotune and roofline come with A15)"))
+    records.append(tile_timing(x[:16384], ex["xt"][:16384], kres,
+                               tune))
     for rec in records:
+        chain = (f", chain {rec['library_chain']} "
+                 f"{rec['library_chain_ms']:.4f} ms"
+                 if "library_chain_ms" in rec else "")
         say(f"[9 timing] {rec['name']} ({rec['unit']}): kernel "
             f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, library "
-            f"{rec['library_ms']} ms, bound {rec['bound_ms']:.4f} ms "
+            f"{rec['library_ms']} ms{chain}, bound {rec['bound_ms']:.4f} ms "
             f"({rec['bound_by']}), launches {rec['launches']}")
     return records
+
+
+def tile_timing(xs, ys, kres, tune) -> dict:
+    """Phase 9, B11 at 16,384 x 16,384, d 54, f32: its tensor-core kernel
+    ("tc", gaussian's route) in turns with gaussian's CUDA-core kernel, the
+    first design ("pair_tile"; gaussian's route past d 64) (tc, pair_tile,
+    pair_tile, tc); laplace on its route ("tiled", B12's register-tiled
+    form with the epilogue) in turns with "pair_tile".  By device
+    time (device_ms: each wrapper's staging and launch queued behind a
+    spin kernel), since events around the "tc" wrapper's calls read its
+    host time on a slow host.  Each beside the tc route's bound
+    (kernel_tile_tc_bound) and the f32 CUDA-core bound; the plain version;
+    the chain torch.cdist -> square -> scale -> exp (a yardstick the port
+    never calls, not one library call); the launches on the autotune path
+    (phase 8e)."""
+    from repro_torch.kernels.kernel_tile.ops import launch_kernel
+    from repro_torch.kernels.kernel_tile.ref import pairwise_kernel_ref
+
+    n, m = xs.shape[0], ys.shape[0]
+    out = torch.empty((n, m), dtype=torch.float32, device=xs.device)
+
+    def run(kind, name):
+        return lambda: launch_kernel(kind, xs, ys, out, name=name,
+                                     sigma=SIGMA)
+
+    tc, first, g_turns = in_turns(run("tc", "gaussian"),
+                                  run("pair_tile", "gaussian"), 10,
+                                  device=True)
+    lap, lap_first, l_turns = in_turns(run("tiled", "laplace"),
+                                       run("pair_tile", "laplace"), 10,
+                                       device=True)
+    scale = -0.5 / SIGMA ** 2
+    chain = time_ms(lambda: torch.exp(torch.cdist(xs, ys).square_()
+                                      .mul_(scale)), 10)
+    core_bound = bound_ms(*tile_cost(n, m, D))
+    rec = kernel_record(
+        "kernel_tile", "src/repro_torch/csrc/kernel_tile.cu",
+        "src/repro/kernels/kernel_tile/kernel_tile.py:93",
+        tune["b11_launches"], max(kres["kernel_tile"], tune["b11_err"]), tc,
+        time_ms(lambda: pairwise_kernel_ref(xs, ys, sigma=SIGMA), 10),
+        kernel_tile_tc_bound(n, m, D),
+        unit=f"one launch: K ({n} x {m}, d {D}), gaussian",
+        kernel="split TF32 (TMA loads and stores, wgmma, warp-specialised)",
+        tc_launches=tune["b11_launches"],
+        path="the autotune sweep's pairwise_kernel stage (phase 8e)",
+        bound_f32_ms=core_bound[0],
+        turns_ms={"tc": [g_turns[0], g_turns[3]],
+                  "pair_tile": [g_turns[1], g_turns[2]]},
+        cuda_core_ms=first, previous_ms=first,
+        previous="pair_tile (kernel_tile_f32, the first design)",
+        laplace={"tiled_ms": lap, "pair_tile_ms": lap_first,
+                 "turns_ms": l_turns, "bound_ms": core_bound[0],
+                 "bound_by": core_bound[1]},
+        library_chain_ms=chain,
+        library_chain="torch.cdist -> square -> scale -> exp")
+    say(f"[9 timing] kernel_tile in turns (tc, pair_tile, pair_tile, tc), "
+        f"device time, gaussian: "
+        f"{', '.join(f'{t:.4f}' for t in g_turns)} ms; tc {tc:.4f} ms "
+        f"against its bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
+        f"the CUDA cores' {core_bound[0]:.4f} ms; the CUDA-core kernel, "
+        f"the first design (pair_tile) {first:.4f} ms")
+    say(f"[9 timing] kernel_tile laplace in turns (tiled, pair_tile, "
+        f"pair_tile, tiled), device time: "
+        f"{', '.join(f'{t:.4f}' for t in l_turns)} ms; "
+        f"tiled {lap:.4f}, pair_tile {lap_first:.4f} ms (bound "
+        f"{core_bound[0]:.4f} ms, {core_bound[1]})")
+    return rec
 
 
 def phase_solvers(fit, sw, dev) -> dict:
@@ -5766,6 +5959,354 @@ def phase_precision(fit, sw, dev) -> list[dict]:
 
 
 # ---------------------------------------------------------------------------
+# Phase 8e: the tuning and launch surface -- the autotune tile database, the
+# roofline, the corrupt-database fault, a measured block steering B7, and
+# the quickstart
+# ---------------------------------------------------------------------------
+
+# The reference's default sweep shape (autotune_all) and the covtype fit's
+# shapes, its oos stages at the serving request size (their record steers
+# B7 on that path).
+SERVE_Q = 4096
+TUNE_SHAPES = {"default": dict(n0=256, r=16, k=2, d=4),
+               "covtype": dict(n0=LEAF, r=RANK, k=N_CLASSES, d=D,
+                               queries=SERVE_Q)}
+# Stages whose kernels factor a whole tile: past m 235 (B1), 240 (B3, B8)
+# they raise naming the panel form (ROADMAP Queue B, redesign item 1).
+PANEL_STAGES = ("leaf_factor", "build_gram", "build_gram_dist")
+
+
+def tune_records_text(recs, hw_nominal, hw_cal) -> list[str]:
+    """One line a record: winner, best time, achieved rates, and the
+    stage's roofline fraction against the nominal and calibrated H100
+    models."""
+    from repro_torch.utils import roofline
+
+    out = []
+    for rec in recs:
+        b = rec["bucket"]
+        qb = (1 if rec["stage"] in ("kernel_matvec", "pairwise_kernel")
+              else b["batch"])
+        shape = dict(batch=qb, n0=b["n0"], r=b["r"], k=b["k"], d=b["d"])
+        nom = roofline.stage_roofline(rec["stage"], rec["best_s"],
+                                      hw=hw_nominal, **shape)
+        cal = roofline.stage_roofline(rec["stage"], rec["best_s"], hw=hw_cal,
+                                      **shape)
+        out.append(
+            f"{rec['stage']} [{rec['backend']}, block {rec['block']}, cuda "
+            f"block {rec['cuda_block']}] {rec['best_s'] * 1e6:.1f} us, "
+            f"{rec['rates']['flops_per_s'] / 1e9:.2f} GFLOP/s, "
+            f"{rec['rates']['bytes_per_s'] / 1e9:.2f} GB/s; roofline "
+            f"{nom['achieved_frac']:.2e} nominal ({nom['bound']}), "
+            f"{cal['achieved_frac']:.2e} calibrated")
+    return out
+
+
+def tune_b11_check(shape) -> float:
+    """B11 on the autotune sweep's own pairwise_kernel inputs at ``shape``
+    (autotune.sweep_inputs, the sweep's seed): one launch on the "tc"
+    route, within 1e-5 absolute of the plain version.  After the counted
+    sweep, so its launch counts no path.  Returns max|d|."""
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.kernel_tile import ops
+    from repro_torch.kernels.kernel_tile.ref import pairwise_kernel_ref
+    from repro_torch.kernels.registry import get_impl
+
+    args, kw = autotune.sweep_inputs(
+        "pairwise_kernel", **{k: v for k, v in shape.items()
+                              if k != "queries"})
+    before = ops.pairwise_kernel.tc_launches
+    got = get_impl("pairwise_kernel", "cuda")(*args, **kw)
+    err = float((got - pairwise_kernel_ref(*args, **kw)).abs().max())
+    sync()
+    require(ops.pairwise_kernel.tc_launches == before + 1,
+            f"pairwise_kernel on the sweep's inputs {tuple(args[0].shape)} "
+            f"x {tuple(args[1].shape)}: one tc launch")
+    require(bool(torch.isfinite(got).all()) and err <= 1e-5,
+            f"pairwise_kernel on the sweep's inputs: max|d| {err:.3e} <= "
+            "1e-5")
+    return err
+
+
+def tune_sweeps() -> dict:
+    """Phase 8e (a): ``autotune_all`` at each of TUNE_SHAPES on the card,
+    the counts set to 0 around each call: every "cuda" candidate runs (but
+    the panel-form stages' at n0 256), B11 launches through the
+    ``pairwise_kernel`` stage, and a second call is a cache hit that
+    launches nothing.  Then B11's output on the sweep's inputs against the
+    plain version (tune_b11_check)."""
+    from repro_torch.kernels import autotune
+
+    out = {"records": {}, "b11_launches": 0, "b11_err": 0.0}
+    for tag, shape in TUNE_SHAPES.items():
+        recs, launches, _ = counted(lambda: autotune.autotune_all(**shape))
+        require(not any(r["cached"] for r in recs), f"{tag}: a fresh sweep")
+        for rec in recs:
+            errs = [c for c in rec["candidates"]
+                    if c["backend"] == "cuda" and "error" in c]
+            ok = (not errs or (tag == "default"
+                               and rec["stage"] in PANEL_STAGES
+                               and all("panel form" in c["error"]
+                                       for c in errs)))
+            require(ok and (bool(errs) or any(
+                c["backend"] == "cuda" and "s" in c
+                for c in rec["candidates"])),
+                f"autotune {tag} {rec['stage']}: every cuda candidate ran: "
+                f"{errs}")
+        require(launches["kernel_tile"] > 0
+                and launches["kernel_tile_tc"] == launches["kernel_tile"],
+                f"autotune {tag}: B11 launched through the pairwise_kernel "
+                f"stage, on its tensor-core route: {launches['kernel_tile']}"
+                f" ({launches['kernel_tile_tc']} tc)")
+        out["b11_launches"] += launches["kernel_tile"]
+        hit, l2, p2 = counted(lambda: autotune.autotune_all(**shape))
+        require(all(r["cached"] for r in hit) and not any(l2.values())
+                and not any(p2.values()),
+                f"autotune {tag}: the second call is a cache hit that "
+                f"launches nothing: {l2}, {p2}")
+        out["records"][tag] = recs
+        err = tune_b11_check(shape)
+        out["b11_err"] = max(out["b11_err"], err)
+        launched = {k: v for k, v in launches.items() if v}
+        panel = [r["stage"] for r in recs if any(
+            "error" in c for c in r["candidates"])]
+        say(f"[8e tuning] (a) autotune_all {tag} {shape}: {len(recs)} "
+            f"records, launches {launched} (B11 {launches['kernel_tile']}, "
+            f"all tc); the panel form's errors recorded for {panel}; a "
+            f"second call: {len(hit)} cache hits, no launch; B11 on the "
+            f"sweep's pairwise_kernel inputs max|d| {err:.2e} <= 1e-5 of "
+            f"the plain version ok")
+    return out
+
+
+def tune_consult_cost(fit) -> dict:
+    """Phase 8e (e): what B7's tile-database consult costs serving.  The
+    covtype serving bucket's record holds the cold plan's rows, so both
+    arms launch the same plan; 4,096-query requests through phase 3's
+    engine, host clock around each (the consult is host work), 50 a turn,
+    in turns twice over (consult on, REPRO_AUTOTUNE=0, REPRO_AUTOTUNE=0,
+    on); and the consult alone (oos_stage.ops.measured_block), warm,
+    20,000 calls a turn in the same order.  Each turn's median, in
+    microseconds; an arm's figure is the median of its four turns."""
+    import os
+    import statistics
+
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.oos_stage import ops as oops
+
+    eng, q = fit["model"].engine, fit["xt"][:SERVE_Q]
+    ms, cold = (LEAF, RANK), oops.plan((LEAF, RANK), D, N_CLASSES, 4)
+    db = autotune.get_db()
+    key = autotune.bucket_key("oos_local", autotune.device_kind(),
+                              "float32", n0=LEAF, r=0, k=N_CLASSES, d=D)
+    db.put(key, {**db.get(key), "cuda_block": cold["rows"]})
+    require(oops.measured_block(ms, D, N_CLASSES, 4) == cold["rows"],
+            "(e) the warm database holds the cold plan's rows")
+
+    def arm(on):
+        if on:
+            os.environ.pop("REPRO_AUTOTUNE", None)
+        else:
+            os.environ["REPRO_AUTOTUNE"] = "0"
+        ts = []
+        for _ in range(50):
+            sync()
+            t0 = time.perf_counter()
+            eng(q)
+            sync()
+            ts.append((time.perf_counter() - t0) * 1e6)
+        return statistics.median(ts)
+
+    def consult(on, reps=20000):
+        if on:
+            os.environ.pop("REPRO_AUTOTUNE", None)
+        else:
+            os.environ["REPRO_AUTOTUNE"] = "0"
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            oops.measured_block(ms, D, N_CLASSES, 4)
+        return (time.perf_counter() - t0) / reps * 1e6
+
+    order = (True, False, False, True) * 2
+    try:
+        eng(q)
+        turns = [arm(on) for on in order]
+        alone = [consult(on) for on in order]
+    finally:
+        os.environ.pop("REPRO_AUTOTUNE", None)
+
+    def arm_of(ts, on):
+        return statistics.median(t for t, o in zip(ts, order) if o == on)
+
+    out = {"request_us_on": arm_of(turns, True),
+           "request_us_off": arm_of(turns, False), "turns_us": turns,
+           "consult_us_on": arm_of(alone, True),
+           "consult_us_off": arm_of(alone, False), "consult_turns_us": alone}
+    say(f"[8e tuning] (e) B7's consult on serving, a warm database holding "
+        f"the cold plan ({cold['rows']} rows): {SERVE_Q}-query requests in "
+        f"turns (on, off, off, on) x 2, host clock, each a median of 50: "
+        f"{', '.join(f'{t:.1f}' for t in turns)} us (on "
+        f"{out['request_us_on']:.1f}, off {out['request_us_off']:.1f}, "
+        f"difference {out['request_us_on'] - out['request_us_off']:+.1f} "
+        f"us); the consult alone, same turns: "
+        f"{', '.join(f'{t:.3f}' for t in alone)} us a launch (on "
+        f"{out['consult_us_on']:.3f}, REPRO_AUTOTUNE=0 "
+        f"{out['consult_us_off']:.3f})")
+    return out
+
+
+def tune_steer_and_corrupt(fit, db_file) -> dict:
+    """Phase 8e (b), (c): on phase 3's model at covtype width, 4,096 test
+    queries through its engine.  (c) a measured leaf_block (the sweep's
+    covtype oos_local record, its cuda block, or the fastest other cuda
+    candidate where that is the cold plan's) steers B7: its plan's rows
+    change and the predictions stay within 1e-4 of the cold run's; (b) the
+    corrupt database is detected, the serving bucket's plan is the cold
+    one and the predictions are bit for bit the cold run's, and the next
+    save repairs the file."""
+    import os
+
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.oos_stage import ops as oops
+    from repro_torch.testing import faultinject as fi
+
+    eng, q = fit["model"].engine, fit["xt"][:4096]
+    ms = (LEAF, RANK)
+    cold = oops.plan(ms, D, N_CLASSES, 4)
+    os.environ["REPRO_AUTOTUNE"] = "0"
+    try:
+        z_cold = eng(q)
+    finally:
+        del os.environ["REPRO_AUTOTUNE"]
+    sync()
+
+    db = autotune.get_db()
+    key = autotune.bucket_key("oos_local", autotune.device_kind(),
+                              "float32", n0=LEAF, r=0, k=N_CLASSES, d=D)
+    rec = db.get(key)
+    require(rec is not None, f"the covtype serving bucket's record {key}")
+    timed = sorted((c for c in rec["candidates"]
+                    if c["backend"] == "cuda" and "s" in c),
+                   key=lambda c: c["s"])
+    block = (rec["cuda_block"] if rec["cuda_block"] != cold["rows"] else
+             next(c["block"] for c in timed if c["block"] != cold["rows"]))
+    db.put(key, {**rec, "cuda_block": block})
+    db.save()
+    autotune.reset_db()
+    seen, plan0 = [], oops.plan
+
+    def recording(*a, **kw):
+        p = plan0(*a, **kw)
+        seen.append(p["rows"])
+        return p
+
+    oops.plan = recording
+    try:
+        z_steer = eng(q)
+        sync()
+    finally:
+        oops.plan = plan0
+    gap = rel_max(z_steer, z_cold)
+    require(seen and set(seen) == {block} and block != cold["rows"],
+            f"(c) the measured block {block} steers B7's plan (rows "
+            f"{sorted(set(seen))}, cold {cold['rows']})")
+    require(gap <= 1e-4, f"(c) steered predictions within 1e-4 of the cold "
+            f"run's: {gap:.3e}")
+    say(f"[8e tuning] (c) measured leaf_block {block} (sweep's cuda block "
+        f"{rec['cuda_block']}, cold plan {cold['rows']} rows) steers B7: "
+        f"{len(seen)} launches with {block} rows; predictions on 4096 "
+        f"queries rel {gap:.3e} <= 1e-4 of the cold run ok")
+
+    good = dict(autotune.get_db().entries)
+    fi.corrupt_tile_db(db_file)
+    bad = autotune.get_db()
+    measured = oops.measured_block(ms, D, N_CLASSES, 4)
+    z_bad = eng(q)
+    sync()
+    require(bad.corrupt and not bad.entries, "(b) the corruption is detected")
+    require(measured is None and oops.plan(ms, D, N_CLASSES, 4, measured)
+            == cold, "(b) the serving bucket's plan is the cold plan")
+    require(torch.equal(z_bad, z_cold), "(b) predictions on the corrupt "
+            "database bit for bit the cold run's")
+    for k, v in good.items():
+        bad.put(k, v)
+    bad.save()
+    autotune.reset_db()
+    healed = autotune.get_db()
+    require(not healed.corrupt and len(healed.entries) == len(good),
+            "(b) the next save repairs the file")
+    say(f"[8e tuning] (b) corrupt_tile_db: detected (corrupt, no entries), "
+        f"the serving bucket's plan = the cold plan ({cold['rows']} rows, "
+        f"{cold['warps']} warps), predictions bit for bit the cold run's; "
+        f"the next save rewrote {len(healed.entries)} entries ok")
+    return {"steered_rows": block, "cold_rows": cold["rows"],
+            "steer_gap": gap}
+
+
+def tune_quickstart() -> dict:
+    """Phase 8e (d): ``repro_torch.examples.quickstart`` on the card."""
+    from repro_torch.examples import quickstart
+
+    t = time.perf_counter()
+    out = quickstart.main([])
+    sync()
+    vals = [v for k, v in out.items() if k != "gp_var"] + out["gp_var"]
+    require(all(math.isfinite(v) for v in vals)
+            and all(v > 0 for v in out["gp_var"]),
+            f"quickstart: finite errors and positive variances: {out}")
+    say(f"[8e tuning] (d) quickstart on the card in "
+        f"{time.perf_counter() - t:.2f} s: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in out.items() if k != "gp_var"))
+    return out
+
+
+def phase_tuning(fit, db_file) -> dict:
+    """Phase 8e: (a)-(d) above, on the run's own tile database (a
+    temporary file from the start of the run), which it empties when done
+    so that the later phases run the cold plans."""
+    import os
+
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.oos_stage import ops as oops
+    from repro_torch.utils import roofline
+
+    t = time.perf_counter()
+    out = tune_sweeps()
+    hw_nom = roofline.hw_model("gpu", calibrate=False)
+    hw_cal = roofline.hw_model("gpu")
+    require(hw_cal["calibration"] == "measured (tile_db)",
+            "the H100 model calibrates from the sweeps")
+    say(f"[8e tuning] H100 model nominal {hw_nom['peak_flops']:.3e} FLOP/s, "
+        f"{hw_nom['hbm_bw']:.3e} B/s; calibrated from the database "
+        f"{hw_cal['peak_flops']:.3e} FLOP/s, {hw_cal['hbm_bw']:.3e} B/s")
+    for tag, recs in out["records"].items():
+        for line in tune_records_text(recs, hw_nom, hw_cal):
+            say(f"[8e tuning] (a) {tag} {line}")
+        winners = [r["stage"] for r in autotune.torch_winners(recs)]
+        say(f"[8e tuning] (a) {tag}: buckets the plain version won (a "
+            f"finding; the route stays the kernel's): {winners}")
+    for tag in ("default", "covtype"):
+        cold = oops.plan((TUNE_SHAPES[tag]["n0"], TUNE_SHAPES[tag]["r"]),
+                         TUNE_SHAPES[tag]["d"], TUNE_SHAPES[tag]["k"], 4)
+        blocks = {r["stage"]: r["cuda_block"] for r in out["records"][tag]
+                  if r["stage"] in autotune.OOS_STAGES}
+        say(f"[8e tuning] (a) {tag}: the oos stages' measured blocks "
+            f"against the cold plan's {cold['rows']} rows: " + ", ".join(
+                f"{st} {b} ({'the same' if b == cold['rows'] else 'differs'})"
+                for st, b in blocks.items())
+            + f"; B7's consult reads oos_local's record first, so it steers "
+            f"this bucket to {blocks['oos_local']} rows")
+    out.update(tune_steer_and_corrupt(fit, db_file))
+    out["consult"] = tune_consult_cost(fit)
+    out["quickstart"] = tune_quickstart()
+    os.remove(db_file)
+    autotune.reset_db()
+    out["seconds"] = time.perf_counter() - t
+    say(f"[8e tuning] phase done in {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # LM serving: Zamba2-7B through ServeSession, B14 and B15
 # ---------------------------------------------------------------------------
 
@@ -6610,6 +7151,15 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
     from repro_torch import device
+    from repro_torch.kernels import autotune
+
+    # the run's own tile database from its start, so that no database of
+    # the home directory steers any phase (phase 8e fills and removes it)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    tile_db = os.path.join(tmp, "tile_db.json")
+    os.environ["REPRO_TILE_DB"] = tile_db
+    os.environ.pop("REPRO_AUTOTUNE", None)
+    autotune.reset_db()
 
     dev = device.resolve("cuda")
     # the plain versions that this script calls directly, in full f32 (the
@@ -6631,12 +7181,14 @@ def main() -> int:
     solv = phase_solvers(fit, sw, dev)
     life = phase_lifecycle(fit, sw, dev)
     prec = phase_precision(fit, sw, dev)
+    tune = phase_tuning(fit, tile_db)
     kernels = (phase_timing(fit, res, served, sw, solv)
                + sweep_timing(sw, sres)
-               + solver_timing(solv["exact"], solv["kres"])
+               + solver_timing(solv["exact"], solv["kres"], tune)
                + lifecycle_timing(fit, life["km"], life["update"],
                                   life["b12"]) + prec + lm_records)
     phase_profile(fit, served["engine"], sw)
+    shutil.rmtree(tmp, ignore_errors=True)
     say(f"[end] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,16 @@
 // Hopper (sm_90a) building blocks shared by the kernels written around TMA,
 // mbarriers and wgmma: flash_attention.cu (B14, bf16), kernel_matvec.cu
-// (B10, split TF32) and ssd_chunk.cu (B15, split TF32).
+// (B10, split TF32), kernel_tile.cu (B11, split TF32) and ssd_chunk.cu
+// (B15, split TF32).
 //
 //   * mbarrier ring: init, expect_tx, arrive, parity wait, and the proxy
 //     fence that publishes threads' shared-memory writes to TMA and wgmma;
+//     a named barrier over some of a block's warps;
 //   * TMA: a box of a 3-D tensor map, or a 1-D bulk copy, into shared
-//     memory, completion counted in bytes on an mbarrier; the host-side
-//     encoder of a 3-D map read in 128-byte-swizzled boxes;
+//     memory, completion counted in bytes on an mbarrier; a box from shared
+//     memory back to a 3-D tensor map, in bulk groups that the issuing
+//     thread commits and waits for; the host-side encoder of a 3-D map
+//     read or written in 128-byte-swizzled boxes;
 //   * wgmma: the shared-memory descriptor of a 128-byte-swizzled tile,
 //     fence / commit / wait, the accumulator register fences, and the
 //     operand lists of the accumulators (WG_D8, WG_R*);
@@ -61,9 +65,15 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 }
 
 // Makes this thread's writes to shared memory visible to the async proxy
-// (TMA, wgmma) before an mbarrier arrive publishes them.
+// (TMA, wgmma) before an mbarrier arrive or a barrier publishes them.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Barrier ``id`` (1 to 15; 0 is __syncthreads') over ``count`` threads,
+// whole warps.
+__device__ __forceinline__ void named_bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -91,6 +101,35 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       "[%0], [%1], %2, [%3];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
+}
+
+// One box of shared memory at ``src`` into a 3-D tensor map at (column c0,
+// row c1, plane c2); the TMA clips what lies past the tensor.  Part of the
+// issuing thread's current bulk group.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
+                                          int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2) : "memory");
+}
+
+// Closes the issuing thread's current bulk group of stores.
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's bulk groups still read their
+// shared memory (which may then be written again).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Waits until at most N of this thread's bulk groups are incomplete.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // cuTensorMapEncodeTiled, looked up in libcuda through the runtime so a
@@ -121,9 +160,10 @@ inline EncodeTiled tensor_map_encoder() {
 }
 
 // A row-major (planes, rows, cols) tensor of ``type`` (``elem`` bytes an
-// element) as a 3-D map read in boxes of ``box_cols`` columns (128 bytes:
-// one swizzle atom) x ``box_rows`` rows of one plane, 128-byte swizzled;
-// the TMA fills rows and columns past the tensor with zeros.  The row
+// element) as a 3-D map read or written in boxes of ``box_cols`` columns
+// (128 bytes: one swizzle atom) x ``box_rows`` rows of one plane, 128-byte
+// swizzled; a load fills rows and columns past the tensor with zeros, a
+// store leaves them out.  The row
 // stride cols * elem must be a multiple of 16 bytes.  Returns a CUDA error
 // code.
 inline int encode_map(CUtensorMap* map, CUtensorMapDataType type, int elem,

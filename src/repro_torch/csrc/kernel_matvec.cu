@@ -19,24 +19,19 @@
 //
 // float32 gaussian and imq, d <= 64 (the solvers' path): kernel_matvec_tc,
 // split TF32 on the tensor cores.
-//   The wrapper pads d to a multiple of 8 with zeros, splits Xc and Y into
-//   TF32 hi and lo planes (tf32x3.cuh), takes the squared norms in float32
-//   from the unsplit rows, and stages V^T split the same way, k padded to
-//   a multiple of 8 and V's rows permuted within each group of 8 (below).
-//   Block: 128 rows of Xc and 384 threads.  Warpgroup 0 is the producer:
-//   one thread issues every TMA load (setmaxnreg 24).  Warpgroups 1 and 2
-//   consume 64 rows each (240 registers).  X (hi and lo) is loaded once;
-//   tiles of 128 rows of Y (hi, lo, their norms) and the matching 128 keys
+//   Its front half, shared with kernel_tile.cu (B11), is tc_pairs.cuh: the
+//   wrapper's TF32 hi and lo planes of Xc and Y (d padded to a multiple of
+//   8) and float32 norms, a producer warpgroup issuing every TMA load, X's
+//   128 rows resident, S = X Y^T by wgmma.m64n128k8 .tf32 in three passes
+//   and the clamped identity with exp2 or rsqrt.  Here the wrapper also
+//   stages V^T split the same way, k padded to a multiple of 8 and V's
+//   rows permuted within each group of 8 (below).  The producer gives its
+//   registers back (setmaxnreg 24), the two consumer warpgroups take 240.
+//   Tiles of 128 rows of Y (hi, lo, their norms) and the matching 128 keys
 //   of V^T go through a ring of 1 to 4 stages (as many as fit) with full
 //   and empty mbarriers, so later tiles load while this one is computed.
-//   Each plane is read in 128-byte-swizzled boxes of 32 columns; a 56-
-//   column row is two boxes, zero-filled past d.  Two consumer warpgroups
-//   share one Y tile, so Y is read once per 128 rows of Xc.
-//   S = X Y^T: wgmma.m64n128k8 .tf32, both K-major from shared memory,
-//   three passes a k-step (lo hi, hi lo, hi hi).  The epilogue runs on the
-//   accumulator in registers: d2 = max(|x|^2 + |y|^2 - 2 S, 0), the
-//   distance clamped as in the TPU kernel, then exp2 (gaussian) or rsqrt
-//   (imq), then the kernel value split into hi and lo.  O += K V: the
+//   Two consumer warpgroups share one Y tile, so Y is read once per 128
+//   rows of Xc.  The kernel values are split into hi and lo.  O += K V: the
 //   split K goes back to wgmma as A from registers (m64nKPk8, KP = 8, 16
 //   or 32 columns of V a launch) against V^T (hi, lo) from shared memory.
 //   The accumulator holds columns 2t and 2t + 1 of each group of 8 where
@@ -71,6 +66,7 @@
 #include "hopper.cuh"
 #include "kernel_epilogue.cuh"
 #include "pair_tile.cuh"
+#include "tc_pairs.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -184,17 +180,15 @@ int launch(const void* xc, const void* y, const void* v, void* z, int b,
 namespace tc {
 
 using namespace hopper;
+using tc_pairs::BM;
+using tc_pairs::BN;
+using tc_pairs::COLS;
+using tc_pairs::kThreads;
+using tc_pairs::XBOX;
+using tc_pairs::YBOX;
 
-constexpr int BM = 128;              // rows of Xc a block: 2 warpgroups x 64
-constexpr int BN = 128;              // rows of Y a tile (S: m64n128)
-constexpr int kThreads = 384;        // producer + two consumer warpgroups
-constexpr int COLS = 32;             // f32 columns a TMA box (128 bytes)
-constexpr uint32_t XBOX = BM * 128;  // bytes of a box of Xc's tile
-constexpr uint32_t YBOX = BN * 128;  // and of Y's
 constexpr int VBOXES = BN / COLS;    // boxes of V^T (32 keys each) a tile
 constexpr int MAX_STAGES = 4;
-constexpr int MAX_DP = 2 * COLS;     // features X keeps resident (2 boxes)
-constexpr float LOG2E = 1.4426950408889634f;
 
 // Byte offsets in a block's shared memory, from a 1024-byte aligned base:
 // Xc's tile (hi and lo planes of nb boxes), the stages' Y tiles (2 nb
@@ -250,19 +244,14 @@ matvec_tc_kernel(const __grid_constant__ CUtensorMap tmx,
     // ---- producer: Xc's tile once, then keeps the ring full ----
     setmaxnreg_dec<24>();
     if (threadIdx.x == 0) {
-      mbar_expect_tx(full_x, 2 * nb * XBOX);
-      for (int pl = 0; pl < 2; ++pl)
-        for (int c = 0; c < nb; ++c)
-          tma_load(sx + (pl * nb + c) * XBOX, &tmx, full_x, c * COLS, r0, pl);
+      tc_pairs::load_x(sx, &tmx, full_x, nb, r0);
       const uint32_t bytes = 2 * nb * YBOX + 2 * VBOXES * KP * 128 + BN * 4;
       for (int j = 0; j < ntiles; ++j) {
         const int st = j % stages;
         mbar_wait(empty(st), ((j / stages) & 1) ^ 1);
         mbar_expect_tx(full(st), bytes);
         for (int pl = 0; pl < 2; ++pl) {
-          for (int c = 0; c < nb; ++c)
-            tma_load(sy(st) + (pl * nb + c) * YBOX, &tmy, full(st), c * COLS,
-                     j * BN, pl);
+          tc_pairs::load_y(sy(st), &tmy, full(st), nb, j * BN, pl);
           for (int c = 0; c < VBOXES; ++c)
             tma_load(sv(st) + (pl * VBOXES + c) * KP * 128, &tmv, full(st),
                      j * BN + c * COLS, col0, pl);
@@ -276,7 +265,7 @@ matvec_tc_kernel(const __grid_constant__ CUtensorMap tmx,
     setmaxnreg_inc<240>();
     const int cw = threadIdx.x / 128 - 1;
     const int lane = threadIdx.x % 32, t = lane % 4;
-    const int row0 = r0 + 64 * cw + 16 * (threadIdx.x % 128 / 32) + lane / 4;
+    const int row0 = r0 + tc_pairs::acc_row(cw);
     const int row1 = row0 + 8;
     const float xn0 = row0 < b ? xn[row0] : 0.f;
     const float xn1 = row1 < b ? xn[row1] : 0.f;
@@ -291,34 +280,11 @@ matvec_tc_kernel(const __grid_constant__ CUtensorMap tmx,
     for (int j = 0; j < ntiles; ++j) {
       const int st = j % stages;
       mbar_wait(full(st), (j / stages) & 1);
-      wgmma_fence();
-      for (int ks = 0; ks < nks; ++ks) {
-        const uint32_t xo = (ks / 4) * XBOX + (ks % 4) * 32;  // box, k-step
-        const uint32_t yo = sy(st) + (ks / 4) * YBOX + (ks % 4) * 32;
-        tf32x3::wgmma3_ss_n128(
-            s, sw128_desc(xa + xo, 16), sw128_desc(xa + nb * XBOX + xo, 16),
-            sw128_desc(yo, 16), sw128_desc(yo + nb * YBOX, 16), ks > 0);
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs<BN / 2>(s);
-      const float* ynt =
-          reinterpret_cast<const float*>(smem_raw + (syn(st) - raw));
-#pragma unroll
-      for (int g8 = 0; g8 < BN / 8; ++g8) {
-        const float2 yv =
-            *reinterpret_cast<const float2*>(ynt + 8 * g8 + 2 * t);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = 4 * g8 + e;
-          const float d2 =
-              fmaxf(fmaf(-2.f, s[i], ((e & 2) ? xn1 : xn0) +
-                                         ((e & 1) ? yv.y : yv.x)), 0.f);
-          const float kv = KIND == KIND_GAUSSIAN ? ex2(d2 * p0)
-                                                 : p0 * rsqrtf(d2 + p1);
-          tf32x3::split(kv, kh[i], kl[i]);
-        }
-      }
+      tc_pairs::products<0>(s, xa, sy(st), nb, nks);
+      tc_pairs::kernel_values<KIND>(
+          s, reinterpret_cast<const float*>(smem_raw + (syn(st) - raw)), xn0,
+          xn1, p0, p1,
+          [&](int i, float kv) { tf32x3::split(kv, kh[i], kl[i]); });
       wgmma_fence();
 #pragma unroll
       for (int g8 = 0; g8 < BN / 8; ++g8) {
@@ -416,23 +382,20 @@ extern "C" int kernel_matvec_tc_f32(const void* xs, const void* ys,
                                     int kp, int ld, int kind, double sigma,
                                     int stages, void* stream) {
   if (b == 0 || kc == 0) return 0;
-  if (m <= 0 || dp <= 0 || dp % 8 || dp > tc::MAX_DP || kpt % 8 || mp % 8 ||
-      mp < m || kc > kp || col0 + kc > kpt || stages < 1 ||
+  if (m <= 0 || dp <= 0 || dp % 8 || dp > tc_pairs::MAX_DP || kpt % 8 ||
+      mp % 8 || mp < m || kc > kp || col0 + kc > kpt || stages < 1 ||
       stages > tc::MAX_STAGES || (kind != KIND_GAUSSIAN && kind != KIND_IMQ))
     return cudaErrorInvalidValue;
-  const auto misaligned = [](const void* p) {
-    return reinterpret_cast<size_t>(p) % 16 != 0;
-  };
+  using tc_pairs::misaligned;
   if (misaligned(xs) || misaligned(ys) || misaligned(vt) || misaligned(yn))
     return cudaErrorInvalidValue;
   const auto st = static_cast<cudaStream_t>(stream);
-  const double s2 = sigma * sigma;
+  float p0, p1;
+  tc_pairs::epilogue_params(kind, sigma, &p0, &p1);
   if (kind == KIND_GAUSSIAN)
-    return tc::launch_kind<KIND_GAUSSIAN>(
-        xs, ys, vt, xn, yn, z, b, m, dp, kpt, mp, col0, kc, kp, ld, stages,
-        static_cast<float>(-tc::LOG2E / (2.0 * s2)), 0.f, st);
+    return tc::launch_kind<KIND_GAUSSIAN>(xs, ys, vt, xn, yn, z, b, m, dp,
+                                          kpt, mp, col0, kc, kp, ld, stages,
+                                          p0, p1, st);
   return tc::launch_kind<KIND_IMQ>(xs, ys, vt, xn, yn, z, b, m, dp, kpt, mp,
-                                   col0, kc, kp, ld, stages,
-                                   static_cast<float>(sigma),
-                                   static_cast<float>(s2), st);
+                                   col0, kc, kp, ld, stages, p0, p1, st);
 }

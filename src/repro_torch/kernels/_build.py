@@ -36,7 +36,7 @@ BF16_BASE = {"build_stage_bf16": "build_stage.cu",
 _HEADERS = ("kernel_epilogue.cuh", "cross_products.cuh", "pair_tile.cuh",
             "hopper.cuh", "tf32x3.cuh", "async_copy.cuh", "chol_blocked.cuh",
             "cross_tc.cuh", "level_groups.cuh", "leaf_stream.cuh",
-            "data_load.cuh")
+            "data_load.cuh", "tc_pairs.cuh", "dist_tiled.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

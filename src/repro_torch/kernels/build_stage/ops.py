@@ -101,21 +101,54 @@ def check_cross_rank(r: int, stage: str) -> None:
                          "work")
 
 
+def row_tiles(r: int, itemsize: int, smem=cross_smem) -> list[int]:
+    """The heights of :data:`_ROW_TILES` whose float64 cross block needs
+    at most :data:`repro_torch.kernels._build.SMEM_MAX` bytes at rank r."""
+    return [bm for bm in _ROW_TILES
+            if smem(bm, r, itemsize) <= _build.SMEM_MAX]
+
+
 def cross_rows(m: int, r: int, itemsize: int, smem=cross_smem,
-               stage: str = "build_cross") -> int:
+               stage: str = "build_cross", row_tile: int | None = None
+               ) -> int:
     """Row-tile height of the float64 cross tiles (cross_solve_levels, or
-    with ``smem=cross_dist_smem`` cross_solve_dist_levels): the largest of
-    :data:`_ROW_TILES` whose block needs at most
-    :data:`repro_torch.kernels._build.SMEM_MAX` bytes and that does not
-    overshoot m by a whole smaller tile; ``ValueError`` when r exceeds
+    with ``smem=cross_dist_smem`` cross_solve_dist_levels): ``row_tile``
+    where given (``ValueError`` unless it is one of :func:`row_tiles`),
+    else the largest of :func:`row_tiles` that does not overshoot m by a
+    whole smaller tile; ``ValueError`` when r exceeds
     :data:`MAX_CROSS_RANK` or no tile fits."""
     check_cross_rank(r, stage)
-    fits = [bm for bm in _ROW_TILES
-            if smem(bm, r, itemsize) <= _build.SMEM_MAX]
+    fits = row_tiles(r, itemsize, smem)
     if not fits:
         _build.check_smem(stage, smem(_ROW_TILES[-1], r, itemsize),
                           f"rank r={r}")
+    if row_tile is not None:
+        if row_tile not in fits:
+            raise ValueError(f"{stage}: row tile {row_tile} is not one of "
+                             f"{fits}, the tiles whose block fits at rank "
+                             f"r={r}")
+        return row_tile
     return next((bm for bm in fits if bm // 2 < m), fits[-1])
+
+
+def measured_row_tile(stage: str, m: int, r: int, d: int, itemsize: int,
+                      smem=cross_smem) -> int | None:
+    """The autotune tile database's row tile for the float64 cross tiles
+    (``stage`` "build_cross" or "build_cross_dist", keyed as the
+    reference's wrappers key them: n0 m, k r, and d 0 for the distance
+    form), where it holds one whose block fits; else None (never
+    raises)."""
+    from repro_torch.kernels.registry import autotuned_block
+
+    tile = autotuned_block(stage, n0=m, r=r, k=r, d=d, itemsize=itemsize)
+    return tile if tile in row_tiles(r, itemsize, smem) else None
+
+
+def _check_row_tile(stage: str, dtype: torch.dtype,
+                    row_tile: int | None) -> None:
+    if row_tile is not None and dtype != torch.float64:
+        raise ValueError(f"{stage}: row_tile sets the float64 tile's rows; "
+                         f"the {dtype} route's tiles are fixed")
 
 
 def _check_name(name: str) -> None:
@@ -230,14 +263,18 @@ def _check_cross(stage, points, landmarks, linvs) -> None:
             f"{[tuple(li.shape) for li in linvs]}")
 
 
-def _cross_levels(stage, dev, points, landmarks, linvs, name, sigma):
+def _cross_levels(stage, dev, points, landmarks, linvs, name, sigma,
+                  row_tile=None):
     """Allocate and launch one cross_solve_levels: ([U], launched)."""
     r, d = landmarks[0].shape[1], points[0].shape[2]
     dtype = points[0].dtype
     check_cross_rank(r, stage)
+    _check_row_tile(stage, dtype, row_tile)
     if dtype == torch.float64:      # the CUDA-core tile: one height for all
-        bm = (cross_rows(max(p.shape[1] for p in points), r,
-                         points[0].element_size(), stage=stage),)
+        m, s = max(p.shape[1] for p in points), points[0].element_size()
+        if row_tile is None:
+            row_tile = measured_row_tile("build_cross", m, r, d, s)
+        bm = (cross_rows(m, r, s, stage=stage, row_tile=row_tile),)
     else:
         bm = ()
     out = [p.new_empty((p.shape[0], p.shape[1], r), dtype=linvs[0].dtype)
@@ -257,11 +294,13 @@ def _cross_levels(stage, dev, points, landmarks, linvs, name, sigma):
 
 def build_cross(
     points: torch.Tensor, landmarks: torch.Tensor, linv: torch.Tensor, *,
-    name: str = "gaussian", sigma: float = 1.0,
+    name: str = "gaussian", sigma: float = 1.0, row_tile: int | None = None,
 ) -> torch.Tensor:
     """(B, m, d), (B, r, d), (B, r, r) -> U (B, m, r) = K(P, Z) Linv^T Linv:
     one level of ``cross_solve_levels``.  Linv must be lower triangular
-    (see :func:`build_cross_levels`)."""
+    (see :func:`build_cross_levels`).  ``row_tile``: the float64 tile's
+    rows (one of :func:`row_tiles`; None: the autotune database's measured
+    tile, else :func:`cross_rows`' choice); other dtypes take none."""
     _check_name(name)
     _check_cross("build_cross", [points], [landmarks], [linv])
     dev = _build.cuda_device("build_cross", linv,
@@ -270,7 +309,8 @@ def build_cross(
         return build_cross_ref(points, landmarks, linv, name=name,
                                sigma=sigma)
     (out,), launched = _cross_levels("build_cross", dev, [points],
-                                     [landmarks], [linv], name, sigma)
+                                     [landmarks], [linv], name, sigma,
+                                     row_tile)
     build_cross.launches += launched
     build_cross.bf16_launches += launched and _bf16(points)
     return out
@@ -390,14 +430,19 @@ def build_gram_dist_levels(
     return out
 
 
-def _cross_dist_levels(stage, dev, dists, linvs, name, sigma):
+def _cross_dist_levels(stage, dev, dists, linvs, name, sigma,
+                       row_tile=None):
     """Allocate and launch one cross_solve_dist_levels: ([U], launched)."""
     dtype, r = dists[0].dtype, dists[0].shape[-1]
     check_cross_rank(r, stage)
+    _check_row_tile(stage, dtype, row_tile)
     if dtype == torch.float64:      # the CUDA-core tile: one height for all
-        bm = (cross_rows(max(d.shape[1] for d in dists), r,
-                         dists[0].element_size(),
-                         smem=cross_dist_smem, stage=stage),)
+        m, s = max(d.shape[1] for d in dists), dists[0].element_size()
+        if row_tile is None:
+            row_tile = measured_row_tile("build_cross_dist", m, r, 0, s,
+                                         smem=cross_dist_smem)
+        bm = (cross_rows(m, r, s, smem=cross_dist_smem, stage=stage,
+                         row_tile=row_tile),)
     else:
         bm = ()
     out = [torch.empty_like(d, dtype=linvs[0].dtype) for d in dists]
@@ -415,11 +460,12 @@ def _cross_dist_levels(stage, dev, dists, linvs, name, sigma):
 
 def build_cross_dist(
     dist: torch.Tensor, linv: torch.Tensor, *, name: str = "gaussian",
-    sigma: float = 1.0,
+    sigma: float = 1.0, row_tile: int | None = None,
 ) -> torch.Tensor:
     """(B, m, r) cached distances, (B, r, r) -> U (B, m, r) =
     kappa_sigma(D) Linv^T Linv: one level of ``cross_solve_dist_levels``.
-    Linv must be lower triangular (see :func:`build_cross_dist_levels`)."""
+    Linv must be lower triangular (see :func:`build_cross_dist_levels`).
+    ``row_tile`` as in :func:`build_cross`."""
     _check_name(name)
     if (dist.ndim != 3 or linv.ndim != 3
             or linv.shape != (dist.shape[0], dist.shape[2], dist.shape[2])):
@@ -430,7 +476,7 @@ def build_cross_dist(
     if dev is None:
         return build_cross_dist_ref(dist, linv, name=name, sigma=sigma)
     (out,), launched = _cross_dist_levels("build_cross_dist", dev, [dist],
-                                          [linv], name, sigma)
+                                          [linv], name, sigma, row_tile)
     build_cross_dist.launches += launched
     build_cross_dist.bf16_launches += launched and _bf16(dist)
     return out

@@ -96,40 +96,50 @@ def permute_keys(v: torch.Tensor) -> torch.Tensor:
     return v.reshape(m // 8, 8, k)[:, list(KEY_OF), :].reshape(m, k)
 
 
-def prepare_tc(xc: torch.Tensor, y: torch.Tensor, v: torch.Tensor) -> dict:
-    """The tensor-core kernel's inputs, staged once per call in float32:
+def prepare_pairs(x: torch.Tensor, y: torch.Tensor) -> dict:
+    """The inputs of the tensor-core front half that B10 and B11 share
+    (``csrc/tc_pairs.cuh``), staged once per call in float32:
 
-    * ``xs`` (2, b, dp) and ``ys`` (2, m, dp): the hi and lo planes of Xc
-      and Y, d padded with zeros to dp, a multiple of 8 (16-byte rows for
-      TMA, whole k-steps of 8);
+    * ``xs`` (2, b, dp) and ``ys`` (2, m, dp): the hi and lo planes of X
+      and Y (:func:`tf32_split`), d padded with zeros to dp, a multiple of 8
+      (16-byte rows for TMA, whole k-steps of 8);
     * ``xn`` (b,) and ``yn`` (m padded to a multiple of TC_BN, zeros past
-      m): squared norms, taken from the unsplit rows;
-    * ``vt`` (2, kp, mp): V^T split into hi and lo, k padded to kp and m to
-      mp (multiples of 8, zeros), its columns (V's rows) permuted within
-      each group of 8 by :func:`permute_keys`.
+      m): squared norms, taken from the unsplit rows.
 
-    When xc is y (the operator's K(X, X)), its planes and norms are staged
-    once.
+    When y is x, its planes and norms are staged once.
     """
-    b, d = xc.shape
-    m, k = v.shape
-    dp, kp, mp = _round_up(d, 8), _round_up(k, 8), _round_up(m, 8)
+    b, d = x.shape
+    m = y.shape[0]
+    dp = _round_up(d, 8)
 
     def planes(a):
         padded = torch.nn.functional.pad(a, (0, dp - d))
         return torch.stack(tf32_split(padded)).contiguous()
 
-    xs = planes(xc)
-    xn = (xc * xc).sum(dim=1)
-    ys = xs if y is xc else planes(y)
+    xs = planes(x)
+    xn = (x * x).sum(dim=1)
+    ys = xs if y is x else planes(y)
     yn = torch.zeros(_round_up(m, TC_BN), dtype=torch.float32,
                      device=y.device)
-    yn[:m] = xn if y is xc else (y * y).sum(dim=1)
+    yn[:m] = xn if y is x else (y * y).sum(dim=1)
+    return {"xs": xs, "ys": ys, "xn": xn, "yn": yn, "dp": dp}
+
+
+def prepare_tc(xc: torch.Tensor, y: torch.Tensor, v: torch.Tensor) -> dict:
+    """The tensor-core kernel's inputs, staged once per call in float32:
+    :func:`prepare_pairs`' planes and norms of Xc and Y, and
+
+    * ``vt`` (2, kp, mp): V^T split into hi and lo, k padded to kp and m to
+      mp (multiples of 8, zeros), its columns (V's rows) permuted within
+      each group of 8 by :func:`permute_keys`.
+    """
+    m, k = v.shape
+    kp, mp = _round_up(k, 8), _round_up(m, 8)
+    st = prepare_pairs(xc, y)
     vp = torch.zeros((mp, kp), dtype=torch.float32, device=v.device)
     vp[:m, :k] = v
     vt = torch.stack(tf32_split(permute_keys(vp).T.contiguous()))
-    return {"xs": xs, "ys": ys, "xn": xn, "yn": yn, "vt": vt.contiguous(),
-            "dp": dp, "kp": kp, "mp": mp}
+    return {**st, "vt": vt.contiguous(), "kp": kp, "mp": mp}
 
 
 def tc_groups(k: int) -> list[tuple[int, int, int]]:

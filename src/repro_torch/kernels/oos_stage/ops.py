@@ -12,7 +12,10 @@ counts the kernel's launches by either wrapper,
 :func:`plan` is the launch's shape: how many rows of a block one slot of
 shared memory holds, how many warps a block of threads has, and the slot
 sizes; :func:`copy_width` and :func:`vec_width` the widths the kernel
-copies and reads with.
+copies and reads with.  A caller's ``leaf_block`` asks for fewer rows;
+without one the autotune tile database's measured block does
+(:func:`measured_block`), and on a cold, disabled or corrupt database the
+plan is the largest that fits.
 
 The kernel has a bfloat16-data entry (``oos_contract_bf16``, in the
 library ``oos_contract_bf16``; a mixed-precision policy's prediction):
@@ -180,16 +183,33 @@ def _device(segments, queries) -> torch.device | None:
     return dev
 
 
+def measured_block(ms: tuple[int, ...], d: int, k: int,
+                   itemsize: int) -> int | None:
+    """The autotune tile database's rows of a block for segments of middle
+    sizes ``ms`` (keyed as the reference keys ``oos_local``: the
+    contraction size, the largest m, with r 0; else ``oos_walk``'s
+    record), or None; never raises (``registry.autotuned_block``)."""
+    from repro_torch.kernels.registry import autotuned_block
+
+    return autotuned_block(("oos_local", "oos_walk"), n0=max(ms), r=0, k=k,
+                           d=d, itemsize=itemsize)
+
+
 def _launch(dev, segments, queries, name: str, sigma: float,
             leaf_block: int | None) -> tuple[torch.Tensor, bool]:
     """One launch over ``segments`` on ``dev``; (the output, whether the
-    kernel was launched: not for an empty output)."""
+    kernel was launched: not for an empty output).  Without
+    ``leaf_block`` the database's measured block steers the plan where it
+    holds one (:func:`measured_block`); :func:`plan` takes no more rows than
+    fit, whichever asks."""
     q, d = queries.shape
     weights = segments[0][1]
     k = weights.shape[2]
     s = queries.element_size()
-    p = plan(tuple(seg[0].shape[1] for seg in segments), d, k,
-             weights.element_size(), leaf_block,
+    ms = tuple(seg[0].shape[1] for seg in segments)
+    if leaf_block is None:
+        leaf_block = measured_block(ms, d, k, weights.element_size())
+    p = plan(ms, d, k, weights.element_size(), leaf_block,
              None if s == weights.element_size() else s)
     out = torch.empty((q, k), dtype=weights.dtype, device=dev)
     if q == 0 or k == 0:

@@ -71,8 +71,10 @@ class SolveConfig:
                 :func:`repro_torch.core.hmatrix.solve_with_inverse` (each
                 is one matvec and one inverse apply).
     leaf_block  rows of a point block that the ``oos_contract`` kernel
-                stages in shared memory per step (None = the largest that
-                fits its shared-memory budget).
+                stages in shared memory per step (None = the measured
+                block of the autotune tile database where it holds one for
+                the bucket, else the largest that fits its shared-memory
+                budget).
     precision   mixed-precision policy of the build and the prediction
                 (:func:`precision_policy`).  None computes in the dtype
                 of the input.  "bf16": the kernel-evaluation *data*
@@ -182,13 +184,46 @@ def get_impl(stage: str, backend: str) -> Callable:
             f"backend={backend!r}; registered: {have}") from None
 
 
+def autotuned_block(stages, *, n0: int, r: int, k: int, d: int,
+                    itemsize: int) -> int | None:
+    """The measured launch parameter for this shape bucket from the
+    autotune tile database (:mod:`repro_torch.kernels.autotune`) of the
+    first of ``stages`` (a stage or a tuple) that has one, or None: a
+    cold, disabled or corrupt database, no record, a value that is no
+    positive int, or any failure of the consult, which degrades to the
+    wrapper's own plan and never raises.  A launch pays for it on every
+    call, so the cold database returns first and a warm one answers a
+    repeated shape from its ``answers``."""
+    try:
+        from repro_torch.kernels import autotune
+
+        db = autotune.get_db()
+        if not db.entries or not autotune.lookups_enabled():
+            return None
+        args = (stages, n0, r, k, d, itemsize)
+        if args not in db.answers:
+            for stage in (stages,) if isinstance(stages, str) else stages:
+                block = autotune.lookup_block(stage, n0=n0, r=r, k=k, d=d,
+                                              itemsize=itemsize)
+                if block is not None:
+                    break
+            db.answers[args] = (block if isinstance(block, int)
+                                and block >= 1 else None)
+        return db.answers[args]
+    except Exception:   # noqa: BLE001 -- the database is best effort
+        return None
+
+
 def resolve_backend(config: SolveConfig | None, stage: str,
                     *tensors: torch.Tensor) -> str:
     """Concrete backend of ``stage`` for ``tensors`` (all on one device).
 
     "auto" maps a CUDA device to "cuda" and the CPU to "torch".  A forced
     backend must match the device: "torch" on CUDA tensors and "cuda" on
-    CPU tensors raise ``ValueError``.
+    CPU tensors raise ``ValueError``.  Unlike the reference's, "auto" does
+    not read the autotune database's measured winner: a CUDA tensor
+    launches the kernel whatever the sweep found (see
+    :mod:`repro_torch.kernels.autotune`).
     """
     if stage not in STAGES + PORT_STAGES:
         raise ValueError(f"unknown stage {stage!r}; stages: "
@@ -237,8 +272,9 @@ def _build_gram_cuda(points, *, name="gaussian", sigma=1.0, jitter=0.0,
 
 @register("build_cross", "torch")
 def _build_cross_torch(points, landmarks, linv, *, name="gaussian",
-                       sigma=1.0):
+                       sigma=1.0, row_tile=None):
     """(B,m,d),(B,r,d),(B,r,r) -> K(P,Z) Linv^T Linv (B,m,r), plain."""
+    del row_tile
     from repro_torch.kernels.build_stage.ref import build_cross_ref
 
     return build_cross_ref(points, landmarks, linv, name=name, sigma=sigma)
@@ -246,11 +282,12 @@ def _build_cross_torch(points, landmarks, linv, *, name="gaussian",
 
 @register("build_cross", "cuda")
 def _build_cross_cuda(points, landmarks, linv, *, name="gaussian",
-                      sigma=1.0):
+                      sigma=1.0, row_tile=None):
     """(B,m,d),(B,r,d),(B,r,r) -> K(P,Z) Linv^T Linv (B,m,r), CUDA."""
     from repro_torch.kernels.build_stage.ops import build_cross
 
-    return build_cross(points, landmarks, linv, name=name, sigma=sigma)
+    return build_cross(points, landmarks, linv, name=name, sigma=sigma,
+                       row_tile=row_tile)
 
 
 @register("build_gram_levels", "torch")
@@ -317,19 +354,23 @@ def _build_gram_dist_cuda(dist, *, name="gaussian", sigma=1.0, jitter=0.0,
 
 
 @register("build_cross_dist", "torch")
-def _build_cross_dist_torch(dist, linv, *, name="gaussian", sigma=1.0):
+def _build_cross_dist_torch(dist, linv, *, name="gaussian", sigma=1.0,
+                            row_tile=None):
     """(B,m,r),(B,r,r) -> kappa(D) Linv^T Linv (B,m,r), plain."""
+    del row_tile
     from repro_torch.kernels.build_stage.ref import build_cross_dist_ref
 
     return build_cross_dist_ref(dist, linv, name=name, sigma=sigma)
 
 
 @register("build_cross_dist", "cuda")
-def _build_cross_dist_cuda(dist, linv, *, name="gaussian", sigma=1.0):
+def _build_cross_dist_cuda(dist, linv, *, name="gaussian", sigma=1.0,
+                           row_tile=None):
     """(B,m,r),(B,r,r) -> kappa(D) Linv^T Linv (B,m,r), CUDA."""
     from repro_torch.kernels.build_stage.ops import build_cross_dist
 
-    return build_cross_dist(dist, linv, name=name, sigma=sigma)
+    return build_cross_dist(dist, linv, name=name, sigma=sigma,
+                            row_tile=row_tile)
 
 
 @register("build_gram_dist_levels", "torch")

@@ -12,9 +12,8 @@ touch their input (factors, plans and models come back as new objects
 over copied tensors), so faults compose.
 
 :data:`FAULT_CLASSES` is the fault inventory, the reference's twelve
-names.  One of them targets a part that comes with ROADMAP item A15b (the
-autotune tile database): its injector, :func:`corrupt_tile_db`, raises
-``NotImplementedError``.
+names; :func:`corrupt_tile_db` (``tile_db_corruption``) garbles the
+autotune tile database of :mod:`repro_torch.kernels.autotune` on disk.
 """
 from __future__ import annotations
 
@@ -57,8 +56,9 @@ FAULT_CLASSES = {
         "serving", "live engine returns NaN / stalls for N calls"),
 }
 
-#: the fault classes whose targets come with ROADMAP item A15b.
-A15_FAULTS = ("tile_db_corruption",)
+#: the fault classes whose targets are not ported yet: none since the
+#: autotune tile database (ROADMAP A15b) came.
+A15_FAULTS = ()
 
 
 def _poked(t: Tensor, index, value: float) -> Tensor:
@@ -184,12 +184,21 @@ def poisoned_dot(dot=None, *, after: int = 2):
 # ---------------------------------------------------------------------------
 
 def corrupt_tile_db(path: str | None = None) -> str:
-    """Garbage in the autotune tile database: the database comes with
-    ROADMAP item A15b."""
-    del path
-    raise NotImplementedError(
-        "the tile_db_corruption fault targets the autotune tile database "
-        "(kernels/autotune.py), which comes with ROADMAP item A15b")
+    """Overwrite the autotune tile database with non-JSON garbage and drop
+    the process's cached copy, so the next consult reads the corrupt file.
+    The contract under test: lookups degrade to the wrappers' plans
+    (``TileDB.corrupt`` flags it), never raise, and the next ``save``
+    repairs the file.  Returns the path written."""
+    import os
+
+    from repro_torch.kernels import autotune
+
+    path = path or autotune.db_path()
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        f.write('{"entries": #### not json ####')
+    autotune.reset_db()
+    return path
 
 
 # ---------------------------------------------------------------------------

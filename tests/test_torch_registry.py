@@ -10,7 +10,9 @@ registry as it was; ``update_and_publish``, plain and guarded, whose
 predictions agree with the reference registry's within 1e-10 relative;
 the serve loop's retry, degrade and deadline ladder; a hot swap under
 load from a second thread; and one detect and one recover case for every
-fault class but the two that come with ROADMAP A15.
+fault class, the autotune tile database's corruption among them (detected
+as ``TileDB.corrupt``, recovered by the next save, as the reference's
+``tests/test_robustness.py`` holds it).
 """
 import dataclasses
 import threading
@@ -275,7 +277,7 @@ def test_launcher_krr_on_cpu(capsys, f64):
 
 
 # ---------------------------------------------------------------------------
-# the fault matrix: every class detected and recovered, or A15
+# the fault matrix: every class detected and recovered
 # ---------------------------------------------------------------------------
 
 def _spd(n, seed):
@@ -337,6 +339,24 @@ def _fault_case(name, prob, arrivals):
                             tol=1e-10, force=True)
         return ei.value.stage, recover.pcg_guarded(
             mv, b, tol=1e-10, maxiter=40, **gkw).audit
+    if name == "tile_db_corruption":
+        # REPRO_TILE_DB points into the test's tmp_path
+        from repro_torch.kernels import autotune
+
+        fi.corrupt_tile_db()
+        db = autotune.get_db()
+        assert db.corrupt and db.entries == {}        # detected, degraded
+        assert autotune.lookup_block("oos_local", n0=64, r=0, k=2,
+                                     d=4) is None     # the plan, no raise
+        db.put("probe", {"block": 32})
+        db.save()                                     # the save repairs it
+        autotune.reset_db()
+        healed = autotune.get_db()
+        assert not healed.corrupt and healed.get("probe") == {"block": 32}
+        autotune.reset_db()
+        return "kernels.autotune", recover.RecoveryAudit(
+            "tile_db", [recover.Attempt("consult-corrupt-db", False),
+                        recover.Attempt("save-rewrites", True)])
     x_new, y_new = arrivals
     if name == "update_poisoned_cache":
         bad = fi.poison_cached_inverse(m)
@@ -363,12 +383,11 @@ def _fault_case(name, prob, arrivals):
 
 
 @pytest.mark.parametrize("name", list(fi.FAULT_CLASSES))
-def test_zz_fault_matrix_covers_every_class(prob, arrivals, name):
+def test_zz_fault_matrix_covers_every_class(prob, arrivals, name, tmp_path,
+                                            monkeypatch):
     assert fi.FAULT_CLASSES == jfi.FAULT_CLASSES
-    if name in fi.A15_FAULTS:
-        with pytest.raises(NotImplementedError, match="A15"):
-            fi.corrupt_tile_db()
-        return
+    assert fi.A15_FAULTS == ()
+    monkeypatch.setenv("REPRO_TILE_DB", str(tmp_path / "tile_db.json"))
     stage, audit = _fault_case(name, prob, arrivals)
     assert stage, name
     assert audit.ok and not audit.attempts[0].ok, (name, audit)
