@@ -20,7 +20,10 @@ result.  Phases, each of which raises on failure:
               TMA-load (UTMALDG) and mbarrier (SYNCS) instructions of the
               B14, B10, B15, B1/B2 and B8/B9 libraries (HGMMA and UTMALDG
               required of the first three, HMMA of B15's, build_stage and
-              build_dist);
+              build_dist); the panel forms' libraries (leaf_factor_panel,
+              build_stage_panel, build_dist_panel: B3's two entries, B1's
+              and B8's two, B2's five and B9's five, none spilling; HMMA
+              in the two build libraries);
  2b. lm       Zamba2-7B serving at full width in bf16 (random weights from
               SEED): B14 (``flash_attention``) and B15
               (``ssd_intra_chunk``) against their plain versions (the
@@ -70,6 +73,24 @@ result.  Phases, each of which raises on failure:
               and width, ``--solver exact-cg`` and bench_sweep.py's 4 x 4
               ``--grid`` at n 65,536), each printed line and launch count
               checked;
+ 3r. rank256  rank 256, the reference benches' default, on phase 3's data
+              at covtype width (leaves of 256, 11 levels): (a) krr.fit
+              (launch counts read around exactly this call: B1's Sigma, B2
+              and B3 on their panel forms, counted as "<kernel>_panel"),
+              each kernel of the fit against its plain version at the fit's
+              shapes (B1 Sigma and Adiag, B3 within 1e-4, B2 componentwise,
+              B4-B6 at n0 = r = 256); (b) its residual and test accuracy
+              beside rank 128's (printed); (c) serving all test queries
+              through its engine (B7 once a bucket) within 1e-4 of the
+              plain path; (d) one sigma row of the sweep (B8, B9 and B3's
+              stacked launch on their panel forms, counted) against the
+              plain versions; (e) the f64 fit at rank and leaf 256 (8,192
+              points) and its kernels against the plain versions; (f)
+              every panel kernel at ragged shapes (m 236, 241, 300, 511,
+              512 in f32 and 164, 170, 256, 512 in f64 for B1, B3, B8;
+              r 129, 200, 256 for B2, B9), each launch on the form its
+              planner names, and an indefinite tile on B1's and B3's panel
+              forms giving NaN;
   4. kernels  each kernel against its plain PyTorch version on the card, at
               the shapes the fit and serving paths give it (f32; B1 and B2
               as the fit's two grouped launches, every level gated; B7 one
@@ -221,7 +242,8 @@ result.  Phases, each of which raises on failure:
               phase 1): (a) ``autotune_all`` at the reference's default
               shape and at the covtype fit's shapes, counted: every
               "cuda" candidate runs (the stages that factor a whole tile
-              record their panel-form error at n0 256), B11 launches
+              on their panel forms at the default shape's n0 256), B11
+              launches
               through the ``pairwise_kernel`` stage, a second call is a
               cache hit that launches nothing; each record's rates and
               roofline against the nominal and the calibrated H100 model;
@@ -252,7 +274,11 @@ result.  Phases, each of which raises on failure:
               events around calls, B7's
               one launch in turns with two; B4's bound over Linv's lower
               triangle beside the one over all of Linv, and B4's and B5's
-              launches on every counted path);
+              launches on every counted path); the panel forms at phase
+              3r's rank-256 shapes (B1's Sigma launch, B2's grouped launch,
+              B3 at the fit's leaves and stacked at G = 4, B8's and B9's
+              launches of the sigma row) in turns with their plain
+              versions, beside their bounds;
  10. profile  torch.profiler over one full-width fit, over five 4096-query
               requests and over one sigma row of the NLL surface: device
               time by kernel, and the device's busy share.
@@ -502,13 +528,21 @@ BF16_KERNELS = ("gram_chol", "cross_solve", "gram_chol_levels",
                 "gram_chol_dist_levels", "cross_solve_dist_levels",
                 "oos_contract")
 BF16_ZERO = {f"{k}_bf16": 0 for k in BF16_KERNELS}
+# The kernels with a panel form (past the resident kernel's shared memory:
+# ROADMAP Queue B) count its launches as "<kernel>_panel".
+PANEL_KERNELS = ("gram_chol", "cross_solve", "gram_chol_levels",
+                 "cross_solve_levels", "gram_chol_dist", "cross_solve_dist",
+                 "gram_chol_dist_levels", "cross_solve_dist_levels",
+                 "leaf_factor")
+PANEL_ZERO = {f"{k}_panel": 0 for k in PANEL_KERNELS}
 SUB_COUNTS = {"flash_attention_wgmma": ("flash_attention", "wgmma_launches"),
               "kernel_matvec_tc": ("kernel_matvec", "tc_launches"),
               "kernel_tile_tc": ("kernel_tile", "tc_launches"),
               "ssd_intra_chunk_wgmma": ("ssd_intra_chunk", "wgmma_launches"),
               "policy_dist_tiled": ("policy_dist", "tiled_launches"),
               "oos_contract_pair": ("oos_contract", "pair_launches"),
-              **{f"{k}_bf16": (k, "bf16_launches") for k in BF16_KERNELS}}
+              **{f"{k}_bf16": (k, "bf16_launches") for k in BF16_KERNELS},
+              **{f"{k}_panel": (k, "panel_launches") for k in PANEL_KERNELS}}
 
 
 def reset_counts() -> None:
@@ -1104,7 +1138,7 @@ def phase_build() -> None:
         f"{time.perf_counter() - t0:.2f} s")
     entries = []  # (library, mangled entry name, its ptxas lines)
     for lib in ("build_stage", "build_dist", "build_stage_bf16",
-                "build_dist_bf16"):
+                "build_dist_bf16", "build_stage_panel", "build_dist_panel"):
         for line in logs.get(lib, "").splitlines():
             if "C7519" in line:  # an injected warpgroup.arrive (none wanted)
                 say(f"[2 build] {lib}: {line.strip()}")
@@ -1138,16 +1172,25 @@ def phase_build() -> None:
               "gram_chol_levels_kernel": 3, "cross_levels_tc_kernel": 8,
               "gram_points_kernel": 6, "cross_points_tc_kernel": 8,
               "oos_contract_kernel": 16, "leaf_solve_kernel": 8,
-              "leaf_matvec_kernel": 8, "leaf_update_kernel": 4}
+              "leaf_matvec_kernel": 8, "leaf_update_kernel": 4,
+              "leaf_factor_panel_kernel": 2, "gram_points_panel_kernel": 2,
+              "cross_points_panel_kernel": 5,
+              "gram_chol_levels_panel_kernel": 2,
+              "cross_levels_panel_kernel": 4,
+              "cross_levels_panel64_kernel": 1}
+    # an entry's lines include those of the functions it calls (the panel
+    # cross products are not inlined): each must show no spill
+    seen = dict.fromkeys(hopper, 0)
     spills = {entry: [] for entry in hopper}
     for (name, mangled, lines), label in zip(entries, labels):
         for line in lines:
             say(f"[2 build] {name} {label}: {line}")
         for entry in hopper:
             if entry in mangled:
+                seen[entry] += 1
                 spills[entry] += [line for line in lines if "spill" in line]
     for entry, count in hopper.items():
-        require(len(spills[entry]) == count and all(
+        require(seen[entry] == count and all(
             " 0 bytes spill stores, 0 bytes spill loads" in line
             for line in spills[entry]), f"the {count} {entry} entries do "
             f"not spill: {spills[entry]}")
@@ -1159,7 +1202,9 @@ def phase_build() -> None:
                         ("build_stage", ("HMMA",)),
                         ("build_dist", ("HMMA",)),
                         ("build_stage_bf16", ("HMMA",)),
-                        ("build_dist_bf16", ("HMMA",))):
+                        ("build_dist_bf16", ("HMMA",)),
+                        ("build_stage_panel", ("HMMA",)),
+                        ("build_dist_panel", ("HMMA",))):
         sass = subprocess.run(
             [str(cuobjdump), "-sass", str(_build.library_path(lib))],
             capture_output=True, text=True, check=True,
@@ -1210,7 +1255,8 @@ def phase_fit(dev) -> dict:
                 "flash_attention_wgmma": 0, "ssd_intra_chunk": 0,
                 "kernel_matvec_tc": 0, "kernel_tile_tc": 0,
                 "ssd_intra_chunk_wgmma": 0,
-                "policy_dist_tiled": 0, "oos_contract_pair": 0, **BF16_ZERO}
+                "policy_dist_tiled": 0, "oos_contract_pair": 0, **BF16_ZERO,
+                **PANEL_ZERO}
     require(launches == expected,
             f"fit launches {launches} == expected {expected}")
     require(all(v == 0 for v in plain_calls.values()),
@@ -1290,7 +1336,7 @@ SUSY_FWD, REFINE_TOL, REFINE_ITERS = 1e-2, 1e-8, 100
 # The launcher's four modes: the streamed and the in-memory fit (with an
 # online update of UPDATE_Q arrivals) at covtype's padded size and width,
 # exact-kernel CG and bench_sweep.py's 4 x 4 grid at its n 65,536 (d 8;
-# rank 128, the largest the build kernels take, not its 256).
+# rank 128, as phase 3's fit; phase 3r runs rank 256).
 LAUNCH_N, LAUNCH_SMALL_N = LEAF << LEVELS, 65_536
 # One krr.fit: B1's grouped Sigma launch and its Adiag launch, B2's grouped
 # launch, B3 once, B4 and B5 three times each (the solve and two
@@ -1840,6 +1886,486 @@ def phase_stream(fit, dev, smi) -> dict:
     say(f"[3s stream] phase done in {t_all:.1f} s ((a) {t_a:.1f} s, (b) "
         f"{t_b:.1f} s, (c) {runs['t']:.1f} s)")
     return {"covtype": cov, "susy": susy, "launcher": runs}
+
+
+# ---------------------------------------------------------------------------
+# Phase 3r: rank 256, the reference benches' default -- the panel forms
+# ---------------------------------------------------------------------------
+
+# benchmarks/bench_build.py:142, bench_oos.py:112 and bench_sweep.py:126
+# default to rank 256, and krr.fit's leaf is its rank: covtype at rank 256
+# is 11 levels, 2,048 leaves of 256 (464,809 padded to 524,288).  The f64
+# fit keeps that rank and leaf at a depth of 5 (8,192 points, 32 leaves).
+RANK_R, LEVELS_R, LEVELS_R64 = 256, 11, 5
+# The ragged shapes each panel kernel is held against its plain version
+# at: tiles m (B1, B3, B8) past the resident forms' limits (B1 235 / 163,
+# B3 and B8 240 / 169, in f32 / f64) up to the panel form's 512, and
+# ranks (B2, B9) past 128 up to 256.
+PANEL_M = {torch.float32: (236, 241, 300, 511, 512),
+           torch.float64: (164, 170, 256, 512)}
+PANEL_R = (129, 200, 256)
+# One krr.fit at rank 256: FIT_LAUNCHES, with B1's Sigma launch, B2's and
+# B3's on their panel forms (B1's Adiag, without a factor, has no limit).
+FIT_LAUNCHES_R = dict(FIT_LAUNCHES, gram_chol_levels_panel=1,
+                      cross_solve_levels_panel=1, leaf_factor_panel=1)
+# One sweep_factors pass at rank 256: B8's Sigma and B9 on their panel
+# forms, B8's Adiag (gram_dist) with no limit.
+SWEEP_LAUNCHES_R = {"gram_chol_dist_levels": 1, "gram_chol_dist_levels_panel":
+                    1, "gram_chol_dist": 1, "cross_solve_dist_levels": 1,
+                    "cross_solve_dist_levels_panel": 1}
+
+
+def panel_forms(dtype, m: int) -> tuple[str, str, str]:
+    """The forms the wrappers' planners name for a factored (m, m) tile:
+    B1's, B3's and B8's."""
+    from repro_torch.kernels.build_stage import ops as bops
+    from repro_torch.kernels.hck_leaf.ops import factor_route, factor_smem
+
+    s = torch.finfo(dtype).bits // 8
+    return (bops.gram_route("phase 3r", m, s),
+            factor_route("phase 3r", m, s, factor_smem),
+            bops.gram_route("phase 3r", m, s, dist=True))
+
+
+def check_panel_shapes(dev) -> list[str]:
+    """Phase 3r (f): each panel kernel against its plain version at the
+    ragged shapes (PANEL_M, PANEL_R), f32 and f64, every launch counted on
+    the form its planner names: B1 grouped over levels of m 24 (resident)
+    and every PANEL_M (two launches where the routes differ, one a form),
+    B8 the same on cached distances, B3 a launch a size (factor_leaves'
+    leaves), B2 and B9 grouped over m 48, 130 and 512 at each rank; then
+    an indefinite tile on B1's and B3's panel forms gives NaN."""
+    from repro_torch.kernels.build_stage import ops as bops
+    from repro_torch.kernels.hck_leaf.ops import leaf_factor
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    rows = []
+    for dtype, rtol in ((torch.float32, 1e-4), (torch.float64, 1e-10)):
+        o = dict(dtype=dtype, device=dev)
+        tag = str(dtype)[6:]
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, **o) * math.sqrt(
+                2 / shape[-1])
+
+        ms = [24, *PANEL_M[dtype]]
+        forms = [panel_forms(dtype, m) for m in ms]
+        pts = [rnd(2, m, 5) for m in ms]
+        n1 = len({f[0] for f in forms})
+        grams, launches, plain = counted(lambda: bops.build_gram_levels(
+            pts, jitter=1e-3))
+        require_launches(f"{tag} gram_chol_levels at m {ms}", launches,
+                         plain, {"gram_chol_levels": n1,
+                                 "gram_chol_levels_panel": 1})
+        e1 = max(check_build(p, True, rtol, jitter=1e-3, got=g)[1]
+                 for p, g in zip(pts, grams))
+        dists = [(torch.cdist(p, p) ** 2).contiguous() for p in pts]
+        n8 = len({f[2] for f in forms})
+        gd, launches, plain = counted(lambda: bops.build_gram_dist_levels(
+            dists, jitter=1e-3))
+        require_launches(f"{tag} gram_chol_dist_levels at m {ms}", launches,
+                         plain, {"gram_chol_dist_levels": n8,
+                                 "gram_chol_dist_levels_panel": 1})
+        e8 = max(check_gram_dist(d, g, rtol, jitter=1e-3)[1]
+                 for d, g in zip(dists, gd))
+        e3 = []
+        for m, form in zip(ms[1:], forms[1:]):
+            dleaf = factor_leaves(3, m, dtype, gen)
+            _, launches, plain = counted(lambda: leaf_factor(dleaf))
+            require_launches(f"{tag} leaf_factor at n0 {m}", launches, plain,
+                             {"leaf_factor": 1, "leaf_factor_panel":
+                              int(form[1] == "panel")})
+            e3.append(f"{m} {form[1]} {check_factor(dleaf, rtol)[0]:.2e}")
+        e2, e9 = [], []
+        for r in PANEL_R:
+            a = torch.randn((9, r, r), generator=gen, **o)
+            li = torch.linalg.inv(torch.linalg.cholesky(
+                a @ a.mT / r + torch.eye(r, **o))).tril().contiguous()
+            cross = [(rnd(3, m, 5), rnd(3, r, 5), li[3 * i:3 * i + 3])
+                     for i, m in enumerate((48, 130, 512))]
+            us, launches, plain = counted(lambda: bops.build_cross_levels(
+                *zip(*cross)))
+            require_launches(f"{tag} cross_solve_levels at r {r}", launches,
+                             plain, {"cross_solve_levels": 1,
+                                     "cross_solve_levels_panel": 1})
+            e2.append(max(check_cross(c, rtol, got=u)[0]
+                          for c, u in zip(cross, us)))
+            cd = [((torch.cdist(p, z) ** 2).contiguous(), lv)
+                  for p, z, lv in cross]
+            us, launches, plain = counted(
+                lambda: bops.build_cross_dist_levels(*zip(*cd)))
+            require_launches(f"{tag} cross_solve_dist_levels at r {r}",
+                             launches, plain,
+                             {"cross_solve_dist_levels": 1,
+                              "cross_solve_dist_levels_panel": 1})
+            e9.append(max(check_cross_dist(d, lv, u, rtol)[0]
+                          for (d, lv), u in zip(cd, us)))
+        rows.append(
+            f"{tag}: gram_chol_levels at m {ms} ({n1} launches, forms "
+            f"{[f[0] for f in forms]}) max|d| {e1:.3e}; gram_chol_dist_levels "
+            f"({n8} launches, forms {[f[2] for f in forms]}) max|d| "
+            f"{e8:.3e}; leaf_factor L rel at n0 {', '.join(e3)}; "
+            f"cross_solve_levels rel at r {PANEL_R} (m 48, 130, 512) "
+            f"{[f'{e:.2e}' for e in e2]}, cross_solve_dist_levels "
+            f"{[f'{e:.2e}' for e in e9]}")
+    # an indefinite tile on the panel forms: NaN, no clamp
+    pts = torch.randn((2, 256, 5), generator=gen, device=dev)
+    pts[1, 200] = pts[1, 3]
+    _, chol = bops.build_gram(pts, sigma=0.1, jitter=-1e-3)
+    bad = torch.eye(300, device=dev).expand(2, 300, 300).clone()
+    bad[1, 290, 290] = -1.0
+    lo, _ = leaf_factor(bad)
+    sync()
+    require(bool(torch.isnan(chol[1]).any() and torch.isfinite(chol[0]).all()),
+            "gram_chol's panel form (m 256): an indefinite block gives NaN")
+    require(bool(torch.isnan(lo[1]).any() and torch.isfinite(lo[0]).all()),
+            "leaf_factor's panel form (n0 300, its last panel): an "
+            "indefinite leaf gives NaN")
+    return rows
+
+
+def rank256_kernels(model, rtol, what) -> tuple[dict, dict]:
+    """Phase 3r (a): each kernel of a rank-256 krr.fit against its plain
+    version at the fit's shapes: B1's Sigma (grouped, panel form) and
+    Adiag, B2 (grouped, panel form; componentwise), B3 (panel form; L
+    within rtol and the componentwise bounds), B4 and B5 at n0 = r = 256,
+    B6.  Returns (max|d| by kernel, the launch arguments)."""
+    from repro_torch.kernels.build_stage.ops import (build_cross_levels,
+                                                     build_gram,
+                                                     build_gram_levels)
+
+    f = model.factors
+    b = model.alpha.view(f.num_leaves, f.leaf_size, -1).contiguous()
+    args = fit_launches(f, model.inverse, b)
+    pts = [p for p, _ in args["gram"]]
+    grams = build_gram_levels(pts[:-1], sigma=SIGMA, jitter=JITTER)
+    errs = [check_build(p, True, rtol, got=g)
+            for p, g in zip(pts[:-1], grams)]
+    adiag = check_build(pts[-1], False, rtol, got=build_gram(
+        pts[-1], sigma=SIGMA, jitter=JITTER, want_chol=False))
+    us = build_cross_levels(*zip(*args["cross"]), sigma=SIGMA)
+    cross = [check_cross(a, rtol, got=u) for a, u in zip(args["cross"], us)]
+    fac = check_factor(args["dleaf"], rtol)
+    res = {"gram_chol_sigma": max(e[1] for e in errs),
+           "gram_chol_adiag": adiag[1],
+           "cross_solve": max(e[1] for e in cross), "leaf_factor": fac[2]}
+    for kind in ("solve", "matvec"):
+        res[f"leaf_{kind}"] = check_leaf(kind, args[kind], rtol)[1]
+    res["hck_leaf_project"] = check_project(f.u, model.plan.w_leaf)
+    say(f"[3r rank256] {what} kernels against their plain versions at the "
+        f"fit's shapes: gram_chol Sigma ({len(pts) - 1} levels of "
+        f"{tuple(pts[0].shape[1:2])} tiles, panel form) rel "
+        f"{max(e[0] for e in errs):.3e}, Adiag {tuple(pts[-1].shape)} rel "
+        f"{adiag[0]:.3e}; cross_solve (U {tuple(args['cross'][0][0].shape)} "
+        f"and {len(cross) - 1} W levels, panel form) rel "
+        f"{max(e[0] for e in cross):.3e} (componentwise gate); leaf_factor "
+        f"{tuple(args['dleaf'].shape)} (panel form) L rel {fac[0]:.3e}, "
+        f"L^-1 rel {fac[1]:.3e}, backward {fac[3]:.3e}, inverse "
+        f"{fac[4]:.3e}; leaf_solve, leaf_matvec, leaf_project max|d| "
+        f"{res['leaf_solve']:.3e}, {res['leaf_matvec']:.3e}, "
+        f"{res['hck_leaf_project']:.3e} (within {rtol}) ok")
+    return res, args
+
+
+def engine_gap(model, queries, chunk=4096) -> tuple[float, float]:
+    """The fitted model's engine against the plain path on ``queries``:
+    apply_plan's routing and sort with oos_local_walk's plain version in
+    chunks.  (max|dz|, max|z_plain|)."""
+    from repro_torch.core.partition import group_by_leaf, route
+    from repro_torch.kernels.oos_stage.ref import oos_local_walk_ref
+
+    f, plan = model.factors, model.plan
+    got = model.engine(queries)
+    xb = f.x_sorted.view(f.num_leaves, f.leaf_size, -1)
+    err = scale = 0.0
+    for s in range(0, queries.shape[0], chunk):
+        q = queries[s:s + chunk]
+        leaf = route(f.tree, q)
+        order, _, _ = group_by_leaf(leaf, f.num_leaves)
+        ls = leaf[order].contiguous()
+        z = torch.empty_like(got[s:s + chunk])
+        z[order] = oos_local_walk_ref(
+            xb, plan.w_leaf, f.landmarks[-1], plan.c_tilde,
+            q[order].contiguous(), ls, (ls >> 1).contiguous(),
+            name=model.kernel.name, sigma=model.kernel.sigma)
+        err = max(err, float((got[s:s + chunk] - z).abs().max()))
+        scale = max(scale, float(z.abs().max()))
+    return err, scale
+
+
+def fit_quality(model, fit, seed: int) -> dict:
+    """A fit of phase 3's data (krr.fit's generator seeded ``seed``): its
+    relative residual ||(K + lam I) alpha - y|| / ||y|| through the port's
+    matvec on a float64 copy of its factors (the targets padded as krr.fit
+    padded them: pad_points replayed on the same seed) and its test
+    accuracy on the synthetic labels; printed, not gated (ROADMAP C12)."""
+    from repro_torch.core import hmatrix
+    from repro_torch.core.partition import pad_points
+
+    f = model.factors
+    gen = torch.Generator(device=fit["x"].device).manual_seed(seed)
+    _, yp, _ = pad_points(fit["x"], fit["labels"], f.leaf_size, f.levels,
+                          generator=gen)
+    y = one_vs_all(yp, torch.float64)[f.tree.perm]
+    a = model.alpha.double()
+    r = y - hmatrix.matvec(to_f64(f), a) - LAM * a
+    acc = model.predict_class(fit["xt"]) == fit["yt"]
+    return {"resid": float(torch.linalg.vector_norm(r)
+                           / torch.linalg.vector_norm(y)),
+            "acc": float(acc.double().mean())}
+
+
+def rank256_sweep(fit, dev) -> dict:
+    """Phase 3r (d): one sigma row of the sweep at rank 256 on phase 3's
+    data: build_sweep_plan, then sweep_factors counted (B8's Sigma and B9
+    on their panel forms, B8's Adiag), each level of both grouped launches
+    against the plain versions, and invert_multi over the 4 lambdas
+    counted (B3's stacked launch on its panel form) with the stacked
+    leaves against the plain factor."""
+    from repro_torch.core import hmatrix
+    from repro_torch.core.hck import build_sweep_plan, sweep_factors
+    from repro_torch.core.kernels_fn import BaseKernel
+    from repro_torch.core.partition import pad_points
+    from repro_torch.kernels.build_stage import ops as bops
+
+    ker = BaseKernel("gaussian", SIGMA, JITTER)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    xp, _, _ = pad_points(fit["x"], fit["labels"], RANK_R, LEVELS_R,
+                          generator=gen)
+    plan = build_sweep_plan(xp, levels=LEVELS_R, rank=RANK_R, generator=gen)
+    fs, launches, plain = counted(lambda: sweep_factors(plan, ker))
+    require_launches("sweep_factors at rank 256", launches, plain,
+                     SWEEP_LAUNCHES_R)
+    sl = launches
+    a = sweep_launches(plan, fs)
+    grams = bops.build_gram_dist_levels(a["sigma"], sigma=SIGMA,
+                                        jitter=JITTER)
+    e8 = max(check_gram_dist(d, g, 1e-4)[1] for d, g in zip(a["sigma"],
+                                                           grams))
+    us = bops.build_cross_dist_levels(*zip(*a["cross"]), sigma=SIGMA)
+    e9 = [check_cross_dist(d, li, u, 1e-4) for (d, li), u in
+          zip(a["cross"], us)]
+    inv, launches, plain = counted(lambda: hmatrix.invert_multi(fs, LAMS))
+    require_launches("invert_multi at rank 256", launches, plain,
+                     {"leaf_factor": 1, "leaf_factor_panel": 1})
+    schur = hmatrix._leaf_schur(fs)
+    eye = torch.eye(RANK_R, device=dev)
+    stacked = torch.cat([schur + lam * eye for lam in LAMS]).contiguous()
+    del schur, inv
+    fac = check_factor(stacked, 1e-4)
+    say(f"[3r rank256] (d) one sigma row at rank 256: sweep_factors "
+        f"launches {dict((k, v) for k, v in sl.items() if v)}; "
+        f"gram_chol_dist_levels ({len(a['sigma'])} levels, panel form) "
+        f"max|d| {e8:.3e} (1e-4 relative), cross_solve_dist_levels (U and "
+        f"{len(a['cross']) - 1} W levels, panel form) rel "
+        f"{max(e[0] for e in e9):.3e} (componentwise gate); invert_multi's "
+        f"stacked leaf_factor {tuple(stacked.shape)} (panel form) L rel "
+        f"{fac[0]:.3e}, backward {fac[3]:.3e}, inverse {fac[4]:.3e} ok")
+    return {"plan": plan, "fs": fs, "launches": sl, "sweep_args": a,
+            "stacked": stacked, "err8": e8,
+            "err9": max(e[1] for e in e9), "err3s": fac[2]}
+
+
+def phase_rank256(fit, dev) -> dict:
+    """Phase 3r: rank 256, the reference benches' default, on phase 3's
+    data at covtype width: (a) krr.fit at rank 256, leaf 256 (the counts
+    set to 0 just before and read just after: B1's Sigma, B2 and B3 on
+    their panel forms), each kernel against its plain version at the fit's
+    shapes; (b) its residual and test accuracy beside phase 3's rank 128
+    (printed); (c) serving through its engine (one B7 launch a bucket,
+    counted) against the plain path on all test queries; (d) one sigma row
+    of the sweep (B8, B9 and B3's stacked launch on their panel forms)
+    against the plain versions; (e) the f64 fit at rank and leaf 256 (8,192
+    points) with its kernels against the plain versions; (f) every panel
+    kernel at ragged shapes (check_panel_shapes)."""
+    from repro_torch.core import krr
+    from repro_torch.core.kernels_fn import BaseKernel
+
+    t0 = time.perf_counter()
+    x, labels, xt = fit["x"], fit["labels"], fit["xt"]
+    ker = BaseKernel("gaussian", SIGMA, JITTER)
+    opts = dict(kernel=ker, lam=LAM, rank=RANK_R, classification=True)
+
+    def fit_r(xx, ll):
+        return krr.fit(xx, ll, generator=torch.Generator(
+            device=dev).manual_seed(SEED + 1), **opts)
+
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    model, launches, plain = counted(lambda: fit_r(x, labels))
+    t_fit = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    require_launches("krr.fit at rank 256", launches, plain, FIT_LAUNCHES_R)
+    f = model.factors
+    require(f.levels == LEVELS_R and f.leaf_size == RANK_R
+            and f.rank == RANK_R and bool(torch.isfinite(model.alpha).all()),
+            f"the rank-256 fit: {f.levels} levels of leaves {f.leaf_size}, "
+            f"rank {f.rank}, alpha finite")
+    say(f"[3r rank256] (a) krr.fit n={N_TRAIN} -> {f.n} d={D} "
+        f"levels={f.levels} leaf={f.leaf_size} r={f.rank}: {t_fit:.3f} s "
+        f"(first call), peak device memory {peak:.2f} GiB; launches "
+        f"{dict((k, v) for k, v in launches.items() if v)}")
+    res, args = rank256_kernels(model, 1e-4, "(a) f32")
+    fl = launches
+    q = fit_quality(model, fit, SEED + 1)
+    q128 = fit_quality(fit["model"], fit, SEED + 1)
+    say(f"[3r rank256] (b) relative residual ||(K + lam I) alpha - y|| / "
+        f"||y|| (f64 copy of the factors): rank 256 {q['resid']:.3e}, rank "
+        f"128 (phase 3) {q128['resid']:.3e}; test accuracy on the synthetic "
+        f"labels: rank 256 {q['acc']:.4f}, rank 128 {q128['acc']:.4f} "
+        f"(printed, not gated: ROADMAP C12)")
+    _, _, pair = bucket_inputs(f, model.plan, xt[:4096])
+    res["oos_local_walk"] = check_contract(pair, name="gaussian", rtol=1e-4,
+                                           pair=True)[0]
+    z, launches, plain = counted(lambda: model.engine(xt))
+    calls = launches["oos_contract"]
+    require(calls > 0 and launches["oos_contract_pair"] == calls and not any(
+        v for k, v in launches.items()
+        if k not in ("oos_contract", "oos_contract_pair"))
+        and not any(plain.values()),
+        f"serving at rank 256: one B7 launch a bucket and nothing else: "
+        f"{launches}, plain {plain}")
+    err, scale = engine_gap(model, xt)
+    require(bool(torch.isfinite(z).all()) and err <= 1e-4 * scale,
+            f"rank-256 engine vs the plain path: max|dz| {err:.3e} <= 1e-4 "
+            f"* {scale:.3e}")
+    say(f"[3r rank256] (c) serving all {N_TEST} test queries through the "
+        f"engine: {calls} B7 launches (one a bucket), max|dz| {err:.3e} of "
+        f"max|z| {scale:.3e} against the plain path (1e-4 relative); one "
+        f"4096-query bucket's oos_local_walk max|dz| "
+        f"{res['oos_local_walk']:.3e} ok")
+    sweep = rank256_sweep(fit, dev)
+    n64 = RANK_R << LEVELS_R64
+    m64, launches, plain = counted(lambda: fit_r(x[:n64].double(),
+                                                 labels[:n64]))
+    require_launches("f64 krr.fit at rank 256", launches, plain,
+                     FIT_LAUNCHES_R)
+    require(m64.factors.levels == LEVELS_R64, "the f64 fit's depth")
+    rank256_kernels(m64, 1e-10, f"(e) f64 (n {n64}, {LEVELS_R64} levels)")
+    del m64
+    for row in check_panel_shapes(dev):
+        say(f"[3r rank256] (f) ragged shapes, {row} ok")
+    t_all = time.perf_counter() - t0
+    say(f"[3r rank256] phase done in {t_all:.1f} s")
+    return {"model": model, "args": args, "launches": fl, "res": res,
+            "sweep": sweep, "quality": q, "quality128": q128,
+            "t_fit": t_fit, "t": t_all}
+
+
+def panel_timing(r3) -> list[dict]:
+    """Phase 9, rank 256: each panel kernel at the covtype shapes of phase
+    3r in turns with its plain version (kernel, plain, plain, kernel):
+    B1's Sigma launch (11 levels) and B2's grouped launch of the fit, B3
+    at the fit's leaves and stacked at G = 4 (beside the chain cholesky +
+    solve_triangular), B8's Sigma launch and B9's of the sweep's sigma
+    row, each beside its bound (the *_cost functions; B2's and B9's the
+    tensor-core route's) and its launches on the counted paths."""
+    from repro_torch.kernels.build_stage import ops as bops
+    from repro_torch.kernels.build_stage import ref as bref
+    from repro_torch.kernels.hck_leaf import ops as lops
+    from repro_torch.kernels.hck_leaf import ref as lref
+
+    args, sw, fl = r3["args"], r3["sweep"], r3["launches"]
+    src, tpu = "src/repro_torch/csrc/", "src/repro/kernels/"
+    opts = dict(sigma=SIGMA, jitter=JITTER)
+    pts = [p for p, _ in args["gram"]][:-1]
+    cross, dleaf = args["cross"], args["dleaf"]
+    sig, cd = sw["sweep_args"]["sigma"], sw["sweep_args"]["cross"]
+    stacked, sl = sw["stacked"], sw["launches"]
+
+    def turns(new, old, reps):
+        ms, plain, t = in_turns(new, old, reps)
+        return ms, plain, {"kernel": [t[0], t[3]], "plain": [t[1], t[2]]}
+
+    def total(costs):
+        return sum(c[0] for c in costs), sum(c[1] for c in costs)
+
+    records = []
+    ms, plain, t = turns(lambda: bops.build_gram_levels(pts, **opts),
+                         lambda: bref.build_gram_levels_ref(pts, **opts), 3)
+    records.append(kernel_record(
+        "gram_chol (panel form)", src + "build_stage_panel.cu",
+        tpu + "build_stage/build_stage.py:124",
+        fl["gram_chol_levels_panel"], r3["res"]["gram_chol_sigma"], ms,
+        plain, bound_ms(*total([gram_cost(p, True) for p in pts])),
+        unit=f"rank 256: one grouped launch ({len(pts)} Sigma levels of "
+             f"{RANK_R}^2 with their factors)", turns_ms=t))
+    ms, plain, t = turns(
+        lambda: bops.build_cross_levels(*zip(*cross), sigma=SIGMA),
+        lambda: bref.build_cross_levels_ref(*zip(*cross), sigma=SIGMA), 3)
+    nbytes = sum(cross_cost(*a)[0] for a in cross)
+    records.append(kernel_record(
+        "cross_solve (panel form)", src + "build_stage_panel.cu",
+        tpu + "build_stage/build_stage.py:157",
+        fl["cross_solve_levels_panel"], r3["res"]["cross_solve"], ms, plain,
+        cross_tc_bound(nbytes, [a[0].shape[:2] + a[1].shape[1:2]
+                                for a in cross]),
+        unit=f"rank 256: one grouped launch (U and {len(cross) - 1} W "
+             "levels)", turns_ms=t,
+        bound_f32_ms=bound_ms(*total([cross_cost(*a) for a in cross]))[0],
+        direct_sum_floor_ms=sum(direct_sum_floor_ms(
+            a[0].shape[0] * a[0].shape[1] * a[1].shape[1], a[0].shape[2])
+            for a in cross)))
+    ms, plain, t = turns(lambda: lops.leaf_factor(dleaf),
+                         lambda: lref.hck_leaf_factor_ref(dleaf), 3)
+    s_ms, s_plain, s_t = turns(lambda: lops.leaf_factor(stacked),
+                               lambda: lref.hck_leaf_factor_ref(stacked), 2)
+    records.append(kernel_record(
+        "leaf_factor (panel form)", src + "leaf_factor_panel.cu",
+        tpu + "hck_leaf/hck_leaf.py:194", fl["leaf_factor_panel"]
+        + sl.get("leaf_factor_panel", 0), r3["res"]["leaf_factor"], ms,
+        plain, bound_ms(*factor_cost(dleaf)),
+        unit=f"rank 256: one launch {tuple(dleaf.shape)}", turns_ms=t,
+        library_chain_ms=time_ms(lambda: factor_chain(dleaf), 3),
+        library_chain="torch.linalg.cholesky + solve_triangular",
+        stacked={"shape": list(stacked.shape), "ms": s_ms,
+                 "plain_ms": s_plain, "turns_ms": s_t,
+                 "bound_ms": bound_ms(*factor_cost(stacked))[0],
+                 "chain_ms": time_ms(lambda: factor_chain(stacked), 2),
+                 "launches_sweep_row": 1}))
+    ms, plain, t = turns(
+        lambda: bops.build_gram_dist_levels(sig, **opts),
+        lambda: bref.build_gram_dist_levels_ref(sig, **opts), 3)
+    records.append(kernel_record(
+        "gram_chol_dist (panel form)", src + "build_dist_panel.cu",
+        tpu + "build_stage/build_stage.py:215",
+        sl["gram_chol_dist_levels_panel"], sw["err8"], ms, plain,
+        bound_ms(*total([gram_dist_cost(d, True) for d in sig])),
+        unit=f"rank 256, one sigma: one grouped launch ({len(sig)} Sigma "
+             "levels)", turns_ms=t))
+    ms, plain, t = turns(
+        lambda: bops.build_cross_dist_levels(*zip(*cd), sigma=SIGMA),
+        lambda: bref.build_cross_dist_levels_ref(*zip(*cd), sigma=SIGMA), 3)
+    records.append(kernel_record(
+        "cross_solve_dist (panel form)", src + "build_dist_panel.cu",
+        tpu + "build_stage/build_stage.py:254",
+        sl["cross_solve_dist_levels_panel"], sw["err9"], ms, plain,
+        cross_dist_tc_bound(cd),
+        unit=f"rank 256, one sigma: one grouped launch (U and "
+             f"{len(cd) - 1} W levels)", turns_ms=t,
+        bound_f32_ms=bound_ms(*total([cross_dist_cost(d, li)
+                                      for d, li in cd]))[0]))
+    for rec in records:
+        extra = ""
+        if "library_chain_ms" in rec:
+            st = rec["stacked"]
+            extra = (f", chain {rec['library_chain']} "
+                     f"{rec['library_chain_ms']:.4f} ms; stacked "
+                     f"{tuple(st['shape'])}: kernel {st['ms']:.4f} ms, plain "
+                     f"{st['plain_ms']:.4f} ms, chain {st['chain_ms']:.4f} "
+                     f"ms, bound {st['bound_ms']:.4f} ms (turns "
+                     f"{st['turns_ms']})")
+        if "bound_f32_ms" in rec:
+            extra += f", f32 CUDA-core bound {rec['bound_f32_ms']:.4f} ms"
+        if "direct_sum_floor_ms" in rec:
+            extra += (f", direct-sum issue floor "
+                      f"{rec['direct_sum_floor_ms']:.4f} ms")
+        say(f"[9 timing] {rec['name']} ({rec['unit']}): kernel "
+            f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms (turns "
+            f"{rec['turns_ms']}){extra}, bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']}), launches {rec['launches']}")
+    return records
 
 
 def phase_kernels(fit, dev) -> dict:
@@ -3132,7 +3658,7 @@ def phase_sweep(fit, dev) -> dict:
                 "flash_attention_wgmma": 0, "ssd_intra_chunk": 0,
                 "kernel_matvec_tc": 0, "kernel_tile_tc": 0,
                 "ssd_intra_chunk_wgmma": 0,
-                "policy_dist_tiled": 0, **BF16_ZERO}
+                "policy_dist_tiled": 0, **BF16_ZERO, **PANEL_ZERO}
     got = {k: v for k, v in launches.items()
            if k not in ("oos_contract", "oos_contract_pair")}
     require(got == expected, f"sweep launches {got} == expected {expected}")
@@ -5972,7 +6498,7 @@ TUNE_SHAPES = {"default": dict(n0=256, r=16, k=2, d=4),
                "covtype": dict(n0=LEAF, r=RANK, k=N_CLASSES, d=D,
                                queries=SERVE_Q)}
 # Stages whose kernels factor a whole tile: past m 235 (B1), 240 (B3, B8)
-# they raise naming the panel form (ROADMAP Queue B, redesign item 1).
+# they take the panel form, which the default shape's n0 256 reaches.
 PANEL_STAGES = ("leaf_factor", "build_gram", "build_gram_dist")
 
 
@@ -6030,11 +6556,11 @@ def tune_b11_check(shape) -> float:
 
 def tune_sweeps() -> dict:
     """Phase 8e (a): ``autotune_all`` at each of TUNE_SHAPES on the card,
-    the counts set to 0 around each call: every "cuda" candidate runs (but
-    the panel-form stages' at n0 256), B11 launches through the
-    ``pairwise_kernel`` stage, and a second call is a cache hit that
-    launches nothing.  Then B11's output on the sweep's inputs against the
-    plain version (tune_b11_check)."""
+    the counts set to 0 around each call: every "cuda" candidate runs (the
+    default shape's PANEL_STAGES, at n0 256, on their panel forms, each
+    counted), B11 launches through the ``pairwise_kernel`` stage, and a
+    second call is a cache hit that launches nothing.  Then B11's output
+    on the sweep's inputs against the plain version (tune_b11_check)."""
     from repro_torch.kernels import autotune
 
     out = {"records": {}, "b11_launches": 0, "b11_err": 0.0}
@@ -6044,15 +6570,16 @@ def tune_sweeps() -> dict:
         for rec in recs:
             errs = [c for c in rec["candidates"]
                     if c["backend"] == "cuda" and "error" in c]
-            ok = (not errs or (tag == "default"
-                               and rec["stage"] in PANEL_STAGES
-                               and all("panel form" in c["error"]
-                                       for c in errs)))
-            require(ok and (bool(errs) or any(
+            require(not errs and any(
                 c["backend"] == "cuda" and "s" in c
-                for c in rec["candidates"])),
+                for c in rec["candidates"]),
                 f"autotune {tag} {rec['stage']}: every cuda candidate ran: "
                 f"{errs}")
+        panel = {k: launches[f"{k}_panel"] for k in
+                 ("leaf_factor", "gram_chol", "gram_chol_dist")}
+        require(tag != "default" or all(panel.values()),
+                f"autotune {tag}: {PANEL_STAGES} at n0 256 launched their "
+                f"panel forms: {panel}")
         require(launches["kernel_tile"] > 0
                 and launches["kernel_tile_tc"] == launches["kernel_tile"],
                 f"autotune {tag}: B11 launched through the pairwise_kernel "
@@ -6068,11 +6595,9 @@ def tune_sweeps() -> dict:
         err = tune_b11_check(shape)
         out["b11_err"] = max(out["b11_err"], err)
         launched = {k: v for k, v in launches.items() if v}
-        panel = [r["stage"] for r in recs if any(
-            "error" in c for c in r["candidates"])]
         say(f"[8e tuning] (a) autotune_all {tag} {shape}: {len(recs)} "
             f"records, launches {launched} (B11 {launches['kernel_tile']}, "
-            f"all tc); the panel form's errors recorded for {panel}; a "
+            f"all tc); panel forms {panel}; a "
             f"second call: {len(hit)} cache hits, no launch; B11 on the "
             f"sweep's pairwise_kernel inputs max|d| {err:.2e} <= 1e-5 of "
             f"the plain version ok")
@@ -7172,6 +7697,7 @@ def main() -> int:
     lm_records = phase_lm(dev)
     fit = phase_fit(dev)
     phase_stream(fit, dev, smi)
+    r3 = phase_rank256(fit, dev)
     res = phase_kernels(fit, dev)
     phase_exact(dev)
     served = phase_serve(fit)
@@ -7183,7 +7709,7 @@ def main() -> int:
     prec = phase_precision(fit, sw, dev)
     tune = phase_tuning(fit, tile_db)
     kernels = (phase_timing(fit, res, served, sw, solv)
-               + sweep_timing(sw, sres)
+               + panel_timing(r3) + sweep_timing(sw, sres)
                + solver_timing(solv["exact"], solv["kres"], tune)
                + lifecycle_timing(fit, life["km"], life["update"],
                                   life["b12"]) + prec + lm_records)

@@ -34,14 +34,16 @@
 //       factor, forward substitution, register-tiled trailing updates);
 //       no pivot clamp (a tile that is not positive definite gives NaN,
 //       build_stage.py:85-86); three n = 128 f32 tiles share an SM;
-//       m <= 240 in f32, m <= 169 in f64 (the wrapper raises beyond);
+//       m <= 240 in f32, m <= 169 in f64 (larger tiles, up to 512, take
+//       the panel form: build_dist_panel.cu);
 //   gram_dist               a pure elementwise pass: a grid-stride loop
 //       with one warp per row of the stacked blocks;
 //   cross_solve_dist_levels in f32 cross_tc.cuh's split-TF32 products on
 //       mma.sync with K read straight from the cached distances, Linv's
 //       zero upper triangle skipped by 8-column k-step; in f64 the
 //       CUDA-core tile of cross_products.cuh over every (group, node, row
-//       tile of bm = 16, 32, 64 or 128 rows); r <= 128; (r + bm)(r + 1)
+//       tile of bm = 16, 32, 64 or 128 rows); r <= 128 (ranks up to 256
+//       take the panel form, build_dist_panel.cu); (r + bm)(r + 1)
 //       values must fit: bm = 64 in f64 at r = 128 (the wrapper picks and
 //       raises).
 // A block finds its group from the prefix of block counts.
@@ -417,7 +419,7 @@ int cross_dist_levels_tc(const void* table, int groups, int r, int kind,
 // (REPRO_BF16_ENTRIES), so that the float32 and float64 entries compile
 // as they do alone.  The grouped launches (one per sigma on the sweep
 // path) take ``table``, a host array of ``groups`` rows of int64 values.
-#ifdef REPRO_BF16_ENTRIES
+#if defined(REPRO_BF16_ENTRIES)
 
 extern "C" int gram_dist_bf16(const void* dist, void* gram, int b, int m,
                               int kind, double sigma, double diag_add,
@@ -439,6 +441,10 @@ extern "C" int cross_solve_dist_levels_bf16(const void* table, int groups,
   return cross_dist_levels_tc<__nv_bfloat16>(table, groups, r, kind, sigma,
                                              stream);
 }
+
+#elif defined(REPRO_PANEL_ENTRIES)
+
+// the panel forms' entries follow this file in build_dist_panel.cu
 
 #else
 
@@ -505,4 +511,4 @@ extern "C" int cross_solve_dist_levels_f64(const void* table, int groups,
   }
 }
 
-#endif  // REPRO_BF16_ENTRIES
+#endif  // REPRO_BF16_ENTRIES, REPRO_PANEL_ENTRIES

@@ -61,8 +61,8 @@
 // gives NaN, build_stage.py:85-86).  A launch without factors runs the
 // same kernel without the shared tile (the leaf Adiag:
 // 8.4 KB of staging a block).  The tile, the pivots and the staging must
-// fit the 227 KB a block can have: m <= 235 in f32, m <= 163 in f64 (the
-// wrapper raises beyond).
+// fit the 227 KB a block can have: m <= 235 in f32, m <= 163 in f64 (larger
+// tiles, up to 512, take the panel form: build_stage_panel.cu).
 // cross_solve_levels, float32: one block of 128 threads per node of every
 // group; the node's Linv is staged once (cross_tc.cuh), then the node's
 // rows are walked in tiles of 64.  Per tile, the distances to the r
@@ -73,7 +73,8 @@
 // tile (row stride 4 mod 32); then each warp runs cross_tc.cuh's split-
 // TF32 mma.sync products on its 16-row strip, Y = K Linv^T and U = Y Linv
 // with Linv's zero triangle skipped by 8-column k-step, and stores U.
-// r <= 128; 114 KB of shared memory, two blocks an SM.
+// r <= 128 (ranks up to 256 take the panel form, build_stage_panel.cu);
+// 114 KB of shared memory, two blocks an SM.
 // bfloat16-data entries (gram_chol_levels_bf16, cross_solve_levels_bf16;
 // a mixed-precision policy's build): the points and landmarks are
 // bfloat16, Linv and every output float32.  They are the float32 kernels
@@ -716,7 +717,7 @@ int cross_levels_tc(const void* table, int groups, int r, int d, int kind,
 
 }  // namespace
 
-#ifdef REPRO_BF16_ENTRIES
+#if defined(REPRO_BF16_ENTRIES)
 
 extern "C" int gram_chol_levels_bf16(const void* table, int groups, int d,
                                      int kind, double sigma, double jitter,
@@ -731,6 +732,10 @@ extern "C" int cross_solve_levels_bf16(const void* table, int groups, int r,
   return cross_levels_tc<__nv_bfloat16>(table, groups, r, d, kind, sigma,
                                         stream);
 }
+
+#elif defined(REPRO_PANEL_ENTRIES)
+
+// the panel forms' entries follow this file in build_stage_panel.cu
 
 #else
 
@@ -785,4 +790,4 @@ extern "C" int cross_solve_levels_f64(const void* table, int groups, int r,
   }
 }
 
-#endif  // REPRO_BF16_ENTRIES
+#endif  // REPRO_BF16_ENTRIES, REPRO_PANEL_ENTRIES

@@ -3,7 +3,8 @@
 // one ragged): the factor of the leaf_factor kernel (leaf_factor.cu, B3),
 // shared with the grouped gram_chol kernels (build_stage.cu, B1;
 // build_dist.cu, B8) and with leaf_update.cu (B13), whose blocks of 256
-// threads run it on their first 128.
+// threads run it on their first 128; its steps 1 and 2 also factor each
+// panel of chol_panel.cuh, the form for tiles held in device memory.
 //   1. warp 0 factors the 32 x 32 diagonal block in registers, lane i
 //      holding row i: each pivot's square root and reciprocal (stored),
 //      the column scaled by it and passed to every lane through a small

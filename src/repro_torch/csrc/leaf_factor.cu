@@ -50,7 +50,8 @@
 // O(n0^2).  The step loops stay loops (the fully unrolled panels do not
 // fit the instruction cache).  Shared memory: the (n0, n0 | 1) tile, n0
 // reciprocal pivots and a column buffer of 32, so n0 <= 240 in f32 and
-// <= 169 in f64 (the wrapper raises beyond).
+// <= 169 in f64; larger leaves, up to 512, take the panel form
+// (leaf_factor_panel.cu, the tile in device memory).
 //
 // No pivot is clamped: a block that is not positive definite gives NaN.
 // Each block reads only its own leaf, so a leaf's factors do not
@@ -212,6 +213,10 @@ int launch(const void* dleaf, void* lo, void* linv, int p, int n0,
 
 }  // namespace
 
+// The resident kernel's entries; leaf_factor_panel.cu compiles this file
+// with REPRO_PANEL_ENTRIES for the panel form's.
+#ifndef REPRO_PANEL_ENTRIES
+
 extern "C" int leaf_factor_f32(const void* dleaf, void* lo, void* linv,
                                int p, int n0, void* stream) {
   return launch<float>(dleaf, lo, linv, p, n0, stream);
@@ -221,3 +226,5 @@ extern "C" int leaf_factor_f64(const void* dleaf, void* lo, void* linv,
                                int p, int n0, void* stream) {
   return launch<double>(dleaf, lo, linv, p, n0, stream);
 }
+
+#endif  // REPRO_PANEL_ENTRIES

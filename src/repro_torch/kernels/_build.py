@@ -27,16 +27,23 @@ KERNELS = ("hck_leaf_project", "oos_contract", "build_stage", "build_dist",
            "leaf_factor", "leaf_matvec", "leaf_solve", "kernel_matvec",
            "kernel_tile", "policy_dist", "leaf_update", "flash_attention",
            "ssd_chunk", "build_stage_bf16", "build_dist_bf16",
-           "oos_contract_bf16")
-#: the libraries of bfloat16-data entries, each ``<base>_bf16.cu`` the base
-#: library's source compiled for those entries alone
-BF16_BASE = {"build_stage_bf16": "build_stage.cu",
-             "build_dist_bf16": "build_dist.cu",
-             "oos_contract_bf16": "oos_contract.cu"}
+           "oos_contract_bf16", "leaf_factor_panel", "build_stage_panel",
+           "build_dist_panel")
+#: the libraries compiled from another library's source: the bfloat16-data
+#: entries (each ``<base>_bf16.cu`` the base source compiled for those
+#: entries alone) and the panel forms (each ``<base>_panel.cu`` the base
+#: source compiled without its own entries, then the panel kernels)
+BASE = {"build_stage_bf16": "build_stage.cu",
+        "build_dist_bf16": "build_dist.cu",
+        "oos_contract_bf16": "oos_contract.cu",
+        "leaf_factor_panel": "leaf_factor.cu",
+        "build_stage_panel": "build_stage.cu",
+        "build_dist_panel": "build_dist.cu"}
 _HEADERS = ("kernel_epilogue.cuh", "cross_products.cuh", "pair_tile.cuh",
             "hopper.cuh", "tf32x3.cuh", "async_copy.cuh", "chol_blocked.cuh",
             "cross_tc.cuh", "level_groups.cuh", "leaf_stream.cuh",
-            "data_load.cuh", "tc_pairs.cuh", "dist_tiled.cuh")
+            "data_load.cuh", "tc_pairs.cuh", "dist_tiled.cuh",
+            "chol_panel.cuh", "cross_panel.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -72,7 +79,7 @@ def library_path(name: str) -> Path:
     if name not in KERNELS:
         raise KeyError(f"unknown kernel {name!r}; have {KERNELS}")
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    base = (BF16_BASE[name],) if name in BF16_BASE else ()
+    base = (BASE[name],) if name in BASE else ()
     for src in (f"{name}.cu",) + base + _HEADERS:
         h.update((CSRC / src).read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"

@@ -44,8 +44,8 @@ CUDA events around it (device time), on the CPU by the host clock.  The
 oos stages take ``queries`` queries a call (:func:`autotune_all`; the
 serving request size where the caller gives it), the others ``batch``
 leaves.  Candidates that raise (a rank above
-``MAX_CROSS_RANK``, a tile past a kernel's shared-memory limit) are
-recorded with their error, as in the reference.
+``MAX_CROSS_RANK``, 256, the panel forms' limit; a tile past a kernel's
+shared-memory limit) are recorded with their error, as in the reference.
 """
 from __future__ import annotations
 
@@ -229,8 +229,9 @@ def candidates(stage: str, *, n0: int, r: int, k: int, d: int,
     below the most rows one warp's slots hold (``stage_rows``) and that
     most itself (the cold plan), so the sweep can only improve on it.  The
     cross stages in float64: each of ``ops.row_tiles``, whose block fits the
-    shared memory (the float32 and bfloat16-data routes are on the tensor
-    cores with fixed tiles, so they record timings only).
+    shared memory (past rank 128 the panel form's one height; none past
+    ``ops.MAX_CROSS_RANK``; the float32 and bfloat16-data routes are on the
+    tensor cores with fixed tiles, so they record timings only).
     """
     if stage in OOS_STAGES:
         from repro_torch.kernels.oos_stage.ops import stage_rows

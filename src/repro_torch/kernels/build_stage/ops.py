@@ -18,6 +18,18 @@ wrapper computes its plain version
 the kernel or raises.  Each wrapper's ``launches`` counts its own
 launches.
 
+Past the resident kernels' shared memory each stage takes its panel form
+(``csrc/build_stage_panel.cu``, ``csrc/build_dist_panel.cu``, libraries of
+their own), chosen before the launch from dtype and shape: a factored
+tile past m 235 (B1) or 240 (B8) in float32, 163 or 169 in float64, up to
+:data:`~repro_torch.kernels.hck_leaf.ops.PANEL_MAX_M` = 512, in
+device memory (``csrc/chol_panel.cuh``; :func:`gram_route`), and a rank
+past :data:`RESIDENT_CROSS_RANK` = 128 up to :data:`MAX_CROSS_RANK` = 256,
+Linv streamed through shared memory (``csrc/cross_panel.cuh``;
+:func:`cross_route`).  A grouped launch whose levels take both forms of
+B1 or B8 is two launches, one a form.  Each wrapper's ``panel_launches``
+counts the panel form's launches (within ``launches``).
+
 Each kernel has a bfloat16-data entry (a mixed-precision policy's build
 and sweep, ``SolveConfig.precision="bf16"``): bfloat16 points, landmarks
 or cached distance tiles beside float32 Linv, every output float32
@@ -37,14 +49,21 @@ from repro_torch.kernels.build_stage.ref import (
     build_cross_dist_levels_ref, build_cross_dist_ref, build_cross_levels_ref,
     build_cross_ref, build_gram_dist_levels_ref, build_gram_dist_ref,
     build_gram_levels_ref, build_gram_ref)
-from repro_torch.kernels.hck_leaf.ops import factor_smem
+from repro_torch.kernels.hck_leaf.ops import (factor_route, factor_smem,
+                                              panel_smem)
 
 #: feature columns the float64 cross_solve_levels tile stages per chunk
 DC = 32
 #: the float64 cross tiles' row heights (multiples of its 16 thread rows),
-#: largest first, and the largest rank (16 thread columns of 8 outputs)
+#: largest first, and the largest rank of the resident cross kernels (16
+#: thread columns of 8 outputs; 16 tiles of 8 columns in float32)
 _ROW_TILES = (128, 64, 32, 16)
-MAX_CROSS_RANK = 128
+RESIDENT_CROSS_RANK = 128
+#: the largest rank of the panel cross kernels (csrc/cross_panel.cuh
+#: kMaxRank), and the rows of their tiles by itemsize (four warps of 16 in
+#: float32, 32 rows of 256 threads in float64)
+MAX_CROSS_RANK = 256
+PANEL_ROWS = {4: 64, 8: 32}
 #: groups (tree levels) one grouped launch takes (csrc/level_groups.cuh
 #: kMaxGroups): 32 levels is 2**32 leaves
 MAX_GROUPS = 32
@@ -93,17 +112,72 @@ def cross_dist_smem(bm: int, r: int, itemsize: int) -> int:
     return (r + bm) * (r + 1) * itemsize
 
 
-def check_cross_rank(r: int, stage: str) -> None:
-    """``ValueError`` when r exceeds :data:`MAX_CROSS_RANK`."""
+def gram_panel_smem(m: int, itemsize: int) -> int:
+    """Shared memory of one gram_chol_levels_panel block: the panel
+    factor's (:func:`~repro_torch.kernels.hck_leaf.ops.panel_smem`), then
+    the staged point chunks; 156,416 bytes at m 512 in float64."""
+    return panel_smem(m, itemsize) + _GRAM_STAGE * itemsize
+
+
+def cross_panel_smem(itemsize: int) -> int:
+    """Shared memory of one panel cross block (csrc/cross_panel.cuh), the
+    same at every rank it takes: in float32 the (64, 260) K / Y tile and
+    two Y slabs of (16, 260) floats; in float64 the (32, 257) tile and one
+    slab of (16, 257) doubles."""
+    rows, stride, slabs = (64, 260, 2) if itemsize == 4 else (32, 257, 1)
+    return itemsize * (rows + 16 * slabs) * stride
+
+
+def _check_bf16_route(stage: str, route: str, bf16: bool, what: str) -> None:
+    if bf16 and route == "panel":
+        raise ValueError(f"{stage}: {what} with bfloat16 data is past the "
+                         "resident kernel's limit; the panel form of the "
+                         "kernel takes float32 and float64 data only")
+
+
+def gram_route(stage: str, m: int, itemsize: int, bf16: bool = False,
+               dist: bool = False) -> str:
+    """How B1 (or with ``dist`` B8) factors an (m, m) tile of
+    ``itemsize``-byte factors: "resident" where the resident kernel's
+    block (:func:`gram_smem`, :func:`gram_dist_smem`) fits the shared
+    memory, else "panel" up to m 512, its block (:func:`gram_panel_smem`,
+    the factor's alone for B8) checked against the shared memory
+    (``ValueError`` past m 512, and for bfloat16 data, whose entries stop
+    at the resident form)."""
+    route = (factor_route(stage, m, itemsize, gram_dist_smem, panel_smem)
+             if dist else
+             factor_route(stage, m, itemsize, gram_smem, gram_panel_smem))
+    _check_bf16_route(stage, route, bf16, f"an ({m}, {m}) tile")
+    return route
+
+
+def cross_route(stage: str, r: int, itemsize: int, bf16: bool = False
+                ) -> str:
+    """How B2 and B9 take rank r: "resident" up to
+    :data:`RESIDENT_CROSS_RANK` (Linv whole in shared memory), "panel" up
+    to :data:`MAX_CROSS_RANK` (Linv streamed; its block,
+    :func:`cross_panel_smem`, checked against the shared memory);
+    ``ValueError`` past it, and for bfloat16 data past the resident
+    form."""
     if r > MAX_CROSS_RANK:
-        raise ValueError(f"{stage}: rank r={r} above {MAX_CROSS_RANK} "
-                         "needs the panel form of the kernel, which is later "
-                         "work")
+        raise ValueError(f"{stage}: rank r={r} is above {MAX_CROSS_RANK}, "
+                         "the largest the panel form of the kernel takes")
+    if r <= RESIDENT_CROSS_RANK:
+        return "resident"
+    _check_bf16_route(stage, "panel", bf16, f"rank r={r}")
+    _build.check_smem(stage, cross_panel_smem(itemsize),
+                      f"the panel form at rank r={r}")
+    return "panel"
 
 
 def row_tiles(r: int, itemsize: int, smem=cross_smem) -> list[int]:
-    """The heights of :data:`_ROW_TILES` whose float64 cross block needs
-    at most :data:`repro_torch.kernels._build.SMEM_MAX` bytes at rank r."""
+    """The row heights the float64 cross kernels take at rank r: those of
+    :data:`_ROW_TILES` whose resident block (``smem``) needs at most
+    :data:`repro_torch.kernels._build.SMEM_MAX` bytes, or past
+    :data:`RESIDENT_CROSS_RANK` the panel form's one height
+    (:data:`PANEL_ROWS`); ``ValueError`` past :data:`MAX_CROSS_RANK`."""
+    if cross_route("row_tiles", r, itemsize) == "panel":
+        return [PANEL_ROWS[itemsize]]
     return [bm for bm in _ROW_TILES
             if smem(bm, r, itemsize) <= _build.SMEM_MAX]
 
@@ -115,9 +189,10 @@ def cross_rows(m: int, r: int, itemsize: int, smem=cross_smem,
     with ``smem=cross_dist_smem`` cross_solve_dist_levels): ``row_tile``
     where given (``ValueError`` unless it is one of :func:`row_tiles`),
     else the largest of :func:`row_tiles` that does not overshoot m by a
-    whole smaller tile; ``ValueError`` when r exceeds
-    :data:`MAX_CROSS_RANK` or no tile fits."""
-    check_cross_rank(r, stage)
+    whole smaller tile (past :data:`RESIDENT_CROSS_RANK` the panel form's
+    one height); ``ValueError`` when r exceeds :data:`MAX_CROSS_RANK` or
+    no tile fits."""
+    cross_route(stage, r, itemsize)
     fits = row_tiles(r, itemsize, smem)
     if not fits:
         _build.check_smem(stage, smem(_ROW_TILES[-1], r, itemsize),
@@ -140,6 +215,8 @@ def measured_row_tile(stage: str, m: int, r: int, d: int, itemsize: int,
     raises)."""
     from repro_torch.kernels.registry import autotuned_block
 
+    if r > MAX_CROSS_RANK:
+        return None
     tile = autotuned_block(stage, n0=m, r=r, k=r, d=d, itemsize=itemsize)
     return tile if tile in row_tiles(r, itemsize, smem) else None
 
@@ -173,32 +250,49 @@ def level_table(stage: str, rows) -> torch.Tensor:
 # B1 and B2: the build engine's stages, from points
 # ---------------------------------------------------------------------------
 
+def _by_route(rows, route):
+    """``rows`` (one a level, m last) split by ``route(m)``: [(route,
+    rows)] for the routes some row takes, resident first."""
+    routes = [route(row[-1]) for row in rows]
+    return [(r, [row for row, rr in zip(rows, routes) if rr == r])
+            for r in ("resident", "panel") if r in routes]
+
+
 def _gram_levels(stage, dev, points, want_chol, name, sigma, jitter):
-    """Allocate and launch one gram_chol_levels over the levels ``points``
-    (with or without factors): ([(gram, chol or None)], launched)."""
+    """Allocate and launch gram_chol_levels over the levels ``points``
+    (with or without factors), one launch a route (:func:`gram_route`):
+    ([(gram, chol or None)], launches, panel launches)."""
     if len({p.shape[2] for p in points}) > 1:
         raise ValueError(f"{stage} needs one d for all levels; got "
                          f"{[tuple(p.shape) for p in points]}")
     fdt = factor_dtype(points[0])
-    if want_chol:
-        for p in points:
-            m = p.shape[1]
-            _build.check_smem(stage, gram_smem(m, fdt.itemsize),
-                              f"an ({m}, {m}) tile")
+
+    def route(m):
+        return (gram_route(stage, m, fdt.itemsize, _bf16(points[0]))
+                if want_chol else "resident")
+
+    for p in points:
+        route(p.shape[1])
     out = [(p.new_empty((p.shape[0], p.shape[1], p.shape[1]), dtype=fdt),
             p.new_empty((p.shape[0], p.shape[1], p.shape[1]), dtype=fdt)
             if want_chol else None) for p in points]
     rows = [(p, g, c, p.shape[0], p.shape[1])
             for p, (g, c) in zip(points, out) if g.numel()]
-    table = level_table(stage, rows)
-    if not rows:
-        return out, False
-    _build.launch(_build.library("build_stage", points[0]),
-                  f"gram_chol_levels_{_build.SUFFIX[points[0].dtype]}", dev,
-                  table, len(rows), points[0].shape[2],
-                  _build.EPILOGUE_KIND[name], float(sigma), float(jitter),
-                  int(bool(want_chol)))
-    return out, True
+    level_table(stage, rows)           # MAX_GROUPS, before any launch
+    split = _by_route(rows, route)
+    sfx, kind = _build.SUFFIX[points[0].dtype], _build.EPILOGUE_KIND[name]
+    for r, sub in split:
+        table = level_table(stage, sub)
+        if r == "panel":
+            _build.launch("build_stage_panel", f"gram_chol_levels_panel_{sfx}",
+                          dev, table, len(table), points[0].shape[2], kind,
+                          float(sigma), float(jitter))
+        else:
+            _build.launch(_build.library("build_stage", points[0]),
+                          f"gram_chol_levels_{sfx}", dev, table, len(table),
+                          points[0].shape[2], kind, float(sigma),
+                          float(jitter), int(bool(want_chol)))
+    return out, len(split), sum(r == "panel" for r, _ in split)
 
 
 def build_gram(
@@ -215,9 +309,10 @@ def build_gram(
     if dev is None:
         return build_gram_ref(points, name=name, sigma=sigma, jitter=jitter,
                               want_chol=want_chol)
-    (out,), launched = _gram_levels("build_gram", dev, [points], want_chol,
-                                    name, sigma, jitter)
+    (out,), launched, panel = _gram_levels("build_gram", dev, [points],
+                                           want_chol, name, sigma, jitter)
     build_gram.launches += launched
+    build_gram.panel_launches += panel
     build_gram.bf16_launches += launched and _bf16(points)
     return out
 
@@ -240,9 +335,10 @@ def build_gram_levels(
     if dev is None:
         return build_gram_levels_ref(points, name=name, sigma=sigma,
                                      jitter=jitter, want_chol=want_chol)
-    out, launched = _gram_levels("build_gram_levels", dev, points, want_chol,
-                                 name, sigma, jitter)
+    out, launched, panel = _gram_levels("build_gram_levels", dev, points,
+                                        want_chol, name, sigma, jitter)
     build_gram_levels.launches += launched
+    build_gram_levels.panel_launches += panel
     build_gram_levels.bf16_launches += launched and _bf16(points[0])
     return out
 
@@ -265,18 +361,19 @@ def _check_cross(stage, points, landmarks, linvs) -> None:
 
 def _cross_levels(stage, dev, points, landmarks, linvs, name, sigma,
                   row_tile=None):
-    """Allocate and launch one cross_solve_levels: ([U], launched)."""
+    """Allocate and launch one cross_solve_levels (its panel form past
+    :data:`RESIDENT_CROSS_RANK`): ([U], launched, panel)."""
     r, d = landmarks[0].shape[1], points[0].shape[2]
     dtype = points[0].dtype
-    check_cross_rank(r, stage)
+    route = cross_route(stage, r, factor_dtype(points[0]).itemsize,
+                        _bf16(points[0]))
     _check_row_tile(stage, dtype, row_tile)
+    bm = ()
     if dtype == torch.float64:      # the CUDA-core tile: one height for all
         m, s = max(p.shape[1] for p in points), points[0].element_size()
         if row_tile is None:
             row_tile = measured_row_tile("build_cross", m, r, d, s)
         bm = (cross_rows(m, r, s, stage=stage, row_tile=row_tile),)
-    else:
-        bm = ()
     out = [p.new_empty((p.shape[0], p.shape[1], r), dtype=linvs[0].dtype)
            for p in points]
     rows = [(p, z, li, u, p.shape[0], p.shape[1])
@@ -284,12 +381,16 @@ def _cross_levels(stage, dev, points, landmarks, linvs, name, sigma,
             if u.numel()]
     table = level_table(stage, rows)
     if not rows:
-        return out, False
-    _build.launch(_build.library("build_stage", points[0]),
-                  f"cross_solve_levels_{_build.SUFFIX[dtype]}", dev, table,
-                  len(rows), r, d, *bm, _build.EPILOGUE_KIND[name],
-                  float(sigma))
-    return out, True
+        return out, False, False
+    sfx, kind = _build.SUFFIX[dtype], _build.EPILOGUE_KIND[name]
+    if route == "panel":            # one tile height, fixed in the kernel
+        _build.launch("build_stage_panel", f"cross_solve_levels_panel_{sfx}",
+                      dev, table, len(rows), r, d, kind, float(sigma))
+    else:
+        _build.launch(_build.library("build_stage", points[0]),
+                      f"cross_solve_levels_{sfx}", dev, table, len(rows), r,
+                      d, *bm, kind, float(sigma))
+    return out, True, route == "panel"
 
 
 def build_cross(
@@ -308,10 +409,11 @@ def build_cross(
     if dev is None:
         return build_cross_ref(points, landmarks, linv, name=name,
                                sigma=sigma)
-    (out,), launched = _cross_levels("build_cross", dev, [points],
-                                     [landmarks], [linv], name, sigma,
-                                     row_tile)
+    (out,), launched, panel = _cross_levels("build_cross", dev, [points],
+                                            [landmarks], [linv], name, sigma,
+                                            row_tile)
     build_cross.launches += launched
+    build_cross.panel_launches += panel
     build_cross.bf16_launches += launched and _bf16(points)
     return out
 
@@ -339,9 +441,10 @@ def build_cross_levels(
     if dev is None:
         return build_cross_levels_ref(points, landmarks, linvs, name=name,
                                       sigma=sigma)
-    out, launched = _cross_levels("build_cross_levels", dev, points,
-                                  landmarks, linvs, name, sigma)
+    out, launched, panel = _cross_levels("build_cross_levels", dev, points,
+                                         landmarks, linvs, name, sigma)
     build_cross_levels.launches += launched
+    build_cross_levels.panel_launches += panel
     build_cross_levels.bf16_launches += launched and _bf16(points[0])
     return out
 
@@ -351,25 +454,32 @@ def build_cross_levels(
 # ---------------------------------------------------------------------------
 
 def _gram_dist_levels(stage, dev, dists, name, sigma, jitter):
-    """Allocate and launch one gram_chol_dist_levels: ([(gram, chol)],
-    launched)."""
+    """Allocate and launch gram_chol_dist_levels, one launch a route
+    (:func:`gram_route` with :func:`gram_dist_smem`): ([(gram, chol)],
+    launches, panel launches)."""
     fdt = factor_dtype(dists[0])
+
+    def route(m):
+        return gram_route(stage, m, fdt.itemsize, _bf16(dists[0]),
+                          dist=True)
+
     for d in dists:
-        m = d.shape[1]
-        _build.check_smem(stage, gram_dist_smem(m, fdt.itemsize),
-                          f"an ({m}, {m}) tile")
+        route(d.shape[1])
     out = [(torch.empty_like(d, dtype=fdt), torch.empty_like(d, dtype=fdt))
            for d in dists]
     rows = [(d, g, c, d.shape[0], d.shape[1])
             for d, (g, c) in zip(dists, out) if d.numel()]
-    table = level_table(stage, rows)
-    if not rows:
-        return out, False
-    _build.launch(_build.library("build_dist", dists[0]),
-                  f"gram_chol_dist_levels_{_build.SUFFIX[dists[0].dtype]}",
-                  dev, table, len(rows), _build.EPILOGUE_KIND[name],
-                  float(sigma), float(jitter))
-    return out, True
+    level_table(stage, rows)           # MAX_GROUPS, before any launch
+    split = _by_route(rows, route)
+    sfx, kind = _build.SUFFIX[dists[0].dtype], _build.EPILOGUE_KIND[name]
+    for r, sub in split:
+        lib, sym = (("build_dist_panel", "gram_chol_dist_levels_panel")
+                    if r == "panel" else
+                    (_build.library("build_dist", dists[0]),
+                     "gram_chol_dist_levels"))
+        _build.launch(lib, f"{sym}_{sfx}", dev, level_table(stage, sub),
+                      len(sub), kind, float(sigma), float(jitter))
+    return out, len(split), sum(r == "panel" for r, _ in split)
 
 
 def build_gram_dist(
@@ -388,9 +498,10 @@ def build_gram_dist(
         return build_gram_dist_ref(dist, name=name, sigma=sigma,
                                    jitter=jitter, want_chol=want_chol)
     if want_chol:
-        (out,), launched = _gram_dist_levels("build_gram_dist", dev, [dist],
-                                             name, sigma, jitter)
+        (out,), launched, panel = _gram_dist_levels(
+            "build_gram_dist", dev, [dist], name, sigma, jitter)
         build_gram_dist.launches += launched
+        build_gram_dist.panel_launches += panel
         build_gram_dist.bf16_launches += launched and _bf16(dist)
         return out
     bsz, m, _ = dist.shape
@@ -423,19 +534,23 @@ def build_gram_dist_levels(
     if dev is None:
         return build_gram_dist_levels_ref(dists, name=name, sigma=sigma,
                                           jitter=jitter)
-    out, launched = _gram_dist_levels("build_gram_dist_levels", dev, dists,
-                                      name, sigma, jitter)
+    out, launched, panel = _gram_dist_levels("build_gram_dist_levels", dev,
+                                             dists, name, sigma, jitter)
     build_gram_dist_levels.launches += launched
+    build_gram_dist_levels.panel_launches += panel
     build_gram_dist_levels.bf16_launches += launched and _bf16(dists[0])
     return out
 
 
 def _cross_dist_levels(stage, dev, dists, linvs, name, sigma,
                        row_tile=None):
-    """Allocate and launch one cross_solve_dist_levels: ([U], launched)."""
+    """Allocate and launch one cross_solve_dist_levels (its panel form past
+    :data:`RESIDENT_CROSS_RANK`): ([U], launched, panel)."""
     dtype, r = dists[0].dtype, dists[0].shape[-1]
-    check_cross_rank(r, stage)
+    route = cross_route(stage, r, factor_dtype(dists[0]).itemsize,
+                        _bf16(dists[0]))
     _check_row_tile(stage, dtype, row_tile)
+    bm = ()
     if dtype == torch.float64:      # the CUDA-core tile: one height for all
         m, s = max(d.shape[1] for d in dists), dists[0].element_size()
         if row_tile is None:
@@ -443,19 +558,22 @@ def _cross_dist_levels(stage, dev, dists, linvs, name, sigma,
                                          smem=cross_dist_smem)
         bm = (cross_rows(m, r, s, smem=cross_dist_smem, stage=stage,
                          row_tile=row_tile),)
-    else:
-        bm = ()
     out = [torch.empty_like(d, dtype=linvs[0].dtype) for d in dists]
     rows = [(d, li, u, d.shape[0], d.shape[1])
             for d, li, u in zip(dists, linvs, out) if d.numel()]
     table = level_table(stage, rows)
     if not rows:
-        return out, False
-    _build.launch(_build.library("build_dist", dists[0]),
-                  f"cross_solve_dist_levels_{_build.SUFFIX[dtype]}", dev,
-                  table, len(rows), r, *bm, _build.EPILOGUE_KIND[name],
-                  float(sigma))
-    return out, True
+        return out, False, False
+    sfx, kind = _build.SUFFIX[dtype], _build.EPILOGUE_KIND[name]
+    if route == "panel":            # one tile height, fixed in the kernel
+        _build.launch("build_dist_panel",
+                      f"cross_solve_dist_levels_panel_{sfx}", dev, table,
+                      len(rows), r, kind, float(sigma))
+    else:
+        _build.launch(_build.library("build_dist", dists[0]),
+                      f"cross_solve_dist_levels_{sfx}", dev, table,
+                      len(rows), r, *bm, kind, float(sigma))
+    return out, True, route == "panel"
 
 
 def build_cross_dist(
@@ -475,9 +593,10 @@ def build_cross_dist(
     dev = _build.cuda_device("build_cross_dist", linv, data=(dist,))
     if dev is None:
         return build_cross_dist_ref(dist, linv, name=name, sigma=sigma)
-    (out,), launched = _cross_dist_levels("build_cross_dist", dev, [dist],
-                                          [linv], name, sigma, row_tile)
+    (out,), launched, panel = _cross_dist_levels(
+        "build_cross_dist", dev, [dist], [linv], name, sigma, row_tile)
     build_cross_dist.launches += launched
+    build_cross_dist.panel_launches += panel
     build_cross_dist.bf16_launches += launched and _bf16(dist)
     return out
 
@@ -511,9 +630,10 @@ def build_cross_dist_levels(
     if dev is None:
         return build_cross_dist_levels_ref(dists, linvs, name=name,
                                            sigma=sigma)
-    out, launched = _cross_dist_levels("build_cross_dist_levels", dev, dists,
-                                       linvs, name, sigma)
+    out, launched, panel = _cross_dist_levels("build_cross_dist_levels", dev,
+                                              dists, linvs, name, sigma)
     build_cross_dist_levels.launches += launched
+    build_cross_dist_levels.panel_launches += panel
     build_cross_dist_levels.bf16_launches += launched and _bf16(dists[0])
     return out
 
@@ -531,3 +651,4 @@ for _fn in (build_gram, build_cross, build_gram_levels, build_cross_levels,
             build_gram_dist, build_cross_dist, build_gram_dist_levels,
             build_cross_dist_levels):
     _fn.bf16_launches = 0
+    _fn.panel_launches = 0

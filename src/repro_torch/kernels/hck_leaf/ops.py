@@ -1,11 +1,13 @@
 """Wrappers of the leaf-stage CUDA kernels.
 
 ``leaf_project`` (B6, ``csrc/hck_leaf_project.cu``), ``leaf_factor`` (B3,
-``csrc/leaf_factor.cu``), ``leaf_matvec`` (B5, ``csrc/leaf_matvec.cu``)
-and ``leaf_solve`` (B4, ``csrc/leaf_solve.cu``).  On CPU tensors each
-wrapper computes its plain version (:mod:`repro_torch.kernels.hck_leaf.
-ref`); on CUDA tensors it launches the kernel or raises.  Each wrapper's
-``launches`` counts its kernel launches.
+``csrc/leaf_factor.cu``, and past its shared memory the panel form
+``csrc/leaf_factor_panel.cu``: :func:`factor_route`), ``leaf_matvec`` (B5,
+``csrc/leaf_matvec.cu``) and ``leaf_solve`` (B4, ``csrc/leaf_solve.cu``).
+On CPU tensors each wrapper computes its plain version
+(:mod:`repro_torch.kernels.hck_leaf.ref`); on CUDA tensors it launches the
+kernel or raises.  Each wrapper's ``launches`` counts its kernel launches,
+``leaf_factor.panel_launches`` those of the panel form (within them).
 """
 from __future__ import annotations
 
@@ -55,6 +57,38 @@ def factor_smem(n0: int, itemsize: int) -> int:
     16-byte-aligned column buffer of 32 values; so n0 <= 240 in float32
     and <= 169 in float64."""
     return -(-(n0 * (n0 | 1) + n0) * itemsize // 16) * 16 + 32 * itemsize
+
+
+#: the largest tile of the panel factor (csrc/chol_panel.cuh kMaxM): a leaf
+#: of 2 r at rank 256, as partition.auto_levels sizes it
+PANEL_MAX_M = 512
+
+
+def panel_smem(m: int, itemsize: int) -> int:
+    """Shared memory of one block of the panel factor (csrc/chol_panel.cuh)
+    of an (m, m) tile held in device memory: the staged panel (m rows of
+    32 columns at stride 33), the m reciprocal pivots and the column buffer
+    of 32 values; 139,520 bytes at m 512 in float64."""
+    return -(-(m * 33 + m) * itemsize // 16) * 16 + 32 * itemsize
+
+
+def factor_route(stage: str, m: int, itemsize: int, resident_smem,
+                 panel=panel_smem) -> str:
+    """How a Cholesky stage takes an (m, m) tile (B3 leaf_factor, B1
+    gram_chol, B8 gram_chol_dist): "resident" where the resident kernel's
+    block (``resident_smem(m, itemsize)`` bytes) fits the shared memory,
+    else "panel" up to :data:`PANEL_MAX_M`, its block (``panel(m,
+    itemsize)`` bytes) checked against the shared memory; ``ValueError``
+    past it."""
+    if resident_smem(m, itemsize) <= _build.SMEM_MAX:
+        return "resident"
+    if m > PANEL_MAX_M:
+        raise ValueError(f"{stage}: an ({m}, {m}) tile is above m = "
+                         f"{PANEL_MAX_M}, the largest the panel form of the "
+                         "kernel takes")
+    _build.check_smem(stage, panel(m, itemsize),
+                      f"the panel form at an ({m}, {m}) tile")
+    return "panel"
 
 
 #: right-hand-side columns the leaf_solve kernel takes a group
@@ -123,15 +157,16 @@ def leaf_factor(dleaf: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     if dev is None:
         return hck_leaf_factor_ref(dleaf)
     p, n0, _ = dleaf.shape
-    _build.check_smem("leaf_factor", factor_smem(n0, dleaf.element_size()),
-                      f"an ({n0}, {n0}) leaf tile")
+    route = factor_route("leaf_factor", n0, dleaf.element_size(),
+                         factor_smem)
     lo, linv = torch.empty_like(dleaf), torch.empty_like(dleaf)
     if lo.numel() == 0:
         return lo, linv
-    _build.launch("leaf_factor",
-                  f"leaf_factor_{_build.SUFFIX[dleaf.dtype]}", dev, dleaf, lo,
+    lib = "leaf_factor" if route == "resident" else "leaf_factor_panel"
+    _build.launch(lib, f"{lib}_{_build.SUFFIX[dleaf.dtype]}", dev, dleaf, lo,
                   linv, p, n0)
     leaf_factor.launches += 1
+    leaf_factor.panel_launches += route == "panel"
     return lo, linv
 
 
@@ -251,6 +286,7 @@ def leaf_solve(linv: torch.Tensor, u: torch.Tensor, sig: torch.Tensor,
 
 leaf_project.launches = 0
 leaf_factor.launches = 0
+leaf_factor.panel_launches = 0
 leaf_matvec.launches = 0
 leaf_matvec.shapes = Counter()
 leaf_solve.launches = 0

@@ -149,6 +149,22 @@ def test_sweep_then_cache_hit_roundtrip(tile_db):
                                itemsize=8) == sorted(bops.row_tiles(128, 8))
 
 
+def test_cross_candidates_list_the_panel_plan_at_rank_256():
+    """Past rank 128 the float64 cross stages take the panel form, whose
+    one row height is their candidate (its block fits the shared memory);
+    past rank 256, and in float32, nothing."""
+    for stage, smem in (("build_cross", bops.cross_smem),
+                        ("build_cross_dist", bops.cross_dist_smem)):
+        got = autotune.candidates(stage, n0=512, r=256, k=256, d=54,
+                                  itemsize=8)
+        assert got == [bops.PANEL_ROWS[8]] == bops.row_tiles(256, 8, smem)
+        assert bops.cross_panel_smem(8) <= _build.SMEM_MAX
+        assert autotune.candidates(stage, n0=512, r=257, k=257, d=54,
+                                   itemsize=8) == []
+        assert autotune.candidates(stage, n0=512, r=256, k=256, d=54,
+                                   itemsize=4) == []
+
+
 def test_measured_block_steers_the_oos_plan_and_cross_row_tile(
         tile_db, fake_card, monkeypatch):
     plans = []

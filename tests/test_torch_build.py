@@ -130,13 +130,18 @@ def test_wrappers_reject_bad_shapes_and_oversized_tiles():
     with pytest.raises(ValueError, match="build_cross"):
         build_ops.build_cross(torch.zeros(2, 8, 3), torch.zeros(2, 4, 3),
                               torch.zeros(2, 3, 3))
-    # covtype width fits one block; an r = 256 Gram tile needs the panel form
+    # covtype width fits one block; an r = 256 Gram tile takes the panel
+    # form, whose block fits
     assert build_ops.gram_smem(128, 8) <= _build.SMEM_MAX
     assert build_ops.gram_smem(256, 4) > _build.SMEM_MAX
+    assert build_ops.gram_route("t", 256, 4) == "panel"
+    assert build_ops.gram_panel_smem(256, 4) <= _build.SMEM_MAX
     assert build_ops.cross_rows(256, 128, 4) == 128
     assert build_ops.cross_rows(256, 128, 8) == 32
     assert build_ops.cross_rows(16, 8, 8) == 16
-    for r in (256, 2048):
+    # rank 256 takes the panel form's one tile height; past 256 it raises
+    assert build_ops.cross_rows(512, 256, 4) == build_ops.PANEL_ROWS[4]
+    for r in (257, 2048):
         with pytest.raises(ValueError, match="panel form"):
             build_ops.cross_rows(512, r, 4)
 

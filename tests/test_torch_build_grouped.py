@@ -306,18 +306,20 @@ def test_leaf_stage_factors_is_two_one_group_launches(fake_card):
 
 
 def test_oversized_tiles_raise_before_any_launch(fake_card):
-    """A factored tile past the shared memory (m 236 in f32, 164 in f64) or
-    a rank past 128 raises before anything launches; m 235 and 163 launch,
-    and a launch without factors needs no tile at all."""
+    """A factored tile past the panel form's m 512 or a rank past its 256
+    raises before anything launches; m 235 and 163 launch the resident
+    kernel, m 236 and 164 (past its shared memory) the panel kernel, rank
+    129 the panel cross kernel, and a launch without factors needs no tile
+    at all."""
     f32, f64 = dict(dtype=torch.float32), dict(dtype=torch.float64)
-    for m, o in ((236, f32), (164, f64)):
-        with pytest.raises(ValueError, match="shared memory"):
+    for o in (f32, f64):
+        with pytest.raises(ValueError, match="above m = 512.*panel form"):
             build_ops.build_gram_levels([torch.zeros((1, 8, 3), **o),
-                                         torch.zeros((1, m, 3), **o)])
-    with pytest.raises(ValueError, match="panel form"):
+                                         torch.zeros((1, 513, 3), **o)])
+    with pytest.raises(ValueError, match="above 256.*panel form"):
         build_ops.build_cross_levels([torch.zeros((1, 8, 3))],
-                                     [torch.zeros((1, 129, 3))],
-                                     [torch.zeros((1, 129, 129))])
+                                     [torch.zeros((1, 257, 3))],
+                                     [torch.zeros((1, 257, 257))])
     with pytest.raises(ValueError, match="one r and one d"):
         build_ops.build_cross_levels(
             [torch.zeros((1, 8, 3)), torch.zeros((1, 8, 4))],
@@ -336,3 +338,15 @@ def test_oversized_tiles_raise_before_any_launch(fake_card):
     assert len(fake_card) == 3
     assert fake_card[-1][2][0][0, 2] == 0      # no factor pointer
     assert fake_card[-1][2][-1] == 0           # want_chol off
+    # past the resident kernel's shared memory: one launch a form
+    build_ops.build_gram_levels([torch.zeros((1, 8, 3), **f32),
+                                 torch.zeros((1, 236, 3), **f32)])
+    build_ops.build_gram_levels([torch.zeros((1, 164, 3), **f64)])
+    build_ops.build_cross_levels([torch.zeros((1, 8, 3))],
+                                 [torch.zeros((1, 129, 3))],
+                                 [torch.zeros((1, 129, 129))])
+    assert [c[1] for c in fake_card[3:]] == [
+        "gram_chol_levels_f32", "gram_chol_levels_panel_f32",
+        "gram_chol_levels_panel_f64", "cross_solve_levels_panel_f32"]
+    assert [c[2][0][:, -1].tolist() for c in fake_card[3:]] == [
+        [8], [236], [164], [8]]

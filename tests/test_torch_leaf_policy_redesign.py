@@ -191,18 +191,17 @@ def fake_card(monkeypatch):
     (170, 8, False)])
 def test_b3_limits(fake_card, n0, itemsize, ok):
     """The blocked kernel takes n0 <= 240 in float32 and <= 169 in float64
-    (as the design it replaced did); the wrapper raises beyond, before any
-    launch."""
+    (as the design it replaced did); beyond, the wrapper launches the panel
+    form (leaf_factor_panel.cu), up to n0 512, and raises past 512, before
+    any launch."""
     assert ok == (leaf_ops.factor_smem(n0, itemsize) <= _build.SMEM_MAX)
-    dleaf = torch.zeros((1, n0, n0), dtype={4: torch.float32,
-                                            8: torch.float64}[itemsize])
-    if ok:
-        leaf_ops.leaf_factor(dleaf)
-        assert fake_card[0][1] == "leaf_factor_" + _build.SUFFIX[dleaf.dtype]
-    else:
-        with pytest.raises(ValueError, match="panel form"):
-            leaf_ops.leaf_factor(dleaf)
-        assert fake_card == []
+    dtype = {4: torch.float32, 8: torch.float64}[itemsize]
+    leaf_ops.leaf_factor(torch.zeros((1, n0, n0), dtype=dtype))
+    lib = "leaf_factor" if ok else "leaf_factor_panel"
+    assert fake_card[0][:2] == (lib, f"{lib}_{_build.SUFFIX[dtype]}")
+    with pytest.raises(ValueError, match="above m = 512.*panel form"):
+        leaf_ops.leaf_factor(torch.zeros((1, 513, 513), dtype=dtype))
+    assert len(fake_card) == 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
@@ -219,9 +218,11 @@ def test_b3_wrapper_launches_the_blocked_kernel(fake_card, dtype, n0):
     assert leaf_ops.leaf_factor.launches == 1
     lo0, linv0 = leaf_ops.leaf_factor(torch.zeros((0, n0, n0), dtype=dtype))
     assert lo0.shape == linv0.shape == (0, n0, n0)
+    leaf_ops.leaf_factor(torch.zeros((1, 241, 241)))
+    assert fake_card[-1][1] == "leaf_factor_panel_f32"
     with pytest.raises(ValueError, match="panel form"):
-        leaf_ops.leaf_factor(torch.zeros((1, 241, 241)))
-    assert len(fake_card) == 1 and leaf_ops.leaf_factor.launches == 1
+        leaf_ops.leaf_factor(torch.zeros((1, 513, 513)))
+    assert len(fake_card) == 2 and leaf_ops.leaf_factor.launches == 2
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],

@@ -180,8 +180,12 @@ def test_dist_wrappers_reject_bad_shapes_and_oversized_tiles():
     rows = dict(smem=build_ops.cross_dist_smem, stage="build_cross_dist")
     assert build_ops.cross_rows(256, 128, 4, **rows) == 128
     assert build_ops.cross_rows(256, 128, 8, **rows) == 64
+    # past them the panel forms: m up to 512, r up to 256 (one tile height)
+    assert build_ops.gram_route("t", 241, 4, dist=True) == "panel"
+    assert build_ops.cross_rows(512, 256, 4, **rows) == \
+        build_ops.PANEL_ROWS[4]
     with pytest.raises(ValueError, match="build_cross_dist.*panel form"):
-        build_ops.cross_rows(512, 256, 4, **rows)
+        build_ops.cross_rows(512, 257, 4, **rows)
 
 
 # ---------------------------------------------------------------------------

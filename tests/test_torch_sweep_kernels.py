@@ -329,18 +329,18 @@ def test_grouped_launch_leaves_empty_levels_out(fake_card):
 
 
 def test_grouped_checks_raise_before_any_launch(fake_card):
-    with pytest.raises(ValueError, match="panel form"):
-        build_ops.build_cross_dist_levels([torch.zeros((1, 8, 130))],
-                                          [torch.zeros((1, 130, 130))])
+    with pytest.raises(ValueError, match="above 256.*panel form"):
+        build_ops.build_cross_dist_levels([torch.zeros((1, 8, 257))],
+                                          [torch.zeros((1, 257, 257))])
     with pytest.raises(ValueError, match="one r"):
         build_ops.build_cross_dist_levels(
             [torch.zeros((1, 8, 4)), torch.zeros((1, 8, 6))],
             [torch.zeros((1, 4, 4)), torch.zeros((1, 6, 6))])
-    with pytest.raises(ValueError, match="shared memory"):
-        build_ops.build_gram_dist_levels([torch.zeros((1, 241, 241))])
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="above m = 512.*panel form"):
+        build_ops.build_gram_dist_levels([torch.zeros((1, 513, 513))])
+    with pytest.raises(ValueError, match="above m = 512.*panel form"):
         build_ops.build_gram_dist_levels(
-            [torch.zeros((1, 170, 170), dtype=torch.float64)])
+            [torch.zeros((1, 513, 513), dtype=torch.float64)])
     build_ops.build_gram_dist_levels([torch.zeros((1, 240, 240))])
     with pytest.raises(ValueError, match="one launch takes"):
         build_ops.build_gram_dist_levels(
@@ -349,6 +349,13 @@ def test_grouped_checks_raise_before_any_launch(fake_card):
         build_ops.build_gram_dist_levels([torch.zeros((1, 4, 4))],
                                          name="cauchy")
     assert len(fake_card) == 1
+    # past the resident kernel's shared memory (m 241 in f32, 170 in f64)
+    # the panel form launches
+    build_ops.build_gram_dist_levels([torch.zeros((1, 241, 241))])
+    build_ops.build_gram_dist_levels(
+        [torch.zeros((1, 170, 170), dtype=torch.float64)])
+    assert [c[1] for c in fake_card[1:]] == [
+        "gram_chol_dist_levels_panel_f32", "gram_chol_dist_levels_panel_f64"]
 
 
 def test_sweep_factors_launches_each_grouped_kernel_once(fake_card,
