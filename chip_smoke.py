@@ -529,18 +529,21 @@ BF16_KERNELS = ("gram_chol", "cross_solve", "gram_chol_levels",
                 "oos_contract")
 BF16_ZERO = {f"{k}_bf16": 0 for k in BF16_KERNELS}
 # The kernels with a panel form (past the resident kernel's shared memory:
-# ROADMAP Queue B) count its launches as "<kernel>_panel".
+# ROADMAP Queue B) count its launches as "<kernel>_panel"; B4's instance
+# for leaves past 256 rows counts its launches as "leaf_solve_wide".
 PANEL_KERNELS = ("gram_chol", "cross_solve", "gram_chol_levels",
                  "cross_solve_levels", "gram_chol_dist", "cross_solve_dist",
                  "gram_chol_dist_levels", "cross_solve_dist_levels",
-                 "leaf_factor")
-PANEL_ZERO = {f"{k}_panel": 0 for k in PANEL_KERNELS}
+                 "leaf_factor", "leaf_update")
+PANEL_ZERO = {**{f"{k}_panel": 0 for k in PANEL_KERNELS},
+              "leaf_solve_wide": 0}
 SUB_COUNTS = {"flash_attention_wgmma": ("flash_attention", "wgmma_launches"),
               "kernel_matvec_tc": ("kernel_matvec", "tc_launches"),
               "kernel_tile_tc": ("kernel_tile", "tc_launches"),
               "ssd_intra_chunk_wgmma": ("ssd_intra_chunk", "wgmma_launches"),
               "policy_dist_tiled": ("policy_dist", "tiled_launches"),
               "oos_contract_pair": ("oos_contract", "pair_launches"),
+              "leaf_solve_wide": ("leaf_solve", "wide_launches"),
               **{f"{k}_bf16": (k, "bf16_launches") for k in BF16_KERNELS},
               **{f"{k}_panel": (k, "panel_launches") for k in PANEL_KERNELS}}
 
@@ -1118,11 +1121,13 @@ def phase_build() -> None:
     factor), B2's and B9's eight grouped tensor-core kernels each (NT 4,
     8, 12, 16; f32 and bf16 data), B8's three grouped kernels (f32, bf16
     data, f64), B7's sixteen (f32 and bf16 data reading 1, 2 or 4
-    features at a time, f64 1 or 2, each squared-L2 and L1), B4's eight (f32 and
-    f64, Linv and U each staged or read in place), B5's eight (f32 and
-    f64, panels of 16 or 32 rows, a tile of 1 or 8 right-hand sides) and
-    B13's four (f32 and f64, panels of 16 or 32 rows) must all be there
-    and none may spill),
+    features at a time, f64 1 or 2, each squared-L2 and L1), B4's sixteen
+    (f32 and f64, Linv and U each staged or read in place, two or four
+    quads of x a lane), B5's eight (f32 and f64, panels of 16 or 32 rows,
+    a tile of 1 or 8 right-hand sides), B13's four (f32 and f64, panels of
+    16 or 32 rows) and its panel form's two, and the panel forms of B1, B2,
+    B8 and B9 in f32, f64 and for bf16 data, must all be there and none may
+    spill),
     ptxas's C7519 lines of build_stage and build_dist, their count for
     B10's and B11's libraries (none allowed in B11's), and the Hopper
     instructions in the B14, B10, B11, B15, B1/B2 and B8/B9 libraries
@@ -1138,7 +1143,8 @@ def phase_build() -> None:
         f"{time.perf_counter() - t0:.2f} s")
     entries = []  # (library, mangled entry name, its ptxas lines)
     for lib in ("build_stage", "build_dist", "build_stage_bf16",
-                "build_dist_bf16", "build_stage_panel", "build_dist_panel"):
+                "build_dist_bf16", "build_stage_panel", "build_dist_panel",
+                "build_stage_panel_bf16", "build_dist_panel_bf16"):
         for line in logs.get(lib, "").splitlines():
             if "C7519" in line:  # an injected warpgroup.arrive (none wanted)
                 say(f"[2 build] {lib}: {line.strip()}")
@@ -1171,12 +1177,13 @@ def phase_build() -> None:
               "kernel_tile_tc_kernel": 16,
               "gram_chol_levels_kernel": 3, "cross_levels_tc_kernel": 8,
               "gram_points_kernel": 6, "cross_points_tc_kernel": 8,
-              "oos_contract_kernel": 16, "leaf_solve_kernel": 8,
+              "oos_contract_kernel": 16, "leaf_solve_kernel": 16,
               "leaf_matvec_kernel": 8, "leaf_update_kernel": 4,
-              "leaf_factor_panel_kernel": 2, "gram_points_panel_kernel": 2,
-              "cross_points_panel_kernel": 5,
-              "gram_chol_levels_panel_kernel": 2,
-              "cross_levels_panel_kernel": 4,
+              "leaf_update_panel_kernel": 2,
+              "leaf_factor_panel_kernel": 2, "gram_points_panel_kernel": 3,
+              "cross_points_panel_kernel": 9,
+              "gram_chol_levels_panel_kernel": 3,
+              "cross_levels_panel_kernel": 8,
               "cross_levels_panel64_kernel": 1}
     # an entry's lines include those of the functions it calls (the panel
     # cross products are not inlined): each must show no spill
@@ -1185,6 +1192,9 @@ def phase_build() -> None:
     for (name, mangled, lines), label in zip(entries, labels):
         for line in lines:
             say(f"[2 build] {name} {label}: {line}")
+        if name.endswith("_panel_bf16") and ("cross64_panel" in mangled
+                                             or "panel64" in mangled):
+            continue    # the f64 kernels of the source, never launched there
         for entry in hopper:
             if entry in mangled:
                 seen[entry] += 1
@@ -1204,7 +1214,9 @@ def phase_build() -> None:
                         ("build_stage_bf16", ("HMMA",)),
                         ("build_dist_bf16", ("HMMA",)),
                         ("build_stage_panel", ("HMMA",)),
-                        ("build_dist_panel", ("HMMA",))):
+                        ("build_dist_panel", ("HMMA",)),
+                        ("build_stage_panel_bf16", ("HMMA",)),
+                        ("build_dist_panel_bf16", ("HMMA",))):
         sass = subprocess.run(
             [str(cuobjdump), "-sass", str(_build.library_path(lib))],
             capture_output=True, text=True, check=True,
@@ -2024,6 +2036,149 @@ def check_panel_shapes(dev) -> list[str]:
     return rows
 
 
+def check_panel_bf16_shapes(dev) -> str:
+    """Phase 3r (f): the panel forms' bfloat16-data entries against their
+    plain versions on the same bf16 data at phase 3r's ragged f32 shapes
+    (the f32 gates), data views offset by one element: B1 grouped over m
+    24 (its resident bf16 entry) and every PANEL_M, B8 the same on cached
+    distances, B2 and B9 grouped over m 48, 130 and 512 at every PANEL_R;
+    each launch counted on the form and entry its planner names."""
+    from repro_torch.kernels.build_stage import ops as bops
+    from repro_torch.kernels.build_stage.ref import direct_dist
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 33)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev) * math.sqrt(
+            2 / shape[-1])
+
+    ms = [24, *PANEL_M[torch.float32]]
+    pts = [offset_view(bf16(rnd(2, m, 7))) for m in ms]
+    grams, launches, plain = counted(lambda: bops.build_gram_levels(
+        pts, jitter=1e-3))
+    require_launches(f"bf16 gram_chol_levels at m {ms}", launches, plain,
+                     {"gram_chol_levels": 2, "gram_chol_levels_panel": 1,
+                      "gram_chol_levels_bf16": 2})
+    e1 = max(check_build(p, True, 1e-4, jitter=1e-3, got=g)[0]
+             for p, g in zip(pts, grams))
+    dists = [offset_view(bf16(direct_dist(p.float(), p.float(), "l2")))
+             for p in pts]
+    gd, launches, plain = counted(lambda: bops.build_gram_dist_levels(
+        dists, jitter=1e-3))
+    require_launches(f"bf16 gram_chol_dist_levels at m {ms}", launches,
+                     plain, {"gram_chol_dist_levels": 2,
+                             "gram_chol_dist_levels_panel": 1,
+                             "gram_chol_dist_levels_bf16": 2})
+    e8 = max(check_gram_dist(d, g, 1e-4, jitter=1e-3)[0]
+             for d, g in zip(dists, gd))
+    e2, e9 = [], []
+    for r in PANEL_R:
+        a = torch.randn((9, r, r), generator=gen, device=dev)
+        li = torch.linalg.inv(torch.linalg.cholesky(
+            a @ a.mT / r + torch.eye(r, device=dev))).tril().contiguous()
+        cross = [(offset_view(bf16(rnd(3, m, 7))),
+                  offset_view(bf16(rnd(3, r, 7))), li[3 * i:3 * i + 3])
+                 for i, m in enumerate((48, 130, 512))]
+        us, launches, plain = counted(lambda: bops.build_cross_levels(
+            *zip(*cross)))
+        require_launches(f"bf16 cross_solve_levels at r {r}", launches,
+                         plain, {"cross_solve_levels": 1,
+                                 "cross_solve_levels_panel": 1,
+                                 "cross_solve_levels_bf16": 1})
+        e2.append(max(check_cross(c, None, got=u)[0]
+                      for c, u in zip(cross, us)))
+        cd = [(offset_view(bf16(direct_dist(p.float(), z.float(), "l2"))),
+               lv) for p, z, lv in cross]
+        us, launches, plain = counted(
+            lambda: bops.build_cross_dist_levels(*zip(*cd)))
+        require_launches(f"bf16 cross_solve_dist_levels at r {r}", launches,
+                         plain, {"cross_solve_dist_levels": 1,
+                                 "cross_solve_dist_levels_panel": 1,
+                                 "cross_solve_dist_levels_bf16": 1})
+        e9.append(max(check_cross_dist(d, lv, u, None)[0]
+                      for (d, lv), u in zip(cd, us)))
+    return (f"bf16 data (views one element in): gram_chol_levels at m {ms} "
+            f"rel {e1:.2e}, gram_chol_dist_levels {e8:.2e} (1e-4); "
+            f"cross_solve_levels rel at r {PANEL_R} (m 48, 130, 512) "
+            f"{[f'{e:.2e}' for e in e2]}, cross_solve_dist_levels "
+            f"{[f'{e:.2e}' for e in e9]} (componentwise)")
+
+
+def check_grown_shapes(dev) -> list[str]:
+    """Phase 3r (f): the forms the leaves of a model.update at leaf 256
+    reach, at ragged shapes, f32 and f64, against their plain versions:
+    B4's wide instance at n0 257, 300 and 512 (r 256 and 129, k 1, 7 and
+    9, S = P and P/2); B13's panel form at (n0, k) (256, 9), (300, 12),
+    (40, 300) and (1, 511), and an indefinite border giving NaN there; B5
+    at n0 400 and 512 with 7 and 13 columns (in chunks where its planner
+    cuts them: f64); each launch counted on its form."""
+    from repro_torch.kernels.update_stage.ops import leaf_update, update_route
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 34)
+    rows = []
+    for dtype, rtol in ((torch.float32, 1e-4), (torch.float64, 1e-10)):
+        o = dict(dtype=dtype, device=dev)
+        s = torch.finfo(dtype).bits // 8
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, **o)
+
+        e4 = []
+        for p, n0, r, k, sp in ((4, 257, 256, 7, 2), (3, 300, 129, 9, 3),
+                                (2, 512, 256, 1, 1)):
+            li = torch.linalg.inv(torch.linalg.cholesky(
+                factor_leaves(p, n0, torch.float64, gen))).tril().to(dtype)
+            args = (li.contiguous(), rnd(p, n0, r) / math.sqrt(n0),
+                    rnd(sp, r, r) / r, rnd(p, n0, k))
+            (rel, _), launches, _ = counted(lambda: check_leaf(
+                "solve", args, rtol))
+            require(launches["leaf_solve_wide"] == launches["leaf_solve"]
+                    == 1, f"leaf_solve at n0 {n0} on its wide instance: "
+                    f"{forms(launches, 'leaf_solve')}")
+            e4.append(f"{n0} {rel:.2e}")
+        e13 = []
+        for p, n0, k in ((3, 256, 9), (2, 300, 12), (2, 40, 300),
+                         (1, 1, 511)):
+            a = torch.randn((p, n0 + k, n0 + k), generator=gen,
+                            device=dev, dtype=torch.float64)
+            full = a @ a.mT / (n0 + k) + torch.eye(n0 + k, device=dev,
+                                                   dtype=torch.float64)
+            lo = torch.linalg.cholesky(full[:, :n0, :n0])
+            b13 = tuple(t.to(dtype).contiguous() for t in (
+                lo, torch.linalg.inv(lo).tril(), full[:, n0:, :n0],
+                full[:, n0:, n0:]))
+            (rel_l, rel_i, _), launches, _ = counted(
+                lambda: check_update_kernel(*b13, rtol))
+            panel = launches["leaf_update_panel"]
+            require(launches["leaf_update"] == 1 and panel == (
+                update_route("3r", n0, k, s) == "panel"),
+                f"leaf_update at n0 {n0}, k {k} on the form its planner "
+                f"names: {forms(launches, 'leaf_update')}")
+            e13.append(f"({n0}, {k}{' panel' if panel else ''}) "
+                       f"{max(rel_l, rel_i):.2e}")
+        bad = list(b13)
+        bad[3] = bad[3] - 50 * torch.eye(bad[3].shape[-1], **o)
+        lo_ext, _ = leaf_update(*bad)
+        sync()
+        require(bool(torch.isnan(lo_ext[:, 1:, 1:]).any()),
+                "leaf_update's panel form: an indefinite border gives NaN")
+        e5 = []
+        for n0, k in ((400, 7), (512, 13)):
+            args = (rnd(2, n0, n0), rnd(2, n0, RANK_R), rnd(2, n0, k))
+            (rel, _), launches, _ = counted(lambda: check_leaf(
+                "matvec", args, rtol))
+            want = matvec_calls(n0, RANK_R, k, s)
+            require(launches["leaf_matvec"] == want,
+                    f"leaf_matvec at n0 {n0}, k {k}: {want} launches")
+            e5.append(f"({n0}, {k}: {want} launch{'es' if want > 1 else ''})"
+                      f" {rel:.2e}")
+        rows.append(f"{str(dtype)[6:]}: leaf_solve (wide) rel at n0 "
+                    f"{', '.join(e4)}; leaf_update new rows rel at (n0, k) "
+                    f"{', '.join(e13)}, NaN on an indefinite border; "
+                    f"leaf_matvec rel {', '.join(e5)} (within {rtol})")
+    return rows
+
+
 def rank256_kernels(model, rtol, what) -> tuple[dict, dict]:
     """Phase 3r (a): each kernel of a rank-256 krr.fit against its plain
     version at the fit's shapes: B1's Sigma (grouped, panel form) and
@@ -2166,6 +2321,348 @@ def rank256_sweep(fit, dev) -> dict:
             "err9": max(e[1] for e in e9), "err3s": fac[2]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 3r (g)-(i): the rank-256 lifecycle
+# ---------------------------------------------------------------------------
+
+# (h): benchmarks/bench_update.py --full (n 65,536, d 5, rank 256, float64,
+# gaussian sigma 2 with jitter 1e-8, lambda 1e-2, a 1% insert, the
+# predictions of 256 queries within its --parity-tol 1e-6 of the
+# refit_frozen oracle); a 2% insert beside it takes leaves to k > 8, past
+# the resident B13's shared memory in float64
+UPD64_N, UPD64_D, UPD64_SIGMA, UPD64_JITTER = 65_536, 5, 2.0, 1e-8
+UPD64_LAM, UPD64_FRACS, UPD64_PARITY = 1e-2, (0.01, 0.02), 1e-6
+
+
+def forms(launches: dict, *names) -> dict:
+    """The launches of ``names`` and of their forms (``<name>_panel``,
+    ``leaf_solve_wide``, ...) that ran, for the log."""
+    return {k: v for k, v in launches.items() if v and any(
+        k == n or k.startswith(n + "_") for n in names)}
+
+
+def matvec_calls(n0: int, r: int, k: int, itemsize: int) -> int:
+    """B5's launches for one leaf_matvec call of k columns at (n0, r): one
+    where its plan fits, else one a chunk of matvec_max_rhs columns."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.hck_leaf.ops import matvec_max_rhs, matvec_plan
+
+    if k == 1 or matvec_plan(n0, r, k, itemsize)["smem"] <= _build.SMEM_MAX:
+        return 1
+    return -(-k // matvec_max_rhs(n0, r, itemsize))
+
+
+def update_expected(refresh: str, r: int, cols: int, itemsize: int):
+    """The launches of one model.update round (phase 8c's structure), as a
+    function of the updated model and its record: B2's projection of the
+    appended rows, B13 (refresh "inverse") or B3 ("exact"), three B4 and
+    five B5 launches of the structured re-solve (``cols`` targets) and one
+    B6, each on the form its planner names for the grown leaves."""
+    from repro_torch.kernels.build_stage.ops import cross_route
+    from repro_torch.kernels.hck_leaf.ops import (SOLVE_RESIDENT_ROWS,
+                                                  factor_route, factor_smem)
+    from repro_torch.kernels.update_stage.ops import update_route
+
+    def expected(model, info):
+        n0, k = model.factors.leaf_size, info.record.k
+        want = {"cross_solve": 1, "leaf_solve": 3,
+                "leaf_matvec": 5 * matvec_calls(n0, r, cols, itemsize),
+                "hck_leaf_project": 1,
+                "cross_solve_panel": int(cross_route("3r", r, itemsize)
+                                         == "panel"),
+                "leaf_solve_wide": 3 * (n0 > SOLVE_RESIDENT_ROWS)}
+        if refresh == "inverse":
+            want.update(leaf_update=1, leaf_update_panel=int(update_route(
+                "3r", n0 - k, k, itemsize) == "panel"))
+        else:
+            want.update(leaf_factor=1, leaf_factor_panel=int(factor_route(
+                "3r", n0, itemsize, factor_smem) == "panel"))
+        return want
+
+    return expected
+
+
+def update_oracle(model, queries):
+    """bench_update.py's parity reference: the leaf stages rebuilt from
+    scratch on the model's own union (refit_frozen), the targets it fitted
+    (K alpha + lam alpha) solved directly, a fresh serving plan; its
+    predictions of ``queries``."""
+    from repro_torch.core import hmatrix, krr, oos, update
+
+    cfg, lam = model.solve_config, model.lam
+    f_ref = update.refit_frozen(model.factors, model.kernel, cfg,
+                                jitter_rows=model.base_leaf_size)
+    ys = hmatrix.matvec(model.factors, model.alpha, cfg) + lam * model.alpha
+    alpha = hmatrix.solve(f_ref, ys, ridge=lam, config=cfg)
+    oracle = krr.HCKRegressor(
+        model.kernel, f_ref, oos.prepare(f_ref, alpha, cfg), alpha,
+        model.classes, squeeze=model.squeeze, solve_config=cfg, lam=lam,
+        base_leaf_size=model.base_leaf_size)
+    return oracle.predict(queries)
+
+
+def rank256_update(model, fit, dev) -> dict:
+    """Phase 3r (g): two model.update rounds of UPDATE_Q arrivals (phase
+    8c's at rank 128) on the rank-256 fit (f32, leaves of 256): refresh
+    "inverse" (B13 borders the cached leaf factors), then "exact" from it
+    (B3's panel form refactors the grown leaves); each round counted by
+    form (update_expected); round 1's predictions on all test queries
+    against the refit_frozen oracle within the f32 floor, as phase 8c holds
+    its rounds; B13, B4 and B5 against their plain versions at round 1's
+    shapes."""
+    from repro_torch.core import hmatrix
+
+    xt = fit["xt"]
+    x1, y1 = fresh_points(UPDATE_Q, SEED + 50, dev)
+    x2, y2 = fresh_points(UPDATE_Q, SEED + 51, dev)
+    m1, info1, l1, t1 = update_round(
+        model, x1, y1, update_expected("inverse", RANK_R, N_CLASSES, 4),
+        "rank-256 update round 1 (inverse)")
+    s1 = matvec_shapes()
+    m2, info2, l2, t2 = update_round(
+        m1, x2, y2, update_expected("exact", RANK_R, N_CLASSES, 4),
+        "rank-256 update round 2 (exact)", refresh="exact")
+    n1, n2 = m1.factors.leaf_size, m2.factors.leaf_size
+    for tag, info in (("1", info1), ("2", info2)):
+        require(info.converged and math.isfinite(info.residual),
+                f"rank-256 round {tag} solved: {info}")
+    del m2
+    pred = m1.predict(xt)
+    gap = rel_max(pred, update_oracle(m1, xt))
+    floor = res_floor(model, dev)
+    require(bool(torch.isfinite(pred).all()) and gap <= floor,
+            f"rank-256 round 1 vs the refit_frozen oracle: rel {gap:.3e} <= "
+            f"f32 floor {floor:.3e}")
+    f1, ys1, _ = replay_insert(model, x1, y1)
+    require(torch.equal(f1.u, m1.factors.u), "rank-256 round 1 replayed")
+    bb, cc = hmatrix.extension_blocks(f1, n0_base=RANK_R, ridge=LAM)
+    b13 = tuple(t.contiguous() for t in (model.leaf_lo, model.inverse.linv,
+                                         bb, cc))
+    rel_l, rel_i, e13 = check_update_kernel(*b13, 1e-4)
+    inv = m1.inverse
+    b = ys1.view(f1.num_leaves, n1, -1).contiguous()
+    b4 = tuple(t.contiguous() for t in (inv.linv, inv.u, inv.sigma[-1], b))
+    rel4, e4 = check_leaf("solve", b4, 1e-4)
+    b5 = (f1.adiag, f1.u, b)
+    rel5, e5 = check_leaf("matvec", b5, 1e-4)
+    names = ("cross_solve", "leaf_update", "leaf_factor", "leaf_solve",
+             "leaf_matvec")
+    say(f"[3r rank256] (g) model.update at rank and leaf 256 (f32, "
+        f"{UPDATE_Q} arrivals a round): leaves 256 -> {n1} (k "
+        f"{info1.record.k}, refresh 'inverse', {t1:.3f} s, residual "
+        f"{info1.residual:.3e}) -> {n2} (k {info2.record.k}, 'exact', "
+        f"{t2:.3f} s, residual {info2.residual:.3e}); launches by form "
+        f"{forms(l1, *names)} (B5 by shape {s1}), {forms(l2, *names)} "
+        f"(exact); no plain version")
+    say(f"[3r rank256] (g) round 1 vs refit_frozen + solve + prepare on all "
+        f"{N_TEST} test queries: rel {gap:.3e} <= f32 floor {floor:.3e}; at "
+        f"round 1's shapes against the plain versions: leaf_update "
+        f"{tuple(b13[0].shape)} + k {bb.shape[1]} new rows rel L "
+        f"{rel_l:.3e}, L^-1 {rel_i:.3e}; leaf_solve n0 {n1} rel {rel4:.3e}; "
+        f"leaf_matvec rel {rel5:.3e} (1e-4) ok")
+    return {"launches": [l1, l2], "b13": b13, "b4": b4, "b5": b5,
+            "err": {"leaf_update": e13, "leaf_solve": e4, "leaf_matvec": e5},
+            "k": (info1.record.k, info2.record.k), "walls": (t1, t2),
+            "gap": gap, "floor": floor}
+
+
+def rank256_update_f64(dev) -> dict:
+    """Phase 3r (h): bench_update.py --full's shape on the card (UPD64_*):
+    a float64 fit of 65,536 points at rank and leaf 256, then from it a 1%
+    and a 2% insert (refresh "inverse"), each counted by form, its
+    predictions of 256 queries within 1e-6 of the refit_frozen oracle (the
+    bench's --parity-tol); B13 at the 2% insert's shape (k > 8: its panel
+    form), B4 (wide) and B5 against their plain versions in f64."""
+    from repro_torch.core import hmatrix, krr
+    from repro_torch.core.kernels_fn import BaseKernel
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 52)
+    o = dict(generator=gen, device=dev, dtype=torch.float64)
+
+    def target(x):
+        return torch.sin(x[:, 0]) + 0.25 * torch.cos(2.0 * x[:, 1])
+
+    x = torch.randn((UPD64_N, UPD64_D), **o)
+    queries = torch.randn((256, UPD64_D), **o)
+    model = krr.fit(x, target(x), kernel=BaseKernel(
+        "gaussian", UPD64_SIGMA, UPD64_JITTER), lam=UPD64_LAM, rank=RANK_R,
+        generator=torch.Generator(device=dev).manual_seed(SEED + 53))
+    require(model.factors.leaf_size == RANK_R, "the f64 fit's leaves of 256")
+    rounds = []
+    for frac in UPD64_FRACS:
+        xn = torch.randn((round(UPD64_N * frac), UPD64_D), **o)
+        m, info, launches, wall = update_round(
+            model, xn, target(xn), update_expected("inverse", RANK_R, 1, 8),
+            f"f64 rank-256 {frac:.0%} insert")
+        err = float((m.predict(queries) - update_oracle(m, queries))
+                    .abs().max())
+        require(info.converged and err <= UPD64_PARITY,
+                f"f64 {frac:.0%} insert vs the refit_frozen oracle: max|dz| "
+                f"{err:.3e} <= {UPD64_PARITY}")
+        rounds.append({"frac": frac, "k": info.record.k, "err": err,
+                       "wall": wall, "launches": launches})
+        say(f"[3r rank256] (h) bench_update --full's shape (f64, n "
+            f"{UPD64_N}, rank 256): {frac:.0%} insert ({xn.shape[0]} "
+            f"points) k {info.record.k}, leaves 256 -> "
+            f"{m.factors.leaf_size}, {wall:.3f} s; launches by form "
+            f"{forms(launches, 'cross_solve', 'leaf_update', 'leaf_solve')}"
+            f", {forms(launches, 'leaf_matvec', 'hck_leaf_project')}; "
+            f"predictions vs the refit_frozen oracle max|dz| {err:.3e} <= "
+            f"{UPD64_PARITY} ok")
+    f1, ys, _ = replay_insert(model, xn, target(xn))
+    bb, cc = hmatrix.extension_blocks(f1, n0_base=RANK_R, ridge=UPD64_LAM)
+    b13 = tuple(t.contiguous() for t in (model.leaf_lo, model.inverse.linv,
+                                         bb, cc))
+    (rel_l, rel_i, e13), l13, _ = counted(
+        lambda: check_update_kernel(*b13, 1e-10))
+    require(bb.shape[1] > 8 and l13["leaf_update_panel"] == 1,
+            f"B13 in f64 at k {bb.shape[1]} > 8 on its panel form: {l13}")
+    inv = m.inverse
+    b = ys.view(f1.num_leaves, f1.leaf_size, -1).contiguous()
+    b4 = tuple(t.contiguous() for t in (inv.linv, inv.u, inv.sigma[-1], b))
+    rel4, e4 = check_leaf("solve", b4, 1e-10)
+    rel5, e5 = check_leaf("matvec", (f1.adiag, f1.u, b), 1e-10)
+    say(f"[3r rank256] (h) f64 at the 2% insert's shapes against the plain "
+        f"versions: leaf_update (panel form) {tuple(b13[0].shape)} + k "
+        f"{bb.shape[1]}: new rows rel L {rel_l:.3e}, L^-1 {rel_i:.3e}; "
+        f"leaf_solve (wide) n0 {f1.leaf_size} rel {rel4:.3e}; leaf_matvec "
+        f"rel {rel5:.3e} (1e-10) ok")
+    return {"rounds": rounds, "b13": b13, "b4": b4,
+            "err": {"leaf_update": e13, "leaf_solve": e4,
+                    "leaf_matvec": e5}}
+
+
+def rank256_policy_gap(dev) -> dict:
+    """Phase 3r (i): phase 8d (a)'s problem (PREC_*) at rank and leaf 256
+    (n 4,096: 4 levels) built under the bf16 policy (on the panel forms'
+    bfloat16-data entries, counted) against the f64 build on one tree and
+    one landmark set: the Gram-family factors, a matvec and the f64
+    model's predictions under the policy within PREC_GATES["bf16"]."""
+    from repro_torch.core import hck, oos
+    from repro_torch.core.kernels_fn import BaseKernel
+    from repro_torch.kernels.registry import SolveConfig
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 54)
+    o = dict(generator=gen, device=dev, dtype=torch.float64)
+    x, b = torch.randn((PREC_N, PREC_D), **o), torch.randn((PREC_N, 2), **o)
+    w, q = torch.randn((PREC_N, 2), **o), torch.randn((1024, PREC_D), **o)
+    ker = BaseKernel("gaussian", PREC_SIGMA, PREC_JITTER)
+    levels = (PREC_N // RANK_R).bit_length() - 1
+
+    def build(prec):
+        return hck.build_hck(
+            x, levels=levels, rank=RANK_R, kernel=ker,
+            config=SolveConfig(precision=prec),
+            generator=torch.Generator(device=dev).manual_seed(SEED + 55))
+
+    ref = build(None)
+    fb, launches, _ = counted(lambda: build("bf16"))
+    require(launches["gram_chol_levels_panel"] == launches[
+        "gram_chol_levels_bf16"] == launches["cross_solve_levels_panel"]
+        == launches["cross_solve_levels_bf16"] == 1,
+        f"the bf16 build at rank 256 on the panel bf16 entries: {launches}")
+    ftol, otol = PREC_GATES["bf16"]
+    fe, mv, pe = policy_gap(fb, ref, oos.prepare(ref, w), q, ker, b, "bf16")
+    say(f"[3r rank256] (i) the bf16 policy at rank and leaf 256 (n {PREC_N}, "
+        f"d {PREC_D}, {levels} levels) against the f64 build: Gram-family "
+        f"factors {fe:.3e} (gate {ftol:g}), matvec {mv:.3e}, predictions "
+        f"{pe:.3e} (gate {otol:g}) ok")
+    return {"factors": fe, "matvec": mv, "predictions": pe}
+
+
+def rank256_bf16(fit, sweep, dev) -> dict:
+    """Phase 3r (i): the bf16 policy at rank 256 (leaves of 256) at
+    covtype width and the reference launcher's convention (BF16_JITTER,
+    BF16_LAM): krr.fit counted (B1's Sigma and B2 on their panel forms'
+    bfloat16-data entries, B1's Adiag on its resident one), each bf16
+    launch against its plain version on the same bf16 data at the f32
+    gates; one bf16 sigma row of sweep_factors on (d)'s plan counted (B8's
+    Sigma and B9 on their panel bf16 entries), B8 and B9 against plain;
+    the policy's gaps to the f64 build (rank256_policy_gap); launch.train
+    --precision bf16 --rank 256."""
+    from repro_torch.core import hck, krr
+    from repro_torch.core.kernels_fn import BaseKernel
+    from repro_torch.kernels.build_stage import ops as bops
+    from repro_torch.kernels.registry import SolveConfig
+
+    ker = BaseKernel("gaussian", SIGMA, BF16_JITTER)
+    cfg = SolveConfig(precision="bf16")
+    bf16_fit = {"gram_chol_bf16": 1, "gram_chol_levels_bf16": 1,
+                "cross_solve_levels_bf16": 1}
+    m16, launches, plain = counted(lambda: krr.fit(
+        fit["x"], fit["labels"], kernel=ker, lam=BF16_LAM, rank=RANK_R,
+        classification=True, solve_config=cfg,
+        generator=torch.Generator(device=dev).manual_seed(SEED + 1)))
+    require_launches("the bf16 krr.fit at rank 256", launches, plain,
+                     dict(FIT_LAUNCHES_R, **bf16_fit))
+    fl = launches
+    f16 = m16.factors
+    require(f16.leaf_size == RANK_R and f16.u.dtype == torch.float32
+            and bool(torch.isfinite(m16.alpha).all()),
+            "the bf16 fit at rank 256: leaves of 256, finite float32 alpha")
+    args = fit_launches(f16, m16.inverse, m16.alpha.view(
+        f16.num_leaves, RANK_R, N_CLASSES))
+    del m16, f16
+    gram16, cross16 = bf16_fit_args(args)
+    pts = [p for p, _ in gram16]
+    grams = bops.build_gram_levels(pts[:-1], sigma=SIGMA, jitter=BF16_JITTER)
+    grams.append(bops.build_gram(pts[-1], sigma=SIGMA, jitter=BF16_JITTER,
+                                 want_chol=False))
+    e1 = [check_build(p, want, 1e-4, jitter=BF16_JITTER, got=g)
+          for (p, want), g in zip(gram16, grams)]
+    del grams
+    us = bops.build_cross_levels(*zip(*cross16), sigma=SIGMA)
+    e2 = [check_cross(a, None, got=u) for a, u in zip(cross16, us)]
+    del us
+    say(f"[3r rank256] (i) bf16 krr.fit at rank 256 (sigma {SIGMA}, lam "
+        f"{BF16_LAM:g}, jitter {BF16_JITTER:g}): launches "
+        f"{ {k: v for k, v in fl.items() if v} } (exact); against the plain "
+        f"versions on the same bf16 data: gram_chol_levels_panel_bf16 "
+        f"({len(pts) - 1} Sigma levels) rel {max(e[0] for e in e1[:-1]):.3e}"
+        f", the Adiag (resident bf16 entry) rel {e1[-1][0]:.3e} (1e-4); "
+        f"cross_solve_levels_panel_bf16 (U and {len(cross16) - 1} W levels) "
+        f"rel {max(e[0] for e in e2):.3e} (componentwise gate) ok")
+    f16s, launches, plain = counted(lambda: hck.sweep_factors(
+        sweep["plan"], ker, cfg))
+    require_launches("one bf16 sigma row at rank 256", launches, plain,
+                     dict(SWEEP_LAUNCHES_R, gram_chol_dist_levels_bf16=1,
+                          gram_chol_dist_bf16=1,
+                          cross_solve_dist_levels_bf16=1))
+    sl = launches
+    a = sweep_launches(sweep["plan"], f16s)
+    del f16s
+    sig16 = [bf16(d) for d in a["sigma"]]
+    cd16 = [(bf16(d), li) for d, li in a["cross"]]
+    e8 = [check_gram_dist(d, g, 1e-4, jitter=BF16_JITTER) for d, g in zip(
+        sig16, bops.build_gram_dist_levels(sig16, sigma=SIGMA,
+                                           jitter=BF16_JITTER))]
+    e9 = [check_cross_dist(d, li, u, None) for (d, li), u in zip(
+        cd16, bops.build_cross_dist_levels(*zip(*cd16), sigma=SIGMA))]
+    say(f"[3r rank256] (i) one bf16 sigma row at rank 256: launches "
+        f"{ {k: v for k, v in sl.items() if v} } (exact); "
+        f"gram_chol_dist_levels_panel_bf16 ({len(sig16)} Sigma levels) rel "
+        f"{max(e[0] for e in e8):.3e} (1e-4), "
+        f"cross_solve_dist_levels_panel_bf16 (U and {len(cd16) - 1} W "
+        f"levels) rel {max(e[0] for e in e9):.3e} (componentwise) ok")
+    gaps = rank256_policy_gap(dev)
+    num = r"[0-9.]+"
+    launcher_mode(
+        ["--task", "krr", "--n", str(LAUNCH_N), "--d", str(D), "--rank",
+         str(RANK_R), "--precision", "bf16"],
+        dict(FIT_LAUNCHES_R, **bf16_fit, oos_contract=1, oos_contract_pair=1,
+             oos_contract_bf16=1),
+        [rf"krr n={LAUNCH_N} d={D} rank={RANK_R} backend=auto \(in-memory\): "
+         rf"fit {num} s \([0-9,]+ points/s\), train rel-err {num}"],
+        tag="[3r rank256] (i)")
+    return {"launches": fl, "sweep_launches": sl, "gram16": pts[:-1],
+            "cross16": cross16, "sig16": sig16, "cd16": cd16,
+            "err": {"gram_chol": max(e[1] for e in e1[:-1]),
+                    "cross_solve": max(e[1] for e in e2),
+                    "gram_chol_dist": max(e[1] for e in e8),
+                    "cross_solve_dist": max(e[1] for e in e9)},
+            "gaps": gaps}
+
+
 def phase_rank256(fit, dev) -> dict:
     """Phase 3r: rank 256, the reference benches' default, on phase 3's
     data at covtype width: (a) krr.fit at rank 256, leaf 256 (the counts
@@ -2177,7 +2674,10 @@ def phase_rank256(fit, dev) -> dict:
     of the sweep (B8, B9 and B3's stacked launch on their panel forms)
     against the plain versions; (e) the f64 fit at rank and leaf 256 (8,192
     points) with its kernels against the plain versions; (f) every panel
-    kernel at ragged shapes (check_panel_shapes)."""
+    kernel at ragged shapes (check_panel_shapes); the lifecycle at rank
+    256: (g) two model.update rounds on (a)'s model (rank256_update), (h)
+    bench_update.py --full's f64 shape (rank256_update_f64), (i) the bf16
+    policy (rank256_bf16)."""
     from repro_torch.core import krr
     from repro_torch.core.kernels_fn import BaseKernel
 
@@ -2244,13 +2744,18 @@ def phase_rank256(fit, dev) -> dict:
     require(m64.factors.levels == LEVELS_R64, "the f64 fit's depth")
     rank256_kernels(m64, 1e-10, f"(e) f64 (n {n64}, {LEVELS_R64} levels)")
     del m64
-    for row in check_panel_shapes(dev):
+    for row in (*check_panel_shapes(dev), check_panel_bf16_shapes(dev),
+                *check_grown_shapes(dev)):
         say(f"[3r rank256] (f) ragged shapes, {row} ok")
+    upd = rank256_update(model, fit, dev)
+    upd64 = rank256_update_f64(dev)
+    b16 = rank256_bf16(fit, sweep, dev)
     t_all = time.perf_counter() - t0
     say(f"[3r rank256] phase done in {t_all:.1f} s")
     return {"model": model, "args": args, "launches": fl, "res": res,
             "sweep": sweep, "quality": q, "quality128": q128,
-            "t_fit": t_fit, "t": t_all}
+            "t_fit": t_fit, "t": t_all, "update": upd, "update64": upd64,
+            "bf16": b16}
 
 
 def panel_timing(r3) -> list[dict]:
@@ -2365,6 +2870,179 @@ def panel_timing(r3) -> list[dict]:
             f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms (turns "
             f"{rec['turns_ms']}){extra}, bound {rec['bound_ms']:.4f} ms "
             f"({rec['bound_by']}), launches {rec['launches']}")
+    return records
+
+
+def lifecycle256_timing(r3) -> list[dict]:
+    """Phase 9, the rank-256 lifecycle's new forms at phase 3r's shapes,
+    each in turns with its plain version (kernel, plain, plain, kernel),
+    beside its bound (the *_cost functions) and its launches on 3r's
+    counted paths: the panel forms' bfloat16-data entries of B1 and B2
+    (the bf16 fit's Sigma and cross launches) and of B8 and B9 (the bf16
+    sigma row's), each with its float32 entry on the same data cast to
+    float32 timed beside; B4's wide instance at (g)'s round-1 shape (f32)
+    and at (h)'s 2% shape (f64), by device time, the resident instance at
+    the rank-256 fit's shape beside; B13's panel form at (h)'s
+    2% shape (f64, device time), (g)'s round-1 launch on the resident form
+    beside; B5 at (g)'s round-1 grown leaves, and in chunks at (h)'s model
+    width with n0 384 (the leaves RebuildPolicy's default growth of 0.5
+    reaches) and 7 columns in f64."""
+    from repro_torch.kernels.build_stage import ops as bops
+    from repro_torch.kernels.build_stage import ref as bref
+    from repro_torch.kernels.hck_leaf import ops as lops
+    from repro_torch.kernels.hck_leaf import ref as lref
+    from repro_torch.kernels.update_stage.ops import leaf_update
+    from repro_torch.kernels.update_stage.ref import leaf_update_ref
+
+    src, tpu = "src/repro_torch/csrc/", "src/repro/kernels/"
+    g, h, i16 = r3["update"], r3["update64"], r3["bf16"]
+    fl, sl = i16["launches"], i16["sweep_launches"]
+    ups = g["launches"] + [rd["launches"] for rd in h["rounds"]]
+    opts = dict(sigma=SIGMA, jitter=BF16_JITTER)
+
+    def turns(new, old, reps, device=False):
+        ms, plain, t = in_turns(new, old, reps, device)
+        return ms, plain, {"kernel": [t[0], t[3]], "plain": [t[1], t[2]]}
+
+    def f32(t):
+        return t.float() if t.dtype == torch.bfloat16 else t
+
+    records = []
+    pts, cross = i16["gram16"], i16["cross16"]
+    ms, plain, t = turns(lambda: bops.build_gram_levels(pts, **opts),
+                         lambda: bref.build_gram_levels_ref(pts, **opts), 3)
+    p32 = [f32(p) for p in pts]
+    costs = [gram_cost(p, True) for p in pts]
+    records.append(kernel_record(
+        "gram_chol (panel form, bf16 data)", src + "build_stage_panel.cu",
+        tpu + "build_stage/build_stage.py:124", fl["gram_chol_levels_panel"],
+        i16["err"]["gram_chol"], ms, plain,
+        bound_ms(sum(c[0] for c in costs), sum(c[1] for c in costs)),
+        unit=f"rank 256, bf16 fit: one grouped launch ({len(pts)} Sigma "
+             f"levels of {RANK_R}^2 with their factors)", turns_ms=t,
+        f32_entry_ms=time_ms(lambda: bops.build_gram_levels(p32, **opts), 3)))
+    c32 = [tuple(f32(x) for x in a) for a in cross]
+    ms, plain, t = turns(
+        lambda: bops.build_cross_levels(*zip(*cross), sigma=SIGMA),
+        lambda: bref.build_cross_levels_ref(*zip(*cross), sigma=SIGMA), 3)
+    nbytes = sum(cross_cost(*a)[0] for a in cross)
+    records.append(kernel_record(
+        "cross_solve (panel form, bf16 data)", src + "build_stage_panel.cu",
+        tpu + "build_stage/build_stage.py:157",
+        fl["cross_solve_levels_panel"], i16["err"]["cross_solve"], ms, plain,
+        cross_tc_bound(nbytes, [a[0].shape[:2] + a[1].shape[1:2]
+                                for a in cross]),
+        unit=f"rank 256, bf16 fit: one grouped launch (U and "
+             f"{len(cross) - 1} W levels)", turns_ms=t,
+        f32_entry_ms=time_ms(lambda: bops.build_cross_levels(
+            *zip(*c32), sigma=SIGMA), 3)))
+    sig, cd = i16["sig16"], i16["cd16"]
+    s32, cd32 = [f32(d) for d in sig], [(f32(d), li) for d, li in cd]
+    ms, plain, t = turns(lambda: bops.build_gram_dist_levels(sig, **opts),
+                         lambda: bref.build_gram_dist_levels_ref(sig, **opts),
+                         3)
+    costs = [gram_dist_cost(d, True) for d in sig]
+    records.append(kernel_record(
+        "gram_chol_dist (panel form, bf16 data)", src + "build_dist_panel.cu",
+        tpu + "build_stage/build_stage.py:215",
+        sl["gram_chol_dist_levels_panel"], i16["err"]["gram_chol_dist"], ms,
+        plain, bound_ms(sum(c[0] for c in costs), sum(c[1] for c in costs)),
+        unit=f"rank 256, one bf16 sigma: one grouped launch ({len(sig)} "
+             "Sigma levels)", turns_ms=t,
+        f32_entry_ms=time_ms(lambda: bops.build_gram_dist_levels(
+            s32, **opts), 3)))
+    ms, plain, t = turns(
+        lambda: bops.build_cross_dist_levels(*zip(*cd), sigma=SIGMA),
+        lambda: bref.build_cross_dist_levels_ref(*zip(*cd), sigma=SIGMA), 3)
+    records.append(kernel_record(
+        "cross_solve_dist (panel form, bf16 data)",
+        src + "build_dist_panel.cu", tpu + "build_stage/build_stage.py:254",
+        sl["cross_solve_dist_levels_panel"], i16["err"]["cross_solve_dist"],
+        ms, plain, cross_dist_tc_bound(cd),
+        unit=f"rank 256, one bf16 sigma: one grouped launch (U and "
+             f"{len(cd) - 1} W levels)", turns_ms=t,
+        f32_entry_ms=time_ms(lambda: bops.build_cross_dist_levels(
+            *zip(*cd32), sigma=SIGMA), 3)))
+    b4, b4h, b4r = g["b4"], h["b4"], r3["args"]["solve"]
+    ms, plain, t = turns(lambda: lops.leaf_solve(*b4),
+                         lambda: lref.hck_leaf_solve_ref(*b4), 10, True)
+    ms64, plain64, t64 = turns(lambda: lops.leaf_solve(*b4h),
+                               lambda: lref.hck_leaf_solve_ref(*b4h), 10,
+                               True)
+    rms, rplain, rt = turns(lambda: lops.leaf_solve(*b4r),
+                            lambda: lref.hck_leaf_solve_ref(*b4r), 10, True)
+    records.append(kernel_record(
+        "leaf_solve (wide, leaves past 256 rows)", src + "leaf_solve.cu",
+        tpu + "hck_leaf/hck_leaf.py:123",
+        sum(rd["leaf_solve_wide"] for rd in ups), max(
+            g["err"]["leaf_solve"], h["err"]["leaf_solve"]), ms, plain,
+        bound_ms(*solve_cost(*b4)),
+        unit=f"one launch at (g)'s round 1 (P {b4[0].shape[0]}, n0 "
+             f"{b4[0].shape[1]}, r {RANK_R}, k {b4[3].shape[2]}, f32; device "
+             "time)", turns_ms=t,
+        f64={"shape": f"P {b4h[0].shape[0]}, n0 {b4h[0].shape[1]}, r "
+                      f"{RANK_R}, k {b4h[3].shape[2]}", "ms": ms64,
+             "plain_ms": plain64, "turns_ms": t64,
+             "bound_ms": bound_ms(*solve_cost(*b4h))[0]},
+        resident_fit={"shape": f"P {b4r[0].shape[0]}, n0 {RANK_R}, r "
+                               f"{RANK_R}, k {b4r[3].shape[2]}, f32 (the "
+                               "rank-256 fit's)", "ms": rms,
+                      "plain_ms": rplain, "turns_ms": rt,
+                      "bound_ms": bound_ms(*solve_cost(*b4r))[0]}))
+    b13, b13g = h["b13"], g["b13"]
+    ms, plain, t = turns(lambda: leaf_update(*b13),
+                         lambda: leaf_update_ref(*b13), 5, True)
+    records.append(kernel_record(
+        "leaf_update (panel form)", src + "leaf_update_panel.cu",
+        tpu + "update_stage/update_stage.py:62",
+        sum(rd["leaf_update_panel"] for rd in ups), h["err"]["leaf_update"],
+        ms, plain, bound_ms(*leaf_update_cost(*b13)),
+        unit=f"one launch at (h)'s 2% insert (P {b13[0].shape[0]}, n0 "
+             f"{b13[0].shape[1]}, k {b13[2].shape[1]}, f64; device time)",
+        turns_ms=t, resident_round1=update_timing(b13g)))
+    adiag, u, b = g["b5"]
+    gen = torch.Generator(device=adiag.device).manual_seed(SEED + 56)
+    o = dict(generator=gen, device=adiag.device, dtype=torch.float64)
+    big = (torch.randn((256, 384, 384), **o), torch.randn((256, 384, RANK_R),
+                                                           **o),
+           torch.randn((256, 384, N_CLASSES), **o))
+    ms, plain, t = turns(lambda: lops.leaf_matvec(adiag, u, b),
+                         lambda: lref.hck_leaf_matvec_ref(adiag, u, b), 10,
+                         True)
+    chunks = matvec_calls(384, RANK_R, N_CLASSES, 8)
+    cms, cplain, ct = turns(lambda: lops.leaf_matvec(*big),
+                            lambda: lref.hck_leaf_matvec_ref(*big), 5, True)
+    records.append(kernel_record(
+        "leaf_matvec (grown leaves)", src + "leaf_matvec.cu",
+        tpu + "hck_leaf/hck_leaf.py:70", sum(rd["leaf_matvec"] for rd in ups),
+        max(g["err"]["leaf_matvec"], h["err"]["leaf_matvec"]), ms, plain,
+        bound_ms(*matvec_cost(adiag, u, b)),
+        library=device_ms(lambda: (torch.bmm(adiag, b), torch.bmm(u.mT, b)),
+                          10),
+        unit=f"one launch at (g)'s round 1 (P {adiag.shape[0]}, n0 "
+             f"{adiag.shape[1]}, r {RANK_R}, k {b.shape[2]}, f32; device "
+             "time)", turns_ms=t,
+        library_call="torch.bmm(adiag, b) + torch.bmm(u.mT, b)",
+        chunked={"shape": f"P 256, n0 384, r {RANK_R}, k {N_CLASSES}, f64",
+                 "launches_a_call": chunks, "ms": cms, "plain_ms": cplain,
+                 "turns_ms": ct,
+                 "bound_ms": bound_ms(*matvec_cost(*big))[0]}))
+    for rec in records:
+        extra = ""
+        if "f32_entry_ms" in rec:
+            extra = (f", its f32 entry on the same data "
+                     f"{rec['f32_entry_ms']:.4f} ms")
+        for part in ("f64", "resident_fit", "resident_round1", "chunked"):
+            if part in rec:
+                p = rec[part]
+                extra += (f"; {part} ({p['shape']}): kernel {p['ms']:.4f} ms,"
+                          f" plain {p['plain_ms']:.4f} ms, bound "
+                          f"{p['bound_ms']:.4f} ms")
+        say(f"[9 timing] {rec['name']} ({rec['unit']}): kernel "
+            f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms (turns "
+            f"{rec['turns_ms']}), library {rec['library_ms']} ms{extra}, "
+            f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), launches "
+            f"{rec['launches']}")
     return records
 
 
@@ -5342,13 +6020,16 @@ def check_update_kernel(lo, linv, b, c, rtol):
 
 
 def update_round(model, x_new, y_new, expected, what, **kw):
-    """One counted ``model.update``: (new model, info, launches, wall s)."""
+    """One counted ``model.update``: (new model, info, launches, wall s).
+    ``expected`` (a dict, or a function of the new model and its info
+    giving one) is required of the launches."""
     t = time.perf_counter()
     (m2, info), launches, plain_calls = counted(
         lambda: model.update(x_new, y_new, **kw))
     wall = time.perf_counter() - t
     if expected is not None:
-        require_launches(what, launches, plain_calls, expected)
+        want = expected(m2, info) if callable(expected) else expected
+        require_launches(what, launches, plain_calls, want)
     return m2, info, launches, wall
 
 
@@ -5803,22 +6484,11 @@ def precision_bounds(dev) -> dict:
         gram_family(ref) + [ref.u, *ref.w]))
     require(same, "the f64 policy equals the f64 build bit for bit")
     plan = oos.prepare(ref, w)
-    z64 = oos.apply_plan(ref, plan, q, ker)
     out = {}
     for prec in ("f32", "bf16"):
         ftol, otol = PREC_GATES[prec]
-        fp = f[prec]
-        require(torch.equal(fp.tree.perm, ref.tree.perm) and all(
-            torch.equal(a, c) for a, c in zip(fp.landmarks, ref.landmarks)),
-            f"{prec}: the tree and the landmarks of the f64 build")
-        fe = factor_gap(fp, ref)
-        mv = rel_gap(hmatrix.matvec(fp, b.float()), hmatrix.matvec(ref, b))
-        pe = rel_gap(oos.apply_plan(ref, plan, q, ker,
-                                     SolveConfig(precision=prec)), z64)
-        require(fe <= ftol and mv <= otol and pe <= otol,
-                f"{prec} against the f64 build: factors {fe:.3e} <= {ftol}, "
-                f"matvec {mv:.3e} and predictions {pe:.3e} <= {otol}")
-        out[prec] = (fe, mv, pe)
+        fe, mv, pe = out[prec] = policy_gap(f[prec], ref, plan, q, ker, b,
+                                            prec)
         say(f"[8d precision] (a) {prec} policy, n {PREC_N} d {PREC_D} "
             f"leaf {ref.leaf_size} r {PREC_RANK}, against the f64 build: "
             f"Gram-family factors {fe:.3e} (gate {ftol:g}), matvec "
@@ -5839,6 +6509,30 @@ def precision_bounds(dev) -> dict:
         "ok")
     out["solves"] = (s32, sbf)
     return out
+
+
+def policy_gap(fp, ref, plan, q, ker, b, prec) -> tuple:
+    """A build under policy ``prec`` against the f64 build ``ref`` on its
+    tree and landmarks, within PREC_GATES: its Gram-family factors, its
+    matvec of ``b`` and the f64 model's predictions of ``q`` (``plan``)
+    under the policy.  (factors, matvec, predictions) gaps."""
+    from repro_torch.core import hmatrix, oos
+    from repro_torch.kernels.registry import SolveConfig
+
+    ftol, otol = PREC_GATES[prec]
+    require(torch.equal(fp.tree.perm, ref.tree.perm) and all(
+        torch.equal(a, c) for a, c in zip(fp.landmarks, ref.landmarks)),
+        f"{prec}: the tree and the landmarks of the f64 build")
+    fe = factor_gap(fp, ref)
+    mv = rel_gap(hmatrix.matvec(fp, b.float()), hmatrix.matvec(ref, b))
+    pe = rel_gap(oos.apply_plan(ref, plan, q, ker,
+                                SolveConfig(precision=prec)),
+                 oos.apply_plan(ref, plan, q, ker))
+    require(fe <= ftol and mv <= otol and pe <= otol,
+            f"{prec} (n0 {ref.leaf_size}, r {ref.rank}) against the f64 "
+            f"build: factors {fe:.3e} <= {ftol}, matvec {mv:.3e} and "
+            f"predictions {pe:.3e} <= {otol}")
+    return fe, mv, pe
 
 
 def bf16_fit_args(args):
@@ -7709,7 +8403,8 @@ def main() -> int:
     prec = phase_precision(fit, sw, dev)
     tune = phase_tuning(fit, tile_db)
     kernels = (phase_timing(fit, res, served, sw, solv)
-               + panel_timing(r3) + sweep_timing(sw, sres)
+               + panel_timing(r3) + lifecycle256_timing(r3)
+               + sweep_timing(sw, sres)
                + solver_timing(solv["exact"], solv["kres"], tune)
                + lifecycle_timing(fit, life["km"], life["update"],
                                   life["b12"]) + prec + lm_records)

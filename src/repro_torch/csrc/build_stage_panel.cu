@@ -21,8 +21,14 @@
 // with REPRO_PANEL_ENTRIES (which leaves out its own entries), so that the
 // resident kernels compile as they do alone (build_stage.cu notes how
 // instantiations beside them change nvcc's code for B2's NT 16 entry).
-// float32 and float64 only: the bfloat16-data entries stop at the
-// resident forms' limits.
+// Its bfloat16-data entries (gram_chol_levels_panel_bf16,
+// cross_solve_levels_panel_bf16: a mixed-precision policy's bfloat16
+// points and landmarks, float32 Linv and outputs) are this file compiled
+// again with REPRO_PANEL_BF16_ENTRIES, in build_stage_panel_bf16.cu, for
+// the same reason.  They load each datum through data_load.cuh into the
+// float32 staging the float32 entries stage into, so from there they
+// compute exactly what those compute; their shared memory and limits are
+// float32's.
 //
 // Bounds at rank 256 (covtype width: d 54, 11 levels, 2,048 leaves of 256;
 // chip_smoke.py's gram_cost and cross_cost): B1's 2,047 Sigma tiles read
@@ -47,13 +53,13 @@ namespace {
 
 namespace gram {
 
-// One block per node of every group: its Gram (points ptr[0]) into ptr[1]
-// and its lower Cholesky factor into ptr[2].  The super-tile loop is
-// gram_points_kernel's (kept apart from it, see above), finish() writing
-// the lower triangle straight into L; then L's upper triangle is zeroed
-// and L factored in panels.  Shared memory: the panel factor's, then the
+// One block per node of every group: its Gram (points ptr[0], of type S)
+// into ptr[1] and its lower Cholesky factor into ptr[2].  The super-tile
+// loop is gram_points_kernel's (kept apart from it, see above), finish()
+// writing the lower triangle straight into L; then L's upper triangle is
+// zeroed and L factored in panels.  Shared memory: the panel factor's, then the
 // staging of the points.
-template <typename T>
+template <typename T, typename S>
 __global__ void __launch_bounds__(kThreads)
 gram_points_panel_kernel(const __grid_constant__ Table<T> tab, int d,
                          int kind, T sigma, double jitter) {
@@ -62,7 +68,8 @@ gram_points_panel_kernel(const __grid_constant__ Table<T> tab, int d,
   const int gi = find_group(tab, node);
   const int m = tab.g[gi].m;
   const size_t off = static_cast<size_t>(node) * m * m;
-  const T* P = tab.g[gi].ptr[0] + static_cast<size_t>(node) * m * d;
+  const S* P = reinterpret_cast<const S*>(tab.g[gi].ptr[0]) +
+               static_cast<size_t>(node) * m * d;
   T* G = tab.g[gi].ptr[1] + off;
   T* L = tab.g[gi].ptr[2] + off;
   T* pan = reinterpret_cast<T*>(smem_raw);                  // (m, LDP)
@@ -119,7 +126,7 @@ gram_points_panel_kernel(const __grid_constant__ Table<T> tab, int d,
   chol_panel::factor(L, m, pan, rdiag, col);
 }
 
-template <typename T>
+template <typename T, typename S>
 int launch_panel(const void* table, int groups, int d, int kind,
                  double sigma, double jitter, void* stream) {
   Table<T> tab;
@@ -132,7 +139,7 @@ int launch_panel(const void* table, int groups, int d, int kind,
   if (nodes > 2147483647LL) return cudaErrorInvalidConfiguration;
   for (int i = 0; i < groups; ++i)               // every group's factor
     if (tab.g[i].ptr[2] == nullptr) return cudaErrorInvalidValue;
-  const auto kernel = gram_points_panel_kernel<T>;
+  const auto kernel = gram_points_panel_kernel<T, S>;
   const size_t smem = chol_panel::smem_bytes(mmax, sizeof(T)) +
                       stage_bytes<T>();
   err = launch_with_smem(kernel, smem);
@@ -151,13 +158,14 @@ int launch_panel(const void* table, int groups, int d, int kind,
 
 namespace cross {
 
-// One block per node of every group (points ptr[0], landmarks ptr[1], Linv
-// ptr[2], U ptr[3]); per row tile of 64, the distances to each half of the
-// landmarks over double-buffered feature chunks (staged in the slab ring's
-// space), K into the K / Y tile (zero past m and r), then the products.
+// One block per node of every group (points ptr[0] and landmarks ptr[1] of
+// type S, Linv ptr[2], U ptr[3]); per row tile of 64, the distances to
+// each half of the landmarks over double-buffered feature chunks (staged
+// in the slab ring's space), K into the K / Y tile (zero past m and r),
+// then the products.
 static_assert(BM == cross_panel::BM, "the K tile's rows");
 
-template <int NT1>
+template <int NT1, typename S>
 __global__ void __launch_bounds__(cross_panel::kThreads, 2)
 cross_points_panel_kernel(const __grid_constant__ Table<float> tab, int r,
                           int d, int kind, float sigma) {
@@ -167,8 +175,10 @@ cross_points_panel_kernel(const __grid_constant__ Table<float> tab, int r,
   int node = blockIdx.x;
   const int gi = find_group(tab, node);
   const int m = tab.g[gi].m;
-  const float* P = tab.g[gi].ptr[0] + static_cast<size_t>(node) * m * d;
-  const float* Z = tab.g[gi].ptr[1] + static_cast<size_t>(node) * r * d;
+  const S* P = reinterpret_cast<const S*>(tab.g[gi].ptr[0]) +
+               static_cast<size_t>(node) * m * d;
+  const S* Z = reinterpret_cast<const S*>(tab.g[gi].ptr[1]) +
+               static_cast<size_t>(node) * r * d;
   const float* L = tab.g[gi].ptr[2] + static_cast<size_t>(node) * r * r;
   float* U = tab.g[gi].ptr[3] + static_cast<size_t>(node) * m * r;
   const bool l1 = kind_is_l1(kind);
@@ -179,7 +189,7 @@ cross_points_panel_kernel(const __grid_constant__ Table<float> tab, int r,
   for (int row0 = 0; row0 < m; row0 += BM) {
 #pragma unroll 1
     for (int h = 0; h < 2; ++h) {                // landmarks 128 h ..
-      const float* zh = Z + static_cast<size_t>(BN) * h * d;
+      const S* zh = Z + static_cast<size_t>(BN) * h * d;
       const int rh = min(BN, r - BN * h);
       float acc[8][8];
 #pragma unroll
@@ -233,10 +243,10 @@ cross_points_panel_kernel(const __grid_constant__ Table<float> tab, int r,
   }
 }
 
-template <int NT1>
+template <int NT1, typename S>
 int launch_panel(const Table<float>& tab, long long nodes, int r, int d,
                  int kind, double sigma, cudaStream_t stream) {
-  const auto kernel = cross_points_panel_kernel<NT1>;
+  const auto kernel = cross_points_panel_kernel<NT1, S>;
   const size_t smem = cross_panel::smem_bytes();
   const int err = launch_with_smem(kernel, smem);
   if (err) return err;
@@ -332,8 +342,8 @@ cross_points_panel_kernel(const __grid_constant__ Table<double> tab, int r,
 }  // namespace cross64_panel
 
 // The panel launches of B2: ranks 128 < r <= 256 (``table`` as
-// cross_solve_levels', 4 pointers a row).
-template <typename T>
+// cross_solve_levels', 4 pointers a row; S the data's type).
+template <typename T, typename S>
 int cross_levels_panel(const void* table, int groups, int r, int d, int kind,
                        double sigma, void* stream) {
   if (r <= 0) return 0;
@@ -357,13 +367,17 @@ int cross_levels_panel(const void* table, int groups, int r, int d, int kind,
   } else {
     switch (cross_panel::tiles2(r)) {
       case 4:
-        return cross::launch_panel<4>(tab, nodes, r, d, kind, sigma, st);
+        return cross::launch_panel<4, S>(tab, nodes, r, d, kind, sigma,
+                                         st);
       case 8:
-        return cross::launch_panel<8>(tab, nodes, r, d, kind, sigma, st);
+        return cross::launch_panel<8, S>(tab, nodes, r, d, kind, sigma,
+                                         st);
       case 12:
-        return cross::launch_panel<12>(tab, nodes, r, d, kind, sigma, st);
+        return cross::launch_panel<12, S>(tab, nodes, r, d, kind, sigma,
+                                          st);
       default:
-        return cross::launch_panel<16>(tab, nodes, r, d, kind, sigma, st);
+        return cross::launch_panel<16, S>(tab, nodes, r, d, kind, sigma,
+                                          st);
     }
   }
 }
@@ -373,29 +387,53 @@ int cross_levels_panel(const void* table, int groups, int r, int d, int kind,
 // Grouped launches of the panel forms, ``table`` as the resident entries'
 // (points, gram, chol, nodes, m for gram_chol_levels_panel, every group
 // with a factor; points, landmarks, linv, out, nodes, m for
-// cross_solve_levels_panel).
+// cross_solve_levels_panel).  The _bf16 entries take bfloat16 points and
+// landmarks, float32 Linv and outputs.
+
+#if defined(REPRO_PANEL_BF16_ENTRIES)
+
+extern "C" int gram_chol_levels_panel_bf16(const void* table, int groups,
+                                           int d, int kind, double sigma,
+                                           double jitter, void* stream) {
+  return gram::launch_panel<float, __nv_bfloat16>(table, groups, d, kind,
+                                                  sigma, jitter, stream);
+}
+
+extern "C" int cross_solve_levels_panel_bf16(const void* table, int groups,
+                                             int r, int d, int kind,
+                                             double sigma, void* stream) {
+  return cross_levels_panel<float, __nv_bfloat16>(table, groups, r, d, kind,
+                                                  sigma, stream);
+}
+
+#else
+
 extern "C" int gram_chol_levels_panel_f32(const void* table, int groups,
                                           int d, int kind, double sigma,
                                           double jitter, void* stream) {
-  return gram::launch_panel<float>(table, groups, d, kind, sigma, jitter,
-                                   stream);
+  return gram::launch_panel<float, float>(table, groups, d, kind, sigma,
+                                          jitter, stream);
 }
 
 extern "C" int gram_chol_levels_panel_f64(const void* table, int groups,
                                           int d, int kind, double sigma,
                                           double jitter, void* stream) {
-  return gram::launch_panel<double>(table, groups, d, kind, sigma, jitter,
-                                    stream);
+  return gram::launch_panel<double, double>(table, groups, d, kind, sigma,
+                                            jitter, stream);
 }
 
 extern "C" int cross_solve_levels_panel_f32(const void* table, int groups,
                                             int r, int d, int kind,
                                             double sigma, void* stream) {
-  return cross_levels_panel<float>(table, groups, r, d, kind, sigma, stream);
+  return cross_levels_panel<float, float>(table, groups, r, d, kind, sigma,
+                                          stream);
 }
 
 extern "C" int cross_solve_levels_panel_f64(const void* table, int groups,
                                             int r, int d, int kind,
                                             double sigma, void* stream) {
-  return cross_levels_panel<double>(table, groups, r, d, kind, sigma, stream);
+  return cross_levels_panel<double, double>(table, groups, r, d, kind, sigma,
+                                            stream);
 }
+
+#endif  // REPRO_PANEL_BF16_ENTRIES

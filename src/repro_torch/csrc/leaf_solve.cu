@@ -37,8 +37,13 @@
 // in f32 that is 35.3 + 67.6 KB, and with three right-hand-side buffers
 // 115 KB: two blocks an SM, one copying while the other computes.  Where
 // the staged copy does not fit (f64 at 128, grown leaves past 167, n0 up
-// to 256) Linv or U, or both, are read in place from device memory by the
-// same code.  Right-hand sides go 8 columns at a time (b, then Sig c; Linv
+// to 512) Linv or U, or both, are read in place from device memory by the
+// same code.  Leaves past 256 rows (a model.update at leaf 256 grows them
+// to 256 + k) take the instance whose lanes hold four quads of x instead
+// of two (MQ = 4; warps 2-3 sum U v's second half into their own x
+// registers, so that float64 fits 255 registers), Linv and U read in
+// place (the wrapper's plan: the staged triangle alone would leave one
+// block of four warps an SM).  Right-hand sides go 8 columns at a time (b, then Sig c; Linv
 // b; U^T b, then half of U Sig c: 8 columns a row, zero past k), each warp
 // 4 of them, each thread a 4 x 4 register tile, in three steps:
 //   1. warps 0-1: t = Linv b, a lane a quad of rows and their chunks up to
@@ -66,7 +71,8 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int KG = 8;  // right-hand-side columns a group (two halves of 4)
-constexpr int MQ = 2;  // 4-row quads a lane holds (n0, r <= 256)
+constexpr int kMaxRows = 512;  // the largest leaf (MQ = 4), and of r: 256
+constexpr int kMaxRank = 256;
 
 struct Args {
   const void* linv;
@@ -221,7 +227,11 @@ __device__ __forceinline__ void sig_times(const T* Sg, const T* C, T* V,
   }
 }
 
-template <typename T, bool SL, bool SU>
+// MQ: the 4-row quads of x a lane of warps 0-1 holds in registers, 2 for
+// n0 <= 256 and 4 up to kMaxRows (the leaves a model.update grows past
+// 256: B3's panel form factors them, or B13 extends them); steps 1 and 2
+// of warps 2-3 loop over any r.
+template <typename T, bool SL, bool SU, int MQ>
 __global__ void __launch_bounds__(kThreads, 1)
 leaf_solve_kernel(const __grid_constant__ Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -403,7 +413,9 @@ leaf_solve_kernel(const __grid_constant__ Args a) {
               ld4s(A + (4 * jc + e) * KG + h4, vq[e]);
               U4(4 * b + e, jc, uq[e]);
             }
-            if (role0)
+            // MQ 4: warps 2-3 sum into their own (zero) xq, so that no
+            // second tile is live beside the four quads (float64 spilled)
+            if (role0 || MQ > 2)
               tile44(xq[mq], uq, vq);
             else
               tile44(acc, uq, vq);
@@ -413,7 +425,8 @@ leaf_solve_kernel(const __grid_constant__ Args a) {
             for (int e = 0; e < 4; ++e)
 #pragma unroll
               for (int q = 0; q < 4; ++q)
-                C[(4 * b + e) * KG + h4 + q] = acc[e][q];
+                C[(4 * b + e) * KG + h4 + q] =
+                    MQ > 2 ? xq[mq][e][q] : acc[e][q];
           }
         }
       }
@@ -442,9 +455,9 @@ leaf_solve_kernel(const __grid_constant__ Args a) {
   }
 }
 
-template <typename T, bool SL, bool SU>
+template <typename T, bool SL, bool SU, int MQ>
 int launch_kernel(const Args& a, int p, size_t smem, cudaStream_t stream) {
-  const auto kernel = leaf_solve_kernel<T, SL, SU>;
+  const auto kernel = leaf_solve_kernel<T, SL, SU, MQ>;
   int err = launch_with_smem(kernel, smem);
   if (err) return err;
   err = static_cast<int>(cudaFuncSetAttribute(
@@ -455,13 +468,23 @@ int launch_kernel(const Args& a, int p, size_t smem, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int MQ>
+int launch_staged(const Args& a, int p, int stage_l, int stage_u, size_t smem,
+                  cudaStream_t st) {
+  if (stage_l)
+    return stage_u ? launch_kernel<T, true, true, MQ>(a, p, smem, st)
+                   : launch_kernel<T, true, false, MQ>(a, p, smem, st);
+  return stage_u ? launch_kernel<T, false, true, MQ>(a, p, smem, st)
+                 : launch_kernel<T, false, false, MQ>(a, p, smem, st);
+}
+
 template <typename T>
 int launch(const void* linv, const void* u, const void* sig, const void* b,
            void* x, void* c, int p, int n0, int r, int k, int sig_shift,
            int stage_l, int stage_u, int lw, int uw, int sw, int ldu,
            int lsize, void* stream) {
   if (p == 0 || k == 0) return 0;
-  if (n0 < 1 || r < 1 || n0 > 4 * 32 * MQ || r > 4 * 32 * MQ || ldu < r)
+  if (n0 < 1 || r < 1 || n0 > kMaxRows || r > kMaxRank || ldu < r)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{linv, u, sig, b, x, c, n0, r, k, sig_shift, lw, uw, sw, ldu,
                lsize};
@@ -471,11 +494,9 @@ int launch(const void* linv, const void* u, const void* sig, const void* b,
        (stage_u ? static_cast<size_t>(4 * nq) * ldu : 0) +
        static_cast<size_t>(3 * std::max(nq, cu) * 4) * KG) * sizeof(T);
   const auto st = static_cast<cudaStream_t>(stream);
-  if (stage_l)
-    return stage_u ? launch_kernel<T, true, true>(a, p, smem, st)
-                   : launch_kernel<T, true, false>(a, p, smem, st);
-  return stage_u ? launch_kernel<T, false, true>(a, p, smem, st)
-                 : launch_kernel<T, false, false>(a, p, smem, st);
+  if (n0 > 4 * 32 * 2)
+    return launch_staged<T, 4>(a, p, stage_l, stage_u, smem, st);
+  return launch_staged<T, 2>(a, p, stage_l, stage_u, smem, st);
 }
 
 }  // namespace

@@ -28,17 +28,21 @@ KERNELS = ("hck_leaf_project", "oos_contract", "build_stage", "build_dist",
            "kernel_tile", "policy_dist", "leaf_update", "flash_attention",
            "ssd_chunk", "build_stage_bf16", "build_dist_bf16",
            "oos_contract_bf16", "leaf_factor_panel", "build_stage_panel",
-           "build_dist_panel")
-#: the libraries compiled from another library's source: the bfloat16-data
+           "build_dist_panel", "build_stage_panel_bf16",
+           "build_dist_panel_bf16", "leaf_update_panel")
+#: the libraries compiled from other libraries' sources: the bfloat16-data
 #: entries (each ``<base>_bf16.cu`` the base source compiled for those
-#: entries alone) and the panel forms (each ``<base>_panel.cu`` the base
-#: source compiled without its own entries, then the panel kernels)
-BASE = {"build_stage_bf16": "build_stage.cu",
-        "build_dist_bf16": "build_dist.cu",
-        "oos_contract_bf16": "oos_contract.cu",
-        "leaf_factor_panel": "leaf_factor.cu",
-        "build_stage_panel": "build_stage.cu",
-        "build_dist_panel": "build_dist.cu"}
+#: entries alone), the panel forms (each ``<base>_panel.cu`` the base
+#: source compiled without its own entries, then the panel kernels) and
+#: the panel forms' bfloat16-data entries (``<base>_panel_bf16.cu``)
+BASE = {"build_stage_bf16": ("build_stage.cu",),
+        "build_dist_bf16": ("build_dist.cu",),
+        "oos_contract_bf16": ("oos_contract.cu",),
+        "leaf_factor_panel": ("leaf_factor.cu",),
+        "build_stage_panel": ("build_stage.cu",),
+        "build_dist_panel": ("build_dist.cu",),
+        "build_stage_panel_bf16": ("build_stage_panel.cu", "build_stage.cu"),
+        "build_dist_panel_bf16": ("build_dist_panel.cu", "build_dist.cu")}
 _HEADERS = ("kernel_epilogue.cuh", "cross_products.cuh", "pair_tile.cuh",
             "hopper.cuh", "tf32x3.cuh", "async_copy.cuh", "chol_blocked.cuh",
             "cross_tc.cuh", "level_groups.cuh", "leaf_stream.cuh",
@@ -55,8 +59,8 @@ EPILOGUE_KIND = {"gaussian": 0, "imq": 1, "laplace": 2}
 SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
 #: the dtypes a kernel takes unless its wrapper names others
 #: (``flash_attention`` takes bfloat16 throughout; the bfloat16-data entries
-#: of B1, B2, B7, B8 and B9 take it in their data group, see
-#: :func:`cuda_device`)
+#: of B1, B2, B7, B8 and B9, resident and panel forms, take it in their data
+#: group, see :func:`cuda_device`)
 FLOAT_DTYPES = (torch.float32, torch.float64)
 
 _LOADED: dict[str, ctypes.CDLL] = {}
@@ -79,8 +83,7 @@ def library_path(name: str) -> Path:
     if name not in KERNELS:
         raise KeyError(f"unknown kernel {name!r}; have {KERNELS}")
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    base = (BASE[name],) if name in BASE else ()
-    for src in (f"{name}.cu",) + base + _HEADERS:
+    for src in (f"{name}.cu",) + BASE.get(name, ()) + _HEADERS:
         h.update((CSRC / src).read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
@@ -202,8 +205,7 @@ def check_smem(stage: str, nbytes: int, what: str) -> None:
     if nbytes > SMEM_MAX:
         raise ValueError(
             f"{stage}: {what} needs {nbytes} bytes of shared memory per "
-            f"block, above the {SMEM_MAX} a block can have; this shape needs "
-            "the panel form of the kernel, which is later work")
+            f"block, above the {SMEM_MAX} a block can have")
 
 
 def _ctype(a):

@@ -30,14 +30,15 @@ Linv streamed through shared memory (``csrc/cross_panel.cuh``;
 B1 or B8 is two launches, one a form.  Each wrapper's ``panel_launches``
 counts the panel form's launches (within ``launches``).
 
-Each kernel has a bfloat16-data entry (a mixed-precision policy's build
-and sweep, ``SolveConfig.precision="bf16"``): bfloat16 points, landmarks
-or cached distance tiles beside float32 Linv, every output float32
-(:func:`factor_dtype`); a wrapper takes the data group's dtype from its
-data and the symbol from it (``..._bf16``, in the libraries
-``build_stage_bf16`` and ``build_dist_bf16``).  Each wrapper's
-``bf16_launches`` counts the launches of its bfloat16-data entry (within
-``launches``).
+Each kernel, in both forms, has a bfloat16-data entry (a mixed-precision
+policy's build and sweep, ``SolveConfig.precision="bf16"``): bfloat16
+points, landmarks or cached distance tiles beside float32 Linv, every
+output float32 (:func:`factor_dtype`); a wrapper takes the data group's
+dtype from its data and the symbol from it (``..._bf16``, in the
+libraries ``build_stage_bf16`` and ``build_dist_bf16``, and for the panel
+forms ``build_stage_panel_bf16`` and ``build_dist_panel_bf16``).  Their
+routes and limits are float32's.  Each wrapper's ``bf16_launches`` counts
+the launches of its bfloat16-data entries (within ``launches``).
 """
 from __future__ import annotations
 
@@ -128,43 +129,30 @@ def cross_panel_smem(itemsize: int) -> int:
     return itemsize * (rows + 16 * slabs) * stride
 
 
-def _check_bf16_route(stage: str, route: str, bf16: bool, what: str) -> None:
-    if bf16 and route == "panel":
-        raise ValueError(f"{stage}: {what} with bfloat16 data is past the "
-                         "resident kernel's limit; the panel form of the "
-                         "kernel takes float32 and float64 data only")
-
-
-def gram_route(stage: str, m: int, itemsize: int, bf16: bool = False,
-               dist: bool = False) -> str:
+def gram_route(stage: str, m: int, itemsize: int, dist: bool = False
+               ) -> str:
     """How B1 (or with ``dist`` B8) factors an (m, m) tile of
-    ``itemsize``-byte factors: "resident" where the resident kernel's
-    block (:func:`gram_smem`, :func:`gram_dist_smem`) fits the shared
-    memory, else "panel" up to m 512, its block (:func:`gram_panel_smem`,
-    the factor's alone for B8) checked against the shared memory
-    (``ValueError`` past m 512, and for bfloat16 data, whose entries stop
-    at the resident form)."""
-    route = (factor_route(stage, m, itemsize, gram_dist_smem, panel_smem)
-             if dist else
-             factor_route(stage, m, itemsize, gram_smem, gram_panel_smem))
-    _check_bf16_route(stage, route, bf16, f"an ({m}, {m}) tile")
-    return route
+    ``itemsize``-byte factors (float32 for bfloat16 data): "resident"
+    where the resident kernel's block (:func:`gram_smem`,
+    :func:`gram_dist_smem`) fits the shared memory, else "panel" up to m
+    512, its block (:func:`gram_panel_smem`, the factor's alone for B8)
+    checked against the shared memory; ``ValueError`` past m 512."""
+    if dist:
+        return factor_route(stage, m, itemsize, gram_dist_smem, panel_smem)
+    return factor_route(stage, m, itemsize, gram_smem, gram_panel_smem)
 
 
-def cross_route(stage: str, r: int, itemsize: int, bf16: bool = False
-                ) -> str:
-    """How B2 and B9 take rank r: "resident" up to
-    :data:`RESIDENT_CROSS_RANK` (Linv whole in shared memory), "panel" up
-    to :data:`MAX_CROSS_RANK` (Linv streamed; its block,
-    :func:`cross_panel_smem`, checked against the shared memory);
-    ``ValueError`` past it, and for bfloat16 data past the resident
-    form."""
+def cross_route(stage: str, r: int, itemsize: int) -> str:
+    """How B2 and B9 take rank r with ``itemsize``-byte factors (float32
+    for bfloat16 data): "resident" up to :data:`RESIDENT_CROSS_RANK`
+    (Linv whole in shared memory), "panel" up to :data:`MAX_CROSS_RANK`
+    (Linv streamed; its block, :func:`cross_panel_smem`, checked against
+    the shared memory); ``ValueError`` past it."""
     if r > MAX_CROSS_RANK:
         raise ValueError(f"{stage}: rank r={r} is above {MAX_CROSS_RANK}, "
                          "the largest the panel form of the kernel takes")
     if r <= RESIDENT_CROSS_RANK:
         return "resident"
-    _check_bf16_route(stage, "panel", bf16, f"rank r={r}")
     _build.check_smem(stage, cross_panel_smem(itemsize),
                       f"the panel form at rank r={r}")
     return "panel"
@@ -268,8 +256,7 @@ def _gram_levels(stage, dev, points, want_chol, name, sigma, jitter):
     fdt = factor_dtype(points[0])
 
     def route(m):
-        return (gram_route(stage, m, fdt.itemsize, _bf16(points[0]))
-                if want_chol else "resident")
+        return gram_route(stage, m, fdt.itemsize) if want_chol else "resident"
 
     for p in points:
         route(p.shape[1])
@@ -284,9 +271,10 @@ def _gram_levels(stage, dev, points, want_chol, name, sigma, jitter):
     for r, sub in split:
         table = level_table(stage, sub)
         if r == "panel":
-            _build.launch("build_stage_panel", f"gram_chol_levels_panel_{sfx}",
-                          dev, table, len(table), points[0].shape[2], kind,
-                          float(sigma), float(jitter))
+            _build.launch(_build.library("build_stage_panel", points[0]),
+                          f"gram_chol_levels_panel_{sfx}", dev, table,
+                          len(table), points[0].shape[2], kind, float(sigma),
+                          float(jitter))
         else:
             _build.launch(_build.library("build_stage", points[0]),
                           f"gram_chol_levels_{sfx}", dev, table, len(table),
@@ -313,7 +301,7 @@ def build_gram(
                                            want_chol, name, sigma, jitter)
     build_gram.launches += launched
     build_gram.panel_launches += panel
-    build_gram.bf16_launches += launched and _bf16(points)
+    build_gram.bf16_launches += launched * _bf16(points)
     return out
 
 
@@ -339,7 +327,7 @@ def build_gram_levels(
                                         want_chol, name, sigma, jitter)
     build_gram_levels.launches += launched
     build_gram_levels.panel_launches += panel
-    build_gram_levels.bf16_launches += launched and _bf16(points[0])
+    build_gram_levels.bf16_launches += launched * _bf16(points[0])
     return out
 
 
@@ -365,8 +353,7 @@ def _cross_levels(stage, dev, points, landmarks, linvs, name, sigma,
     :data:`RESIDENT_CROSS_RANK`): ([U], launched, panel)."""
     r, d = landmarks[0].shape[1], points[0].shape[2]
     dtype = points[0].dtype
-    route = cross_route(stage, r, factor_dtype(points[0]).itemsize,
-                        _bf16(points[0]))
+    route = cross_route(stage, r, factor_dtype(points[0]).itemsize)
     _check_row_tile(stage, dtype, row_tile)
     bm = ()
     if dtype == torch.float64:      # the CUDA-core tile: one height for all
@@ -384,8 +371,9 @@ def _cross_levels(stage, dev, points, landmarks, linvs, name, sigma,
         return out, False, False
     sfx, kind = _build.SUFFIX[dtype], _build.EPILOGUE_KIND[name]
     if route == "panel":            # one tile height, fixed in the kernel
-        _build.launch("build_stage_panel", f"cross_solve_levels_panel_{sfx}",
-                      dev, table, len(rows), r, d, kind, float(sigma))
+        _build.launch(_build.library("build_stage_panel", points[0]),
+                      f"cross_solve_levels_panel_{sfx}", dev, table,
+                      len(rows), r, d, kind, float(sigma))
     else:
         _build.launch(_build.library("build_stage", points[0]),
                       f"cross_solve_levels_{sfx}", dev, table, len(rows), r,
@@ -414,7 +402,7 @@ def build_cross(
                                             row_tile)
     build_cross.launches += launched
     build_cross.panel_launches += panel
-    build_cross.bf16_launches += launched and _bf16(points)
+    build_cross.bf16_launches += launched * _bf16(points)
     return out
 
 
@@ -445,7 +433,7 @@ def build_cross_levels(
                                          landmarks, linvs, name, sigma)
     build_cross_levels.launches += launched
     build_cross_levels.panel_launches += panel
-    build_cross_levels.bf16_launches += launched and _bf16(points[0])
+    build_cross_levels.bf16_launches += launched * _bf16(points[0])
     return out
 
 
@@ -460,8 +448,7 @@ def _gram_dist_levels(stage, dev, dists, name, sigma, jitter):
     fdt = factor_dtype(dists[0])
 
     def route(m):
-        return gram_route(stage, m, fdt.itemsize, _bf16(dists[0]),
-                          dist=True)
+        return gram_route(stage, m, fdt.itemsize, dist=True)
 
     for d in dists:
         route(d.shape[1])
@@ -473,11 +460,11 @@ def _gram_dist_levels(stage, dev, dists, name, sigma, jitter):
     split = _by_route(rows, route)
     sfx, kind = _build.SUFFIX[dists[0].dtype], _build.EPILOGUE_KIND[name]
     for r, sub in split:
-        lib, sym = (("build_dist_panel", "gram_chol_dist_levels_panel")
-                    if r == "panel" else
-                    (_build.library("build_dist", dists[0]),
-                     "gram_chol_dist_levels"))
-        _build.launch(lib, f"{sym}_{sfx}", dev, level_table(stage, sub),
+        base, sym = (("build_dist_panel", "gram_chol_dist_levels_panel")
+                     if r == "panel" else
+                     ("build_dist", "gram_chol_dist_levels"))
+        _build.launch(_build.library(base, dists[0]), f"{sym}_{sfx}", dev,
+                      level_table(stage, sub),
                       len(sub), kind, float(sigma), float(jitter))
     return out, len(split), sum(r == "panel" for r, _ in split)
 
@@ -502,7 +489,7 @@ def build_gram_dist(
             "build_gram_dist", dev, [dist], name, sigma, jitter)
         build_gram_dist.launches += launched
         build_gram_dist.panel_launches += panel
-        build_gram_dist.bf16_launches += launched and _bf16(dist)
+        build_gram_dist.bf16_launches += launched * _bf16(dist)
         return out
     bsz, m, _ = dist.shape
     gram = torch.empty_like(dist, dtype=factor_dtype(dist))
@@ -538,7 +525,7 @@ def build_gram_dist_levels(
                                              dists, name, sigma, jitter)
     build_gram_dist_levels.launches += launched
     build_gram_dist_levels.panel_launches += panel
-    build_gram_dist_levels.bf16_launches += launched and _bf16(dists[0])
+    build_gram_dist_levels.bf16_launches += launched * _bf16(dists[0])
     return out
 
 
@@ -547,8 +534,7 @@ def _cross_dist_levels(stage, dev, dists, linvs, name, sigma,
     """Allocate and launch one cross_solve_dist_levels (its panel form past
     :data:`RESIDENT_CROSS_RANK`): ([U], launched, panel)."""
     dtype, r = dists[0].dtype, dists[0].shape[-1]
-    route = cross_route(stage, r, factor_dtype(dists[0]).itemsize,
-                        _bf16(dists[0]))
+    route = cross_route(stage, r, factor_dtype(dists[0]).itemsize)
     _check_row_tile(stage, dtype, row_tile)
     bm = ()
     if dtype == torch.float64:      # the CUDA-core tile: one height for all
@@ -566,7 +552,7 @@ def _cross_dist_levels(stage, dev, dists, linvs, name, sigma,
         return out, False, False
     sfx, kind = _build.SUFFIX[dtype], _build.EPILOGUE_KIND[name]
     if route == "panel":            # one tile height, fixed in the kernel
-        _build.launch("build_dist_panel",
+        _build.launch(_build.library("build_dist_panel", dists[0]),
                       f"cross_solve_dist_levels_panel_{sfx}", dev, table,
                       len(rows), r, kind, float(sigma))
     else:
@@ -597,7 +583,7 @@ def build_cross_dist(
         "build_cross_dist", dev, [dist], [linv], name, sigma, row_tile)
     build_cross_dist.launches += launched
     build_cross_dist.panel_launches += panel
-    build_cross_dist.bf16_launches += launched and _bf16(dist)
+    build_cross_dist.bf16_launches += launched * _bf16(dist)
     return out
 
 
@@ -634,7 +620,7 @@ def build_cross_dist_levels(
                                               dists, linvs, name, sigma)
     build_cross_dist_levels.launches += launched
     build_cross_dist_levels.panel_launches += panel
-    build_cross_dist_levels.bf16_launches += launched and _bf16(dists[0])
+    build_cross_dist_levels.bf16_launches += launched * _bf16(dists[0])
     return out
 
 

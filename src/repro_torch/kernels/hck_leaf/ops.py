@@ -7,7 +7,11 @@
 On CPU tensors each wrapper computes its plain version
 (:mod:`repro_torch.kernels.hck_leaf.ref`); on CUDA tensors it launches the
 kernel or raises.  Each wrapper's ``launches`` counts its kernel launches,
-``leaf_factor.panel_launches`` those of the panel form (within them).
+``leaf_factor.panel_launches`` those of the panel form (within them) and
+``leaf_solve.wide_launches`` those of B4's instance for leaves past 256
+rows (within them).  Every wrapper takes leaves up to :data:`PANEL_MAX_M`
+= 512 rows at ranks up to 256, the leaves a ``model.update`` at leaf 256
+grows.
 """
 from __future__ import annotations
 
@@ -93,6 +97,11 @@ def factor_route(stage: str, m: int, itemsize: int, resident_smem,
 
 #: right-hand-side columns the leaf_solve kernel takes a group
 SOLVE_GROUP = 8
+#: the largest rank of the leaf_solve kernel, and the leaf rows its
+#: resident instance holds (two quads of x a lane); leaves up to
+#: :data:`PANEL_MAX_M` take the instance of four (csrc/leaf_solve.cu MQ)
+SOLVE_MAX_RANK = 256
+SOLVE_RESIDENT_ROWS = 256
 
 
 def tri_size(n0: int) -> int:
@@ -128,11 +137,18 @@ def solve_plan(n0: int, r: int, k: int, itemsize: int, lptr: int = 0,
                uptr: int = 0, sptr: int = 0) -> dict:
     """How the leaf_solve kernel takes a shape: whether Linv's triangle and
     U are staged in shared memory (both where they fit, else the triangle
-    alone, else U alone, else neither: read in place), the block's shared
-    memory, and where 16-byte copies and loads of Linv, U and Sig rows are
-    legal (row bytes a multiple of 16, base aligned)."""
-    for stage_l, stage_u in ((True, True), (True, False), (False, True),
-                             (False, False)):
+    alone, else U alone, else neither: read in place; leaves past 256 rows
+    read both in place), the block's shared memory, the quads of x a lane
+    holds (``mq``: 2 up to 256 rows, else 4; the kernel picks the instance
+    from n0), and where 16-byte copies and loads of Linv, U and Sig rows
+    are legal (row bytes a multiple of 16, base aligned)."""
+    choices = ((True, True), (True, False), (False, True), (False, False))
+    if n0 > SOLVE_RESIDENT_ROWS:
+        # Linv's triangle alone (>= 132 KB in f32) would leave one block of
+        # four warps an SM; tools/leaf_solve_staging.py times each staging
+        # on the card (PERF.md section 6)
+        choices = choices[3:]
+    for stage_l, stage_u in choices:
         smem = solve_smem(n0, r, k, itemsize, stage_l=stage_l,
                           stage_u=stage_u)
         if smem <= _build.SMEM_MAX:
@@ -142,6 +158,7 @@ def solve_plan(n0: int, r: int, k: int, itemsize: int, lptr: int = 0,
         return (cols * itemsize) % 16 == 0 and ptr % 16 == 0
 
     return {"stage_l": stage_l, "stage_u": stage_u, "smem": smem,
+            "mq": 2 if n0 <= SOLVE_RESIDENT_ROWS else 4,
             "lw": 16 if wide(n0, lptr) else itemsize,
             "uw": 16 if wide(r, uptr) else itemsize,
             "sw": 16 if wide(r, sptr) else itemsize,
@@ -191,8 +208,14 @@ def matvec_plan(n0: int, r: int, k: int, itemsize: int, aptr: int = 0,
 
 
 def matvec_max_rhs(n0: int, r: int, itemsize: int) -> int:
-    """The most right-hand-side columns (a multiple of 8) one leaf_matvec
-    launch takes at (n0, r); wider b goes in chunks of it, a launch each."""
+    """The most right-hand-side columns one leaf_matvec launch takes at
+    (n0, r): a multiple of 8 or, where a tile of 8 columns does not fit
+    (float64 past n0 299 at r 256), the most below 8 that do, down to 1
+    (the KT = 1 instance, whose b buffers hold one column); wider b goes
+    in chunks of it, a launch each."""
+    if matvec_plan(n0, r, 8, itemsize)["smem"] > _build.SMEM_MAX:
+        return next((k for k in range(7, 1, -1) if matvec_plan(
+            n0, r, k, itemsize)["smem"] <= _build.SMEM_MAX), 1)
     k = 8
     while matvec_plan(n0, r, k + 8, itemsize)["smem"] <= _build.SMEM_MAX:
         k += 8
@@ -218,7 +241,7 @@ def leaf_matvec(adiag: torch.Tensor, u: torch.Tensor,
     r = u.shape[2]
     plan = matvec_plan(n0, r, k, b.element_size(), adiag.data_ptr(),
                        u.data_ptr())
-    if k > 8 and plan["smem"] > _build.SMEM_MAX:
+    if k > 1 and plan["smem"] > _build.SMEM_MAX:
         w = matvec_max_rhs(n0, r, b.element_size())
         parts = [leaf_matvec(adiag, u, b[:, :, q:q + w].contiguous())
                  for q in range(0, k, w)]
@@ -245,7 +268,9 @@ def leaf_solve(linv: torch.Tensor, u: torch.Tensor, sig: torch.Tensor,
 
     (P,n0,n0),(P,n0,r),(S,r,r),(P,n0,k) -> (P,n0,k),(P,r,k); ``sig`` has
     one block per leaf (S = P) or one per sibling pair (S = P/2, read in
-    place by both leaves).  ``linv`` is lower triangular: the kernel never
+    place by both leaves).  n0 up to :data:`PANEL_MAX_M`, r up to
+    :data:`SOLVE_MAX_RANK`; leaves past 256 rows take the kernel's wide
+    instance (``wide_launches``).  ``linv`` is lower triangular: the kernel never
     reads above its diagonal (the plain version does, and agrees only
     where those entries are zero, as every producer in the port writes
     them).
@@ -265,9 +290,9 @@ def leaf_solve(linv: torch.Tensor, u: torch.Tensor, sig: torch.Tensor,
     dev = _build.cuda_device("leaf_solve", linv, u, sig, b)
     if dev is None:
         return hck_leaf_solve_ref(linv, u, sig, b)
-    if n0 > 256 or r > 256:
+    if n0 > PANEL_MAX_M or r > SOLVE_MAX_RANK:
         raise ValueError(f"leaf_solve: n0={n0}, r={r} above the kernel's "
-                         "256 rows")
+                         f"{PANEL_MAX_M} rows and rank {SOLVE_MAX_RANK}")
     plan = solve_plan(n0, r, k, b.element_size(), linv.data_ptr(),
                       u.data_ptr(), sig.data_ptr())
     _build.check_smem("leaf_solve", plan["smem"], f"n0={n0}, r={r}")
@@ -281,6 +306,7 @@ def leaf_solve(linv: torch.Tensor, u: torch.Tensor, sig: torch.Tensor,
                   int(plan["stage_l"]), int(plan["stage_u"]), plan["lw"],
                   plan["uw"], plan["sw"], plan["ldu"], plan["lsize"])
     leaf_solve.launches += 1
+    leaf_solve.wide_launches += plan["mq"] == 4
     return x, c
 
 
@@ -290,3 +316,4 @@ leaf_factor.panel_launches = 0
 leaf_matvec.launches = 0
 leaf_matvec.shapes = Counter()
 leaf_solve.launches = 0
+leaf_solve.wide_launches = 0

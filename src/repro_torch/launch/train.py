@@ -35,8 +35,9 @@ Runs on the card unless ``--device cpu``; without a card the default
 raises.  The data are random, drawn from ``--seed``.  Not yet ported, each
 raising ``NotImplementedError``: ``--task lm`` (ROADMAP item A16b, which
 also brings the LM flags: ``--arch``, ``--steps`` and the rest) and
-``--mesh`` (A14).  A rank above 128 raises the build kernels' own error on
-the card.
+``--mesh`` (A14).  On the card every precision takes ranks up to 256 and
+leaves (grown by ``--update`` too) up to 512 rows, the limits of the
+kernels' panel forms; past them the build kernels raise their own error.
 """
 from __future__ import annotations
 

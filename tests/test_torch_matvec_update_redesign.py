@@ -292,6 +292,7 @@ def fake_card(monkeypatch):
     monkeypatch.setattr(leaf_ops.leaf_matvec, "shapes",
                         type(leaf_ops.leaf_matvec.shapes)())
     monkeypatch.setattr(update_ops.leaf_update, "launches", 0)
+    monkeypatch.setattr(update_ops.leaf_update, "panel_launches", 0)
     return calls
 
 
@@ -384,10 +385,14 @@ def test_b13_wrapper_plan_and_launch(fake_card, n0, k, dtype):
     s = lo.element_size()
     plan = update_ops.update_plan(n0, k, s, lo.data_ptr(), li.data_ptr())
     if plan["smem"] > _build.SMEM_MAX:
-        # f64 at 142 + 33: beyond one block's shared memory, raises
+        # f64 at 142 + 33: beyond one block's shared memory, the panel form
         assert (dtype, n0, k) == (torch.float64, 142, 33)
-        with pytest.raises(ValueError, match="leaf_update"):
-            update_ops.leaf_update(lo, li, b, c)
+        lo_ext, li_ext = update_ops.leaf_update(lo, li, b, c)
+        (name, symbol, args), = fake_card
+        assert (name, symbol) == ("leaf_update_panel",
+                                  "leaf_update_panel_f64")
+        assert args[7:] == (4, n0, k) and args[6].shape == (4, 2, k, k)
+        assert update_ops.leaf_update.panel_launches == 1
         return
     lo_ext, li_ext = update_ops.leaf_update(lo, li, b, c)
     assert lo_ext.shape == li_ext.shape == (4, n0 + k, n0 + k)

@@ -454,10 +454,10 @@ def test_b4_wrapper_plan_and_launch(fake_card, n0, k, dtype):
         assert plan["smem"] <= _build.SMEM_MAX
         assert plan["ldu"] >= r and (plan["ldu"] // 4) % 2 == 1
     assert leaf_ops.leaf_solve.launches == 2
-    with pytest.raises(ValueError, match="256 rows"):
-        leaf_ops.leaf_solve(torch.zeros((1, 257, 257)),
-                            torch.zeros((1, 257, 8)), torch.zeros((1, 8, 8)),
-                            torch.zeros((1, 257, 1)))
+    with pytest.raises(ValueError, match="512 rows"):
+        leaf_ops.leaf_solve(torch.zeros((1, 513, 513)),
+                            torch.zeros((1, 513, 8)), torch.zeros((1, 8, 8)),
+                            torch.zeros((1, 513, 1)))
     assert leaf_ops.leaf_solve.launches == 2
     # the fit's shape stages both, two blocks an SM
     fit = leaf_ops.solve_plan(128, 128, 7, 4)

@@ -212,7 +212,7 @@ def test_cross_levels_resident_then_panel(fake_card, dtype, dist):
     """B2 and B9: rank 128 on the resident kernel, phase 3r's PANEL_R on
     the panel kernel (no row-tile argument: its tile is fixed), rank 257
     raising naming the panel form's limit, before any launch; bfloat16
-    data past rank 128 raise (their entries stop at the resident form)."""
+    data past rank 128 on the panel form's bfloat16-data entry."""
     lib, sym = (("build_dist", "cross_solve_dist_levels") if dist
                 else ("build_stage", "cross_solve_levels"))
     fn = (build_ops.build_cross_dist_levels if dist
@@ -242,10 +242,11 @@ def test_cross_levels_resident_then_panel(fake_card, dtype, dist):
     n = len(fake_card)
     with pytest.raises(ValueError, match="r=257 is above 256.*panel form"):
         call(257)
-    if dtype == F32:
-        with pytest.raises(ValueError, match="bfloat16 data.*panel form"):
-            call(129, torch.bfloat16)
     assert len(fake_card) == n
+    if dtype == F32:
+        call(129, torch.bfloat16)
+        assert fake_card[-1][:2] == (f"{lib}_panel_bf16",
+                                     f"{sym}_panel_bf16")
 
 
 # ---------------------------------------------------------------------------
